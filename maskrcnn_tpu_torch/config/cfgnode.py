@@ -1,0 +1,209 @@
+"""A yacs-compatible configuration node.
+
+The reference framework configures everything through a yacs ``CfgNode``
+(reference: maskrcnn_benchmark/config/defaults.py, yacs on pypi). yacs is not
+available in this environment, so this is an independent, minimal
+re-implementation of the subset of its behaviour the framework and its YAML
+config files rely on:
+
+  * attribute-style access (``cfg.MODEL.RPN.NMS_THRESH``)
+  * ``merge_from_file`` / ``merge_from_other_cfg`` / ``merge_from_list``
+  * type checking with the yacs coercions (list<->tuple, int->float,
+    str<->unicode) on merge
+  * ``freeze`` / ``defrost`` / ``is_frozen``
+  * ``clone`` and ``dump`` (YAML round-trip)
+
+Anything not listed above is intentionally not implemented.
+
+PyTorch port copy of maskrcnn_tpu/config/cfgnode.py. The only change is that
+``yaml`` is imported where YAML is parsed or written, so that building a
+model from the in-code defaults needs no PyYAML.
+"""
+
+import copy
+
+_VALID_TYPES = {tuple, list, str, int, float, bool, type(None)}
+
+
+class CfgNode(dict):
+    """Dict subclass with attribute access and yacs merge semantics."""
+
+    IMMUTABLE = "__immutable__"
+
+    def __init__(self, init_dict=None):
+        init_dict = {} if init_dict is None else init_dict
+        super().__init__()
+        object.__setattr__(self, CfgNode.IMMUTABLE, False)
+        for k, v in init_dict.items():
+            if isinstance(v, dict):
+                v = CfgNode(v)
+            dict.__setitem__(self, k, v)
+
+    # -- attribute access ---------------------------------------------------
+    def __getattr__(self, name):
+        if name in self:
+            return self[name]
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        if object.__getattribute__(self, CfgNode.IMMUTABLE):
+            raise AttributeError(
+                "Attempted to set {} to {}, but CfgNode is immutable".format(
+                    name, value
+                )
+            )
+        self[name] = value
+
+    def __setitem__(self, name, value):
+        if object.__getattribute__(self, CfgNode.IMMUTABLE):
+            raise AttributeError(
+                "Attempted to set {} to {}, but CfgNode is immutable".format(
+                    name, value
+                )
+            )
+        dict.__setitem__(self, name, value)
+
+    # -- freezing ------------------------------------------------------------
+    def freeze(self):
+        self._set_immutable(True)
+
+    def defrost(self):
+        self._set_immutable(False)
+
+    def is_frozen(self):
+        return object.__getattribute__(self, CfgNode.IMMUTABLE)
+
+    def _set_immutable(self, value):
+        object.__setattr__(self, CfgNode.IMMUTABLE, value)
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v._set_immutable(value)
+
+    # -- cloning / dumping ----------------------------------------------------
+    def clone(self):
+        return copy.deepcopy(self)
+
+    def __deepcopy__(self, memo):
+        out = CfgNode()
+        memo[id(self)] = out
+        for k, v in self.items():
+            dict.__setitem__(out, k, copy.deepcopy(v, memo))
+        return out
+
+    def _to_plain(self):
+        out = {}
+        for k, v in self.items():
+            out[k] = v._to_plain() if isinstance(v, CfgNode) else v
+        return out
+
+    def dump(self, **kwargs):
+        import yaml
+
+        return yaml.safe_dump(self._to_plain(), **kwargs)
+
+    def __str__(self):
+        return self.dump()
+
+    def __repr__(self):
+        return "CfgNode({})".format(dict.__repr__(self))
+
+    # -- merging ---------------------------------------------------------------
+    def merge_from_file(self, cfg_filename):
+        import yaml
+
+        with open(cfg_filename, "r") as f:
+            loaded = yaml.safe_load(f)
+        if loaded is None:
+            return
+        self._merge_dict(loaded, [])
+
+    def merge_from_other_cfg(self, other):
+        self._merge_dict(
+            other._to_plain() if isinstance(other, CfgNode) else other, []
+        )
+
+    def merge_from_list(self, opts):
+        if len(opts) % 2 != 0:
+            raise ValueError("Override list has odd length: {}".format(opts))
+        for full_key, v in zip(opts[0::2], opts[1::2]):
+            node = self
+            parts = full_key.split(".")
+            for sub in parts[:-1]:
+                if sub not in node:
+                    raise KeyError("Non-existent key: {}".format(full_key))
+                node = node[sub]
+            key = parts[-1]
+            if key not in node:
+                raise KeyError("Non-existent key: {}".format(full_key))
+            value = _decode_value(v)
+            dict.__setitem__(
+                node, key, _coerce(value, node[key], full_key)
+            )
+
+    def _merge_dict(self, d, key_path):
+        for k, v in d.items():
+            full_key = ".".join(key_path + [k])
+            if k not in self:
+                raise KeyError("Non-existent config key: {}".format(full_key))
+            current = self[k]
+            if isinstance(current, CfgNode):
+                if not isinstance(v, dict):
+                    raise ValueError(
+                        "Cannot merge non-dict into config node {}".format(
+                            full_key
+                        )
+                    )
+                current._merge_dict(v, key_path + [k])
+            else:
+                # YAML parses "(32, 64)" as a string; decode literals like
+                # yacs' _decode_cfg_value does.
+                dict.__setitem__(self, k, _coerce(_decode_value(v), current, full_key))
+
+
+def _decode_value(v):
+    """Parse a CLI override string into a python literal (yacs behaviour:
+    ast.literal_eval first — handles tuples — then YAML)."""
+    if not isinstance(v, str):
+        return v
+    import ast
+
+    try:
+        return ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        pass
+    import yaml
+
+    try:
+        return yaml.safe_load(v)
+    except yaml.YAMLError:
+        return v
+
+
+def _coerce(new, old, full_key):
+    """Apply yacs type-coercion rules when replacing `old` with `new`."""
+    if isinstance(new, dict):
+        new = CfgNode(new)
+    old_t, new_t = type(old), type(new)
+    if old_t is new_t or old is None or new is None:
+        return new
+    # list <-> tuple
+    if old_t is tuple and new_t is list:
+        return tuple(new)
+    if old_t is list and new_t is tuple:
+        return list(new)
+    # numeric promotion
+    if old_t is float and new_t is int:
+        return float(new)
+    if old_t is int and new_t is float and float(int(new)) == new:
+        return int(new)
+    if old_t is float and new_t is bool:
+        raise ValueError(
+            "Type mismatch ({} vs {}) for key {}".format(old_t, new_t, full_key)
+        )
+    if isinstance(new, old_t):  # bool is subclass of int etc.
+        return new
+    raise ValueError(
+        "Type mismatch ({} vs {}) with values ({} vs {}) for key {}".format(
+            old_t, new_t, old, new, full_key
+        )
+    )

@@ -1,0 +1,326 @@
+"""Default configuration tree.
+
+Key names, nesting and default values reproduce the reference configuration
+surface (reference: maskrcnn_benchmark/config/defaults.py:21-469) so that the
+reference's shipped YAML files merge cleanly. Keys are data, not code — the
+implementation behind them is TPU-native (JAX/XLA/Pallas).
+
+PyTorch port copy of maskrcnn_tpu/config/defaults.py: the same keys and
+values, so a config merges into either package alike. The ``TPU`` node keeps
+its name; the port reads ``TPU.COMPUTE_DTYPE`` and ignores the TPU-only knobs.
+
+A `_TRAIN` / `_TEST` suffix marks train/eval-specific variants of a knob.
+
+TPU-specific knobs live under ``_C.TPU`` (new in this framework): padded
+fixed-shape sizes for the proposal pipeline, image shape bucketing, and the
+device-mesh layout. They have sensible defaults derived from the static caps
+the reference already uses (pre/post-NMS top-N, ROI batch sizes, detections
+per image), so existing YAMLs work unmodified.
+"""
+
+import os
+
+from .cfgnode import CfgNode as CN
+
+_C = CN()
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+_C.MODEL = CN()
+_C.MODEL.RPN_ONLY = False
+_C.MODEL.MASK_ON = False
+_C.MODEL.RETINANET_ON = False
+_C.MODEL.KEYPOINT_ON = False
+_C.MODEL.DEVICE = "tpu"  # "cuda" in the reference; accepts cpu/tpu/cuda
+_C.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
+_C.MODEL.CLS_AGNOSTIC_BBOX_REG = False
+# catalog:// URI, http(s) URL, or filesystem path; "" = random init
+_C.MODEL.WEIGHT = ""
+
+# ---------------------------------------------------------------------------
+# Input
+# ---------------------------------------------------------------------------
+_C.INPUT = CN()
+_C.INPUT.MIN_SIZE_TRAIN = (800,)
+_C.INPUT.MAX_SIZE_TRAIN = 1333
+_C.INPUT.MIN_SIZE_TEST = 800
+_C.INPUT.MAX_SIZE_TEST = 1333
+_C.INPUT.PIXEL_MEAN = [102.9801, 115.9465, 122.7717]
+_C.INPUT.PIXEL_STD = [1.0, 1.0, 1.0]
+_C.INPUT.TO_BGR255 = True
+_C.INPUT.BRIGHTNESS = 0.0
+_C.INPUT.CONTRAST = 0.0
+_C.INPUT.SATURATION = 0.0
+_C.INPUT.HUE = 0.0
+_C.INPUT.HORIZONTAL_FLIP_PROB_TRAIN = 0.5
+_C.INPUT.VERTICAL_FLIP_PROB_TRAIN = 0.0
+
+# ---------------------------------------------------------------------------
+# Datasets / loader
+# ---------------------------------------------------------------------------
+_C.DATASETS = CN()
+_C.DATASETS.TRAIN = ()
+_C.DATASETS.TEST = ()
+
+_C.DATALOADER = CN()
+_C.DATALOADER.NUM_WORKERS = 4
+_C.DATALOADER.SIZE_DIVISIBILITY = 0
+_C.DATALOADER.ASPECT_RATIO_GROUPING = True
+
+# ---------------------------------------------------------------------------
+# Backbone
+# ---------------------------------------------------------------------------
+_C.MODEL.BACKBONE = CN()
+_C.MODEL.BACKBONE.CONV_BODY = "R-50-C4"
+_C.MODEL.BACKBONE.FREEZE_CONV_BODY_AT = 2
+
+_C.MODEL.FPN = CN()
+_C.MODEL.FPN.USE_GN = False
+_C.MODEL.FPN.USE_RELU = False
+
+_C.MODEL.GROUP_NORM = CN()
+_C.MODEL.GROUP_NORM.DIM_PER_GP = -1
+_C.MODEL.GROUP_NORM.NUM_GROUPS = 32
+_C.MODEL.GROUP_NORM.EPSILON = 1e-5
+
+# ---------------------------------------------------------------------------
+# RPN
+# ---------------------------------------------------------------------------
+_C.MODEL.RPN = CN()
+_C.MODEL.RPN.USE_FPN = False
+_C.MODEL.RPN.ANCHOR_SIZES = (32, 64, 128, 256, 512)
+_C.MODEL.RPN.ANCHOR_STRIDE = (16,)
+_C.MODEL.RPN.ASPECT_RATIOS = (0.5, 1.0, 2.0)
+_C.MODEL.RPN.STRADDLE_THRESH = 0
+_C.MODEL.RPN.FG_IOU_THRESHOLD = 0.7
+_C.MODEL.RPN.BG_IOU_THRESHOLD = 0.3
+_C.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 256
+_C.MODEL.RPN.POSITIVE_FRACTION = 0.5
+_C.MODEL.RPN.PRE_NMS_TOP_N_TRAIN = 12000
+_C.MODEL.RPN.PRE_NMS_TOP_N_TEST = 6000
+_C.MODEL.RPN.POST_NMS_TOP_N_TRAIN = 2000
+_C.MODEL.RPN.POST_NMS_TOP_N_TEST = 1000
+_C.MODEL.RPN.NMS_THRESH = 0.7
+_C.MODEL.RPN.MIN_SIZE = 0
+_C.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN = 2000
+_C.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST = 2000
+_C.MODEL.RPN.FPN_POST_NMS_PER_BATCH = True
+_C.MODEL.RPN.RPN_HEAD = "SingleConvRPNHead"
+
+# ---------------------------------------------------------------------------
+# ROI heads
+# ---------------------------------------------------------------------------
+_C.MODEL.ROI_HEADS = CN()
+_C.MODEL.ROI_HEADS.USE_FPN = False
+_C.MODEL.ROI_HEADS.FG_IOU_THRESHOLD = 0.5
+_C.MODEL.ROI_HEADS.BG_IOU_THRESHOLD = 0.5
+_C.MODEL.ROI_HEADS.BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+_C.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 512
+_C.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.25
+_C.MODEL.ROI_HEADS.SCORE_THRESH = 0.05
+_C.MODEL.ROI_HEADS.NMS = 0.5
+_C.MODEL.ROI_HEADS.DETECTIONS_PER_IMG = 100
+
+_C.MODEL.ROI_BOX_HEAD = CN()
+_C.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR = "ResNet50Conv5ROIFeatureExtractor"
+_C.MODEL.ROI_BOX_HEAD.PREDICTOR = "FastRCNNPredictor"
+_C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
+_C.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 0
+_C.MODEL.ROI_BOX_HEAD.POOLER_SCALES = (1.0 / 16,)
+_C.MODEL.ROI_BOX_HEAD.NUM_CLASSES = 81
+_C.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM = 1024
+_C.MODEL.ROI_BOX_HEAD.USE_GN = False
+_C.MODEL.ROI_BOX_HEAD.DILATION = 1
+_C.MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM = 256
+_C.MODEL.ROI_BOX_HEAD.NUM_STACKED_CONVS = 4
+
+_C.MODEL.ROI_MASK_HEAD = CN()
+_C.MODEL.ROI_MASK_HEAD.FEATURE_EXTRACTOR = "ResNet50Conv5ROIFeatureExtractor"
+_C.MODEL.ROI_MASK_HEAD.PREDICTOR = "MaskRCNNC4Predictor"
+_C.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+_C.MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO = 0
+_C.MODEL.ROI_MASK_HEAD.POOLER_SCALES = (1.0 / 16,)
+_C.MODEL.ROI_MASK_HEAD.MLP_HEAD_DIM = 1024
+_C.MODEL.ROI_MASK_HEAD.CONV_LAYERS = (256, 256, 256, 256)
+_C.MODEL.ROI_MASK_HEAD.RESOLUTION = 14
+_C.MODEL.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR = True
+_C.MODEL.ROI_MASK_HEAD.POSTPROCESS_MASKS = False
+_C.MODEL.ROI_MASK_HEAD.POSTPROCESS_MASKS_THRESHOLD = 0.5
+_C.MODEL.ROI_MASK_HEAD.DILATION = 1
+_C.MODEL.ROI_MASK_HEAD.USE_GN = False
+
+_C.MODEL.ROI_KEYPOINT_HEAD = CN()
+_C.MODEL.ROI_KEYPOINT_HEAD.FEATURE_EXTRACTOR = "KeypointRCNNFeatureExtractor"
+_C.MODEL.ROI_KEYPOINT_HEAD.PREDICTOR = "KeypointRCNNPredictor"
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION = 14
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 0
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_SCALES = (1.0 / 16,)
+_C.MODEL.ROI_KEYPOINT_HEAD.MLP_HEAD_DIM = 1024
+_C.MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS = tuple(512 for _ in range(8))
+_C.MODEL.ROI_KEYPOINT_HEAD.RESOLUTION = 14
+_C.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES = 17
+_C.MODEL.ROI_KEYPOINT_HEAD.SHARE_BOX_FEATURE_EXTRACTOR = True
+
+# ---------------------------------------------------------------------------
+# ResNe[X]t
+# ---------------------------------------------------------------------------
+_C.MODEL.RESNETS = CN()
+_C.MODEL.RESNETS.NUM_GROUPS = 1
+_C.MODEL.RESNETS.WIDTH_PER_GROUP = 64
+_C.MODEL.RESNETS.STRIDE_IN_1X1 = True
+_C.MODEL.RESNETS.TRANS_FUNC = "BottleneckWithFixedBatchNorm"
+_C.MODEL.RESNETS.STEM_FUNC = "StemWithFixedBatchNorm"
+_C.MODEL.RESNETS.RES5_DILATION = 1
+_C.MODEL.RESNETS.BACKBONE_OUT_CHANNELS = 256 * 4
+_C.MODEL.RESNETS.RES2_OUT_CHANNELS = 256
+_C.MODEL.RESNETS.STEM_OUT_CHANNELS = 64
+_C.MODEL.RESNETS.STAGE_WITH_DCN = (False, False, False, False)
+_C.MODEL.RESNETS.WITH_MODULATED_DCN = False
+_C.MODEL.RESNETS.DEFORMABLE_GROUPS = 1
+
+# ---------------------------------------------------------------------------
+# RetinaNet
+# ---------------------------------------------------------------------------
+_C.MODEL.RETINANET = CN()
+_C.MODEL.RETINANET.NUM_CLASSES = 81
+_C.MODEL.RETINANET.ANCHOR_SIZES = (32, 64, 128, 256, 512)
+_C.MODEL.RETINANET.ASPECT_RATIOS = (0.5, 1.0, 2.0)
+_C.MODEL.RETINANET.ANCHOR_STRIDES = (8, 16, 32, 64, 128)
+_C.MODEL.RETINANET.STRADDLE_THRESH = 0
+_C.MODEL.RETINANET.OCTAVE = 2.0
+_C.MODEL.RETINANET.SCALES_PER_OCTAVE = 3
+_C.MODEL.RETINANET.USE_C5 = True
+_C.MODEL.RETINANET.NUM_CONVS = 4
+_C.MODEL.RETINANET.BBOX_REG_WEIGHT = 4.0
+_C.MODEL.RETINANET.BBOX_REG_BETA = 0.11
+_C.MODEL.RETINANET.PRE_NMS_TOP_N = 1000
+_C.MODEL.RETINANET.FG_IOU_THRESHOLD = 0.5
+_C.MODEL.RETINANET.BG_IOU_THRESHOLD = 0.4
+_C.MODEL.RETINANET.LOSS_ALPHA = 0.25
+_C.MODEL.RETINANET.LOSS_GAMMA = 2.0
+_C.MODEL.RETINANET.PRIOR_PROB = 0.01
+_C.MODEL.RETINANET.INFERENCE_TH = 0.05
+_C.MODEL.RETINANET.NMS_TH = 0.4
+
+# ---------------------------------------------------------------------------
+# FBNet
+# ---------------------------------------------------------------------------
+_C.MODEL.FBNET = CN()
+_C.MODEL.FBNET.ARCH = "default"
+_C.MODEL.FBNET.ARCH_DEF = ""
+_C.MODEL.FBNET.BN_TYPE = "bn"
+_C.MODEL.FBNET.SCALE_FACTOR = 1.0
+_C.MODEL.FBNET.WIDTH_DIVISOR = 1
+_C.MODEL.FBNET.DW_CONV_SKIP_BN = True
+_C.MODEL.FBNET.DW_CONV_SKIP_RELU = True
+_C.MODEL.FBNET.DET_HEAD_LAST_SCALE = 1.0
+_C.MODEL.FBNET.DET_HEAD_BLOCKS = []
+_C.MODEL.FBNET.DET_HEAD_STRIDE = 0
+_C.MODEL.FBNET.KPTS_HEAD_LAST_SCALE = 0.0
+_C.MODEL.FBNET.KPTS_HEAD_BLOCKS = []
+_C.MODEL.FBNET.KPTS_HEAD_STRIDE = 0
+_C.MODEL.FBNET.MASK_HEAD_LAST_SCALE = 0.0
+_C.MODEL.FBNET.MASK_HEAD_BLOCKS = []
+_C.MODEL.FBNET.MASK_HEAD_STRIDE = 0
+_C.MODEL.FBNET.RPN_HEAD_BLOCKS = 0
+_C.MODEL.FBNET.RPN_BN_TYPE = ""
+
+# ---------------------------------------------------------------------------
+# Solver
+# ---------------------------------------------------------------------------
+_C.SOLVER = CN()
+_C.SOLVER.MAX_ITER = 40000
+_C.SOLVER.BASE_LR = 0.001
+_C.SOLVER.BIAS_LR_FACTOR = 2
+_C.SOLVER.MOMENTUM = 0.9
+_C.SOLVER.WEIGHT_DECAY = 0.0005
+_C.SOLVER.WEIGHT_DECAY_BIAS = 0
+_C.SOLVER.GAMMA = 0.1
+_C.SOLVER.STEPS = (30000,)
+_C.SOLVER.WARMUP_FACTOR = 1.0 / 3
+_C.SOLVER.WARMUP_ITERS = 500
+_C.SOLVER.WARMUP_METHOD = "linear"
+_C.SOLVER.CHECKPOINT_PERIOD = 2500
+_C.SOLVER.TEST_PERIOD = 0
+_C.SOLVER.IMS_PER_BATCH = 16  # global across the mesh
+
+# ---------------------------------------------------------------------------
+# Test
+# ---------------------------------------------------------------------------
+_C.TEST = CN()
+_C.TEST.EXPECTED_RESULTS = []
+_C.TEST.EXPECTED_RESULTS_SIGMA_TOL = 4
+_C.TEST.IMS_PER_BATCH = 8
+_C.TEST.DETECTIONS_PER_IMG = 100
+
+_C.TEST.BBOX_AUG = CN()
+_C.TEST.BBOX_AUG.ENABLED = False
+_C.TEST.BBOX_AUG.H_FLIP = False
+_C.TEST.BBOX_AUG.SCALES = ()
+_C.TEST.BBOX_AUG.MAX_SIZE = 4000
+_C.TEST.BBOX_AUG.SCALE_H_FLIP = False
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+_C.OUTPUT_DIR = "."
+_C.PATHS_CATALOG = os.path.join(os.path.dirname(__file__), "paths_catalog.py")
+# "float32" | "float16" in the reference; TPU adds "bfloat16" (the default
+# compute dtype — parameters and box/loss math stay float32).
+_C.DTYPE = "float32"
+_C.AMP_VERBOSE = False
+
+# ---------------------------------------------------------------------------
+# TPU-specific (new): static shapes, buckets and mesh layout
+# ---------------------------------------------------------------------------
+_C.TPU = CN()
+# Compute dtype for conv/matmul heavy paths ("bfloat16" or "float32").
+_C.TPU.COMPUTE_DTYPE = "bfloat16"
+# Cap on ground-truth boxes per image (padded fixed shape inside jit).
+_C.TPU.MAX_GT_BOXES = 100
+# Rasterized instance-mask side used for on-device mask-target cropping.
+_C.TPU.GT_MASK_SIZE = 112
+# Image bucketing: each bucket is a padded (H, W) the train step compiles
+# for. () = derive two buckets (landscape/portrait) from INPUT sizes.
+_C.TPU.IMAGE_BUCKETS = ()
+# Device mesh axis names and sizes; -1 = use all devices on the data axis.
+_C.TPU.MESH_AXES = ("data",)
+_C.TPU.MESH_SHAPE = (-1,)
+# ROI pooler backend: "auto" (Pallas patch-DMA kernel on TPU inference,
+# gather elsewhere), "gather", or "pallas".
+_C.TPU.POOLER_BACKEND = "auto"
+# Per-block backbone rematerialization (jax.checkpoint): "auto" enables it
+# for backbones deeper than R-50 or with grouped convs (X-101's
+# groups-to-batch conv layouts pad bf16 tiles up to 4x and blow past HBM at
+# batch 8 otherwise); "on"/"off" force it.
+_C.TPU.REMAT_BACKBONE = "auto"
+# Keypoint-head ROI budget per image, applied as a batch-GLOBAL cap
+# (B * cap) with cross-image compaction: valid person positives from the
+# whole batch are packed together before the 8x512-channel keypoint stack,
+# so images with few people don't pay for the padded per-image quota. The
+# cap only ever SUBSAMPLES when a batch carries more than B*cap person
+# positives (pathological crowding); 0 disables compaction.
+_C.TPU.KEYPOINT_ROI_CAP = 32
+# Mask-head ROI budget per image, same batch-global cross-image compaction
+# as KEYPOINT_ROI_CAP (models/detector.py:_compact_positives): the B*128
+# padded positive quota is packed down to B*cap rows before the 4-conv +
+# deconv mask stack. Loss-identical whenever the batch carries <= B*cap
+# real positives; COCO averages ~7 instances/image, so 64 leaves ample
+# headroom. 0 disables compaction (full reference quota).
+_C.TPU.MASK_ROI_CAP = 64
+# Decode keypoints ON DEVICE during inference (fixed 4x bilinear upsample +
+# argmax, kh.heatmaps_to_keypoints) instead of shipping raw [B, D, 56, 56,
+# 17] heatmaps (~21 MB/image f32) to the host for the exact cv2-bicubic
+# decode. The host decode stays the default because it is bit-exact vs the
+# reference (keypoint_head/inference.py:40-98); flip this for
+# throughput-bound serving/eval where the device->host link dominates.
+_C.TPU.KEYPOINT_DECODE_ON_DEVICE = False
+# Normalize images on DEVICE instead of in the host loader: the pipeline
+# stays uint8 end-to-end (the reference is uint8 until after Resize too),
+# making host->device transfer and worker IPC 4x smaller and removing the
+# per-image LUT pass from the host loader. The model applies the exact
+# (pixel - mean) / std float32 math and re-zeroes the padded region, so
+# values are bit-identical to host normalization. False = reference-style
+# host Normalize (float32 batches).
+_C.TPU.DEVICE_NORMALIZE = True

@@ -1,0 +1,89 @@
+"""Anchor generation: Detectron-exact cell anchors and per-level grids.
+
+PyTorch counterpart of maskrcnn_tpu/models/anchors.py. Cell anchors are
+computed once in numpy (the same legacy round()ed enumeration); the grids
+are built on the device of the feature map they belong to.
+"""
+
+import numpy as np
+import torch
+
+
+def _whctrs(anchor):
+    w = anchor[2] - anchor[0] + 1
+    h = anchor[3] - anchor[1] + 1
+    return w, h, anchor[0] + 0.5 * (w - 1), anchor[1] + 0.5 * (h - 1)
+
+
+def _mkanchors(ws, hs, x_ctr, y_ctr):
+    ws = ws[:, None]
+    hs = hs[:, None]
+    return np.hstack(
+        (
+            x_ctr - 0.5 * (ws - 1),
+            y_ctr - 0.5 * (hs - 1),
+            x_ctr + 0.5 * (ws - 1),
+            y_ctr + 0.5 * (hs - 1),
+        )
+    )
+
+
+def _ratio_enum(anchor, ratios):
+    w, h, x_ctr, y_ctr = _whctrs(anchor)
+    size = w * h
+    ws = np.round(np.sqrt(size / ratios))
+    hs = np.round(ws * ratios)
+    return _mkanchors(ws, hs, x_ctr, y_ctr)
+
+
+def _scale_enum(anchor, scales):
+    w, h, x_ctr, y_ctr = _whctrs(anchor)
+    return _mkanchors(w * scales, h * scales, x_ctr, y_ctr)
+
+
+def generate_cell_anchors(stride=16, sizes=(32, 64, 128, 256, 512),
+                          aspect_ratios=(0.5, 1, 2)):
+    """[A, 4] float32 anchors centred on the (0, 0) cell."""
+    scales = np.array(sizes, np.float64) / stride
+    ratios = np.array(aspect_ratios, np.float64)
+    base = np.array([1, 1, stride, stride], np.float64) - 1
+    anchors = _ratio_enum(base, ratios)
+    anchors = np.vstack(
+        [_scale_enum(anchors[i], scales) for i in range(anchors.shape[0])]
+    )
+    return anchors.astype(np.float32)
+
+
+class AnchorGenerator:
+    """One cell-anchor set per FPN level."""
+
+    def __init__(self, sizes, aspect_ratios, strides):
+        if len(strides) != len(sizes):
+            raise ValueError("FPN needs one anchor size per stride")
+        self.cell_anchors = [
+            generate_cell_anchors(stride, (size,), aspect_ratios)
+            for stride, size in zip(strides, sizes)
+        ]
+        self.strides = list(strides)
+
+    def num_anchors_per_location(self):
+        return [len(c) for c in self.cell_anchors]
+
+    def grid_anchors_level(self, level, grid_h, grid_w, device):
+        """[grid_h * grid_w * A, 4] float32, ordered (y, x, anchor)."""
+        cell = torch.as_tensor(self.cell_anchors[level], device=device)
+        stride = self.strides[level]
+        shifts_x = torch.arange(grid_w, dtype=torch.float32, device=device) * stride
+        shifts_y = torch.arange(grid_h, dtype=torch.float32, device=device) * stride
+        sy, sx = torch.meshgrid(shifts_y, shifts_x, indexing="ij")
+        sx = sx.reshape(-1)
+        sy = sy.reshape(-1)
+        shifts = torch.stack([sx, sy, sx, sy], dim=1)
+        return (shifts[:, None, :] + cell[None, :, :]).reshape(-1, 4)
+
+
+def make_anchor_generator(cfg):
+    r = cfg.MODEL.RPN
+    if not r.USE_FPN:
+        raise NotImplementedError("single-level RPN anchors are not ported yet")
+    return AnchorGenerator(r.ANCHOR_SIZES, r.ASPECT_RATIOS, r.ANCHOR_STRIDE)

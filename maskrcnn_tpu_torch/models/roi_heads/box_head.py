@@ -1,0 +1,116 @@
+"""ROI box head (FPN): 2-layer MLP extractor, predictor, inference.
+
+PyTorch counterpart of maskrcnn_tpu/models/roi_heads/box_head.py for the
+FPN2MLPFeatureExtractor + FPNPredictor pair and ``box_head_inference``:
+softmax, per-class decode and clip, a top-k prefilter per (image, class)
+lane, per-class NMS over all lanes at once, and the top DETECTIONS_PER_IMG
+survivors per image as padded outputs.
+
+The pooled [R, P, P, C] features are flattened in (P, P, C) order, as the
+JAX head flattens its NHWC patches, so fc6 converts from the JAX weight by a
+plain transpose.
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...ops.box_ops import clip_boxes_to_image, decode_boxes
+from ...ops.nms import NEG_INF, batched_nms
+from ..layers import Linear, init_linear_
+from ..rpn import top_k_stable
+
+
+class FPN2MLPFeatureExtractor(nn.Module):
+    def __init__(self, cfg, in_channels):
+        super().__init__()
+        res = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+        dim = cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM
+        self.fc6 = Linear(in_channels * res * res, dim)
+        self.fc7 = Linear(dim, dim)
+        self.out_dim = dim
+
+    def reset_parameters(self, gen):
+        init_linear_(self.fc6, gen)
+        init_linear_(self.fc7, gen)
+
+    def forward(self, x):
+        """x [R, P, P, C] -> [R, D]."""
+        x = F.relu(self.fc6(x.reshape(x.shape[0], -1)))
+        return F.relu(self.fc7(x))
+
+
+class FPNPredictor(nn.Module):
+    def __init__(self, cfg, in_dim):
+        super().__init__()
+        num_classes = cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES
+        num_reg = 2 if cfg.MODEL.CLS_AGNOSTIC_BBOX_REG else num_classes
+        self.cls_score = Linear(in_dim, num_classes)
+        self.bbox_pred = Linear(in_dim, num_reg * 4)
+
+    def reset_parameters(self, gen):
+        init_linear_(self.cls_score, gen, init="normal", std=0.01)
+        init_linear_(self.bbox_pred, gen, init="normal", std=0.001)
+
+    def forward(self, x):
+        return self.cls_score(x).float(), self.bbox_pred(x).float()
+
+
+class BoxHead(nn.Module):
+    def __init__(self, cfg, in_channels):
+        super().__init__()
+        h = cfg.MODEL.ROI_BOX_HEAD
+        if h.FEATURE_EXTRACTOR != "FPN2MLPFeatureExtractor" or h.PREDICTOR != "FPNPredictor":
+            raise NotImplementedError("box head {} + {} is not ported yet".format(
+                h.FEATURE_EXTRACTOR, h.PREDICTOR))
+        self.feature_extractor = FPN2MLPFeatureExtractor(cfg, in_channels)
+        self.predictor = FPNPredictor(cfg, self.feature_extractor.out_dim)
+
+    def reset_parameters(self, gen):
+        self.feature_extractor.reset_parameters(gen)
+        self.predictor.reset_parameters(gen)
+
+    def forward(self, pooled):
+        return self.predictor(self.feature_extractor(pooled))
+
+
+def box_head_inference(class_logits, box_regression, proposals, prop_valid,
+                       image_sizes, reg_weights, score_thresh, nms_thresh,
+                       detections_per_img, cls_agnostic=False):
+    """class_logits [B, N, C], box_regression [B, N, 4C] (or [B, N, 8]),
+    proposals [B, N, 4], prop_valid [B, N], image_sizes [B, 2] -> padded
+    dict boxes [B, D, 4], scores [B, D], labels [B, D], valid [B, D]."""
+    b, n, c = class_logits.shape
+    probs = torch.softmax(class_logits, dim=-1)
+    if cls_agnostic:
+        decoded = decode_boxes(box_regression[..., 4:8], proposals, reg_weights)
+        decoded = decoded[:, :, None, :].expand(b, n, c, 4)
+    else:
+        decoded = decode_boxes(box_regression, proposals, reg_weights).reshape(b, n, c, 4)
+    h = image_sizes[:, 0:1].float()
+    w = image_sizes[:, 1:2].float()
+    decoded = clip_boxes_to_image(decoded.reshape(b, n * c, 4), (h, w)).reshape(b, n, c, 4)
+
+    nc = c - 1
+    cls_boxes = decoded[:, :, 1:, :].permute(0, 2, 1, 3).reshape(b * nc, n, 4)
+    cls_scores = probs[:, :, 1:].permute(0, 2, 1).reshape(b * nc, n)
+    cls_valid = (cls_scores > score_thresh) & prop_valid.repeat_interleave(nc, dim=0)
+
+    k_nms = min(n, max(detections_per_img * 2, 128))
+    masked = torch.where(cls_valid, cls_scores, torch.full_like(cls_scores, NEG_INF))
+    top_sc, top_ix = top_k_stable(masked, k_nms)
+    top_bx = torch.gather(cls_boxes, 1, top_ix[..., None].expand(-1, -1, 4))
+    top_vl = top_sc > NEG_INF / 2
+
+    keep = batched_nms(top_bx, top_sc, top_vl, nms_thresh)  # [B*nc, k]
+
+    kept = torch.where(keep, top_sc, torch.full_like(top_sc, NEG_INF)).reshape(b, nc * k_nms)
+    out_scores, flat_idx = top_k_stable(kept, detections_per_img)
+    out_valid = out_scores > NEG_INF / 2
+    flat_boxes = top_bx.reshape(b, nc * k_nms, 4)
+    out_boxes = torch.gather(flat_boxes, 1, flat_idx[..., None].expand(-1, -1, 4))
+    out_boxes = torch.where(out_valid[..., None], out_boxes, torch.zeros_like(out_boxes))
+    out_labels = torch.where(out_valid, flat_idx // k_nms + 1,
+                             torch.zeros_like(flat_idx)).to(torch.int32)
+    out_scores = torch.where(out_valid, out_scores, torch.zeros_like(out_scores))
+    return dict(boxes=out_boxes, scores=out_scores, labels=out_labels, valid=out_valid)

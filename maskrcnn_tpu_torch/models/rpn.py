@@ -1,0 +1,122 @@
+"""Region Proposal Network: head and fixed-shape proposal selection.
+
+PyTorch counterpart of maskrcnn_tpu/models/rpn.py (inference): the shared
+3x3 conv with the cls and reg 1x1 convs run as one merged conv, and
+``select_proposals(is_train=False)``: per-level top-k, decode, clip, one
+batched NMS over all (level, image) lanes, per-lane top-k, then the FPN
+top-k over the concatenated levels. Training (loss, matcher, sampling) is
+the next slice.
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.box_ops import clip_boxes_to_image, decode_boxes, small_box_mask
+from ..ops.nms import NEG_INF, batched_nms
+from .layers import Conv2d, init_conv_
+
+
+def top_k_stable(x, k):
+    """lax.top_k semantics: descending, ties broken by lower index first."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class RPNHead(nn.Module):
+    def __init__(self, in_channels, num_anchors):
+        super().__init__()
+        self.conv = Conv2d(in_channels, in_channels, 3, padding=1)
+        self.cls_logits = Conv2d(in_channels, num_anchors, 1)
+        self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 1)
+
+    def reset_parameters(self, gen):
+        for conv in (self.conv, self.cls_logits, self.bbox_pred):
+            init_conv_(conv, gen, init="normal", std=0.01)
+
+    def forward(self, features):
+        """features: list of [B, C, H, W] -> (objectness [B, A, H, W],
+        bbox_reg [B, 4A, H, W]) per level. The two 1x1 convs run as one."""
+        a = self.cls_logits.out_channels
+        w = torch.cat([self.cls_logits.weight, self.bbox_pred.weight])
+        b = torch.cat([self.cls_logits.bias, self.bbox_pred.bias])
+        objectness, bbox_reg = [], []
+        for f in features:
+            t = F.relu(self.conv(f))
+            o = F.conv2d(t, w.to(t.dtype), b.to(t.dtype))
+            objectness.append(o[:, :a])
+            bbox_reg.append(o[:, a:])
+        return objectness, bbox_reg
+
+
+def _level_candidates(anchors, objectness, bbox_reg, image_hw, pre_nms_top_n,
+                      min_size):
+    """anchors [N, 4], objectness [B, N], bbox_reg [B, N, 4] -> boxes
+    [B, k, 4], scores [B, k], valid [B, k] for the level's top-k."""
+    b, n = objectness.shape
+    k = min(pre_nms_top_n, n)
+    scores = torch.sigmoid(objectness.float())
+    top_scores, top_idx = torch.topk(scores, k, dim=-1)  # tie order unspecified, as in JAX
+    top_deltas = torch.gather(bbox_reg.float(), 1, top_idx[..., None].expand(-1, -1, 4))
+    boxes = decode_boxes(top_deltas, anchors[top_idx])
+    boxes = clip_boxes_to_image(boxes, image_hw)
+    return boxes, top_scores, small_box_mask(boxes, min_size)
+
+
+def _pad_to(x, k, fill):
+    pad = k - x.shape[1]
+    if pad == 0:
+        return x
+    shape = (x.shape[0], pad) + tuple(x.shape[2:])
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=1)
+
+
+def select_proposals(anchors_per_level, objectness_per_level, bbox_reg_per_level,
+                     image_sizes, rpn_cfg):
+    """Inference proposals. objectness [B, A, H, W] and bbox_reg
+    [B, 4A, H, W] per level (NCHW head outputs); image_sizes [B, 2] (h, w).
+    Returns boxes [B, P, 4], scores [B, P], valid [B, P]."""
+    pre_nms = rpn_cfg.PRE_NMS_TOP_N_TEST
+    post_nms = rpn_cfg.POST_NMS_TOP_N_TEST
+    fpn_post = rpn_cfg.FPN_POST_NMS_TOP_N_TEST
+    h = image_sizes[:, 0:1].float()
+    w = image_sizes[:, 1:2].float()
+    num_levels = len(anchors_per_level)
+    cand = []
+    for anchors, obj, reg in zip(anchors_per_level, objectness_per_level,
+                                 bbox_reg_per_level):
+        b, a = obj.shape[0], obj.shape[1]
+        # (h, w, a) order, as the JAX NHWC flatten
+        obj = obj.permute(0, 2, 3, 1).reshape(b, -1)
+        reg = reg.permute(0, 2, 3, 1).reshape(b, -1, a, 4).reshape(b, -1, 4)
+        cand.append(_level_candidates(anchors, obj, reg, (h, w), pre_nms,
+                                      rpn_cfg.MIN_SIZE))
+
+    b = cand[0][1].shape[0]
+    k_max = max(c[1].shape[1] for c in cand)
+    sb = torch.cat([_pad_to(c[0], k_max, 0.0) for c in cand])
+    ss = torch.cat([_pad_to(c[1], k_max, NEG_INF) for c in cand])
+    sv = torch.cat([_pad_to(c[2], k_max, False) for c in cand])
+    keep = batched_nms(sb, ss, sv, rpn_cfg.NMS_THRESH)  # [L*B, k_max]
+
+    masked = torch.where(keep, ss, torch.full_like(ss, NEG_INF))
+    k_post = min(post_nms, k_max)
+    sel_scores, sel = top_k_stable(masked, k_post)
+    sel_valid = sel_scores > NEG_INF / 2
+    sel_boxes = torch.gather(sb, 1, sel[..., None].expand(-1, -1, 4))
+    sel_boxes = torch.where(sel_valid[..., None], sel_boxes, torch.zeros_like(sel_boxes))
+    sel_scores = torch.where(sel_valid, sel_scores, torch.zeros_like(sel_scores))
+    # [L*B, k] -> [B, L*k], level-major per image
+    boxes = sel_boxes.reshape(num_levels, b, k_post, 4).transpose(0, 1).reshape(b, -1, 4)
+    scores = sel_scores.reshape(num_levels, b, k_post).transpose(0, 1).reshape(b, -1)
+    valid = sel_valid.reshape(num_levels, b, k_post).transpose(0, 1).reshape(b, -1)
+
+    if num_levels > 1:
+        k = min(fpn_post, scores.shape[1])
+        masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        sel_scores, sel = torch.topk(masked, k, dim=-1)
+        valid = sel_scores > NEG_INF / 2
+        boxes = torch.gather(boxes, 1, sel[..., None].expand(-1, -1, 4))
+        boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+        scores = torch.where(valid, sel_scores, torch.zeros_like(sel_scores))
+    return boxes, scores, valid
