@@ -7,25 +7,44 @@ Run from the root of a checkout, with one card visible:
 
 Phases; any failure exits non-zero and prints no result line:
   1. the card's name and power limit (nvidia-smi); every CUDA kernel of the
-     serving path built from maskrcnn_tpu_torch/csrc by nvcc, one process
-     per source, all started together;
+     port built from maskrcnn_tpu_torch/csrc by nvcc, one process per
+     source, all started together, with ptxas's register and spill report.
+Serving:
   2. the flagship Mask R-CNN R-50-FPN at full width from the port's seeded
      init, bfloat16 compute. ROI_HEADS.SCORE_THRESH is lowered to 0: random
      weights give near-uniform class scores below the default 0.05, and the
      mask head should pool real boxes;
   3. four requests of COCO-like sizes after one warm-up, through
      Predictor.compute_prediction, each with its latency;
-  4. the launch counts of that run: NMS twice and ROIAlign twice a request;
+  4. the launch counts of that run: NMS twice and ROIAlign twice a request,
+     no matcher and no ROIAlign backward;
   5. each kernel against its plain PyTorch version on the inputs the main
      path fed it in the first request, timed with CUDA events beside the
      least time the card could take for the same work;
   6. the outputs: finite and of the expected shapes, and the same weights in
      float32 on a small image agreeing between the card (kernels) and the
      CPU (plain versions).
+Training (a second model instance):
+  7. the flagship at full width, bfloat16 compute, on bench.py's synthetic
+     batch (8 images of 800x1344, COCO-like gt), SGD from the port's solver:
+     one warm-up step, one counted step, then timed steps, each step's
+     losses finite; trainable parameters moved, frozen ones (stem, layer1)
+     did not;
+  8. the launch counts of the counted step: matcher 1, NMS 1, ROIAlign
+     forward 2, ROIAlign backward 2;
+  9. each kernel against its plain version on the inputs that step fed it,
+     timed beside its bound;
+ 10. one float32 step on a small batch, the same weights and sampler draws
+     on the card (kernels) and on the CPU (plain versions): losses and a
+     handful of gradients agree;
+ 11. training img/s and MFU (FLOPs of one step from FlopCounterMode against
+     the H100's 989 TFLOP/s dense bf16), and a torch.profiler breakdown of
+     two steps' device time.
 Then one JSON line of kernels, the card's line, and the result line.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,13 +53,18 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 REQUEST_SIZES = ((480, 640), (427, 640), (640, 480), (375, 500))
 SEED = 0
-# Published H100 SXM peaks at 700 W: HBM bandwidth, and float32 arithmetic
-# outside the tensor cores (both kernels run on the CUDA cores).
+# bench.py's training batch
+TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE = 8, (800, 1344), (800, 1333)
+TIMED_STEPS = 5
+# Published H100 SXM peaks at 700 W: HBM bandwidth, float32 arithmetic
+# outside the tensor cores (all four kernels run on the CUDA cores), and
+# dense bf16 on the tensor cores (for the step's MFU).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # arithmetic per IoU test (min/max/sub/add/clamp per side, product, union,
 # division, comparison) and per ROIAlign sample and channel (4 products,
-# 3 sums, 1 accumulate)
+# 3 sums, 1 accumulate; the backward's 4 products and 4 adds alike)
 NMS_OPS_PER_PAIR = 15
 ROI_OPS_PER_SAMPLE = 8
 
@@ -79,10 +103,12 @@ def cuda_ms(torch, fn, iters, warmup=2):
 
 class Capture:
     """Records the arguments of a kernel wrapper where the model's modules
-    call it (the module attribute `name`), while active."""
+    call it (the module attribute `name`), while active; with grads=True
+    also the gradient that reaches each call's output in the backward."""
 
-    def __init__(self, modules, name):
+    def __init__(self, modules, name, grads=False):
         self.modules, self.name, self.calls = modules, name, []
+        self.grads, self.out_grads = grads, {}
 
     def __enter__(self):
         self.saved = [getattr(m, self.name) for m in self.modules]
@@ -93,7 +119,11 @@ class Capture:
     def _recording(self, fn):
         def wrapper(*args):
             self.calls.append(args)
-            return fn(*args)
+            out = fn(*args)
+            if self.grads and out.requires_grad:
+                i = len(self.calls) - 1
+                out.register_hook(lambda g: self.out_grads.__setitem__(i, g))
+            return out
         return wrapper
 
     def __exit__(self, *exc):
@@ -167,14 +197,84 @@ def roi_site(torch, poolers, feats, boxes, bidx, pcfg):
     }
 
 
+def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low):
+    got = matcher.match_anchors_batched(anchors, gt_boxes, gt_valid, high, low)
+    want = matcher.match_anchors_plain(anchors, gt_boxes, gt_valid, high, low)
+    check(torch.equal(got, want), "matcher kernel disagrees with its plain version")
+    b, g = gt_valid.shape
+    n = anchors.shape[0]
+    gv8 = gt_valid.to(torch.uint8).contiguous()
+    best = torch.empty((b, g), dtype=torch.int32, device=anchors.device)
+    out = torch.empty((b, n), dtype=torch.int32, device=anchors.device)
+    # bytes: anchors, gt and validity read once, the matches written once;
+    # operations: one IoU test of every anchor with every valid gt
+    valid_gt = int(gt_valid.sum())
+    b_ms, b_by = bound(16 * n + 17 * b * g + 4 * b * n, NMS_OPS_PER_PAIR * n * valid_gt)
+    return {
+        "anchors": n, "images": b, "gt_per_image": g, "valid_gt": valid_gt,
+        "max_abs_err": float((got != want).sum()),
+        "ms": cuda_ms(torch, lambda: matcher.match_anchors_batched(
+            anchors, gt_boxes, gt_valid, high, low), 50),
+        "kernel_ms": cuda_ms(torch, lambda: matcher.launch(
+            anchors, gt_boxes, gv8, high, low, best, out), 50),
+        "plain_ms": cuda_ms(torch, lambda: matcher.match_anchors_plain(
+            anchors, gt_boxes, gt_valid, high, low), 5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout):
+    """The backward kernel on the gradient the step's backward gave the
+    pooled output, against autograd through the plain float32 forward."""
+    shapes = [tuple(f.shape) for f in feats]
+    b32, i32 = boxes.detach().contiguous(), bidx.to(torch.int32).contiguous()
+    lvl = poolers.assign_levels(b32, pcfg).contiguous()
+    got = poolers.roi_align_backward(dout, shapes, b32, i32, lvl, pcfg)
+    got32 = poolers.roi_align_backward(dout.float(), shapes, b32, i32, lvl, pcfg)
+    leaves = [torch.zeros(sh, device=dout.device, requires_grad=True) for sh in shapes]
+    plain_out = poolers.multilevel_roi_align_plain(leaves, b32, bidx, pcfg)
+    want = torch.autograd.grad(plain_out, leaves, dout.float(), retain_graph=True)
+    scale = max(w.abs().max().item() for w in want)
+    err32 = max((g - w).abs().max().item() for g, w in zip(got32, want))
+    err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
+    check(scale > 0, "ROIAlign backward: zero gradient at P={}".format(pcfg.output_size))
+    check(err32 <= 1e-5 * scale, "ROIAlign backward kernel (float32) off by {} > 1e-5 * {}"
+          .format(err32, scale))
+    check(err <= 1e-2 * scale, "ROIAlign backward kernel ({}) off by {} > 1e-2 * {}".format(
+        dout.dtype, err, scale))
+    total = sum(math.prod(sh) for sh in shapes)
+    acc = torch.empty((total,), dtype=torch.float32, device=dout.device)
+    out = torch.empty((total,), dtype=dout.dtype, device=dout.device)
+    dc = dout.contiguous()
+    r, p, s, c = dout.shape[0], pcfg.output_size, pcfg.sampling_ratio, dout.shape[-1]
+    item = dout.element_size()
+    # bytes: dOut, boxes and image indices read once, the dense gradient of
+    # every pooled level written once in the compute dtype
+    b_ms, b_by = bound(dout.numel() * item + r * 20 + total * item,
+                       r * p * p * c * (ROI_OPS_PER_SAMPLE * s * s + 1))
+    return {
+        "rois": r, "P": p, "dtype": str(dout.dtype).replace("torch.", ""),
+        "max_abs_err": err, "max_abs_err_float32": err32, "max_abs_grad": scale,
+        "ms": cuda_ms(torch, lambda: poolers.roi_align_backward(
+            dout, shapes, b32, i32, lvl, pcfg), 20),
+        "kernel_ms": cuda_ms(torch, lambda: poolers.launch_backward(
+            shapes, b32, i32, lvl, pcfg, dc, acc, out), 20),
+        "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            plain_out, leaves, dout.float(), retain_graph=True), 5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 def kernel_entry(name, source, replaces, launches, sites):
     """One kernel's line entry: times are means per launch over the main
-    path's call sites (one launch each per request); sites has each."""
+    paths' call sites; launches is {path: count in that path's run}, and
+    "launches" their sum; sites has each site."""
     mean = lambda k: sum(s[k] for s in sites) / len(sites)  # noqa: E731
     by = [s["bound_by"] for s in sites]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": max(s["max_abs_err"] for s in sites),
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": max(s["max_abs_err"] for s in sites),
         "ms": mean("ms"), "kernel_ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
         "bound_by": max(set(by), key=by.count), "library_ms": None, "sites": sites,
@@ -233,7 +333,7 @@ def run(torch):
     from maskrcnn_tpu_torch.config import flagship_cfg
     from maskrcnn_tpu_torch.models import detector, poolers, rpn
     from maskrcnn_tpu_torch.models.roi_heads import box_head
-    from maskrcnn_tpu_torch.ops import native, nms
+    from maskrcnn_tpu_torch.ops import matcher, native, nms
     from maskrcnn_tpu_torch.predictor import Predictor
 
     # 1. card and build
@@ -284,18 +384,21 @@ def run(torch):
             len(results) - 1, img.shape[0], img.shape[1], latencies[-1],
             len(results[-1]["scores"]), card), flush=True)
 
-    nms.batched_nms.launches = 0
-    poolers.multilevel_roi_align.launches = 0
+    counters = (nms.batched_nms, poolers.multilevel_roi_align, poolers.roi_align_backward,
+                matcher.match_anchors_batched)
+    for fn in counters:
+        fn.launches = 0
     with Capture([rpn, box_head], "batched_nms") as nms_cap, \
             Capture([detector], "multilevel_roi_align") as roi_cap:
         serve(images[0])
     for img in images[1:]:
         serve(img)
-    n_nms = nms.batched_nms.launches
-    n_roi = poolers.multilevel_roi_align.launches
+    n_nms, n_roi, n_bwd, n_match = (fn.launches for fn in counters)
 
     # 4. launch counts of the main path
-    print("launches in {} requests: nms {}, roi_align {}".format(len(images), n_nms, n_roi))
+    print("launches in {} requests: nms {}, roi_align {}, roi_align_backward {}, matcher {}"
+          .format(len(images), n_nms, n_roi, n_bwd, n_match))
+    check(n_bwd == n_match == 0, "serving launched training kernels")
     check(n_nms == 2 * len(images), "NMS kernel launched {} times, expected {}"
           .format(n_nms, 2 * len(images)))
     check(n_roi == 2 * len(images), "ROIAlign kernel launched {} times, expected {}"
@@ -342,17 +445,229 @@ def run(torch):
     check(ref["agree"] >= 0.9, "card and CPU disagree on {:.1%} of detections"
           .format(1 - ref["agree"]))
 
+    print("latency ms per request: " + json.dumps(latencies)
+          + "; second pass: " + json.dumps(seen), flush=True)
+    del pred, results
+    torch.cuda.empty_cache()
+
+    tr = train_phase(torch, np, card)
+    launches = tr["launches"]
     kernels = [
         kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu",
-                     "maskrcnn_tpu/ops/pallas/nms_kernel.py:161", n_nms, nms_sites),
+                     "maskrcnn_tpu/ops/pallas/nms_kernel.py:161",
+                     {"serving": n_nms, "training": launches["nms"]},
+                     nms_sites + tr["nms_sites"]),
         kernel_entry("roi_align", "maskrcnn_tpu_torch/csrc/roi_align.cu",
-                     "maskrcnn_tpu/ops/pallas/roi_align_kernel.py:434", n_roi, roi_sites),
+                     "maskrcnn_tpu/ops/pallas/roi_align_kernel.py:434",
+                     {"serving": n_roi, "training": launches["roi_align"]},
+                     roi_sites + tr["roi_sites"]),
+        kernel_entry("roi_align_backward", "maskrcnn_tpu_torch/csrc/roi_align.cu",
+                     "maskrcnn_tpu/ops/pallas/roi_align_kernel.py:1020",
+                     {"serving": n_bwd, "training": launches["roi_align_backward"]},
+                     tr["bwd_sites"]),
+        kernel_entry("matcher", "maskrcnn_tpu_torch/csrc/matcher.cu",
+                     "maskrcnn_tpu/ops/pallas/matcher_kernel.py:183",
+                     {"serving": n_match, "training": launches["matcher"]},
+                     tr["matcher_sites"]),
     ]
-    print("latency ms per request: " + json.dumps(latencies)
-          + "; second pass: " + json.dumps(seen))
     print(json.dumps({"kernels": kernels}))
     print(card)
     return torch.cuda.get_device_name(0), torch.cuda.device_count()
+
+
+def train_batch(torch, np, b, hw, sizes, gt_per_image, mask_size, seed, device,
+                block_masks=False):
+    """bench.py's synthetic training batch: float32 images (standard normal,
+    as if normalized), COCO-like gt (lognormal instance counts of mean ~7,
+    log-uniform sides of 16-500 px), random labels and binary gt mask
+    patches (per pixel, or in 4 x 4 blocks with block_masks)."""
+    h, w = hw
+    g = gt_per_image
+    rs = np.random.RandomState(seed)
+    gt_boxes = np.zeros((b, g, 4), np.float32)
+    gt_labels = np.zeros((b, g), np.int32)
+    for i in range(b):
+        n_gt = int(np.clip(rs.lognormal(mean=1.7, sigma=0.8), 1, g))
+        side = np.exp(rs.uniform(np.log(16), np.log(min(500, h, w)), (n_gt, 2)))
+        ctr = rs.uniform(0, 1, (n_gt, 2)) * np.array([w - 1, h - 1])
+        lo = np.clip(ctr - side / 2, 0, None)
+        hi = np.minimum(ctr + side / 2, [w - 1, h - 1])
+        hi = np.maximum(hi, lo + 2)
+        gt_boxes[i, :n_gt, :2] = lo
+        gt_boxes[i, :n_gt, 2:] = hi
+        gt_labels[i, :n_gt] = rs.randint(1, 81, n_gt)
+    images = rs.randn(b, h, w, 3).astype(np.float32)
+    if block_masks:
+        masks = (rs.rand(b, g, mask_size // 4, mask_size // 4) > 0.5).repeat(4, 2).repeat(4, 3)
+    else:
+        masks = rs.rand(b, g, mask_size, mask_size) > 0.5
+    batch = dict(images=images, image_sizes=np.asarray([sizes] * b, np.int32),
+                 gt_boxes=gt_boxes, gt_labels=gt_labels, gt_masks=masks.astype(np.uint8))
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_phase(torch, np, card):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from maskrcnn_tpu_torch.config import flagship_cfg
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, rpn
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+
+    # 7. model, batch, optimizer
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = flagship_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    t0 = time.perf_counter()
+    model = build_detection_model(cfg, device="cuda", seed=SEED)
+    batch = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+                        cfg.TPU.GT_MASK_SIZE, SEED, "cuda")
+    calibrate_frozen_bn(torch, model, batch["images"])
+    opt = make_optimizer(cfg, model)
+    sched = make_lr_scheduler(cfg, opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step = make_train_step(model, opt, sched, generator=gen)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    print("training: Mask R-CNN R-50-FPN, full width, bfloat16 compute, batch {} of {}x{} "
+          "(image sizes {}x{}), {} gt slots, frozen-BN statistics from the batch; built in "
+          "{:.1f} s".format(TRAIN_BATCH, *TRAIN_HW, *TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+                            time.perf_counter() - t0), flush=True)
+
+    def show(tag, m, dt):
+        losses = {k: v.item() for k, v in m.items()}
+        check(all(math.isfinite(v) for v in losses.values()), "{}: loss not finite: {}"
+              .format(tag, losses))
+        print("{}: {:.1f} ms, {} [{}]".format(tag, dt * 1e3, json.dumps(losses), card),
+              flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = step(batch)
+    torch.cuda.synchronize()
+    show("warm-up step", m, time.perf_counter() - t0)
+
+    # 8. the counted step
+    counters = {"matcher": matcher.match_anchors_batched, "nms": nms.batched_nms,
+                "roi_align": poolers.multilevel_roi_align,
+                "roi_align_backward": poolers.roi_align_backward}
+    for fn in counters.values():
+        fn.launches = 0
+    with Capture([rpn], "match_anchors_batched") as match_cap, \
+            Capture([rpn], "batched_nms") as nms_cap, \
+            Capture([detector], "multilevel_roi_align", grads=True) as roi_cap:
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    show("counted step", m, dt)
+    print("launches in one training step: " + json.dumps(launches), flush=True)
+    expected = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2}
+    check(launches == expected, "training step launched {}, expected {}".format(
+        launches, expected))
+
+    times = []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        show("step {}".format(i), m, times[-1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    check(frozen and all(n.startswith(("backbone.body.stem.", "backbone.body.layer1."))
+                         for n in frozen), "unexpected frozen parameters")
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        check(same != p.requires_grad, "{} parameter {} {} after {} steps".format(
+            "trainable" if p.requires_grad else "frozen", n,
+            "unchanged" if same else "changed", TIMED_STEPS + 2))
+    print("after {} steps: {} trainable parameters moved, {} frozen (stem, layer1) did not"
+          .format(TIMED_STEPS + 2, len(before) - len(frozen), len(frozen)), flush=True)
+
+    # 9. kernels against their plain versions on the counted step's inputs
+    check(len(match_cap.calls) == 1 and len(nms_cap.calls) == 1 and len(roi_cap.calls) == 2
+          and len(roi_cap.out_grads) == 2, "captured {} matcher, {} NMS, {} ROIAlign calls"
+          .format(len(match_cap.calls), len(nms_cap.calls), len(roi_cap.calls)))
+    del before
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    sites = {"matcher_sites": [matcher_site(torch, matcher, *match_cap.calls[0])]}
+    with torch.no_grad():
+        sites["nms_sites"] = [nms_site(torch, nms, *nms_cap.calls[0], plain_iters=3)]
+        sites["roi_sites"] = [roi_site(torch, poolers, [f.detach() for f in call[0]], *call[1:])
+                              for call in roi_cap.calls]
+    sites["bwd_sites"] = [roi_backward_site(torch, poolers, [f.detach() for f in call[0]],
+                                            *call[1:], roi_cap.out_grads[i])
+                          for i, call in enumerate(roi_cap.calls)]
+    del match_cap, nms_cap, roi_cap
+    torch.cuda.empty_cache()
+    g, n = sites["nms_sites"][0]["shape"]
+    check((g, n) == (5 * TRAIN_BATCH, cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN),
+          "training NMS lanes {}".format((g, n)))
+    box_rois = TRAIN_BATCH * cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+    mask_rois = TRAIN_BATCH * cfg.TPU.MASK_ROI_CAP
+    check([(x["rois"], x["P"]) for x in sites["roi_sites"]] == [(box_rois, 7), (mask_rois, 14)]
+          and [(x["rois"], x["P"]) for x in sites["bwd_sites"]] == [(box_rois, 7), (mask_rois, 14)],
+          "training ROIAlign sites {}".format([(x["rois"], x["P"]) for x in sites["roi_sites"]]))
+    for k in ("matcher_sites", "nms_sites", "roi_sites", "bwd_sites"):
+        for site in sites[k]:
+            print("training kernel site:", json.dumps(site), flush=True)
+
+    # 10. float32 card against CPU
+    train_reference_check(torch, np, cfg, model.state_dict())
+
+    # 11. throughput
+    torch.backends.cudnn.allow_tf32 = True
+    with FlopCounterMode(display=False) as counter:
+        losses = model.train_forward(batch, generator=gen)
+        sum(losses.values()).backward()
+    opt.zero_grad(set_to_none=True)
+    flops = counter.get_total_flops()
+    step_s = sum(times) / len(times)
+    thr = {"img_per_s": TRAIN_BATCH / step_s, "step_ms": step_s * 1e3,
+           "step_ms_each": [t * 1e3 for t in times], "flops_per_step": flops,
+           "mfu": flops / step_s / BF16_FLOPS_PER_S, "peak_memory_gb": peak_gb,
+           "card": card}
+    print("training throughput: " + json.dumps(thr), flush=True)
+    print("training step profile: " + json.dumps(profile_steps(torch, step, batch)), flush=True)
+    sites["launches"] = launches
+    return sites
+
+
+def profile_steps(torch, step, batch, steps=2):
+    """Where a training step's device time goes (torch.profiler, CUPTI):
+    per step under the profiler, the wall time, the summed time of the
+    device's kernels and copies, the idle share, and the kernels with the
+    most time. Informational: a profiler that sees no device time leaves
+    its numbers as "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=self_device_us, reverse=True)
+    busy_ms = sum(self_device_us(e) for e in events) / 1e3 / steps
+    if busy_ms <= 0:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+        "top_kernels_ms": [[e.key[:90], self_device_us(e) / 1e3 / steps, e.count / steps]
+                           for e in events[:15]],
+    }
 
 
 def reference_check(torch, np, detector, cfg, state):
@@ -386,6 +701,96 @@ def reference_check(torch, np, detector, cfg, state):
         "sorted_score_err": float(np.abs(np.sort(outs[0]["scores"])
                                          - np.sort(outs[1]["scores"])).max()),
     }
+
+
+# Gradients held card against CPU: the RPN head, P2's lateral and output
+# convs (every ROI of a 64x96 image pools from P2), the box and mask heads.
+# Deeper backbone weights are left out: at this image size their gradient
+# reaches them only through the FPN's top-down sums of P2's, which largely
+# cancel, so its rounding between card and CPU is magnified (PERF.md).
+REF_GRADS = (
+    "rpn.cls_logits.weight", "rpn.bbox_pred.weight", "rpn.conv.weight",
+    "backbone.fpn.inner.0.conv.weight", "backbone.fpn.layer.0.conv.weight",
+    "roi_heads.box.feature_extractor.fc6.weight", "roi_heads.box.predictor.cls_score.weight",
+    "roi_heads.mask.predictor.conv5_mask.weight",
+    "roi_heads.mask.predictor.mask_fcn_logits.weight",
+)
+
+
+def train_reference_check(torch, np, cfg, state):
+    """One float32 forward and backward of the training losses on a small
+    batch (2 images of 64x96) with the trained weights, on the card
+    (kernels) and on the CPU (plain versions), with the same sampler draws.
+
+    The discrete steps of the path would round apart on the two sides: the
+    card and the CPU compute the objectness scores ~1e-6 apart, enough to
+    swap near-equal proposals, and the proposals' ranks decide the greedy
+    NMS order, the top-k cuts and which draw each proposal gets. So this
+    check removes every rank-dependent decision while running the same
+    code: the RPN box deltas are zeroed (the proposals are the anchors
+    exactly), the NMS threshold is 1.0 (nothing is suppressed), no top-k
+    cuts (pre- and post-NMS caps of the largest level's anchor count, a
+    batch-wide cap of every anchor), and the box sampler takes every
+    anchor and gt of an image (BATCH_SIZE_PER_IMAGE = anchors + gt slots,
+    and as many mask ROIs), so every proposal is sampled whatever its rank.
+    The matcher, NMS and
+    ROIAlign kernels all run on the card side. The CPU side runs with
+    oneDNN off: at these shapes its float32 convolutions lose percents of
+    the gradient reaching P2 against a float64 run, PyTorch's own CPU
+    convolutions about 1e-4 (PERF.md). Losses must agree to 1e-4 relative
+    and the gradients in REF_GRADS to 1e-2 of their max (float32 sums over
+    thousands of ROIs that largely cancel; PERF.md has the measured
+    errors)."""
+    from maskrcnn_tpu_torch.models import detector
+    from maskrcnn_tpu_torch.ops.sampler import uniform_draws
+
+    c = cfg.clone()
+    c.TPU.COMPUTE_DTYPE = "float32"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = train_batch(torch, np, 2, (64, 96), (64, 96), 8, c.TPU.GT_MASK_SIZE, SEED + 1,
+                        "cpu", block_masks=True)
+    b, g = batch["gt_labels"].shape
+    with torch.no_grad():
+        per_level = [a.shape[0] for a in detector.GeneralizedRCNN(c)._backbone(batch)[1]]
+    n = sum(per_level)
+    r = c.MODEL.RPN
+    r.PRE_NMS_TOP_N_TRAIN = r.POST_NMS_TOP_N_TRAIN = max(per_level)
+    r.FPN_POST_NMS_TOP_N_TRAIN = b * n
+    r.NMS_THRESH = 1.0
+    c.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = c.TPU.MASK_ROI_CAP = n + g
+    n_props = min(b * n, len(per_level) * max(per_level)) + g
+    state = {k: v.detach().cpu() for k, v in state.items()}
+    state["rpn.bbox_pred.weight"] = torch.zeros_like(state["rpn.bbox_pred.weight"])
+    state["rpn.bbox_pred.bias"] = torch.zeros_like(state["rpn.bbox_pred.bias"])
+    gen = torch.Generator().manual_seed(SEED)
+    draws = {}
+    draws["rpn_pos"], draws["rpn_neg"] = uniform_draws((b, n), gen, "cpu")
+    draws["box_pos"], draws["box_neg"] = uniform_draws((b, n_props), gen, "cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = detector.GeneralizedRCNN(c)
+        m.load_state_dict(state)
+        m.to(dev)
+        mkldnn = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = dev != "cpu"
+        try:
+            losses = m.train_forward({k: v.to(dev) for k, v in batch.items()},
+                                     draws={k: v.to(dev) for k, v in draws.items()})
+            sum(losses.values()).backward()
+        finally:
+            torch.backends.mkldnn.enabled = mkldnn
+        out[dev] = ({k: v.item() for k, v in losses.items()},
+                    {n: p.grad.cpu() for n, p in m.named_parameters() if n in REF_GRADS})
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    loss_err = {k: abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    grad_err = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
+    ref = {"losses_card": lc, "losses_cpu": lp, "loss_rel_err": loss_err,
+           "grad_rel_err": grad_err}
+    print("float32 training step, card vs CPU: " + json.dumps(ref), flush=True)
+    check(len(grad_err) == len(REF_GRADS), "missing gradients")
+    check(all(v <= 1e-4 for v in loss_err.values()), "card and CPU losses differ")
+    check(all(v <= 1e-2 for v in grad_err.values()), "card and CPU gradients differ")
 
 
 def main():

@@ -1,8 +1,11 @@
-// Multi-level FPN ROIAlign forward for Hopper (sm_90a).
+// Multi-level FPN ROIAlign, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel maskrcnn_tpu/ops/pallas/roi_align_kernel.py
-// (multilevel_roi_align_pallas / _kernel, with its jnp prep _precompute and
-// _bin_weights). Semantics are those of the exact gather path
+// The forward replaces the TPU kernel
+// maskrcnn_tpu/ops/pallas/roi_align_kernel.py (multilevel_roi_align_pallas /
+// _kernel, with its jnp prep _precompute and _bin_weights); the backward
+// (roi_align_backward, below the forward) replaces its default "roi"
+// backward (_roi_align_bwd_roi / _roi_bwd_kernel). Semantics are those of
+// the exact gather path
 // (maskrcnn_tpu/models/poolers.py:_pool_roi_block, non-adaptive branch),
 // the legacy aligned=False ROIAlign:
 //   * roi = box * level scale, no half-pixel shift;
@@ -31,6 +34,28 @@
 // for all channels; that repeated arithmetic, not the bytes, is the likely
 // limit of its measured time (PERF.md). A later design computes them once
 // per block.
+//
+// The backward is the exact adjoint of this forward (the gradient of the
+// plain version): every bilinear corner of every sample inside the map gets
+// w * dOut / (S*S), accumulated in float32, for each channel. The TPU
+// kernel merges each ROI's window of dPatch in VMEM and adds it once into
+// the level gradients, the grid running in order. Here blocks run in
+// parallel and ROIs overlap, so the design is a scatter:
+//   * one block per (ROI, output row), threads along the channels, the
+//     sample geometry and the outside / clamp / snap rules of the forward;
+//   * each corner's share goes into one zeroed float32 NHWC buffer holding
+//     all levels through float32 atomicAdd (at the snapped edge two corners
+//     are one cell, and both adds land there);
+//   * then one cast to the features' dtype, as the JAX kernel rounds once
+//     at its flush; a float32 model's gradient is the buffer itself.
+// The order of the atomic adds changes from run to run, so the result does
+// too, by float32 rounding (about 1e-6 of max|grad| at the training shapes).
+//
+// What bounds the backward: bytes. At the box head's training call (4096
+// ROIs, P=7, C=256, bf16, B=8 at 800x1344) it must read dOut (103 MB) and
+// write the dense gradient of P2-P5 (366 MB in bf16). The design adds the
+// zeroing of the 731 MB float32 buffer and the cast's read of it, and its
+// atomics go to cells spread over a buffer larger than the 50 MB L2.
 //
 // Built with -fmad=false so the sample coordinates round as the plain
 // version's do.
@@ -77,6 +102,24 @@ __device__ __forceinline__ Axis axis_weights(float v, int size) {
   return a;
 }
 
+// The ROI's box on its level: corner, bin sizes and sample spacing.
+struct RoiGeom {
+  float x1, y1, bin_w, bin_h, sub_w, sub_h;
+};
+
+__device__ __forceinline__ RoiGeom roi_geom(float4 box, float scale, int p, int s) {
+  RoiGeom g;
+  g.x1 = __fmul_rn(box.x, scale);
+  g.y1 = __fmul_rn(box.y, scale);
+  const float x2 = __fmul_rn(box.z, scale);
+  const float y2 = __fmul_rn(box.w, scale);
+  g.bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, g.x1), 1.f), (float)p);
+  g.bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, g.y1), 1.f), (float)p);
+  g.sub_w = __fdiv_rn(g.bin_w, (float)s);
+  g.sub_h = __fdiv_rn(g.bin_h, (float)s);
+  return g;
+}
+
 template <typename T>
 __global__ void roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes,
                                      const int* __restrict__ batch_idx,
@@ -90,30 +133,22 @@ __global__ void roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes
   const float scale = lv.scale[l];
   const T* feat = (const T*)lv.data[l] + (size_t)batch_idx[r] * h * w * c;
 
-  const float4 box = boxes[r];
-  const float x1 = __fmul_rn(box.x, scale);
-  const float y1 = __fmul_rn(box.y, scale);
-  const float x2 = __fmul_rn(box.z, scale);
-  const float y2 = __fmul_rn(box.w, scale);
-  const float bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, x1), 1.f), (float)p);
-  const float bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, y1), 1.f), (float)p);
-  const float sub_w = __fdiv_rn(bin_w, (float)s);
-  const float sub_h = __fdiv_rn(bin_h, (float)s);
-  const float y0 = __fadd_rn(y1, __fmul_rn((float)py, bin_h));
+  const RoiGeom gm = roi_geom(boxes[r], scale, p, s);
+  const float y0 = __fadd_rn(gm.y1, __fmul_rn((float)py, gm.bin_h));
   const float count = (float)(s * s);
 
   T* o = out + ((size_t)r * p + py) * p * c;
   for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
     const T* f = feat + ch;
     for (int px = 0; px < p; ++px) {
-      const float x0 = __fadd_rn(x1, __fmul_rn((float)px, bin_w));
+      const float x0 = __fadd_rn(gm.x1, __fmul_rn((float)px, gm.bin_w));
       float acc = 0.f;
       for (int iy = 0; iy < s; ++iy) {
-        const float y = __fadd_rn(y0, __fmul_rn((float)iy + 0.5f, sub_h));
+        const float y = __fadd_rn(y0, __fmul_rn((float)iy + 0.5f, gm.sub_h));
         if (y < -1.f || y > (float)h) continue;
         const Axis ay = axis_weights(y, h);
         for (int ix = 0; ix < s; ++ix) {
-          const float x = __fadd_rn(x0, __fmul_rn((float)ix + 0.5f, sub_w));
+          const float x = __fadd_rn(x0, __fmul_rn((float)ix + 0.5f, gm.sub_w));
           if (x < -1.f || x > (float)w) continue;
           const Axis ax = axis_weights(x, w);
           const float v00 = load_f(f + ((size_t)ay.lo * w + ax.lo) * c);
@@ -129,6 +164,62 @@ __global__ void roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes
       }
       store_f(o + (size_t)px * c + ch, __fdiv_rn(acc, count));
     }
+  }
+}
+
+// Level gradients: float32 NHWC accumulation buffers, one per level.
+struct GradLevels {
+  float* data[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float scale[kMaxLevels];
+};
+
+template <typename T>
+__global__ void roi_align_bwd_kernel(GradLevels lv, const float4* __restrict__ boxes,
+                                     const int* __restrict__ batch_idx,
+                                     const int* __restrict__ level, int c,
+                                     int p, int s, const T* __restrict__ dout) {
+  const int r = blockIdx.x;
+  const int py = blockIdx.y;
+  const int l = level[r];
+  const int h = lv.h[l];
+  const int w = lv.w[l];
+  float* grad = lv.data[l] + (size_t)batch_idx[r] * h * w * c;
+
+  const RoiGeom gm = roi_geom(boxes[r], lv.scale[l], p, s);
+  const float y0 = __fadd_rn(gm.y1, __fmul_rn((float)py, gm.bin_h));
+  const float count = (float)(s * s);
+
+  const T* d = dout + ((size_t)r * p + py) * p * c;
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    float* g = grad + ch;
+    for (int px = 0; px < p; ++px) {
+      const float share = __fdiv_rn(load_f(d + (size_t)px * c + ch), count);
+      const float x0 = __fadd_rn(gm.x1, __fmul_rn((float)px, gm.bin_w));
+      for (int iy = 0; iy < s; ++iy) {
+        const float y = __fadd_rn(y0, __fmul_rn((float)iy + 0.5f, gm.sub_h));
+        if (y < -1.f || y > (float)h) continue;
+        const Axis ay = axis_weights(y, h);
+        for (int ix = 0; ix < s; ++ix) {
+          const float x = __fadd_rn(x0, __fmul_rn((float)ix + 0.5f, gm.sub_w));
+          if (x < -1.f || x > (float)w) continue;
+          const Axis ax = axis_weights(x, w);
+          atomicAdd(g + ((size_t)ay.lo * w + ax.lo) * c, __fmul_rn(__fmul_rn(ay.h, ax.h), share));
+          atomicAdd(g + ((size_t)ay.lo * w + ax.hi) * c, __fmul_rn(__fmul_rn(ay.h, ax.l), share));
+          atomicAdd(g + ((size_t)ay.hi * w + ax.lo) * c, __fmul_rn(__fmul_rn(ay.l, ax.h), share));
+          atomicAdd(g + ((size_t)ay.hi * w + ax.hi) * c, __fmul_rn(__fmul_rn(ay.l, ax.l), share));
+        }
+      }
+    }
+  }
+}
+
+__global__ void cast_to_bf16_kernel(const float* __restrict__ src, size_t n,
+                                    __nv_bfloat16* __restrict__ dst) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    dst[i] = __float2bfloat16(src[i]);
   }
 }
 
@@ -168,6 +259,55 @@ extern "C" int roi_align_forward(const void* const* level_ptrs, const int* hs,
     roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
         lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c,
         p, s, (__nv_bfloat16*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// acc: float32 buffer of `total` elements holding every level's NHWC
+// gradient back to back (level l at acc_offsets[l] elements, [B, H, W, c]);
+// zeroed here. dout [r, p, p, c] of `dtype` (0 = f32, 1 = bf16); boxes,
+// batch_idx, level as for the forward. For dtype 1 the float32 sums are
+// cast once into out (bf16, same layout as acc); for dtype 0 acc is the
+// result and out is unused. Returns cudaGetLastError() after the launches.
+extern "C" int roi_align_backward(void* acc, const long long* acc_offsets,
+                                  long long total, const int* hs, const int* ws,
+                                  const float* scales, int num_levels,
+                                  const void* boxes, const void* batch_idx,
+                                  const void* level, int r, int c, int p, int s,
+                                  int dtype, const void* dout, void* out,
+                                  void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)total * sizeof(float), st);
+  if (e != cudaSuccess) return (int)e;
+  GradLevels lv = {};
+  for (int i = 0; i < num_levels; ++i) {
+    lv.data[i] = (float*)acc + acc_offsets[i];
+    lv.h[i] = hs[i];
+    lv.w[i] = ws[i];
+    lv.scale[i] = scales[i];
+  }
+  if (r > 0) {
+    const int threads = c >= 256 ? 256 : (c + 31) / 32 * 32;
+    dim3 grid(r, p);
+    if (dtype == 0) {
+      roi_align_bwd_kernel<float><<<grid, threads, 0, st>>>(
+          lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level,
+          c, p, s, (const float*)dout);
+    } else {
+      roi_align_bwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
+          lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level,
+          c, p, s, (const __nv_bfloat16*)dout);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (dtype == 1 && total > 0) {
+    const long long blocks = (total + 255) / 256;
+    cast_to_bf16_kernel<<<(unsigned)(blocks < 132 * 32 ? blocks : 132 * 32), 256, 0, st>>>(
+        (const float*)acc, (size_t)total, (__nv_bfloat16*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -57,9 +57,10 @@ def generate_cell_anchors(stride=16, sizes=(32, 64, 128, 256, 512),
 class AnchorGenerator:
     """One cell-anchor set per FPN level."""
 
-    def __init__(self, sizes, aspect_ratios, strides):
+    def __init__(self, sizes, aspect_ratios, strides, straddle_thresh=0):
         if len(strides) != len(sizes):
             raise ValueError("FPN needs one anchor size per stride")
+        self.straddle_thresh = straddle_thresh
         self.cell_anchors = [
             generate_cell_anchors(stride, (size,), aspect_ratios)
             for stride, size in zip(strides, sizes)
@@ -81,9 +82,21 @@ class AnchorGenerator:
         shifts = torch.stack([sx, sy, sx, sy], dim=1)
         return (shifts[:, None, :] + cell[None, :, :]).reshape(-1, 4)
 
+    def visibility(self, anchors, image_h, image_w):
+        """Anchors inside the image by the straddle threshold: anchors
+        [N, 4], image_h and image_w broadcastable to [..., N] (e.g. [B, 1]
+        float) -> bool [..., N]. A negative threshold keeps every anchor."""
+        t = self.straddle_thresh
+        if t < 0:
+            return torch.ones(torch.broadcast_shapes(anchors.shape[:-1], image_h.shape),
+                              dtype=torch.bool, device=anchors.device)
+        return ((anchors[..., 0] >= -t) & (anchors[..., 1] >= -t)
+                & (anchors[..., 2] < image_w + t) & (anchors[..., 3] < image_h + t))
+
 
 def make_anchor_generator(cfg):
     r = cfg.MODEL.RPN
     if not r.USE_FPN:
         raise NotImplementedError("single-level RPN anchors are not ported yet")
-    return AnchorGenerator(r.ANCHOR_SIZES, r.ASPECT_RATIOS, r.ANCHOR_STRIDE)
+    return AnchorGenerator(r.ANCHOR_SIZES, r.ASPECT_RATIOS, r.ANCHOR_STRIDE,
+                           r.STRADDLE_THRESH)

@@ -1,29 +1,44 @@
-"""GeneralizedRCNN (inference) and build_detection_model.
+"""GeneralizedRCNN (training and inference) and build_detection_model.
 
-PyTorch counterpart of maskrcnn_tpu/models/detector.py for the Mask R-CNN
-FPN serving path, ``infer_forward``: device-side uint8 normalisation,
-backbone, RPN head, proposals (NMS kernel), box head (ROIAlign kernel, P=7),
-per-class post-processing (NMS kernel), mask head (ROIAlign kernel, P=14).
+PyTorch counterpart of maskrcnn_tpu/models/detector.py for Mask R-CNN FPN:
+
+* ``train_forward``: backbone, RPN head, RPN loss (matcher kernel), training
+  proposals (NMS kernel), box targets and loss (ROIAlign kernel, P=7), the
+  positives compacted across images, mask targets and loss (ROIAlign
+  kernel, P=14); the ROIAlign backward kernel carries the heads' gradient
+  into the pyramid.
+* ``infer_forward``: device-side uint8 normalisation, backbone, RPN head,
+  proposals, box head, per-class post-processing (NMS kernel), mask head.
 
 The public layouts are the JAX package's: images [B, H, W, 3], image_sizes
-[B, 2] (h, w), and a padded detection dict with boxes [B, D, 4] xyxy,
+[B, 2] (h, w), gt_boxes [B, G, 4], gt_labels [B, G] (0 = padding), gt_masks
+[B, G, S, S], and a padded detection dict with boxes [B, D, 4] xyxy,
 scores, labels and valid [B, D], masks [B, D, M, M]. Inside, activations are
 NCHW in channels_last memory format, so each pyramid level handed to the
 pooler is a free NHWC view.
 
-RetinaNet, keypoint, RPN-only and C4 models wait for later slices, and so
-does training.
+The two samplers' uniform draws (``draws``: rpn_pos, rpn_neg [B, N
+anchors], box_pos, box_neg [B, P proposals]) may be passed in; missing ones
+come from the caller's torch.Generator.
+
+RetinaNet, keypoint, RPN-only and C4 models wait for later slices.
 """
 
 import torch
 import torch.nn as nn
 
+from ..ops.sampler import top_k_fast, uniform_draws
 from .anchors import make_anchor_generator
 from .backbone import build_backbone
 from .poolers import PoolerConfig, multilevel_roi_align
-from .roi_heads.box_head import BoxHead, box_head_inference
-from .roi_heads.mask_head import MaskHead
-from .rpn import RPNHead, select_proposals
+from .roi_heads.box_head import BoxHead, box_head_inference, box_head_loss, prepare_box_targets
+from .roi_heads.mask_head import (
+    MaskHead,
+    mask_head_loss_picked,
+    project_gt_masks,
+    select_positive_rois,
+)
+from .rpn import RPNHead, rpn_loss, select_proposals
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -36,7 +51,27 @@ def _flatten_rois(boxes):
 
 
 def _nhwc(features):
-    return [f.permute(0, 2, 3, 1) for f in features]
+    """NHWC views of the levels for the pooler: free for channels_last maps
+    (cuDNN keeps that layout), a copy otherwise."""
+    return [f.permute(0, 2, 3, 1).contiguous() for f in features]
+
+
+def _compact_positives(pos_state, cap):
+    """Pack the valid positive ROIs of the whole batch into `cap` rows
+    (TPU.MASK_ROI_CAP per image, batch-wide), in their original order.
+    pos_state = (rois [R, 4], batch_idx [R], valid [R], labels [R],
+    matched_gt [R]); cap <= 0 or cap >= R keeps all rows."""
+    valid = pos_state[2]
+    if not 0 < cap < valid.shape[0]:
+        return pos_state
+    sel = torch.sort(top_k_fast(valid.float(), cap)[1]).values
+    return tuple(x[sel] for x in pos_state)
+
+
+def _level_major(per_level, b, last):
+    """Head outputs [B, A*last, H, W] per level -> [B, sum H*W*A, last] in
+    the JAX NHWC flatten order (y, x, anchor)."""
+    return torch.cat([t.permute(0, 2, 3, 1).reshape(b, -1, last) for t in per_level], dim=1)
 
 
 class GeneralizedRCNN(nn.Module):
@@ -56,6 +91,8 @@ class GeneralizedRCNN(nn.Module):
                              persistent=False)
         self.to_bgr255 = cfg.INPUT.TO_BGR255
         self.mask_on = m.MASK_ON
+        # fixed positive-ROI batch of the mask head: the box sampler's quota
+        self.num_pos_rois = int(m.ROI_HEADS.BATCH_SIZE_PER_IMAGE * m.ROI_HEADS.POSITIVE_FRACTION)
 
         self.backbone = build_backbone(cfg)
         self.anchor_gen = make_anchor_generator(cfg)
@@ -106,20 +143,106 @@ class GeneralizedRCNN(nn.Module):
             return self._normalize_uint8(images, image_sizes)
         return images
 
+    def _backbone(self, batch):
+        images = self._prepare_images(batch["images"], batch["image_sizes"])
+        x = images.permute(0, 3, 1, 2).to(self.compute_dtype)
+        features = self.backbone(x.contiguous(memory_format=torch.channels_last))
+        anchors = [
+            self.anchor_gen.grid_anchors_level(l, f.shape[2], f.shape[3], f.device)
+            for l, f in enumerate(features)
+        ]
+        return features, anchors
+
+    def train_forward(self, batch, draws=None, generator=None):
+        """batch: images [B, H, W, 3] (uint8 RGB or normalized float32),
+        image_sizes [B, 2], gt_boxes [B, G, 4], gt_labels [B, G], gt_masks
+        [B, G, S, S]. draws: optional dict of the samplers' uniform draws
+        (rpn_pos, rpn_neg [B, N]; box_pos, box_neg [B, P]); the missing
+        ones are drawn with `generator`. Returns the five losses."""
+        cfg = self.cfg
+        hcfg = cfg.MODEL.ROI_HEADS
+        rcfg = cfg.MODEL.RPN
+        draws = dict(draws or {})
+        image_sizes = batch["image_sizes"]
+        gt_boxes = batch["gt_boxes"].float()
+        gt_labels = batch["gt_labels"]
+        gt_valid = gt_labels > 0
+
+        def draw(kind, n):
+            if kind + "_pos" not in draws:
+                if generator is None:
+                    raise ValueError("no {} sampler draws given and no generator".format(kind))
+                draws[kind + "_pos"], draws[kind + "_neg"] = uniform_draws(
+                    (b, n), generator, gt_boxes.device)
+            return draws[kind + "_pos"], draws[kind + "_neg"]
+
+        features, anchors = self._backbone(batch)
+        objectness, bbox_reg = self.rpn(features)
+        b = gt_boxes.shape[0]
+        cat_anchors = torch.cat(anchors)
+        h = image_sizes[:, 0:1].float()
+        w = image_sizes[:, 1:2].float()
+        visible = self.anchor_gen.visibility(cat_anchors, h, w)
+        rpn_pos, rpn_neg = draw("rpn", cat_anchors.shape[0])
+        loss_obj, loss_rpn_box = rpn_loss(
+            cat_anchors, visible, _level_major(objectness, b, 1)[..., 0],
+            _level_major(bbox_reg, b, 4), gt_boxes, gt_valid, rpn_pos, rpn_neg,
+            rcfg.FG_IOU_THRESHOLD, rcfg.BG_IOU_THRESHOLD, rcfg.BATCH_SIZE_PER_IMAGE,
+            rcfg.POSITIVE_FRACTION,
+        )
+        losses = {"loss_objectness": loss_obj, "loss_rpn_box_reg": loss_rpn_box}
+
+        with torch.no_grad():
+            prop_boxes, _, prop_valid = select_proposals(
+                anchors, [o.detach() for o in objectness], [r.detach() for r in bbox_reg],
+                image_sizes, rcfg, is_train=True, gt_boxes=gt_boxes, gt_valid=gt_valid,
+            )
+            box_pos, box_neg = draw("box", prop_boxes.shape[1])
+            targets = prepare_box_targets(
+                prop_boxes, prop_valid, gt_boxes, gt_labels, box_pos, box_neg,
+                hcfg.FG_IOU_THRESHOLD, hcfg.BG_IOU_THRESHOLD, hcfg.BATCH_SIZE_PER_IMAGE,
+                hcfg.POSITIVE_FRACTION, tuple(hcfg.BBOX_REG_WEIGHTS),
+            )
+
+        nhwc = _nhwc(features)
+        rois, batch_idx = _flatten_rois(targets["rois"])
+        pooled = multilevel_roi_align(nhwc[: len(self.box_pooler.scales)], rois, batch_idx,
+                                      self.box_pooler)
+        class_logits, box_regression = self.roi_heads.box(pooled)
+        losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
+            class_logits, box_regression, targets, cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)
+
+        if self.mask_on:
+            with torch.no_grad():
+                pos_idx, pos_valid = select_positive_rois(targets, self.num_pos_rois)
+                rows = torch.arange(b, device=pos_idx.device)[:, None]
+                pos_rois, pos_batch = _flatten_rois(targets["rois"][rows, pos_idx])
+                m_rois, m_batch, m_valid, m_labels, m_mg = _compact_positives(
+                    (pos_rois, pos_batch, pos_valid.reshape(-1),
+                     targets["labels"][rows, pos_idx].reshape(-1),
+                     targets["matched_gt_idx"][rows, pos_idx].reshape(-1)),
+                    cfg.TPU.MASK_ROI_CAP * b,
+                )
+            pooled = multilevel_roi_align(nhwc[: len(self.mask_pooler.scales)], m_rois,
+                                          m_batch, self.mask_pooler)
+            mask_logits = self.roi_heads.mask.logits_at_class(pooled, m_labels)
+            with torch.no_grad():
+                gt_masks = batch["gt_masks"]
+                g, s = gt_masks.shape[1], gt_masks.shape[-1]
+                flat_ix = m_batch.long() * g + m_mg
+                tgt = project_gt_masks(gt_masks.reshape(-1, s, s)[flat_ix],
+                                       gt_boxes.reshape(-1, 4)[flat_ix], m_rois,
+                                       mask_logits.shape[1])
+            losses["loss_mask"] = mask_head_loss_picked(mask_logits, tgt, m_valid)
+        return losses
+
     @torch.inference_mode()
     def infer_forward(self, batch):
         """batch: images [B, H, W, 3] (uint8 RGB or normalized float32),
         image_sizes [B, 2] int. Returns the padded detection dict."""
         cfg = self.cfg
         image_sizes = batch["image_sizes"]
-        images = self._prepare_images(batch["images"], image_sizes)
-        x = images.permute(0, 3, 1, 2).to(self.compute_dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        features = self.backbone(x)
-        anchors = [
-            self.anchor_gen.grid_anchors_level(l, f.shape[2], f.shape[3], f.device)
-            for l, f in enumerate(features)
-        ]
+        features, anchors = self._backbone(batch)
         objectness, bbox_reg = self.rpn(features)
         prop_boxes, prop_scores, prop_valid = select_proposals(
             anchors, objectness, bbox_reg, image_sizes, cfg.MODEL.RPN

@@ -6,10 +6,13 @@ sampling-ratio FPN case. Each ROI is pooled from the pyramid level that
 
 ``multilevel_roi_align`` is the wrapper the heads call: on CPU tensors it
 runs the plain version ``multilevel_roi_align_plain`` (a port of the exact
-gather path ``_pool_roi_block``); on CUDA tensors it launches the
-hand-written kernel csrc/roi_align.cu, which replaces the TPU kernel
-ops/pallas/roi_align_kernel.py:multilevel_roi_align_pallas. There is no
-fallback between the two.
+gather path ``_pool_roi_block``), and autograd differentiates it; on CUDA
+tensors it goes through ``RoIAlignFunction``, whose forward launches the
+hand-written kernel csrc/roi_align.cu:roi_align_forward (replacing the TPU
+kernel ops/pallas/roi_align_kernel.py:multilevel_roi_align_pallas) and whose
+backward launches roi_align_backward from the same file (replacing the
+default "roi" backward _roi_align_bwd_roi). There is no fallback between
+the kernels and the plain version.
 """
 
 import ctypes
@@ -153,6 +156,14 @@ def _lib():
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.roi_align_forward.restype = ctypes.c_int
+        lib.roi_align_backward.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.roi_align_backward.restype = ctypes.c_int
         lib.roi_align_max_levels.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -180,6 +191,74 @@ def launch(features, boxes, bidx, lvl, pcfg, out):
     native.check(rc, "roi_align")
 
 
+def launch_backward(shapes, boxes, bidx, lvl, pcfg, dout, acc, out):
+    """The backward kernel alone, on prepared buffers: level shapes [(B, Hl,
+    Wl, C)], boxes [R, 4] f32, batch_idx and level [R] int32, dout
+    [R, P, P, C] contiguous; acc a float32 buffer of sum(B*Hl*Wl*C)
+    elements (zeroed by the kernel), out a buffer of the same size in
+    dout's dtype (unused for float32, where acc is the gradient). Launches
+    on the current stream."""
+    num_levels = len(shapes)
+    offsets, off = [], 0
+    for shape in shapes:
+        offsets.append(off)
+        off += math.prod(shape)
+    offs = (ctypes.c_longlong * num_levels)(*offsets)
+    hs = (ctypes.c_int * num_levels)(*[shape[1] for shape in shapes])
+    ws = (ctypes.c_int * num_levels)(*[shape[2] for shape in shapes])
+    scales = (ctypes.c_float * num_levels)(*pcfg.scales)
+    r, p, c = dout.shape[0], dout.shape[1], dout.shape[3]
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    rc = _lib().roi_align_backward(
+        acc.data_ptr(), offs, off, hs, ws, scales, num_levels, boxes.data_ptr(),
+        bidx.data_ptr(), lvl.data_ptr(), r, c, p, pcfg.sampling_ratio,
+        _DTYPE_CODES[dout.dtype], dout.data_ptr(), out.data_ptr(), stream,
+    )
+    native.check(rc, "roi_align_backward")
+
+
+def roi_align_backward(dout, shapes, boxes, bidx, lvl, pcfg):
+    """d features of the kernel's forward: dout [R, P, P, C] (float32 or
+    bfloat16, CUDA) -> one NHWC-contiguous [B, Hl, Wl, C] gradient per
+    level in dout's dtype, summed in float32 and rounded once."""
+    if dout.dtype not in _DTYPE_CODES:
+        raise TypeError("roi_align backward takes float32 or bfloat16 gradients")
+    dout = dout.contiguous()
+    sizes = [math.prod(shape) for shape in shapes]
+    acc = torch.empty((sum(sizes),), dtype=torch.float32, device=dout.device)
+    out = acc if dout.dtype == torch.float32 else torch.empty_like(acc, dtype=dout.dtype)
+    launch_backward(shapes, boxes, bidx, lvl, pcfg, dout, acc, out)
+    roi_align_backward.launches += 1
+    return [g.view(shape) for g, shape in zip(out.split(sizes), shapes)]
+
+
+roi_align_backward.launches = 0
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """The kernel's forward with the backward kernel as its gradient. Saves
+    boxes, image indices, levels and the level shapes, not the features.
+    The boxes and image indices get no gradient (the JAX vjp's float0)."""
+
+    @staticmethod
+    def forward(ctx, pcfg, boxes, bidx, lvl, *features):
+        r, p, c = boxes.shape[0], pcfg.output_size, features[0].shape[3]
+        out = torch.empty((r, p, p, c), dtype=features[0].dtype, device=boxes.device)
+        if r > 0:
+            launch(features, boxes, bidx, lvl, pcfg, out)
+            multilevel_roi_align.launches += 1
+        ctx.pcfg = pcfg
+        ctx.shapes = [tuple(f.shape) for f in features]
+        ctx.save_for_backward(boxes, bidx, lvl)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        boxes, bidx, lvl = ctx.saved_tensors
+        grads = roi_align_backward(dout, ctx.shapes, boxes, bidx, lvl, ctx.pcfg)
+        return (None, None, None, None, *grads)
+
+
 def _roi_align_cuda(features, boxes, batch_idx, pcfg):
     dtype = features[0].dtype
     if dtype not in _DTYPE_CODES:
@@ -196,19 +275,13 @@ def _roi_align_cuda(features, boxes, batch_idx, pcfg):
     if len(features) > _lib().roi_align_max_levels():
         raise ValueError("roi_align kernel takes at most {} levels"
                          .format(_lib().roi_align_max_levels()))
-    r, p = boxes.shape[0], pcfg.output_size
-    out = torch.empty((r, p, p, c), dtype=dtype, device=boxes.device)
-    if r == 0:
-        return out
-    boxes = boxes.contiguous()
+    boxes = boxes.detach().contiguous()
     bidx = batch_idx.to(torch.int32).contiguous()
     if len(features) > 1:
         lvl = assign_levels(boxes, pcfg).contiguous()
     else:
         lvl = torch.zeros_like(bidx)
-    launch(features, boxes, bidx, lvl, pcfg, out)
-    multilevel_roi_align.launches += 1
-    return out
+    return RoIAlignFunction.apply(pcfg, boxes, bidx, lvl, *features)
 
 
 def multilevel_roi_align(features, boxes, batch_idx, pcfg):

@@ -1,16 +1,24 @@
-"""ResNet / ResNeXt body with frozen BN (inference).
+"""ResNet / ResNeXt body with frozen BN.
 
 PyTorch counterpart of maskrcnn_tpu/models/resnet.py. Every frozen BN is
 folded into the conv before it (conv_frozen_bn), the same algebra as the
 JAX ``conv_norm``. The stem is the plain 7x7/stride-2/pad-3 conv: the JAX
 package's space-to-depth stem is a TPU rewrite of the same math. Group norm
 and deformable convs belong to other model families and are not ported yet.
+
+Training: the stem and the first FREEZE_CONV_BODY_AT - 1 stages are frozen
+(their parameters do not require grad, so the optimizer skips them), and
+TPU.REMAT_BACKBONE "auto" recomputes each trainable block in the backward
+pass (torch.utils.checkpoint) only for bodies of more than 16 blocks or
+with grouped convs: R-50 runs without it.
 """
 
 from collections import namedtuple
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Conv2d, FrozenBatchNorm2d, conv_frozen_bn, init_conv_, max_pool2d
 
@@ -114,6 +122,19 @@ class ResNet(nn.Module):
         self.out_channels = [
             out2 * 2 ** (s.index - 1) for s in specs if s.return_features
         ]
+        # stage i (1-based) is frozen when FREEZE_CONV_BODY_AT >= i + 1
+        freeze_at = cfg.MODEL.BACKBONE.FREEZE_CONV_BODY_AT
+        frozen = ([self.stem] if freeze_at >= 1 else []) + [
+            getattr(self, name) for k, name in enumerate(self.stage_names) if freeze_at >= k + 2
+        ]
+        for module in frozen:
+            module.requires_grad_(False)
+        self.trainable_stages = [k + 2 > freeze_at for k in range(len(self.stage_names))]
+        remat = cfg.TPU.REMAT_BACKBONE
+        if remat == "auto":
+            self.remat = sum(s.block_count for s in specs) > 16 or r.NUM_GROUPS > 1
+        else:
+            self.remat = remat in (True, "all", "on")
 
     def reset_parameters(self, gen):
         init_conv_(self.stem.conv1, gen)
@@ -124,9 +145,11 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = self.stem(x)
         outputs = []
-        for name, ret in zip(self.stage_names, self.return_features):
+        for name, ret, trainable in zip(self.stage_names, self.return_features,
+                                        self.trainable_stages):
+            remat = self.remat and trainable and torch.is_grad_enabled()
             for block in getattr(self, name):
-                x = block(x)
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if ret:
                 outputs.append(x)
         return outputs

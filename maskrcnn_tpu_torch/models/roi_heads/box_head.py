@@ -1,10 +1,13 @@
-"""ROI box head (FPN): 2-layer MLP extractor, predictor, inference.
+"""ROI box head (FPN): 2-layer MLP extractor, predictor, training targets,
+loss and inference.
 
 PyTorch counterpart of maskrcnn_tpu/models/roi_heads/box_head.py for the
-FPN2MLPFeatureExtractor + FPNPredictor pair and ``box_head_inference``:
-softmax, per-class decode and clip, a top-k prefilter per (image, class)
-lane, per-class NMS over all lanes at once, and the top DETECTIONS_PER_IMG
-survivors per image as padded outputs.
+FPN2MLPFeatureExtractor + FPNPredictor pair; ``prepare_box_targets`` (match
+the proposals to the gt, sample a fixed ROI batch, encode its targets) and
+``box_head_loss``; and ``box_head_inference``: softmax, per-class decode and
+clip, a top-k prefilter per (image, class) lane, per-class NMS over all
+lanes at once, and the top DETECTIONS_PER_IMG survivors per image as padded
+outputs.
 
 The pooled [R, P, P, C] features are flattened in (P, P, C) order, as the
 JAX head flattens its NHWC patches, so fc6 converts from the JAX weight by a
@@ -15,8 +18,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.box_ops import clip_boxes_to_image, decode_boxes
+from ...ops.box_ops import box_iou, clip_boxes_to_image, decode_boxes, encode_boxes
+from ...ops.losses import smooth_l1_loss, softmax_cross_entropy
+from ...ops.matcher import match_proposals
 from ...ops.nms import NEG_INF, batched_nms
+from ...ops.sampler import sample_topk_indices
 from ..layers import Linear, init_linear_
 from ..rpn import top_k_stable
 
@@ -72,6 +78,58 @@ class BoxHead(nn.Module):
 
     def forward(self, pooled):
         return self.predictor(self.feature_extractor(pooled))
+
+
+def _take(x, idx):
+    """x [B, N, ...] gathered along N at idx [B, K]."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def prepare_box_targets(proposals, prop_valid, gt_boxes, gt_labels, pos_draw, neg_draw,
+                        fg_iou, bg_iou, batch_per_image, positive_fraction, reg_weights):
+    """Match the proposals [B, P, 4] (valid [B, P]) to the gt (boxes
+    [B, G, 4], labels [B, G], 0 = padding) and sample a fixed batch of
+    K ROIs per image with the uniform draws pos_draw, neg_draw [B, P].
+
+    Returns a dict of rois [B, K, 4], labels [B, K] (0 background, -1
+    unsampled), reg_targets [B, K, 4], valid, is_pos [B, K] and
+    matched_gt_idx [B, K]."""
+    iou = box_iou(gt_boxes, proposals)  # [B, G, P]
+    iou = torch.where(prop_valid[:, None, :], iou, torch.full_like(iou, -1.0))
+    matched = match_proposals(iou, gt_labels > 0, fg_iou, bg_iou)  # [B, P]
+    safe = matched.clamp(min=0).long()
+    cls_labels = torch.where(matched >= 0, torch.gather(gt_labels, 1, safe).long(),
+                             torch.where(matched == -1, 0, -1))
+    cls_labels = torch.where(prop_valid, cls_labels, -1)
+    idx, valid, is_pos = sample_topk_indices(cls_labels, pos_draw, neg_draw,
+                                             batch_per_image, positive_fraction)
+    rois = _take(proposals, idx)
+    labels = torch.where(valid, torch.gather(cls_labels, 1, idx).clamp(min=0), -1)
+    mg = torch.gather(safe, 1, idx)
+    reg_targets = encode_boxes(_take(gt_boxes, mg), rois, reg_weights)
+    return dict(rois=rois, labels=labels, reg_targets=reg_targets, valid=valid,
+                is_pos=is_pos, matched_gt_idx=mg)
+
+
+def box_head_loss(class_logits, box_regression, targets, cls_agnostic=False):
+    """class_logits [B*K, C], box_regression [B*K, 4C] (or [B*K, 8]): the
+    cross-entropy mean over the sampled ROIs, and smooth-L1 (beta 1) at the
+    gt-class columns of the positives, summed over the sampled count."""
+    labels = targets["labels"].reshape(-1)
+    valid = targets["valid"].reshape(-1)
+    is_pos = targets["is_pos"].reshape(-1) & valid
+    reg_targets = targets["reg_targets"].reshape(-1, 4)
+    cls_loss = softmax_cross_entropy(class_logits, labels, mask=valid)
+    cols = torch.arange(4, device=labels.device)[None, :]
+    if cls_agnostic:
+        cols = cols + 4
+    else:
+        num_reg = box_regression.shape[-1] // 4
+        cols = labels.clamp(0, num_reg - 1)[:, None] * 4 + cols
+    picked = torch.gather(box_regression, 1, cols.expand(labels.shape[0], 4))
+    l1 = smooth_l1_loss(picked, reg_targets, beta=1.0)
+    n_sampled = valid.sum().clamp(min=1)
+    return cls_loss, (l1 * is_pos[:, None]).sum() / n_sampled
 
 
 def box_head_inference(class_logits, box_regression, proposals, prop_valid,

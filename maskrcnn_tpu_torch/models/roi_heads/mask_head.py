@@ -1,15 +1,18 @@
-"""ROI mask head (FPN): 4-conv extractor and the deconv + 1x1 predictor.
+"""ROI mask head (FPN): 4-conv extractor, the deconv + 1x1 predictor, and
+the training pieces.
 
 PyTorch counterpart of maskrcnn_tpu/models/roi_heads/mask_head.py for the
-MaskRCNNFPNFeatureExtractor + MaskRCNNC4Predictor pair used at inference.
-The training-only pieces (gt-class logits, target projection, loss) are
-the next slice.
+MaskRCNNFPNFeatureExtractor + MaskRCNNC4Predictor pair: full logits at
+inference; in training the logits of each ROI's gt class only
+(``MaskHead.logits_at_class``), the positive-ROI selection, the projection
+of the gt mask patches into the ROI frames, and the BCE loss.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.sampler import top_k_fast
 from ..layers import Conv2d, ConvTranspose2d, init_conv_
 
 
@@ -87,3 +90,75 @@ class MaskHead(nn.Module):
         safe = labels.long().clamp(0, logits.shape[1] - 1)
         picked = logits[torch.arange(logits.shape[0], device=logits.device), safe]
         return torch.sigmoid(picked)
+
+    def logits_at_class(self, pooled, labels):
+        """Training: pooled [R, P, P, C] (NHWC), labels [R] -> float32 logits
+        [R, M, M] of each ROI's label only. The 1x1 predictor's weight column
+        of that class is gathered first, so the other classes' maps are
+        never computed (apply_mask_predictor_at_class)."""
+        x = self.feature_extractor(pooled.permute(0, 3, 1, 2))
+        x = F.relu(self.predictor.conv5_mask(x))
+        fcn = self.predictor.mask_fcn_logits
+        safe = labels.long().clamp(0, fcn.out_channels - 1)
+        wl = fcn.weight[:, :, 0, 0][safe].to(x.dtype)  # [R, D]
+        out = torch.einsum("rdhw,rd->rhw", x, wl)
+        return (out + fcn.bias[safe].to(x.dtype)[:, None, None]).float()
+
+
+def select_positive_rois(targets, k_mask):
+    """The first k_mask positive ROIs of each image's sampled batch
+    (positives come first): (idx [B, Km], valid [B, Km])."""
+    is_pos = targets["is_pos"] & targets["valid"]
+    k = is_pos.shape[1]
+    score = is_pos.float() - torch.arange(k, device=is_pos.device)[None, :] * 1e-6
+    top, idx = top_k_fast(score, min(k_mask, k))
+    return idx, top > 0.5
+
+
+def project_gt_masks(gt_patches, gt_boxes, proposal_boxes, out_size):
+    """Resample gt mask patches into proposal crop frames.
+
+    gt_patches [R, S, S] (the matched instance's mask over its gt box),
+    gt_boxes [R, 4], proposal_boxes [R, 4] -> [R, M, M] float targets in
+    [0, 1]: bilinear samples at the M x M output pixel centres, zero
+    outside the patch."""
+    r, s, _ = gt_patches.shape
+    m = out_size
+    gx1, gy1, gx2, gy2 = gt_boxes.unbind(-1)
+    px1, py1, px2, py2 = proposal_boxes.unbind(-1)
+    gw = (gx2 - gx1).clamp(min=1.0)
+    gh = (gy2 - gy1).clamp(min=1.0)
+    pw = (px2 - px1).clamp(min=1.0)
+    ph = (py2 - py1).clamp(min=1.0)
+    u = (torch.arange(m, dtype=torch.float32, device=gt_boxes.device) + 0.5) / m
+    x_img = px1[:, None] + u[None, :] * pw[:, None]
+    y_img = py1[:, None] + u[None, :] * ph[:, None]
+    size = torch.full_like(gw, float(s))
+    xq = (x_img - gx1[:, None]) * (size / gw)[:, None] - 0.5
+    yq = (y_img - gy1[:, None]) * (size / gh)[:, None] - 0.5
+
+    patches = gt_patches.float()
+    y0 = torch.floor(yq).long()
+    x0 = torch.floor(xq).long()
+    wy = (yq - y0)[:, :, None]
+    wx = (xq - x0)[:, None, :]
+    rows = torch.arange(r, device=patches.device)[:, None, None]
+
+    def corner(yi, xi):
+        inside = (((yi >= 0) & (yi <= s - 1))[:, :, None]
+                  & ((xi >= 0) & (xi <= s - 1))[:, None, :])
+        v = patches[rows, yi.clamp(0, s - 1)[:, :, None], xi.clamp(0, s - 1)[:, None, :]]
+        return v * inside
+
+    return (corner(y0, x0) * (1 - wy) * (1 - wx) + corner(y0, x0 + 1) * (1 - wy) * wx
+            + corner(y0 + 1, x0) * wy * (1 - wx) + corner(y0 + 1, x0 + 1) * wy * wx)
+
+
+def mask_head_loss_picked(picked, mask_targets, valid):
+    """BCE of the gt-class logits [R, M, M] against the targets binarised
+    at 0.5, mean over the valid ROIs' pixels."""
+    m = picked.shape[1]
+    t = (mask_targets >= 0.5).float()
+    per = F.softplus(picked) - picked * t
+    w = valid.float()[:, None, None]
+    return (per * w).sum() / (w.sum() * m * m).clamp(min=1.0)

@@ -1,19 +1,23 @@
-"""Region Proposal Network: head and fixed-shape proposal selection.
+"""Region Proposal Network: head, fixed-shape proposal selection, loss.
 
-PyTorch counterpart of maskrcnn_tpu/models/rpn.py (inference): the shared
-3x3 conv with the cls and reg 1x1 convs run as one merged conv, and
-``select_proposals(is_train=False)``: per-level top-k, decode, clip, one
-batched NMS over all (level, image) lanes, per-lane top-k, then the FPN
-top-k over the concatenated levels. Training (loss, matcher, sampling) is
-the next slice.
+PyTorch counterpart of maskrcnn_tpu/models/rpn.py: the shared 3x3 conv with
+the cls and reg 1x1 convs run as one merged conv; ``select_proposals``:
+per-level top-k, decode, clip, one batched NMS over all (level, image)
+lanes, per-lane top-k, then the FPN top-k over the concatenated levels (in
+training over the whole batch, FPN_POST_NMS_PER_BATCH, with the gt boxes
+appended); and ``rpn_loss``: anchor matcher, balanced sampler, BCE and
+smooth-L1 over the sampled anchors.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.box_ops import clip_boxes_to_image, decode_boxes, small_box_mask
+from ..ops.box_ops import clip_boxes_to_image, decode_boxes, encode_boxes, small_box_mask
+from ..ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
+from ..ops.matcher import match_anchors_batched
 from ..ops.nms import NEG_INF, batched_nms
+from ..ops.sampler import sample_topk_indices
 from .layers import Conv2d, init_conv_
 
 
@@ -72,13 +76,16 @@ def _pad_to(x, k, fill):
 
 
 def select_proposals(anchors_per_level, objectness_per_level, bbox_reg_per_level,
-                     image_sizes, rpn_cfg):
-    """Inference proposals. objectness [B, A, H, W] and bbox_reg
-    [B, 4A, H, W] per level (NCHW head outputs); image_sizes [B, 2] (h, w).
-    Returns boxes [B, P, 4], scores [B, P], valid [B, P]."""
-    pre_nms = rpn_cfg.PRE_NMS_TOP_N_TEST
-    post_nms = rpn_cfg.POST_NMS_TOP_N_TEST
-    fpn_post = rpn_cfg.FPN_POST_NMS_TOP_N_TEST
+                     image_sizes, rpn_cfg, is_train=False, gt_boxes=None, gt_valid=None):
+    """Proposals. objectness [B, A, H, W] and bbox_reg [B, 4A, H, W] per
+    level (NCHW head outputs); image_sizes [B, 2] (h, w); in training the gt
+    boxes [B, G, 4] and gt_valid [B, G] are appended with score 1. Returns
+    boxes [B, P, 4], scores [B, P], valid [B, P]. Nothing here carries a
+    gradient: callers pass detached head outputs."""
+    phase = "TRAIN" if is_train else "TEST"
+    pre_nms = rpn_cfg["PRE_NMS_TOP_N_" + phase]
+    post_nms = rpn_cfg["POST_NMS_TOP_N_" + phase]
+    fpn_post = rpn_cfg["FPN_POST_NMS_TOP_N_" + phase]
     h = image_sizes[:, 0:1].float()
     w = image_sizes[:, 1:2].float()
     num_levels = len(anchors_per_level)
@@ -114,9 +121,44 @@ def select_proposals(anchors_per_level, objectness_per_level, bbox_reg_per_level
     if num_levels > 1:
         k = min(fpn_post, scores.shape[1])
         masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+        if is_train and rpn_cfg.FPN_POST_NMS_PER_BATCH:
+            # the Detectron quirk: in training the FPN top-k runs over the
+            # whole batch; a rank threshold keeps the per-image shape
+            flat = masked.reshape(-1)
+            kth = torch.topk(flat, min(fpn_post, flat.numel())).values[-1]
+            keep = masked >= torch.clamp(kth, min=NEG_INF / 2)
+            masked = torch.where(keep, masked, torch.full_like(masked, NEG_INF))
         sel_scores, sel = torch.topk(masked, k, dim=-1)
         valid = sel_scores > NEG_INF / 2
         boxes = torch.gather(boxes, 1, sel[..., None].expand(-1, -1, 4))
         boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
         scores = torch.where(valid, sel_scores, torch.zeros_like(sel_scores))
+    if is_train and gt_boxes is not None:
+        boxes = torch.cat([boxes, gt_boxes.to(boxes.dtype)], dim=1)
+        scores = torch.cat([scores, gt_valid.to(scores.dtype)], dim=1)
+        valid = torch.cat([valid, gt_valid], dim=1)
     return boxes, scores, valid
+
+
+def rpn_loss(anchors, visible, objectness, bbox_reg, gt_boxes, gt_valid, pos_draw,
+             neg_draw, fg_iou, bg_iou, batch_per_image, positive_fraction):
+    """anchors [N, 4] (all levels), visible [B, N] bool, objectness [B, N]
+    logits and bbox_reg [B, N, 4] in the anchors' order, gt_boxes [B, G, 4],
+    gt_valid [B, G], the sampler's uniform draws pos_draw and neg_draw
+    [B, N]. Returns (objectness loss, box loss), both normalised by the
+    number of sampled anchors in the batch."""
+    matched = match_anchors_batched(anchors, gt_boxes, gt_valid, fg_iou, bg_iou)
+    labels = torch.where(matched >= 0, 1, torch.where(matched == -1, 0, -1))
+    labels = torch.where(visible, labels, -1)
+    idx, valid, is_pos = sample_topk_indices(labels, pos_draw, neg_draw, batch_per_image,
+                                             positive_fraction)  # [B, K]
+    m_idx = torch.gather(matched, 1, idx).clamp(min=0).long()
+    gt_sel = torch.gather(gt_boxes, 1, m_idx[..., None].expand(-1, -1, 4))
+    reg_t = encode_boxes(gt_sel, anchors[idx])
+    obj_s = torch.gather(objectness, 1, idx)
+    reg_s = torch.gather(bbox_reg, 1, idx[..., None].expand(-1, -1, 4))
+    n_sampled = valid.sum().clamp(min=1)
+    box_l = smooth_l1_loss(reg_s.float(), reg_t, beta=1.0 / 9)
+    box_loss = (box_l * is_pos[..., None]).sum() / n_sampled
+    obj_l = binary_cross_entropy_with_logits(obj_s.float(), is_pos.float())
+    return (obj_l * valid).sum() / n_sampled, box_loss

@@ -1,7 +1,7 @@
 """Box math with the reference's ``+1`` pixel convention.
 
-PyTorch counterpart of maskrcnn_tpu/ops/box_ops.py (the inference subset:
-area, IoU, decode, clip, small-box filter). Boxes are xyxy [..., N, 4].
+PyTorch counterpart of maskrcnn_tpu/ops/box_ops.py: area, IoU, encode,
+decode, clip, small-box filter. Boxes are xyxy [..., N, 4].
   * width = x2 - x1 + 1
   * decode subtracts 1 from x2/y2
   * dw/dh clipped at log(1000/16) before exp
@@ -31,6 +31,32 @@ def box_iou(boxes1, boxes2):
     inter = wh[..., 0] * wh[..., 1]
     union = area1[..., :, None] + area2[..., None, :] - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+def encode_boxes(reference_boxes, proposals, weights=(1.0, 1.0, 1.0, 1.0)):
+    """Regression targets (dx, dy, dw, dh) mapping `proposals` onto
+    `reference_boxes` (the gt), as the reference BoxCoder.encode. Widths
+    are floored at 1e-6 so padded boxes keep the log finite (their targets
+    are masked out by the callers)."""
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0] + TO_REMOVE
+    ex_h = proposals[..., 3] - proposals[..., 1] + TO_REMOVE
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + TO_REMOVE
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + TO_REMOVE
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+    ex_w = ex_w.clamp(min=1e-6)
+    ex_h = ex_h.clamp(min=1e-6)
+    gt_w = gt_w.clamp(min=1e-6)
+    gt_h = gt_h.clamp(min=1e-6)
+    return torch.stack([
+        wx * (gt_cx - ex_cx) / ex_w,
+        wy * (gt_cy - ex_cy) / ex_h,
+        ww * torch.log(gt_w / ex_w),
+        wh * torch.log(gt_h / ex_h),
+    ], dim=-1)
 
 
 def decode_boxes(rel_codes, boxes, weights=(1.0, 1.0, 1.0, 1.0)):

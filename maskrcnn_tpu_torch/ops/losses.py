@@ -1,0 +1,33 @@
+"""Loss functions of the two-stage detectors: smooth-L1, masked softmax
+cross-entropy, binary cross-entropy with logits.
+
+PyTorch counterpart of maskrcnn_tpu/ops/losses.py. Reductions are the
+callers' explicit masked sums, as in the JAX package. The focal loss waits
+for RetinaNet.
+"""
+
+import torch
+import torch.nn.functional as F
+
+
+def smooth_l1_loss(input, target, beta=1.0 / 9):
+    """Elementwise beta-parameterised Huber loss."""
+    n = (input - target).abs()
+    return torch.where(n < beta, 0.5 * n * n / beta, n - 0.5 * beta)
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean cross-entropy over the masked rows. logits [N, C], labels [N]
+    int (clamped into range; masked-out rows may carry -1)."""
+    log_probs = F.log_softmax(logits, dim=-1)
+    safe = labels.long().clamp(0, logits.shape[-1] - 1)
+    nll = -log_probs.gather(-1, safe[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(logits.dtype)
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def binary_cross_entropy_with_logits(logits, targets):
+    """Elementwise BCE with logits: softplus(x) - x * t."""
+    return F.softplus(logits) - logits * targets

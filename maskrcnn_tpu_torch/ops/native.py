@@ -20,11 +20,11 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNELS = ("nms", "roi_align")
+KERNELS = ("nms", "roi_align", "matcher")
 
 # -fmad=false: no FMA contraction, so the kernels round each product and sum
-# as their plain PyTorch versions do (NMS decisions at the IoU threshold must
-# agree exactly).
+# as their plain PyTorch versions do (NMS decisions at the IoU threshold and
+# the matcher's thresholds and ties must agree exactly).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

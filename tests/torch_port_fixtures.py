@@ -77,3 +77,46 @@ def random_boxes(rs, n, lo, hi, min_wh, max_wh):
     ctr = rs.uniform(lo, hi, (n, 2))
     wh = rs.uniform(min_wh, max_wh, (n, 2))
     return np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+
+
+def train_batch(seed=0, b=2, h=128, w=160, g=8, mask_size=112):
+    """A padded training batch as numpy arrays: uint8 images, image sizes,
+    2-6 gt boxes per image (the second image with a padding hole at gt 1),
+    labels and binary gt mask patches. The patches are random in 4 x 4
+    blocks: a gt box used as a proposal samples each patch at the middle
+    between two pixels, and per-pixel noise would put many targets at
+    exactly 0.5, where the jitted JAX reference itself flips them with its
+    rounding."""
+    rs = np.random.RandomState(seed)
+    gt = np.zeros((b, g, 4), np.float32)
+    labels = np.zeros((b, g), np.int32)
+    for i in range(b):
+        n = rs.randint(2, min(g, 6) + 1)
+        gt[i, :n] = random_boxes(rs, n, 20, min(h, w) - 20, 8, 70)
+        labels[i, :n] = rs.randint(1, 81, n)
+    labels[-1, 1] = 0
+    sizes = np.array([[h, w]] + [[h - 16 * i, w - 24 * i] for i in range(1, b)], np.int32)
+    return {
+        "images": rs.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+        "image_sizes": sizes,
+        "gt_boxes": gt,
+        "gt_labels": labels,
+        "gt_masks": (rs.rand(b, g, mask_size // 4, mask_size // 4) > 0.5)
+        .repeat(4, axis=2).repeat(4, axis=3).astype(np.uint8),
+    }
+
+
+def jax_sampler_draws(rng, b, n_anchors, n_proposals):
+    """The uniform draws JAX's train_forward makes from `rng`, split as
+    detector.py, rpn.py (rpn_loss), box_head.py (prepare_box_targets) and
+    sampler.py (sample_topk_indices) split it, as the port's draws dict."""
+    rng_rpn, rng_box = jax.random.split(rng)
+    draws = {}
+    for kind, key, n in (("rpn", rng_rpn, n_anchors), ("box", rng_box, n_proposals)):
+        pos, neg = [], []
+        for k in jax.random.split(key, b):
+            kp, kn = jax.random.split(k)
+            pos.append(np.asarray(jax.random.uniform(kp, (n,))))
+            neg.append(np.asarray(jax.random.uniform(kn, (n,))))
+        draws[kind + "_pos"], draws[kind + "_neg"] = np.stack(pos), np.stack(neg)
+    return draws
