@@ -7,8 +7,9 @@ Run from the root of a checkout, with one card visible:
 
 Phases; any failure exits non-zero and prints no result line:
   1. the card's name and power limit (nvidia-smi); every CUDA kernel of the
-     port built from maskrcnn_tpu_torch/csrc by nvcc, one process per
-     source, all started together, with ptxas's register and spill report.
+     port built from maskrcnn_tpu_torch/csrc by nvcc, and the host mask
+     rasterizer by the C++ compiler, one process per source, all started
+     together, with ptxas's register and spill report.
 Serving:
   2. the flagship Mask R-CNN R-50-FPN at full width from the port's seeded
      init, bfloat16 compute. ROI_HEADS.SCORE_THRESH is lowered to 0: random
@@ -31,21 +32,44 @@ Training (a second model instance):
      losses finite; trainable parameters moved, frozen ones (stem, layer1)
      did not;
   8. the launch counts of the counted step: matcher 1, NMS 1, ROIAlign
-     forward 2, ROIAlign backward 2;
+     forward 2, the default "roi" ROIAlign backward 2;
   9. each kernel against its plain version on the inputs that step fed it,
-     timed beside its bound;
+     timed beside its bound; the three ROIAlign backwards ("roi", "rmw",
+     "chunk") each on the gradients that step gave the two poolers;
  10. one float32 step on a small batch, the same weights and sampler draws
      on the card (kernels) and on the CPU (plain versions): losses and a
-     handful of gradients agree;
+     handful of gradients agree; then again with the "rmw" backward at P=7
+     and "chunk" at P=14;
  11. training img/s and MFU (FLOPs of one step from FlopCounterMode against
      the H100's 989 TFLOP/s dense bf16), and a torch.profiler breakdown of
      two steps' device time.
-Then one JSON line of kernels, the card's line, and the result line.
+The training entry point (a third model instance):
+ 12. a synthetic COCO-format tree of 32 images of 480x640 from the seed,
+     with bench.py's gt statistics and polygon masks; the images are handed
+     to COCODataset by overriding its _load_image (the card's machine has
+     no image decoder); MODEL.WEIGHT, the seeded flagship with frozen-BN
+     statistics from 8 of the images;
+ 13. python -m maskrcnn_tpu_torch.tools.train_net's main, in-process, on the
+     flagship at full width (its keys as KEY VALUE overrides: no YAML on the
+     card), batch 8 at 800x1333, 4 DataLoader workers, 8 iterations with a
+     checkpoint every 4, MASKRCNN_POOLER_BWD_P7=rmw and _P14=chunk: launches
+     per step (matcher 1, NMS 1, ROIAlign forward 2, "rmw" 1, "chunk" 1,
+     "roi" 0), the logged iterations, the checkpoint files, finite losses,
+     s/iter, img/s, the share of the time spent waiting for the loader, and
+     the loader's own rate at these settings (24 batches past its first);
+ 14. a resumed run to 12: it loads model_final, starts from the saved
+     parameters and logs no iteration below 9.
+Then one JSON line of the six kernels, the card's line, and the result line.
 """
 
+import contextlib
 import json
+import logging
 import math
 import os
+import re
+import shutil
+import tempfile
 import subprocess
 import sys
 import time
@@ -129,6 +153,30 @@ class Capture:
     def __exit__(self, *exc):
         for m, fn in zip(self.modules, self.saved):
             setattr(m, self.name, fn)
+
+
+def training_counters(poolers, matcher, nms):
+    """The launch counters of the kernels a training step may run."""
+    return {"matcher": matcher.match_anchors_batched, "nms": nms.batched_nms,
+            "roi_align": poolers.multilevel_roi_align,
+            "roi_align_backward": poolers.roi_align_backward,
+            "roi_align_backward_rmw": poolers.roi_align_backward_rmw,
+            "roi_align_backward_chunk": poolers.roi_align_backward_chunk}
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Environment variables set for the duration of a block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def bound(nbytes, ops):
@@ -223,14 +271,17 @@ def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low):
     }
 
 
-def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout):
-    """The backward kernel on the gradient the step's backward gave the
-    pooled output, against autograd through the plain float32 forward."""
+def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"):
+    """The backward kernel `kind` ("roi", "rmw" or "chunk") on the gradient
+    the step's backward gave the pooled output, against autograd through the
+    plain float32 forward; for the window backwards also the shape of their
+    layout on these ROIs."""
     shapes = [tuple(f.shape) for f in feats]
     b32, i32 = boxes.detach().contiguous(), bidx.to(torch.int32).contiguous()
     lvl = poolers.assign_levels(b32, pcfg).contiguous()
-    got = poolers.roi_align_backward(dout, shapes, b32, i32, lvl, pcfg)
-    got32 = poolers.roi_align_backward(dout.float(), shapes, b32, i32, lvl, pcfg)
+    wrapper = poolers.BACKWARD_KERNELS[kind]
+    got = wrapper(dout, shapes, b32, i32, lvl, pcfg)
+    got32 = wrapper(dout.float(), shapes, b32, i32, lvl, pcfg)
     leaves = [torch.zeros(sh, device=dout.device, requires_grad=True) for sh in shapes]
     plain_out = poolers.multilevel_roi_align_plain(leaves, b32, bidx, pcfg)
     want = torch.autograd.grad(plain_out, leaves, dout.float(), retain_graph=True)
@@ -238,10 +289,10 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout):
     err32 = max((g - w).abs().max().item() for g, w in zip(got32, want))
     err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
     check(scale > 0, "ROIAlign backward: zero gradient at P={}".format(pcfg.output_size))
-    check(err32 <= 1e-5 * scale, "ROIAlign backward kernel (float32) off by {} > 1e-5 * {}"
-          .format(err32, scale))
-    check(err <= 1e-2 * scale, "ROIAlign backward kernel ({}) off by {} > 1e-2 * {}".format(
-        dout.dtype, err, scale))
+    check(err32 <= 1e-5 * scale, "ROIAlign {} backward kernel (float32) off by {} > 1e-5 * {}"
+          .format(kind, err32, scale))
+    check(err <= 1e-2 * scale, "ROIAlign {} backward kernel ({}) off by {} > 1e-2 * {}".format(
+        kind, dout.dtype, err, scale))
     total = sum(math.prod(sh) for sh in shapes)
     acc = torch.empty((total,), dtype=torch.float32, device=dout.device)
     out = torch.empty((total,), dtype=dout.dtype, device=dout.device)
@@ -252,17 +303,28 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout):
     # every pooled level written once in the compute dtype
     b_ms, b_by = bound(dout.numel() * item + r * 20 + total * item,
                        r * p * p * c * (ROI_OPS_PER_SAMPLE * s * s + 1))
-    return {
-        "rois": r, "P": p, "dtype": str(dout.dtype).replace("torch.", ""),
+    inputs = None
+    site = {"kind": kind, "rois": r, "P": p, "dtype": str(dout.dtype).replace("torch.", "")}
+    if kind != "roi":
+        inputs = poolers.window_kernel_inputs(kind, shapes, b32, i32, lvl, pcfg)
+        lay = inputs["layout"]
+        per_window = torch.bincount(lay["rwid"][:r])
+        site.update(windows=int(per_window.numel()), rois_per_window_mean=r / per_window.numel(),
+                    rois_per_window_max=int(per_window.max()),
+                    oversize_rois=int(lay["oversize"].sum()))
+        if kind == "chunk":
+            pure = inputs["chunks"]["pure"]
+            site.update(chunks=int(pure.numel()), pure_chunk_share=float(pure.float().mean()))
+    site.update({
         "max_abs_err": err, "max_abs_err_float32": err32, "max_abs_grad": scale,
-        "ms": cuda_ms(torch, lambda: poolers.roi_align_backward(
-            dout, shapes, b32, i32, lvl, pcfg), 20),
+        "ms": cuda_ms(torch, lambda: wrapper(dout, shapes, b32, i32, lvl, pcfg), 20),
         "kernel_ms": cuda_ms(torch, lambda: poolers.launch_backward(
-            shapes, b32, i32, lvl, pcfg, dc, acc, out), 20),
+            shapes, b32, i32, lvl, pcfg, dc, acc, out, kind, inputs), 20),
         "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
             plain_out, leaves, dout.float(), retain_graph=True), 5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
-    }
+    })
+    return site
 
 
 def kernel_entry(name, source, replaces, launches, sites):
@@ -340,9 +402,9 @@ def run(torch):
     card = card_line()
     print("card:", card, flush=True)
     t0 = time.perf_counter()
-    logs = native.build()
-    print("built {} with nvcc in {:.1f} s ({})".format(
-        ", ".join(native.KERNELS), time.perf_counter() - t0,
+    logs = native.build(native.KERNELS + native.HOST_LIBS)
+    print("built {} in {:.1f} s ({})".format(
+        ", ".join(native.KERNELS + native.HOST_LIBS), time.perf_counter() - t0,
         "compiled: " + ", ".join(logs) if logs else "already built"), flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -384,21 +446,21 @@ def run(torch):
             len(results) - 1, img.shape[0], img.shape[1], latencies[-1],
             len(results[-1]["scores"]), card), flush=True)
 
-    counters = (nms.batched_nms, poolers.multilevel_roi_align, poolers.roi_align_backward,
-                matcher.match_anchors_batched)
-    for fn in counters:
+    counters = training_counters(poolers, matcher, nms)
+    for fn in counters.values():
         fn.launches = 0
     with Capture([rpn, box_head], "batched_nms") as nms_cap, \
             Capture([detector], "multilevel_roi_align") as roi_cap:
         serve(images[0])
     for img in images[1:]:
         serve(img)
-    n_nms, n_roi, n_bwd, n_match = (fn.launches for fn in counters)
+    serving = {k: fn.launches for k, fn in counters.items()}
+    n_nms, n_roi = serving["nms"], serving["roi_align"]
 
     # 4. launch counts of the main path
-    print("launches in {} requests: nms {}, roi_align {}, roi_align_backward {}, matcher {}"
-          .format(len(images), n_nms, n_roi, n_bwd, n_match))
-    check(n_bwd == n_match == 0, "serving launched training kernels")
+    print("launches in {} requests: {}".format(len(images), json.dumps(serving)))
+    check(all(serving[k] == 0 for k in serving if k not in ("nms", "roi_align")),
+          "serving launched training kernels")
     check(n_nms == 2 * len(images), "NMS kernel launched {} times, expected {}"
           .format(n_nms, 2 * len(images)))
     check(n_roi == 2 * len(images), "ROIAlign kernel launched {} times, expected {}"
@@ -451,24 +513,28 @@ def run(torch):
     torch.cuda.empty_cache()
 
     tr = train_phase(torch, np, card)
-    launches = tr["launches"]
+    torch.cuda.empty_cache()
+    entry = entry_point_phase(torch, np, card, tr["throughput"])
+
+    def by_path(key):
+        return {"serving": serving[key], "training": tr["launches"][key],
+                "entry_point": entry["launches"][key]}
+
+    roi_cu = "maskrcnn_tpu_torch/csrc/roi_align.cu"
+    tpu = "maskrcnn_tpu/ops/pallas/"
     kernels = [
-        kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu",
-                     "maskrcnn_tpu/ops/pallas/nms_kernel.py:161",
-                     {"serving": n_nms, "training": launches["nms"]},
-                     nms_sites + tr["nms_sites"]),
-        kernel_entry("roi_align", "maskrcnn_tpu_torch/csrc/roi_align.cu",
-                     "maskrcnn_tpu/ops/pallas/roi_align_kernel.py:434",
-                     {"serving": n_roi, "training": launches["roi_align"]},
+        kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu", tpu + "nms_kernel.py:161",
+                     by_path("nms"), nms_sites + tr["nms_sites"]),
+        kernel_entry("roi_align", roi_cu, tpu + "roi_align_kernel.py:434", by_path("roi_align"),
                      roi_sites + tr["roi_sites"]),
-        kernel_entry("roi_align_backward", "maskrcnn_tpu_torch/csrc/roi_align.cu",
-                     "maskrcnn_tpu/ops/pallas/roi_align_kernel.py:1020",
-                     {"serving": n_bwd, "training": launches["roi_align_backward"]},
-                     tr["bwd_sites"]),
+        kernel_entry("roi_align_backward", roi_cu, tpu + "roi_align_kernel.py:1020",
+                     by_path("roi_align_backward"), tr["bwd_sites_roi"]),
+        kernel_entry("roi_align_backward_rmw", roi_cu, tpu + "roi_align_kernel.py:646",
+                     by_path("roi_align_backward_rmw"), tr["bwd_sites_rmw"]),
+        kernel_entry("roi_align_backward_chunk", roi_cu, tpu + "roi_align_kernel.py:850",
+                     by_path("roi_align_backward_chunk"), tr["bwd_sites_chunk"]),
         kernel_entry("matcher", "maskrcnn_tpu_torch/csrc/matcher.cu",
-                     "maskrcnn_tpu/ops/pallas/matcher_kernel.py:183",
-                     {"serving": n_match, "training": launches["matcher"]},
-                     tr["matcher_sites"]),
+                     tpu + "matcher_kernel.py:183", by_path("matcher"), tr["matcher_sites"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -550,9 +616,7 @@ def train_phase(torch, np, card):
     show("warm-up step", m, time.perf_counter() - t0)
 
     # 8. the counted step
-    counters = {"matcher": matcher.match_anchors_batched, "nms": nms.batched_nms,
-                "roi_align": poolers.multilevel_roi_align,
-                "roi_align_backward": poolers.roi_align_backward}
+    counters = training_counters(poolers, matcher, nms)
     for fn in counters.values():
         fn.launches = 0
     with Capture([rpn], "match_anchors_batched") as match_cap, \
@@ -565,7 +629,8 @@ def train_phase(torch, np, card):
     launches = {k: fn.launches for k, fn in counters.items()}
     show("counted step", m, dt)
     print("launches in one training step: " + json.dumps(launches), flush=True)
-    expected = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2}
+    expected = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2,
+                "roi_align_backward_rmw": 0, "roi_align_backward_chunk": 0}
     check(launches == expected, "training step launched {}, expected {}".format(
         launches, expected))
 
@@ -601,9 +666,11 @@ def train_phase(torch, np, card):
         sites["nms_sites"] = [nms_site(torch, nms, *nms_cap.calls[0], plain_iters=3)]
         sites["roi_sites"] = [roi_site(torch, poolers, [f.detach() for f in call[0]], *call[1:])
                               for call in roi_cap.calls]
-    sites["bwd_sites"] = [roi_backward_site(torch, poolers, [f.detach() for f in call[0]],
-                                            *call[1:], roi_cap.out_grads[i])
-                          for i, call in enumerate(roi_cap.calls)]
+    for kind in poolers.BACKWARDS:
+        sites["bwd_sites_" + kind] = [
+            roi_backward_site(torch, poolers, [f.detach() for f in call[0]], *call[1:],
+                              roi_cap.out_grads[i], kind)
+            for i, call in enumerate(roi_cap.calls)]
     del match_cap, nms_cap, roi_cap
     torch.cuda.empty_cache()
     g, n = sites["nms_sites"][0]["shape"]
@@ -612,14 +679,24 @@ def train_phase(torch, np, card):
     box_rois = TRAIN_BATCH * cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
     mask_rois = TRAIN_BATCH * cfg.TPU.MASK_ROI_CAP
     check([(x["rois"], x["P"]) for x in sites["roi_sites"]] == [(box_rois, 7), (mask_rois, 14)]
-          and [(x["rois"], x["P"]) for x in sites["bwd_sites"]] == [(box_rois, 7), (mask_rois, 14)],
+          and all([(x["rois"], x["P"]) for x in sites["bwd_sites_" + kind]]
+                  == [(box_rois, 7), (mask_rois, 14)] for kind in poolers.BACKWARDS),
           "training ROIAlign sites {}".format([(x["rois"], x["P"]) for x in sites["roi_sites"]]))
-    for k in ("matcher_sites", "nms_sites", "roi_sites", "bwd_sites"):
+    for k in ["matcher_sites", "nms_sites", "roi_sites"] + ["bwd_sites_" + kind
+                                                           for kind in poolers.BACKWARDS]:
         for site in sites[k]:
             print("training kernel site:", json.dumps(site), flush=True)
 
-    # 10. float32 card against CPU
-    train_reference_check(torch, np, cfg, model.state_dict())
+    # 10. float32 card against CPU, with the default backward and again with
+    # the window backwards
+    state = model.state_dict()
+    train_reference_check(torch, np, cfg, state, "roi")
+    window_kernels = ("roi_align_backward_rmw", "roi_align_backward_chunk")
+    before = {k: counters[k].launches for k in window_kernels}
+    with environ(MASKRCNN_POOLER_BWD_P7="rmw", MASKRCNN_POOLER_BWD_P14="chunk"):
+        train_reference_check(torch, np, cfg, state, "rmw at P=7, chunk at P=14")
+    check(all(counters[k].launches == v + 1 for k, v in before.items()),
+          "the float32 check did not run the window backwards")
 
     # 11. throughput
     torch.backends.cudnn.allow_tf32 = True
@@ -636,7 +713,206 @@ def train_phase(torch, np, card):
     print("training throughput: " + json.dumps(thr), flush=True)
     print("training step profile: " + json.dumps(profile_steps(torch, step, batch)), flush=True)
     sites["launches"] = launches
+    sites["throughput"] = thr
     return sites
+
+
+def synthetic_coco(np, root, n=32, hw=(480, 640), seed=0):
+    """A COCO-format training tree under root (coco_2017_train of the
+    dataset catalog): n images of hw made from `seed` (returned as arrays
+    by image id, not written: the card's machine has no image decoder) and
+    annotations with bench.py's gt statistics at this image size
+    (lognormal instance counts of mean ~7, log-uniform sides of 16-500 px
+    scaled by 480/800, 80 categories), each instance an octagon polygon
+    inscribed in its box."""
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    scale = min(hw) / 800
+    images, infos, anns = {}, [], []
+    angles = np.arange(8) * np.pi / 4
+    for img_id in range(1, n + 1):
+        images[img_id] = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        infos.append({"id": img_id, "file_name": "{:06d}.jpg".format(img_id), "height": h,
+                      "width": w})
+        n_gt = int(np.clip(rs.lognormal(mean=1.7, sigma=0.8), 1, 100))
+        side = np.exp(rs.uniform(np.log(16 * scale), np.log(500 * scale), (n_gt, 2)))
+        ctr = rs.uniform(0, 1, (n_gt, 2)) * np.array([w - 1, h - 1])
+        lo = np.clip(ctr - side / 2, 0, None)
+        hi = np.maximum(np.minimum(ctr + side / 2, [w - 1, h - 1]), lo + 2)
+        for (x0, y0), (x1, y1) in zip(lo, hi):
+            cx, cy, rx, ry = (x0 + x1) / 2, (y0 + y1) / 2, (x1 - x0) / 2, (y1 - y0) / 2
+            poly = np.stack([cx + rx * np.cos(angles), cy + ry * np.sin(angles)], 1)
+            anns.append({"id": len(anns) + 1, "image_id": img_id, "iscrowd": 0,
+                         "category_id": int(rs.randint(1, 81)),
+                         "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                         "area": float((x1 - x0) * (y1 - y0)),
+                         "segmentation": [poly.ravel().tolist()]})
+    os.makedirs(os.path.join(root, "coco", "annotations"))
+    os.makedirs(os.path.join(root, "coco", "train2017"))
+    with open(os.path.join(root, "coco", "annotations", "instances_train2017.json"), "w") as f:
+        json.dump({"images": infos, "annotations": anns,
+                   "categories": [{"id": c, "name": "class{}".format(c)} for c in range(1, 81)]},
+                  f)
+    return images, len(anns)
+
+
+def config_opts(cfg, base, prefix=""):
+    """KEY VALUE overrides that turn `base` into `cfg` (no YAML on the card)."""
+    opts = []
+    for k, v in cfg.items():
+        if isinstance(v, dict):
+            opts += config_opts(v, base[k], prefix + k + ".")
+        elif v != base[k]:
+            opts += [prefix + k, repr(v)]
+    return opts
+
+
+class LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def entry_point_phase(torch, np, card, step_throughput):
+    """12-14. The training entry point, python -m maskrcnn_tpu_torch.tools.train_net, run
+    in-process on the flagship at full width: the dataset catalog, COCODataset, the
+    transforms, the collator, the samplers and 4 DataLoader workers over a synthetic COCO
+    tree, the trainer and the checkpointer, with the "rmw" backward at P=7 and "chunk" at
+    P=14. 8 iterations with a checkpoint every 4, then a resumed run to 12."""
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.config import flagship_cfg
+    from maskrcnn_tpu_torch.data.build import make_data_loader
+    from maskrcnn_tpu_torch.data.datasets import COCODataset
+    from maskrcnn_tpu_torch.models import build_detection_model, poolers
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.tools import train_net
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    load_image = COCODataset._load_image
+    do_train = train_net.do_train
+    logs = LogLines()
+    loggers = [logging.getLogger(n) for n in ("maskrcnn_tpu_torch",
+                                              "maskrcnn_tpu_torch.checkpointer")]
+    for lg in loggers:  # train_net's setup_logger then adds no console handler
+        lg.addHandler(logs)
+        lg.setLevel(logging.INFO)
+        lg.propagate = False
+    try:
+        # 12. data and weights
+        images, n_anns = synthetic_coco(np, work)
+        COCODataset._load_image = lambda self, index: images[self.ids[index]]
+        print("entry point: synthetic COCO tree of {} images of 480x640 (seed {}), {} polygon "
+              "instances; COCODataset._load_image overridden to hand over the seeded arrays "
+              "(no image decoder on the card)".format(len(images), SEED, n_anns), flush=True)
+        cfg = flagship_cfg()
+        model = build_detection_model(cfg, device="cuda", seed=SEED)
+        first = torch.from_numpy(np.stack([images[i] for i in range(1, 9)])).cuda()
+        sizes = torch.tensor([[480, 640]] * 8, dtype=torch.int32, device="cuda")
+        calibrate_frozen_bn(torch, model, model._prepare_images(first, sizes))
+        weights = os.path.join(work, "weights.pth")
+        torch.save({"model": model.state_dict()}, weights)
+        del model, first
+        torch.cuda.empty_cache()
+        out = os.path.join(work, "out")
+        opts = config_opts(cfg, defaults) + [
+            "MODEL.DEVICE", "cuda", "MODEL.WEIGHT", weights,
+            "DATASETS.TRAIN", "('coco_2017_train',)", "SOLVER.IMS_PER_BATCH", "8",
+            "INPUT.MIN_SIZE_TRAIN", "(800,)",
+            "INPUT.MAX_SIZE_TRAIN", "1333", "SOLVER.CHECKPOINT_PERIOD", "4",
+            "DATALOADER.NUM_WORKERS", "4", "OUTPUT_DIR", out]
+        print("entry point: train_net --skip-test " + " ".join(opts) + " SOLVER.MAX_ITER 8, with "
+              "MASKRCNN_POOLER_BWD_P7=rmw MASKRCNN_POOLER_BWD_P14=chunk; MODEL.WEIGHT: the "
+              "seeded init with frozen-BN statistics from 8 of the images", flush=True)
+
+        def logged_iterations():
+            its = [int(m) for line in logs.lines for m in re.findall(r"iter: (\d+)", line)]
+            logs.lines.clear()
+            return its
+
+        # 13. eight iterations through the entry point
+        counters = training_counters(poolers, matcher, nms)
+        with environ(MASKRCNN_TPU_DATA_DIR=work, MASKRCNN_POOLER_BWD_P7="rmw",
+                     MASKRCNN_POOLER_BWD_P14="chunk"):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            _, meters = train_net.main(["--skip-test"] + opts + ["SOLVER.MAX_ITER", "8"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            lines = list(logs.lines)
+            its = logged_iterations()
+            for line in lines:
+                if "iter:" in line or "non-finite" in line or "skipped" in line:
+                    print("  train_net: " + line, flush=True)
+            print("entry point launches in 8 iterations: " + json.dumps(launches), flush=True)
+            per_step = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 0,
+                        "roi_align_backward_rmw": 1, "roi_align_backward_chunk": 1}
+            check(launches == {k: 8 * v for k, v in per_step.items()},
+                  "entry point launched {}, expected {} a step".format(launches, per_step))
+            check(its == [8], "the first run logged iterations {}".format(its))
+            for name in ("model_0000004.pth", "model_final.pth", "last_checkpoint"):
+                check(os.path.exists(os.path.join(out, name)),
+                      "no {} after 8 iterations".format(name))
+            losses = {k: m.global_avg for k, m in meters.meters.items() if k.startswith("loss")}
+            check(len(losses) == 6 and all(math.isfinite(v) for v in losses.values()),
+                  "entry point losses {}".format(losses))
+            times = list(meters.meters["time"].deque)
+            waits = list(meters.meters["data"].deque)
+            step_s = meters.meters["time"].median
+            # the loader alone at the same settings, past its first batch
+            lcfg = defaults.clone()
+            lcfg.merge_from_list(opts + ["SOLVER.MAX_ITER", "25"])
+            n_batches = 0
+            for _ in make_data_loader(lcfg, is_train=True):
+                n_batches += 1
+                if n_batches == 1:
+                    t_first = time.perf_counter()
+            loader_s = (time.perf_counter() - t_first) / (n_batches - 1)
+            thr = {"s_per_iter_median": step_s, "s_per_iter_each": times,
+                   "img_per_s": 8 / step_s, "data_time_share": sum(waits) / sum(times),
+                   "data_time_share_after_first": sum(waits[1:]) / sum(times[1:]),
+                   "data_s_each": waits, "wall_s": wall,
+                   "loader_alone_s_per_batch": loader_s, "loader_alone_img_per_s": 8 / loader_s,
+                   "make_train_step_img_per_s": step_throughput["img_per_s"], "card": card}
+            print("entry point throughput: " + json.dumps(thr), flush=True)
+
+            # 14. resume to 12 from model_final
+            final = os.path.join(out, "model_final.pth")
+            saved = torch.load(final, map_location="cpu", weights_only=True)
+            check(saved["iteration"] == 8, "model_final holds iteration {}".format(
+                saved["iteration"]))
+            start = {}
+
+            def recording(model, optimizer, *args, **kwargs):
+                start.update((k, v.detach().cpu().clone()) for k, v in model.state_dict().items())
+                return do_train(model, optimizer, *args, **kwargs)
+
+            train_net.do_train = recording
+            _, meters2 = train_net.main(["--skip-test"] + opts + ["SOLVER.MAX_ITER", "12"])
+            torch.cuda.synchronize()
+            resumed = any("Loading checkpoint from " + final in line for line in logs.lines)
+            its2 = logged_iterations()
+        check(resumed, "the resumed run did not load {}".format(final))
+        check(its2 and min(its2) >= 9, "the resumed run logged iterations {}".format(its2))
+        check(set(start) == set(saved["model"]) and all(
+            torch.equal(start[k], v) for k, v in saved["model"].items()),
+            "the resumed run did not start from the saved parameters")
+        losses2 = {k: m.global_avg for k, m in meters2.meters.items() if k.startswith("loss")}
+        check(all(math.isfinite(v) for v in losses2.values()), "resumed losses {}".format(losses2))
+        print("entry point resume: loaded model_final (iteration 8), {} parameters and buffers "
+              "equal to the saved ones, logged iterations {}, losses {}".format(
+                  len(start), its2, json.dumps(losses2)), flush=True)
+        return {"launches": launches}
+    finally:
+        COCODataset._load_image = load_image
+        train_net.do_train = do_train
+        for lg in loggers:
+            lg.removeHandler(logs)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def profile_steps(torch, step, batch, steps=2):
@@ -717,7 +993,7 @@ REF_GRADS = (
 )
 
 
-def train_reference_check(torch, np, cfg, state):
+def train_reference_check(torch, np, cfg, state, backwards):
     """One float32 forward and backward of the training losses on a small
     batch (2 images of 64x96) with the trained weights, on the card
     (kernels) and on the CPU (plain versions), with the same sampler draws.
@@ -785,8 +1061,8 @@ def train_reference_check(torch, np, cfg, state):
     (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
     loss_err = {k: abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
     grad_err = {k: ((gc[k] - gp[k]).abs().max() / gp[k].abs().max()).item() for k in gp}
-    ref = {"losses_card": lc, "losses_cpu": lp, "loss_rel_err": loss_err,
-           "grad_rel_err": grad_err}
+    ref = {"backwards": backwards, "losses_card": lc, "losses_cpu": lp,
+           "loss_rel_err": loss_err, "grad_rel_err": grad_err}
     print("float32 training step, card vs CPU: " + json.dumps(ref), flush=True)
     check(len(grad_err) == len(REF_GRADS), "missing gradients")
     check(all(v <= 1e-4 for v in loss_err.values()), "card and CPU losses differ")

@@ -15,12 +15,17 @@ config files rely on:
 
 Anything not listed above is intentionally not implemented.
 
-PyTorch port copy of maskrcnn_tpu/config/cfgnode.py. The only change is that
-``yaml`` is imported where YAML is parsed or written, so that building a
-model from the in-code defaults needs no PyYAML.
+PyTorch port copy of maskrcnn_tpu/config/cfgnode.py. Two changes, so that
+the port runs where PyYAML is missing: ``yaml`` is imported only where a
+YAML file is parsed, and ``dump`` and the decoding of command-line values
+are the port's own (``_yaml_lines``, ``_decode_value``). For a tree of
+scalars and sequences, as the configuration is, ``dump`` writes what
+``yaml.safe_dump`` writes.
 """
 
+import ast
 import copy
+import re
 
 _VALID_TYPES = {tuple, list, str, int, float, bool, type(None)}
 
@@ -96,10 +101,8 @@ class CfgNode(dict):
             out[k] = v._to_plain() if isinstance(v, CfgNode) else v
         return out
 
-    def dump(self, **kwargs):
-        import yaml
-
-        return yaml.safe_dump(self._to_plain(), **kwargs)
+    def dump(self):
+        return "".join(line + "\n" for line in _yaml_lines(self._to_plain(), ""))
 
     def __str__(self):
         return self.dump()
@@ -160,23 +163,69 @@ class CfgNode(dict):
                 dict.__setitem__(self, k, _coerce(_decode_value(v), current, full_key))
 
 
+_YAML_WORDS = {
+    "true": True, "yes": True, "on": True, "false": False, "no": False, "off": False,
+    "null": None, "~": None,
+}
+_PLAIN = re.compile(r"[A-Za-z_./][\w./-]*\Z")
+
+
 def _decode_value(v):
     """Parse a CLI override string into a python literal (yacs behaviour:
-    ast.literal_eval first — handles tuples — then YAML)."""
+    ast.literal_eval first, which handles tuples; then YAML's words for
+    booleans and null; else the string itself)."""
     if not isinstance(v, str):
         return v
-    import ast
-
     try:
         return ast.literal_eval(v)
     except (ValueError, SyntaxError):
         pass
-    import yaml
+    return _YAML_WORDS.get(v.lower(), v)
 
-    try:
-        return yaml.safe_load(v)
-    except yaml.YAMLError:
+
+def _yaml_scalar(v):
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        if "e" in r and "." not in r:  # YAML 1.1 floats need a dot: 1e-05 -> 1.0e-05
+            r = r.replace("e", ".0e")
+        return r
+    if _PLAIN.match(v) and v.lower() not in _YAML_WORDS and v.lower() not in (".inf", ".nan"):
         return v
+    return "'" + v.replace("'", "''") + "'"
+
+
+def _yaml_lines(value, indent):
+    """Block-style YAML of a plain dict, sorted keys, 2-space indent;
+    sequences nested in a sequence are written in flow style."""
+    if not value:
+        return [indent + ("{}" if isinstance(value, dict) else "[]")]
+    lines = []
+    for k in sorted(value):
+        v = value[k]
+        if isinstance(v, dict) and v:
+            lines.append("{}{}:".format(indent, k))
+            lines.extend(_yaml_lines(v, indent + "  "))
+        elif isinstance(v, (list, tuple)) and v:
+            lines.append("{}{}:".format(indent, k))
+            for item in v:
+                text = ("[" + ", ".join(_yaml_scalar(x) for x in item) + "]"
+                        if isinstance(item, (list, tuple)) else _yaml_scalar(item))
+                lines.append("{}- {}".format(indent, text))
+        elif isinstance(v, (dict, list, tuple)):
+            lines.append("{}{}: {}".format(indent, k, "{}" if isinstance(v, dict) else "[]"))
+        else:
+            lines.append("{}{}: {}".format(indent, k, _yaml_scalar(v)))
+    return lines
 
 
 def _coerce(new, old, full_key):

@@ -32,7 +32,7 @@ _C.MODEL.RPN_ONLY = False
 _C.MODEL.MASK_ON = False
 _C.MODEL.RETINANET_ON = False
 _C.MODEL.KEYPOINT_ON = False
-_C.MODEL.DEVICE = "tpu"  # "cuda" in the reference; accepts cpu/tpu/cuda
+_C.MODEL.DEVICE = "cuda"  # as the reference; "cpu" asks for the CPU (the JAX package: "tpu")
 _C.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
 _C.MODEL.CLS_AGNOSTIC_BBOX_REG = False
 # catalog:// URI, http(s) URL, or filesystem path; "" = random init

@@ -1,0 +1,137 @@
+"""Data loader construction.
+
+Port of maskrcnn_tpu/data/build.py (after the reference
+maskrcnn_benchmark/data/build.py): dataset(s) from the catalog -> sampler
+-> GroupedBatchSampler (aspect ratio) -> IterationBasedBatchSampler ->
+``torch.utils.data.DataLoader`` with the BatchCollator and
+DATALOADER.NUM_WORKERS worker processes. The JAX package's own
+shared-memory loader (maskrcnn_tpu/data/loader.py) exists because that
+package has no torch; here torch's loader takes its place.
+
+The workers run the dataset, the transforms and the collator on the CPU and
+hand back CPU tensors; they never touch CUDA, so the default fork start is
+safe after the parent has initialized the card. On a CUDA device the loader
+pins its batches, so that the trainer's copies to the card are
+asynchronous. Batch-size semantics: SOLVER.IMS_PER_BATCH images a step
+(one process; multi-card training waits, ROADMAP.md Queue 1 item 13).
+"""
+
+import importlib.util
+import os
+
+import torch
+import torch.utils.data
+
+from ..config import paths_catalog
+from ..utils.miscellaneous import cfg_device
+from .collate import BatchCollator
+from .datasets import COCODataset
+from .samplers import (
+    BatchSampler,
+    GroupedBatchSampler,
+    IterationBasedBatchSampler,
+    RandomSampler,
+    SequentialSampler,
+)
+from .transforms import build_transforms
+
+
+def build_dataset(dataset_list, transforms, dataset_catalog, is_train=True):
+    if not isinstance(dataset_list, (list, tuple)):
+        raise RuntimeError("dataset_list should be a list of strings, got {}".format(dataset_list))
+    if len(dataset_list) != 1:
+        raise NotImplementedError("{} datasets: concatenation (ConcatDataset) is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 12)".format(len(dataset_list)))
+    data = dataset_catalog.get(dataset_list[0])
+    if data["factory"] != "COCODataset":
+        raise NotImplementedError("{} ({}) is not ported yet (ROADMAP.md Queue 1 item 12)"
+                                  .format(data["factory"], dataset_list[0]))
+    args = dict(data["args"])
+    args["remove_images_without_annotations"] = is_train
+    args["transforms"] = transforms
+    return COCODataset(**args)
+
+
+def _compute_aspect_ratio_groups(dataset):
+    groups = []
+    for i in range(len(dataset)):
+        info = dataset.get_img_info(i)
+        groups.append(0 if info["width"] >= info["height"] else 1)
+    return groups
+
+
+def make_batch_sampler(dataset, sampler, aspect_grouping, images_per_batch, num_iters=None,
+                       start_iter=0):
+    if aspect_grouping:
+        batch_sampler = GroupedBatchSampler(
+            sampler, _compute_aspect_ratio_groups(dataset), images_per_batch, drop_uneven=False)
+    else:
+        batch_sampler = BatchSampler(sampler, images_per_batch, drop_last=False)
+    if num_iters is not None:
+        batch_sampler = IterationBasedBatchSampler(batch_sampler, num_iters, start_iter)
+    return batch_sampler
+
+
+class TensorBatches:
+    """The collator's numpy batch as CPU tensors (which the loader can pin)."""
+
+    def __init__(self, collator):
+        self.collator = collator
+
+    def __call__(self, samples):
+        return {k: torch.from_numpy(v) for k, v in self.collator(samples).items()}
+
+
+def _seed_worker(worker_id):
+    """Give each worker's transforms their own random draws (the loader's
+    per-worker seed), as torch seeds each worker's torch and random."""
+    info = torch.utils.data.get_worker_info()
+    if info.dataset.transforms is not None:
+        info.dataset.transforms.rng.seed(info.seed)
+
+
+def _resolve_catalog(cfg):
+    """The DatasetCatalog of cfg.PATHS_CATALOG: the port's own, or the one
+    of a user's module at that path."""
+    path = cfg.PATHS_CATALOG
+    if os.path.abspath(path) == os.path.abspath(paths_catalog.__file__):
+        return paths_catalog.DatasetCatalog
+    spec = importlib.util.spec_from_file_location("maskrcnn_tpu_torch_paths_catalog", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.DatasetCatalog
+
+
+def make_data_loader(cfg, is_train=True, start_iter=0):
+    """The training loader (SOLVER.MAX_ITER batches of SOLVER.IMS_PER_BATCH
+    images from DATASETS.TRAIN, resuming after `start_iter`) or, with
+    is_train=False, one loader over DATASETS.TEST. Batches are dicts of CPU
+    tensors in the collator's layout, pinned when MODEL.DEVICE is CUDA."""
+    if is_train:
+        images_per_batch = cfg.SOLVER.IMS_PER_BATCH
+        num_iters = cfg.SOLVER.MAX_ITER
+        dataset_list = cfg.DATASETS.TRAIN
+    else:
+        if cfg.TEST.BBOX_AUG.ENABLED:
+            raise NotImplementedError("test-time augmentation is not ported yet")
+        images_per_batch = cfg.TEST.IMS_PER_BATCH
+        num_iters = None
+        start_iter = 0
+        dataset_list = cfg.DATASETS.TEST
+    dataset = build_dataset(dataset_list, build_transforms(cfg, is_train), _resolve_catalog(cfg),
+                            is_train)
+    sampler = RandomSampler(dataset) if is_train else SequentialSampler(dataset)
+    batch_sampler = make_batch_sampler(
+        dataset, sampler, cfg.DATALOADER.ASPECT_RATIO_GROUPING and is_train, images_per_batch,
+        num_iters, start_iter)
+    if cfg.MODEL.MASK_ON:
+        # build the mask rasterizer once, before the workers start
+        from ..utils import maskops
+
+        maskops.library()
+    return torch.utils.data.DataLoader(
+        dataset, batch_sampler=batch_sampler,
+        collate_fn=TensorBatches(BatchCollator(cfg, is_train)),
+        num_workers=cfg.DATALOADER.NUM_WORKERS, worker_init_fn=_seed_worker,
+        pin_memory=cfg_device(cfg).type == "cuda",
+    )

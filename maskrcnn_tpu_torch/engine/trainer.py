@@ -1,0 +1,89 @@
+"""Training loop.
+
+Port of maskrcnn_tpu/engine/trainer.py (after the reference
+maskrcnn_benchmark/engine/trainer.py): batches from the loader through
+``make_train_step``, batches without ground truth skipped, a log line every
+20 iterations and at the last (eta, losses, time and data-wait meters,
+learning rate), a warning on a non-finite loss, a checkpoint every
+``checkpoint_period`` iterations and ``model_final`` at the end.
+
+Each batch is copied to the device with ``non_blocking=True`` (the loader
+pins it on CUDA). The losses are read back only on logging iterations, so
+the other steps queue on the card without a wait; the time meter of a step
+is then its host time, and the log line's read brings it up to date. The
+samplers' draws come from the step's own generator (``draws=None``).
+"""
+
+import datetime
+import logging
+import math
+import time
+
+import torch
+
+from ..utils.metric_logger import MetricLogger
+from .train_step import make_train_step
+
+
+def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, checkpoint_period,
+             arguments, test_period=0):
+    """Train for the loader's iterations after arguments["iteration"]
+    (updated as it goes). Returns the MetricLogger: per-iteration "time"
+    and "data" (seconds waiting for the loader), and the losses of the
+    logged iterations."""
+    if test_period > 0:
+        raise NotImplementedError(
+            "SOLVER.TEST_PERIOD > 0: validation during training waits for engine/inference.py "
+            "(ROADMAP.md Queue 1 item 11)")
+    logger = logging.getLogger("maskrcnn_tpu_torch.trainer")
+    logger.info("Start training")
+    meters = MetricLogger(delimiter="  ")
+    max_iter = len(data_loader)
+    start_iter = arguments["iteration"]
+    step = make_train_step(model, optimizer, scheduler,
+                           generator=torch.Generator(device=device).manual_seed(0))
+
+    start_training_time = time.time()
+    end = time.time()
+    iteration = start_iter
+    for batch in data_loader:
+        data_time = time.time() - end
+        iteration += 1
+        arguments["iteration"] = iteration
+        if not bool((batch["gt_labels"] > 0).any()):
+            logger.warning("Iteration={} || batch has no ground truth, skipped".format(iteration))
+            end = time.time()
+            continue
+
+        metrics = step({k: v.to(device, non_blocking=True) for k, v in batch.items()
+                        if k != "indices"})
+        logged = iteration % 20 == 0 or iteration == max_iter
+        losses = {k: v.item() for k, v in metrics.items()} if logged else {}
+        batch_time = time.time() - end
+        end = time.time()
+        meters.update(time=batch_time, data=data_time, **losses)
+        if logged:
+            if not all(math.isfinite(v) for v in losses.values()):
+                logger.warning("non-finite loss at iter {}: {}: training has diverged".format(
+                    iteration, losses))
+            eta_seconds = meters.meters["time"].global_avg * (max_iter - iteration)
+            logger.info(meters.delimiter.join([
+                "eta: {eta}", "iter: {iter}", "{meters}", "lr: {lr:.6f}",
+                "max mem: {memory:.0f}",
+            ]).format(
+                eta=str(datetime.timedelta(seconds=int(eta_seconds))), iter=iteration,
+                meters=str(meters), lr=optimizer.param_groups[0]["lr"],
+                memory=(torch.cuda.max_memory_allocated() / 1024 / 1024
+                        if device.type == "cuda" else 0.0),
+            ))
+        if iteration % checkpoint_period == 0:
+            checkpointer.save("model_{:07d}".format(iteration), **arguments)
+        if iteration >= max_iter:
+            break
+
+    checkpointer.save("model_final", **arguments)
+    total_training_time = time.time() - start_training_time
+    logger.info("Total training time: {} ({:.4f} s / it)".format(
+        str(datetime.timedelta(seconds=int(total_training_time))),
+        total_training_time / max(max_iter - start_iter, 1)))
+    return meters

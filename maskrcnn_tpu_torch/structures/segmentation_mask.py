@@ -1,0 +1,169 @@
+"""Instance masks of the data pipeline, polygon mode.
+
+Port copy of the polygon half of maskrcnn_tpu/structures/segmentation_mask.py
+(after the reference maskrcnn_benchmark/structures/segmentation_mask.py):
+per-instance COCO polygon lists whose crop, resize and flip stay in polygon
+space; rasterization (``get_mask_tensor``) happens on demand through the
+native scanline fill of ``utils/maskops.py``. The binary-mask mode of the
+JAX package resizes with OpenCV, which the card's machine lacks; it is not
+ported yet (ROADMAP.md Queue 1 item 12) and raises.
+"""
+
+import numpy as np
+
+from .boxlist import FLIP_LEFT_RIGHT
+
+
+def rasterize_polygons(polygons, height, width):
+    """Rasterize a list of flat [x0,y0,x1,y1,...] polygons to a uint8 mask."""
+    from ..utils.maskops import polygons_to_mask
+
+    return polygons_to_mask(polygons, height, width)
+
+
+class PolygonInstance:
+    """One object instance = a list of polygons (holes unsupported, as in
+    COCO instance annotations)."""
+
+    def __init__(self, polygons, size):
+        if isinstance(polygons, PolygonInstance):
+            polygons = [p.copy() for p in polygons.polygons]
+        else:
+            polygons = [np.asarray(p, dtype=np.float64).reshape(-1) for p in polygons]
+        self.polygons = polygons
+        self.size = tuple(size)  # (w, h)
+
+    def transpose(self, method):
+        w, h = self.size
+        flipped = []
+        for poly in self.polygons:
+            p = poly.copy()
+            if method == FLIP_LEFT_RIGHT:
+                p[0::2] = w - poly[0::2] - 1
+            else:
+                p[1::2] = h - poly[1::2] - 1
+            flipped.append(p)
+        return PolygonInstance(flipped, self.size)
+
+    def crop(self, box):
+        x1, y1, x2, y2 = map(float, box)
+        w = max(x2 - x1, 1.0)
+        h = max(y2 - y1, 1.0)
+        cropped = []
+        for poly in self.polygons:
+            p = poly.copy()
+            p[0::2] = np.clip(poly[0::2] - x1, 0, w)
+            p[1::2] = np.clip(poly[1::2] - y1, 0, h)
+            cropped.append(p)
+        return PolygonInstance(cropped, (w, h))
+
+    def resize(self, size):
+        rw = float(size[0]) / max(self.size[0], 1e-8)
+        rh = float(size[1]) / max(self.size[1], 1e-8)
+        scaled = []
+        for poly in self.polygons:
+            p = poly.copy()
+            p[0::2] = poly[0::2] * rw
+            p[1::2] = poly[1::2] * rh
+            scaled.append(p)
+        return PolygonInstance(scaled, size)
+
+    def get_mask_tensor(self):
+        w, h = int(round(self.size[0])), int(round(self.size[1]))
+        return rasterize_polygons(self.polygons, h, w)
+
+    def __repr__(self):
+        return "PolygonInstance(num_polygons={}, size={})".format(
+            len(self.polygons), self.size
+        )
+
+
+class PolygonList:
+    def __init__(self, polygons, size):
+        if isinstance(polygons, PolygonList):
+            polygons = [PolygonInstance(p, size) for p in polygons.polygons]
+        else:
+            polygons = [
+                p if isinstance(p, PolygonInstance) else PolygonInstance(p, size)
+                for p in polygons
+            ]
+        self.polygons = polygons
+        self.size = tuple(size)
+
+    def transpose(self, method):
+        return PolygonList([p.transpose(method) for p in self.polygons], self.size)
+
+    def crop(self, box):
+        w = box[2] - box[0]
+        h = box[3] - box[1]
+        return PolygonList([p.crop(box) for p in self.polygons], (w, h))
+
+    def resize(self, size):
+        return PolygonList([p.resize(size) for p in self.polygons], size)
+
+    def get_mask_tensor(self):
+        if len(self.polygons) == 0:
+            w, h = int(self.size[0]), int(self.size[1])
+            return np.zeros((0, h, w), dtype=np.uint8)
+        return np.stack([p.get_mask_tensor() for p in self.polygons])
+
+    def __len__(self):
+        return len(self.polygons)
+
+    def __getitem__(self, item):
+        if isinstance(item, (int, np.integer)):
+            selected = [self.polygons[int(item)]]
+        elif isinstance(item, slice):
+            selected = self.polygons[item]
+        else:
+            item = np.asarray(item)
+            if item.dtype == bool:
+                item = np.nonzero(item)[0]
+            selected = [self.polygons[int(i)] for i in item]
+        return PolygonList(selected, self.size)
+
+    def __repr__(self):
+        return "PolygonList(num_instances={}, size={})".format(
+            len(self.polygons), self.size
+        )
+
+
+
+class SegmentationMask:
+    """The instances of one image, in polygon mode ("poly")."""
+
+    def __init__(self, instances, size, mode="poly"):
+        if mode != "poly":
+            raise NotImplementedError(
+                "SegmentationMask mode {!r}: only polygons are ported (binary masks wait, "
+                "ROADMAP.md Queue 1 item 12)".format(mode))
+        self.instances = (
+            instances if isinstance(instances, PolygonList) else PolygonList(instances, size)
+        )
+        self.mode = mode
+        self.size = tuple(size)
+
+    def transpose(self, method):
+        return SegmentationMask(self.instances.transpose(method), self.size)
+
+    def crop(self, box):
+        cropped = self.instances.crop(box)
+        return SegmentationMask(cropped, cropped.size)
+
+    def resize(self, size):
+        return SegmentationMask(self.instances.resize(size), size)
+
+    def get_mask_tensor(self):
+        t = self.instances.get_mask_tensor()
+        return t.squeeze(0) if t.shape[0] == 1 else t
+
+    def __len__(self):
+        return len(self.instances)
+
+    def __getitem__(self, item):
+        return SegmentationMask(self.instances[item], self.size)
+
+    def __repr__(self):
+        return "SegmentationMask(num_instances={}, mode={}, size={})".format(
+            len(self), self.mode, self.size
+        )

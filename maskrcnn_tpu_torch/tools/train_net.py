@@ -1,0 +1,87 @@
+"""Training entry point.
+
+    python -m maskrcnn_tpu_torch.tools.train_net [--config-file FILE] --skip-test [KEY VALUE ...]
+
+The surface of the JAX package's tools/train_net.py (after the reference
+tools/train_net.py): a YAML config file, ``--skip-test`` and KEY VALUE
+overrides of the configuration. The device is MODEL.DEVICE ("cuda" by
+default, "cpu" on request). The model trains from MODEL.WEIGHT (a .pth of
+this package or a .npz of the JAX package; "" for the seeded init) or
+resumes from OUTPUT_DIR's last_checkpoint. Evaluation after training (and
+during it, SOLVER.TEST_PERIOD) waits for engine/inference.py (ROADMAP.md
+Queue 1 item 11): without ``--skip-test`` the command stops before training
+rather than skip the test silently.
+"""
+
+import argparse
+import os
+
+import torch
+
+from ..config import cfg as default_cfg
+from ..data.build import make_data_loader
+from ..engine.trainer import do_train
+from ..models.detector import build_detection_model
+from ..solver import make_lr_scheduler, make_optimizer
+from ..utils import comm
+from ..utils.checkpoint import DetectronCheckpointer
+from ..utils.logger import setup_logger
+from ..utils.miscellaneous import cfg_device, mkdir, save_config, save_labels
+
+
+def train(cfg, output_dir):
+    """Build, load or resume, and train; returns (model, meters)."""
+    device = cfg_device(cfg)
+    model = build_detection_model(cfg, device=device)
+    optimizer = make_optimizer(cfg, model)
+    scheduler = make_lr_scheduler(cfg, optimizer)
+    arguments = {"iteration": 0}
+    checkpointer = DetectronCheckpointer(
+        cfg, model, optimizer, scheduler, output_dir,
+        logger=setup_logger("maskrcnn_tpu_torch.checkpointer", None, comm.get_rank()))
+    arguments.update(checkpointer.load(cfg.MODEL.WEIGHT))
+    data_loader = make_data_loader(cfg, is_train=True, start_iter=arguments["iteration"])
+    if output_dir:
+        save_labels([data_loader.dataset], output_dir)
+    meters = do_train(model, optimizer, scheduler, data_loader, checkpointer, device,
+                      cfg.SOLVER.CHECKPOINT_PERIOD, arguments,
+                      test_period=cfg.SOLVER.TEST_PERIOD)
+    return model, meters
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Mask R-CNN training (PyTorch/CUDA)")
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--skip-test", dest="skip_test", action="store_true")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+
+    cfg = default_cfg.clone()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(args.opts)
+    cfg.freeze()
+    if not args.skip_test:
+        raise NotImplementedError(
+            "evaluation (engine/inference.py, tools/test_net.py) is not ported yet (ROADMAP.md "
+            "Queue 1 item 11): pass --skip-test")
+
+    output_dir = cfg.OUTPUT_DIR
+    if output_dir:
+        mkdir(output_dir)
+    logger = setup_logger("maskrcnn_tpu_torch", output_dir, comm.get_rank())
+    device = cfg_device(cfg)
+    logger.info("Using {} (torch {}, CUDA {})".format(
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU",
+        torch.__version__, torch.version.cuda))
+    logger.info(args)
+    if args.config_file:
+        logger.info("Loaded configuration file {}".format(args.config_file))
+    logger.info("Running with config:\n{}".format(cfg))
+    if output_dir:
+        save_config(cfg, os.path.join(output_dir, "config.yml"))
+    return train(cfg, output_dir)
+
+
+if __name__ == "__main__":
+    main()

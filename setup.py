@@ -30,8 +30,8 @@ setup(
         "(Faster/Mask/Keypoint R-CNN, RetinaNet) in JAX/XLA/Pallas"
     ),
     packages=find_packages(exclude=("tests", "tools", "demo")),
-    # the PyTorch port's CUDA sources, compiled by nvcc at first use
-    package_data={"maskrcnn_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch port's CUDA and host C++ sources, compiled at first use
+    package_data={"maskrcnn_tpu_torch": ["csrc/*.cu", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pyyaml", "optax"],
     cmdclass={"build_py": BuildWithNative},

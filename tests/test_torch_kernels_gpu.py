@@ -13,7 +13,9 @@ sums, in another order for the S x S mean); in bfloat16 at most
 accumulates in float32). The ROIAlign backward against autograd through the
 plain version: float32 within 1e-5 * max|grad| (float32 atomic adds in an
 order that changes from run to run), bfloat16 against the float32 plain
-gradient within 1e-2 * max|grad| (one rounding of each sum to bfloat16).
+gradient within 1e-2 * max|grad| (one rounding of each sum to bfloat16); the
+same for the "rmw" and "chunk" backwards (window sums in another order than
+the per-sample adds).
 """
 
 import numpy as np
@@ -22,10 +24,14 @@ import torch
 
 from maskrcnn_tpu_torch.models.anchors import AnchorGenerator
 from maskrcnn_tpu_torch.models.poolers import (
+    BACKWARD_KERNELS,
     PoolerConfig,
+    assign_levels,
     multilevel_roi_align,
     multilevel_roi_align_plain,
     roi_align_backward,
+    roi_align_backward_rmw,
+    window_layout,
 )
 from maskrcnn_tpu_torch.ops.matcher import match_anchors_batched, match_anchors_plain
 from maskrcnn_tpu_torch.ops.nms import batched_nms, batched_nms_plain
@@ -218,3 +224,49 @@ def test_roi_align_backward_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         roi_align_backward(torch.zeros(4, 7, 7, 256, dtype=torch.float16, device=cuda),
                            shapes, boxes, bidx, lvl, pcfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rmw", "chunk"])
+@pytest.mark.parametrize("p,r", [(7, 1000), (14, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_backward_matches_plain_autograd(cuda, monkeypatch, kind, p, r, dtype):
+    """Edge ROIs, one oversize ROI (a long thin box at P2, scattered
+    exactly), and a third image that no ROI pools from."""
+    monkeypatch.setenv("MASKRCNN_POOLER_BWD_P%d" % p, kind)
+    boxes, bidx = _edge_rois(cuda, r, b=2)
+    boxes[6] = torch.tensor([10.0, 40.0, 1300.0, 60.0], device=cuda)
+    pcfg = PoolerConfig(p, SCALES, 2)
+    lay = window_layout([(3, 200 >> i, 336 >> i, 256) for i in range(4)], boxes, bidx,
+                        assign_levels(boxes, pcfg), pcfg)
+    assert bool(lay["oversize"][6]) and int(lay["oversize"].sum()) >= 1
+    g = torch.Generator().manual_seed(p)
+    dout = torch.randn(r, p, p, 256, generator=g).to(cuda)
+
+    plain_feats = [f.detach().requires_grad_() for f in _pyramid(cuda, torch.float32, b=3)]
+    (multilevel_roi_align_plain(plain_feats, boxes, bidx, pcfg) * dout).sum().backward()
+    want = [f.grad for f in plain_feats]
+    scale = max(w.abs().max().item() for w in want)
+
+    feats = [f.detach().requires_grad_() for f in _pyramid(cuda, dtype, b=3)]
+    before = {k: fn.launches for k, fn in BACKWARD_KERNELS.items()}
+    multilevel_roi_align(feats, boxes, bidx, pcfg).backward(dout.to(dtype))
+    torch.cuda.synchronize()
+    after = {k: fn.launches for k, fn in BACKWARD_KERNELS.items()}
+    assert after == {k: v + (k == kind) for k, v in before.items()}
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for f, w in zip(feats, want):
+        assert f.grad.dtype == dtype and f.grad.shape == w.shape
+        assert not f.grad[2].any()
+        err = (f.grad.float() - w).abs().max().item()
+        assert err <= tol * scale, (kind, dtype, err, scale)
+
+
+@pytest.mark.gpu
+def test_window_backward_rejects_what_it_does_not_take(cuda):
+    boxes, bidx = _rois(cuda, 4)
+    lvl = torch.zeros(4, dtype=torch.int32, device=cuda)
+    shapes = [(2, 200 >> i, 336 >> i, 256) for i in range(4)]
+    with pytest.raises(ValueError):
+        roi_align_backward_rmw(torch.zeros(4, 40, 40, 256, device=cuda), shapes, boxes, bidx,
+                               lvl, PoolerConfig(40, SCALES, 2))

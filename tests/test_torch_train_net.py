@@ -1,0 +1,110 @@
+"""The port's training entry point, ``python -m maskrcnn_tpu_torch.tools.train_net``.
+
+The CLI in a subprocess on the CPU (MODEL.DEVICE cpu), as tests/test_cli.py
+runs the JAX one: a narrow Mask R-CNN R-50-FPN from the reference YAML on a
+synthetic COCO tree, 2 loader workers, 4 iterations with a checkpoint every
+2, then a resumed run to 6 that must load model_final and continue at
+iteration 5. Then what the CLI refuses: running without --skip-test
+(evaluation is not ported), MODEL.DEVICE "tpu", SOLVER.TEST_PERIOD > 0.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import yaml
+
+from maskrcnn_tpu_torch.tools import train_net
+from synthetic_coco import make_synthetic_coco
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(REPO, "configs", "e2e_mask_rcnn_R_50_FPN_1x.yaml")
+OPTS = [
+    "MODEL.DEVICE", "cpu",
+    "MODEL.WEIGHT", "",
+    "MODEL.ROI_BOX_HEAD.NUM_CLASSES", "4",
+    "DATASETS.TRAIN", "('coco_2017_train',)",
+    "MODEL.RESNETS.RES2_OUT_CHANNELS", "64",
+    "MODEL.RESNETS.STEM_OUT_CHANNELS", "16",
+    "MODEL.RESNETS.WIDTH_PER_GROUP", "16",
+    "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", "32",
+    "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", "64",
+    "MODEL.ROI_MASK_HEAD.CONV_LAYERS", "(32, 32, 32, 32)",
+    "TPU.COMPUTE_DTYPE", "float32",
+    "INPUT.PIXEL_STD", "[57.375, 57.12, 58.395]",
+    "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", "200",
+    "MODEL.RPN.POST_NMS_TOP_N_TRAIN", "100",
+    "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", "128",
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "64",
+    "INPUT.MIN_SIZE_TRAIN", "(120,)",
+    "INPUT.MAX_SIZE_TRAIN", "160",
+    "SOLVER.IMS_PER_BATCH", "2",
+    "SOLVER.BASE_LR", "0.0001",
+    "TPU.MAX_GT_BOXES", "8",
+    "DATALOADER.NUM_WORKERS", "2",
+    "SOLVER.CHECKPOINT_PERIOD", "2",
+]
+
+
+def _data_tree(tmp_path):
+    root = tmp_path / "datasets"
+    img_dir, ann_file = make_synthetic_coco(str(tmp_path / "gen"), num_images=6, num_classes=3)
+    (root / "coco" / "annotations").mkdir(parents=True)
+    shutil.move(img_dir, str(root / "coco" / "train2017"))
+    shutil.move(ann_file, str(root / "coco" / "annotations" / "instances_train2017.json"))
+    return root
+
+
+def _run(args, data_root):
+    env = dict(os.environ, MASKRCNN_TPU_DATA_DIR=str(data_root), CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")])
+    return subprocess.run([sys.executable, "-m", "maskrcnn_tpu_torch.tools.train_net"] + args,
+                          env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
+
+
+def test_train_net_trains_saves_and_resumes(tmp_path):
+    data_root = _data_tree(tmp_path)
+    out = tmp_path / "out"
+    args = ["--config-file", CONFIG, "--skip-test"] + OPTS + [
+        "SOLVER.MAX_ITER", "4", "OUTPUT_DIR", str(out)]
+    r = _run(args, data_root)
+    assert r.returncode == 0, r.stderr[-3000:]
+    for name in ("model_0000002.pth", "model_0000004.pth", "model_final.pth", "last_checkpoint",
+                 "config.yml", "labels.json", "log.txt"):
+        assert (out / name).exists(), (name, os.listdir(out))
+    log = r.stdout + r.stderr
+    assert [int(m) for m in re.findall(r"iter: (\d+)", log)] == [4]
+    assert "nan" not in log.split("iter: 4")[-1][:600]
+    with open(out / "config.yml") as f:
+        saved = yaml.safe_load(f)
+    assert saved["MODEL"]["DEVICE"] == "cpu" and saved["SOLVER"]["MAX_ITER"] == 4
+
+    args[args.index("SOLVER.MAX_ITER") + 1] = "6"
+    r2 = _run(args, data_root)
+    assert r2.returncode == 0, r2.stderr[-3000:]
+    log2 = r2.stdout + r2.stderr
+    assert re.search(r"Loading checkpoint from .*model_final\.pth", log2), log2[-2000:]
+    assert [int(m) for m in re.findall(r"iter: (\d+)", log2)] == [6]
+    assert (out / "model_0000006.pth").exists()
+
+
+def test_train_net_refuses_to_skip_the_test_silently():
+    with pytest.raises(NotImplementedError, match="skip-test"):
+        train_net.main(["MODEL.DEVICE", "cpu"])
+
+
+@pytest.mark.parametrize("opts,error", [
+    (["MODEL.DEVICE", "tpu"], ValueError),
+    (["MODEL.DEVICE", "cpu", "SOLVER.TEST_PERIOD", "100", "MODEL.BACKBONE.CONV_BODY",
+      "R-50-FPN"], NotImplementedError),
+])
+def test_train_net_rejects_what_the_port_lacks(tmp_path, monkeypatch, opts, error):
+    data_root = _data_tree(tmp_path)
+    monkeypatch.setenv("MASKRCNN_TPU_DATA_DIR", str(data_root))
+    with pytest.raises(error):
+        train_net.main(["--config-file", CONFIG, "--skip-test"] + OPTS + opts + [
+            "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", str(tmp_path / "out"),
+            "DATALOADER.NUM_WORKERS", "0"])
