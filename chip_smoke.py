@@ -35,14 +35,16 @@ Training (a second model instance):
      forward 2, the default "roi" ROIAlign backward 2;
   9. each kernel against its plain version on the inputs that step fed it,
      timed beside its bound; the three ROIAlign backwards ("roi", "rmw",
-     "chunk") each on the gradients that step gave the two poolers;
+     "chunk") each on the gradients that step gave the two poolers, and two
+     calls of "roi" giving the same bits;
  10. one float32 step on a small batch, the same weights and sampler draws
      on the card (kernels) and on the CPU (plain versions): losses and a
      handful of gradients agree; then again with the "rmw" backward at P=7
      and "chunk" at P=14;
  11. training img/s and MFU (FLOPs of one step from FlopCounterMode against
-     the H100's 989 TFLOP/s dense bf16), and a torch.profiler breakdown of
-     two steps' device time.
+     the H100's 989 TFLOP/s dense bf16), the step's peak memory, and a
+     torch.profiler breakdown of two steps' device time, in which the "roi"
+     backward runs no scatter and no cast.
 The training entry point (a third model instance):
  12. a synthetic COCO-format tree of 32 images of 480x640 from the seed,
      with bench.py's gt statistics and polygon masks; the images are handed
@@ -59,7 +61,9 @@ The training entry point (a third model instance):
      the loader's own rate at these settings (24 batches past its first);
  14. a resumed run to 12: it loads model_final, starts from the saved
      parameters and logs no iteration below 9.
-Then one JSON line of the six kernels, the card's line, and the result line.
+Then the redesigned ROIAlign kernels' times beside their earlier designs'
+(PERF.md), one JSON line of the six kernels, the card's line, and the result
+line.
 """
 
 import contextlib
@@ -91,6 +95,16 @@ BF16_FLOPS_PER_S = 989e12
 # 3 sums, 1 accumulate; the backward's 4 products and 4 adds alike)
 NMS_OPS_PER_PAIR = 15
 ROI_OPS_PER_SAMPLE = 8
+# The times of the ROIAlign forward and "roi" backward designs before the
+# current ones (PERF.md: this script on an NVIDIA H100 80GB HBM3 at 700 W),
+# wrapper / kernel alone in ms, by (kernel, path, P), printed beside this
+# run's times.
+EARLIER_MS = {
+    ("roi_align", "serving", 7): (0.3146, 0.2187), ("roi_align", "serving", 14): (0.2642, 0.0954),
+    ("roi_align", "training", 7): (0.8746, 0.8305), ("roi_align", "training", 14): (0.4711, 0.4263),
+    ("roi_align_backward", "training", 7): (3.3741, 3.4335),
+    ("roi_align_backward", "training", 14): (1.6866, 1.6799),
+}
 
 
 class SmokeError(Exception):
@@ -282,6 +296,11 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
     wrapper = poolers.BACKWARD_KERNELS[kind]
     got = wrapper(dout, shapes, b32, i32, lvl, pcfg)
     got32 = wrapper(dout.float(), shapes, b32, i32, lvl, pcfg)
+    if kind == "roi":  # a fixed order of sums: a second call gives the same bits
+        again = wrapper(dout, shapes, b32, i32, lvl, pcfg)
+        check(all(torch.equal(a, g) for a, g in zip(again, got)),
+              "two calls of the roi backward differ at P={}".format(pcfg.output_size))
+        del again
     leaves = [torch.zeros(sh, device=dout.device, requires_grad=True) for sh in shapes]
     plain_out = poolers.multilevel_roi_align_plain(leaves, b32, bidx, pcfg)
     want = torch.autograd.grad(plain_out, leaves, dout.float(), retain_graph=True)
@@ -294,7 +313,9 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
     check(err <= 1e-2 * scale, "ROIAlign {} backward kernel ({}) off by {} > 1e-2 * {}".format(
         kind, dout.dtype, err, scale))
     total = sum(math.prod(sh) for sh in shapes)
-    acc = torch.empty((total,), dtype=torch.float32, device=dout.device)
+    # the window backwards' float32 sums; the roi backward writes out alone
+    acc = None if kind == "roi" else torch.empty((total,), dtype=torch.float32,
+                                                 device=dout.device)
     out = torch.empty((total,), dtype=dout.dtype, device=dout.device)
     dc = dout.contiguous()
     r, p, s, c = dout.shape[0], pcfg.output_size, pcfg.sampling_ratio, dout.shape[-1]
@@ -303,9 +324,20 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
     # every pooled level written once in the compute dtype
     b_ms, b_by = bound(dout.numel() * item + r * 20 + total * item,
                        r * p * p * c * (ROI_OPS_PER_SAMPLE * s * s + 1))
-    inputs = None
     site = {"kind": kind, "rois": r, "P": p, "dtype": str(dout.dtype).replace("torch.", "")}
-    if kind != "roi":
+    if kind == "roi":
+        inputs = poolers.roi_tile_inputs(shapes, i32, lvl)
+        # how the ROIs load the tiles: the crowded tiles set the kernel's time
+        per_tile = [len(v) for v in poolers.tile_lists(shapes, b32.cpu(), i32.cpu(), lvl.cpu(),
+                                                         pcfg).values()]
+        site.update(bitwise_repeatable=True,
+                    rois_per_level=torch.bincount(lvl.long(), minlength=len(shapes)).tolist(),
+                    tiles=sum(-(-sh[1] // poolers.TILE) * -(-sh[2] // poolers.TILE) * sh[0]
+                              for sh in shapes),
+                    tiles_met=len(per_tile), tile_roi_pairs=sum(per_tile),
+                    rois_per_tile_max=max(per_tile, default=0),
+                    tiles_met_by_100_rois_or_more=sum(n >= 100 for n in per_tile))
+    else:
         inputs = poolers.window_kernel_inputs(kind, shapes, b32, i32, lvl, pcfg)
         lay = inputs["layout"]
         per_window = torch.bincount(lay["rwid"][:r])
@@ -536,6 +568,17 @@ def run(torch):
         kernel_entry("matcher", "maskrcnn_tpu_torch/csrc/matcher.cu",
                      tpu + "matcher_kernel.py:183", by_path("matcher"), tr["matcher_sites"]),
     ]
+    redesigned = [
+        {"kernel": name, "path": path, "rois": s["rois"], "P": s["P"], "ms": s["ms"],
+         "kernel_ms": s["kernel_ms"], "bound_ms": s["bound_ms"],
+         "earlier_ms": EARLIER_MS[(name, path, s["P"])][0],
+         "earlier_kernel_ms": EARLIER_MS[(name, path, s["P"])][1]}
+        for name, path, sites in (("roi_align", "serving", roi_sites),
+                                  ("roi_align", "training", tr["roi_sites"]),
+                                  ("roi_align_backward", "training", tr["bwd_sites_roi"]))
+        for s in sites]
+    print("redesigned ROIAlign kernels, this run against the earlier designs' times in "
+          "PERF.md [{}]: {}".format(card, json.dumps(redesigned)), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     return torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -711,7 +754,16 @@ def train_phase(torch, np, card):
            "mfu": flops / step_s / BF16_FLOPS_PER_S, "peak_memory_gb": peak_gb,
            "card": card}
     print("training throughput: " + json.dumps(thr), flush=True)
-    print("training step profile: " + json.dumps(profile_steps(torch, step, batch)), flush=True)
+    print("training step peak memory: {:.3f} GB (torch.cuda.max_memory_allocated over the "
+          "warm-up, counted and timed steps) [{}]".format(peak_gb, card), flush=True)
+    prof = profile_steps(torch, step, batch)
+    print("training step profile: " + json.dumps(prof), flush=True)
+    if prof["device_busy_ms"] != "not measured":
+        # the roi backward writes its gradient whole: no scatter, no cast
+        names = prof["roi_align_kernels_per_step"]
+        check(not any("cast_to_bf16" in k or "roi_align_bwd_kernel" in k for k in names)
+              and sum(v for k, v in names.items() if "bwd_tile" in k) == 2,
+              "the step's ROIAlign kernels: {}".format(names))
     sites["launches"] = launches
     sites["throughput"] = thr
     return sites
@@ -943,6 +995,9 @@ def profile_steps(torch, step, batch, steps=2):
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "top_kernels_ms": [[e.key[:90], self_device_us(e) / 1e3 / steps, e.count / steps]
                            for e in events[:15]],
+        "roi_align_kernels_per_step": {e.key[:90]: e.count / steps for e in events
+                                       if "roi_align" in e.key or "cast_to_bf16" in e.key},
+        "memsets_per_step": sum(e.count for e in events if "memset" in e.key.lower()) / steps,
     }
 
 

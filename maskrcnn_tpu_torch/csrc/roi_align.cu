@@ -1,13 +1,13 @@
 // Multi-level FPN ROIAlign, forward and backward, for Hopper (sm_90a).
 //
-// The forward replaces the TPU kernel
-// maskrcnn_tpu/ops/pallas/roi_align_kernel.py (multilevel_roi_align_pallas /
-// _kernel, with its jnp prep _precompute and _bin_weights); the backward
-// (roi_align_backward, below the forward) replaces its default "roi"
-// backward (_roi_align_bwd_roi / _roi_bwd_kernel); roi_align_backward_rmw
-// and roi_align_backward_chunk, at the end of the file, replace its "rmw"
-// and "chunk" backwards. Semantics are those of
-// the exact gather path
+// What each entry point replaces (maskrcnn_tpu/ops/pallas/roi_align_kernel.py):
+//   * roi_align_forward: multilevel_roi_align_pallas / _kernel (:372, :434),
+//     with its jnp prep _precompute and _bin_weights;
+//   * roi_align_backward: the default "roi" backward, _roi_align_bwd_roi /
+//     _roi_bwd_kernel (:955, :1020);
+//   * roi_align_backward_rmw and roi_align_backward_chunk, at the end of the
+//     file: the "rmw" and "chunk" backwards (:646, :850).
+// Semantics are those of the exact gather path
 // (maskrcnn_tpu/models/poolers.py:_pool_roi_block, non-adaptive branch),
 // the legacy aligned=False ROIAlign:
 //   * roi = box * level scale, no half-pixel shift;
@@ -19,48 +19,72 @@
 // Every ROI samples all it covers: there is no equivalent of the TPU
 // kernel's 40-cell patch clamp for oversized ROIs.
 //
-// Design: one block per (ROI, output row); threads run along the channel
-// axis, which is contiguous in the NHWC level maps (channels_last NCHW in
-// PyTorch), so each bilinear corner read by a warp is one contiguous run of
-// channels. The ROI's level (from assign_levels, computed in PyTorch) picks
-// the level's base pointer, H, W and scale from a small by-value struct.
-// Sums are kept in fp32 and the bin is written in the features' dtype.
+// The geometry is separable: a sample's row cells and weights depend on its
+// row index alone, its column's on its column index. Both kernels compute an
+// ROI's P*S row axes and P*S column axes once per block, a few threads each,
+// into shared memory (sample_axis, roi_axes), rounded as the plain version
+// rounds them (built with -fmad=false, divisions correctly rounded), and
+// every channel reads them from there.
 //
-// What bounds it on the card: bytes. The box head's call (1000 ROIs, P=7,
-// C=256, bf16) writes 25 MB and can read at most the 46 MB of P2-P5 at
-// 800x1344; its arithmetic (~0.4 GFLOP) is far below the card's rate. The
-// corner reads repeat across neighbouring samples and ROIs, and the whole
-// pyramid fits in the 50 MB L2, so most of them are L2 hits. This first
-// design does not reach that bound: every thread recomputes the sample
-// coordinates and bilinear weights of its row of bins, which are the same
-// for all channels; that repeated arithmetic, not the bytes, is the likely
-// limit of its measured time (PERF.md). A later design computes them once
-// per block.
+// Levels are NHWC (channels_last NCHW maps, permuted), so a cell's C
+// channels are contiguous: a thread moves 8 channels of a cell with one
+// 16-byte load or store (two for float32). The entry points refuse C % 8 != 0
+// and level, dOut or output pointers that are not 16-byte aligned, and the
+// wrappers raise before they get there.
 //
-// The backward is the exact adjoint of this forward (the gradient of the
-// plain version): every bilinear corner of every sample inside the map gets
-// w * dOut / (S*S), accumulated in float32, for each channel. The TPU
-// kernel merges each ROI's window of dPatch in VMEM and adds it once into
-// the level gradients, the grid running in order. Here blocks run in
-// parallel and ROIs overlap, so the design is a scatter:
-//   * one block per (ROI, output row), threads along the channels, the
-//     sample geometry and the outside / clamp / snap rules of the forward;
-//   * each corner's share goes into one zeroed float32 NHWC buffer holding
-//     all levels through float32 atomicAdd (at the snapped edge two corners
-//     are one cell, and both adds land there);
-//   * then one cast to the features' dtype, as the JAX kernel rounds once
-//     at its flush; a float32 model's gradient is the buffer itself.
-// The order of the atomic adds changes from run to run, so the result does
-// too, by float32 rounding (about 1e-6 of max|grad| at the training shapes).
+// Forward. What bounds it on the card: bytes. The training box head (4096
+// ROIs, P=7, C=256, bf16) writes 103 MB and needs 78 MB of distinct cells;
+// its ~1.7 G float32 operations take less time on the CUDA cores. Design:
+// one block per ROI and band of at most 64 bins (one band for P=7, four for
+// P=14), 8 warps taking the band's bins in turn, the ROI's axes in shared
+// memory, a warp covering 256 channels of a bin; per sample a thread issues
+// four 16-byte corner loads and their products. The corners repeat across a
+// bin's samples and its neighbours', which the block runs together, so most
+// of those loads hit L1. Products
+// and sums keep the plain version's order: a float32 result equals it.
 //
-// What bounds the backward: bytes. At the box head's training call (4096
-// ROIs, P=7, C=256, bf16, B=8 at 800x1344) it must read dOut (103 MB) and
-// write the dense gradient of P2-P5 (366 MB in bf16). The design adds the
-// zeroing of the 731 MB float32 buffer and the cast's read of it, and its
-// atomics go to cells spread over a buffer larger than the 50 MB L2.
+// "roi" backward: the exact adjoint of the forward, every bilinear corner of
+// every sample inside the map getting w * dOut / (S*S). The TPU kernel
+// merges each ROI's window in VMEM and adds it into the level gradients, its
+// grid running in order. Here each part of the gradient is gathered by the
+// block that owns it: one block per 8 x 8 cell tile of one (level, image)
+// and 128 channels writes that part once, in the output dtype. No atomics
+// into the gradient, no float32 scratch, no memset and no cast; the sums run
+// in a fixed order, so two calls give the same bits. The block
+//   * reads its (level, image)'s segment of the ROI list the wrapper sorted
+//     by (level, image), 256 ROIs at a time, and keeps, in list order, those
+//     whose footprint meets the tile: rows [floor(y1), floor(y1 + roi_h) +
+//     1] and columns alike, a superset of the cells their samples touch,
+//     clamps and snaps at the map's edges included (meets_tile);
+//   * for 16 such ROIs at a time, a thread per bin computes the bin's
+//     sample axes and its weights over the tile's rows (RowW [P, 8]) or
+//     columns (ColW [P, 8]), the in-bin sums of the valid samples' bilinear
+//     weights, with a bit per cell it reaches; from the bits, the bins
+//     reaching the tile, each group of 4 rows and each column;
+//   * copies the dOut bins reaching the tile of a run of those ROIs, as
+//     many as fit 40 KB, into shared memory with cp.async, every thread
+//     issuing copies, so a run waits for memory once and not once per load
+//     (each warp cuts the run itself, with shuffles);
+//   * adds dTile += RowW^T . dOut . ColW: a thread owns 4 rows of one tile
+//     column and 8 channels; per row bin reaching its rows it sums its
+//     column's bins of dOut (no branch on the weights, two bins a step) and
+//     adds that into its rows. A tile no ROI meets is written as zeros.
+// The channel slice, the threads per block and the stage size were chosen
+// by measurement (PERF.md): 64- or 32-channel slices, 512 or 1024 threads,
+// and a Hopper cluster sharing a tile's ROIs over 2 or 4 blocks were slower.
+// What bounds it: bytes. It must write the dense gradient of every level
+// (366 MB in bf16 at B=8, 800x1344) and read dOut (103 MB at the box head)
+// once per tile an ROI meets; its float32 FMAs are ~2 GFLOP at the box
+// head. What it spends beyond that: every block of a (level, image) scans
+// that segment's ROIs, and the ROIs are not spread evenly: at the training
+// box head a few P2 tiles are met by 100-176 ROIs each (positives clustered
+// on small gt boxes), and those blocks add them one batch after another
+// while the rest of the card is done (PERF.md).
 //
-// Built with -fmad=false so the sample coordinates round as the plain
-// version's do.
+// roi_align_bwd_kernel, the former "roi" backward (a float32 atomicAdd
+// scatter of every sample into one zeroed buffer, then one cast), stays as
+// the helper of the window backwards, which scatter their oversize ROIs
+// exactly with it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +93,23 @@
 namespace {
 
 constexpr int kMaxLevels = 5;
+constexpr int kWarps = 8;              // warps of a forward or tile block
+constexpr int kThreads = kWarps * 32;
+constexpr int kChannels = 32 * 8;      // channels a warp covers, 8 a lane
+constexpr int kBandBins = 64;          // most bins a forward block pools
+constexpr int kTile = 8;               // tile side in cells
+constexpr int kSlice = 128;            // channels of a tile block, 8 a thread
+constexpr int kLanes = kSlice / 8;
+constexpr int kRowGroups = kThreads / (kTile * kLanes);  // a column's threads split its rows
+constexpr int kRows = kTile / kRowGroups;
+static_assert(kRowGroups * kRows == kTile && kRowGroups * kTile * kLanes == kThreads,
+              "the tile block's threads cover its rows, columns and channels once");
+constexpr int kHits = 16;              // ROIs whose tile weights are staged at once
+// bin ranges kept per ROI: rows and columns reaching the tile, then those
+// reaching each row group's rows, then each column
+constexpr int kRanges = 2 + kRowGroups + kTile;
+constexpr int kStageBytes = 40 * 1024; // dOut staged at once (at least one ROI's bins)
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Levels {
   const void* data[kMaxLevels];
@@ -81,13 +122,40 @@ __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+
+// 8 consecutive channels from a 16-byte aligned address, as float32.
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  float4* q = reinterpret_cast<float4*>(p);
+  q[0] = make_float4(v[0], v[1], v[2], v[3]);
+  q[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
 }
 
 // Bilinear corner indices and weights of one sample coordinate along an
-// axis of extent `size` (the gather path's clamp and snap rules).
+// axis of extent `size` (the gather path's clamp and snap rules); lo = -1
+// marks a sample outside [-1, size], which contributes nothing.
 struct Axis {
   int lo, hi;
   float l, h;
@@ -122,54 +190,383 @@ __device__ __forceinline__ RoiGeom roi_geom(float4 box, float scale, int p, int 
   return g;
 }
 
+// Sample j of an ROI along one axis (sample j % s of bin j / s), from the
+// ROI's origin, bin size and sample spacing on that axis.
+__device__ __forceinline__ Axis sample_axis(float origin, float bin, float sub, int j, int s,
+                                            int size) {
+  const float v = __fadd_rn(__fadd_rn(origin, __fmul_rn((float)(j / s), bin)),
+                            __fmul_rn((float)(j % s) + 0.5f, sub));
+  if (v < -1.f || v > (float)size) return Axis{-1, -1, 0.f, 0.f};
+  return axis_weights(v, size);
+}
+
+// Sample j of the 2 * p * s axes of an ROI on a level of h x w cells: its
+// rows first, then its columns.
+__device__ __forceinline__ Axis roi_axis(const RoiGeom& g, int j, int p, int s, int h, int w) {
+  const int ps = p * s;
+  return j < ps ? sample_axis(g.y1, g.bin_h, g.sub_h, j, s, h)
+                : sample_axis(g.x1, g.bin_w, g.sub_w, j - ps, s, w);
+}
+
 template <typename T>
-__global__ void roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes,
-                                     const int* __restrict__ batch_idx,
-                                     const int* __restrict__ level, int c,
-                                     int p, int s, T* __restrict__ out) {
+__global__ void __launch_bounds__(kThreads)
+roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes,
+                     const int* __restrict__ batch_idx, const int* __restrict__ level, int c,
+                     int p, int s, int band, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char s_fwd_raw[];
+  Axis* s_ax = reinterpret_cast<Axis*>(s_fwd_raw);  // [2 * p * s]
   const int r = blockIdx.x;
-  const int py = blockIdx.y;
   const int l = level[r];
   const int h = lv.h[l];
   const int w = lv.w[l];
-  const float scale = lv.scale[l];
   const T* feat = (const T*)lv.data[l] + (size_t)batch_idx[r] * h * w * c;
+  const RoiGeom g = roi_geom(boxes[r], lv.scale[l], p, s);
+  const int ps = p * s;
+  for (int j = threadIdx.x; j < 2 * ps; j += blockDim.x) s_ax[j] = roi_axis(g, j, p, s, h, w);
+  __syncthreads();
 
-  const RoiGeom gm = roi_geom(boxes[r], scale, p, s);
-  const float y0 = __fadd_rn(gm.y1, __fmul_rn((float)py, gm.bin_h));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bin_end = min((blockIdx.y + 1) * band, p * p);
   const float count = (float)(s * s);
-
-  T* o = out + ((size_t)r * p + py) * p * c;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    const T* f = feat + ch;
-    for (int px = 0; px < p; ++px) {
-      const float x0 = __fadd_rn(gm.x1, __fmul_rn((float)px, gm.bin_w));
-      float acc = 0.f;
+  const bool pow2 = ((s * s) & (s * s - 1)) == 0;  // then * (1 / count) is the division, exactly
+  const float inv = 1.f / count;
+  for (int bin = blockIdx.y * band + warp; bin < bin_end; bin += kWarps) {
+    const Axis* ays = s_ax + (bin / p) * s;
+    const Axis* axs = s_ax + ps + (bin % p) * s;
+    T* o = out + ((size_t)r * p * p + bin) * c;
+    for (int ch = lane * 8; ch < c; ch += kChannels) {
+      const T* f = feat + ch;
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       for (int iy = 0; iy < s; ++iy) {
-        const float y = __fadd_rn(y0, __fmul_rn((float)iy + 0.5f, gm.sub_h));
-        if (y < -1.f || y > (float)h) continue;
-        const Axis ay = axis_weights(y, h);
+        const Axis ay = ays[iy];
+        if (ay.lo < 0) continue;
         for (int ix = 0; ix < s; ++ix) {
-          const float x = __fadd_rn(x0, __fmul_rn((float)ix + 0.5f, gm.sub_w));
-          if (x < -1.f || x > (float)w) continue;
-          const Axis ax = axis_weights(x, w);
-          const float v00 = load_f(f + ((size_t)ay.lo * w + ax.lo) * c);
-          const float v01 = load_f(f + ((size_t)ay.lo * w + ax.hi) * c);
-          const float v10 = load_f(f + ((size_t)ay.hi * w + ax.lo) * c);
-          const float v11 = load_f(f + ((size_t)ay.hi * w + ax.hi) * c);
-          float val = __fmul_rn(__fmul_rn(ay.h, ax.h), v00);
-          val = __fadd_rn(val, __fmul_rn(__fmul_rn(ay.h, ax.l), v01));
-          val = __fadd_rn(val, __fmul_rn(__fmul_rn(ay.l, ax.h), v10));
-          val = __fadd_rn(val, __fmul_rn(__fmul_rn(ay.l, ax.l), v11));
-          acc = __fadd_rn(acc, val);
+          const Axis ax = axs[ix];
+          if (ax.lo < 0) continue;
+          const float w00 = __fmul_rn(ay.h, ax.h), w01 = __fmul_rn(ay.h, ax.l);
+          const float w10 = __fmul_rn(ay.l, ax.h), w11 = __fmul_rn(ay.l, ax.l);
+          float v00[8], v01[8], v10[8], v11[8];
+          load8(f + ((size_t)ay.lo * w + ax.lo) * c, v00);
+          load8(f + ((size_t)ay.lo * w + ax.hi) * c, v01);
+          load8(f + ((size_t)ay.hi * w + ax.lo) * c, v10);
+          load8(f + ((size_t)ay.hi * w + ax.hi) * c, v11);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            float val = __fmul_rn(w00, v00[k]);
+            val = __fadd_rn(val, __fmul_rn(w01, v01[k]));
+            val = __fadd_rn(val, __fmul_rn(w10, v10[k]));
+            val = __fadd_rn(val, __fmul_rn(w11, v11[k]));
+            acc[k] = __fadd_rn(acc[k], val);
+          }
         }
       }
-      store_f(o + (size_t)px * c + ch, __fdiv_rn(acc, count));
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[k] = pow2 ? __fmul_rn(acc[k], inv) : __fdiv_rn(acc[k], count);
+      store8(o + ch, acc);
     }
   }
 }
 
-// Level gradients: float32 NHWC accumulation buffers, one per level.
+// The level gradients the tile kernel writes, in the output dtype, and its
+// tiles: level l holds tiles [tiles[l], tiles[l + 1]), image-major, then
+// row-major over ceil(h / kTile) x tiles_x.
+struct TileLevels {
+  void* data[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  float scale[kMaxLevels];
+  int tiles_x[kMaxLevels];
+  int tiles[kMaxLevels + 1];
+  int num_levels;
+};
+
+// Byte offsets of the tile kernel's shared arrays, and the size of its dOut
+// stage: kStageBytes, or one ROI's P x P bins if that is more.
+struct TileSmem {
+  size_t rng, ints, geom, wts, bits, stage, stage_bytes, total;
+};
+
+__host__ __device__ inline TileSmem tile_smem(int p, int s, int item) {
+  TileSmem m;
+  m.rng = 0;                                               // int2 [kHits * kRanges]
+  m.ints = m.rng + sizeof(int2) * kHits * kRanges;
+  m.geom = m.ints + sizeof(int) * (kThreads + kWarps);
+  m.wts = m.geom + sizeof(RoiGeom) * kThreads;             // float [kHits * 2 * p * kTile]
+  m.bits = m.wts + sizeof(float) * kHits * 2 * p * kTile;  // int [kHits * 2 * p]
+  m.stage = (m.bits + sizeof(int) * kHits * 2 * p + 15) / 16 * 16;
+  const size_t one_roi = (size_t)p * p * kSlice * item;
+  m.stage_bytes = one_roi > (size_t)kStageBytes ? one_roi : (size_t)kStageBytes;
+  m.total = m.stage + m.stage_bytes;
+  return m;
+}
+
+// Whether the cells an ROI's samples may touch on its level meet the tile
+// with rows [y0, y0 + kTile) and columns [x0, x0 + kTile): rows
+// [floor(y1), floor(y1 + roi_h) + 1], columns alike (poolers.roi_footprints
+// computes the same bounds and says why they hold every touched cell).
+__device__ __forceinline__ bool meets_tile(float4 box, float scale, int y0, int x0) {
+  const float x1 = __fmul_rn(box.x, scale), y1 = __fmul_rn(box.y, scale);
+  const float rw = fmaxf(__fsub_rn(__fmul_rn(box.z, scale), x1), 1.f);
+  const float rh = fmaxf(__fsub_rn(__fmul_rn(box.w, scale), y1), 1.f);
+  return floorf(__fadd_rn(y1, rh)) + 1.f >= (float)y0 && floorf(y1) <= (float)(y0 + kTile - 1) &&
+         floorf(__fadd_rn(x1, rw)) + 1.f >= (float)x0 && floorf(x1) <= (float)(x0 + kTile - 1);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// 8 consecutive channels of the stage, as float32.
+__device__ __forceinline__ void stage8(const float* p, float v[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void stage8(const __nv_bfloat16* p, float v[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+// order [R]: ROI indices sorted by (level, image), stable; seg_start
+// [num_levels * nb + 1]: the first position of each (level, image) segment.
+// Block (tile, slice) owns the tile's channels [slice * kSlice, + kSlice).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxes,
+                          const int* __restrict__ order, const int* __restrict__ seg_start,
+                          int c, int p, int s, const T* __restrict__ dout) {
+  extern __shared__ __align__(16) unsigned char s_tile_raw[];
+  const TileSmem sm = tile_smem(p, s, sizeof(T));
+  int2* s_rng = reinterpret_cast<int2*>(s_tile_raw + sm.rng);  // [kHits][kRanges]
+  int* s_roi = reinterpret_cast<int*>(s_tile_raw + sm.ints);
+  int* s_count = s_roi + kThreads;              // hits per warp of the scan
+  RoiGeom* s_geom = reinterpret_cast<RoiGeom*>(s_tile_raw + sm.geom);
+  float* s_w = reinterpret_cast<float*>(s_tile_raw + sm.wts);
+  int* s_bits = reinterpret_cast<int*>(s_tile_raw + sm.bits);
+  T* s_stage = reinterpret_cast<T*>(s_tile_raw + sm.stage);
+
+  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+  const int lane = threadIdx.x % kLanes, x = threadIdx.x / kLanes % kTile;
+  const int rg = threadIdx.x / (kLanes * kTile);
+  const int c0 = blockIdx.y * kSlice;
+  const int ch = c0 + lane * 8;
+  const int ps = p * s, pt = p * kTile;
+  constexpr int kChunks = kSlice * (int)sizeof(T) / 16;  // 16-byte pieces of a staged bin
+  constexpr int kPer = 16 / (int)sizeof(T);              // channels of a piece
+  const int cnt = s * s;
+  const float count = (float)cnt;
+  const bool pow2 = (cnt & (cnt - 1)) == 0;  // then * (1 / count) is the division, exactly
+  const float inv = 1.f / count;
+
+  int t = blockIdx.x, l = 0;
+  while (l + 1 < lv.num_levels && t >= lv.tiles[l + 1]) ++l;
+  t -= lv.tiles[l];
+  const int h = lv.h[l], w = lv.w[l];
+  const float scale = lv.scale[l];
+  const int per_image = lv.tiles_x[l] * ((h + kTile - 1) / kTile);
+  const int b = t / per_image;
+  t -= b * per_image;
+  const int y0 = t / lv.tiles_x[l] * kTile, x0 = t % lv.tiles_x[l] * kTile;
+
+  float acc[kRows][8];
+#pragma unroll
+  for (int y = 0; y < kRows; ++y) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[y][k] = 0.f;
+  }
+
+  const int seg = l * nb + b;
+  const int begin = seg_start[seg], end = seg_start[seg + 1];
+  for (int base = begin; base < end; base += kThreads) {
+    // the ROIs of this part of the segment that meet the tile, in list order
+    const int i = base + threadIdx.x;
+    int r = -1;
+    float4 box = make_float4(0.f, 0.f, 0.f, 0.f);
+    bool hit = false;
+    if (i < end) {
+      r = order[i];
+      box = boxes[r];
+      hit = meets_tile(box, scale, y0, x0);
+    }
+    const unsigned m = __ballot_sync(kFull, hit);
+    if (wl == 0) s_count[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, nhit = 0;
+    for (int k = 0; k < kWarps; ++k) {
+      before += k < warp ? s_count[k] : 0;
+      nhit += s_count[k];
+    }
+    if (hit) {
+      const int k = before + __popc(m & ((1u << wl) - 1u));
+      s_roi[k] = r;
+      s_geom[k] = roi_geom(box, scale, p, s);
+    }
+    __syncthreads();
+
+    for (int h0 = 0; h0 < nhit; h0 += kHits) {
+      const int nh = min(kHits, nhit - h0);
+      // RowW [p][kTile] then ColW [p][kTile] of each ROI over the tile: a
+      // thread per bin computes its samples' axes and the weights they give
+      // each cell, with a bit per cell the bin reaches
+      for (int e = threadIdx.x; e < nh * 2 * p; e += kThreads) {
+        const int col = e / p % 2, bin = e % p;
+        const RoiGeom g = s_geom[h0 + e / (2 * p)];
+        const int at0 = col ? x0 : y0;
+        float wt[kTile];
+#pragma unroll
+        for (int cell = 0; cell < kTile; ++cell) wt[cell] = 0.f;
+        for (int j = 0; j < s; ++j) {
+          const Axis a = roi_axis(g, col * ps + bin * s + j, p, s, h, w);
+          if (a.lo < 0) continue;
+#pragma unroll
+          for (int cell = 0; cell < kTile; ++cell) {
+            if (a.lo == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.h);
+            if (a.hi == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.l);
+          }
+        }
+        int bits = 0;
+#pragma unroll
+        for (int cell = 0; cell < kTile; ++cell) {
+          s_w[e * kTile + cell] = wt[cell];
+          bits |= (wt[cell] != 0.f) << cell;
+        }
+        s_bits[e] = bits;
+      }
+      __syncthreads();
+      // the bins reaching the tile, each row group's rows and each column
+      for (int e = threadIdx.x; e < nh * kRanges; e += kThreads) {
+        const int j = e % kRanges;
+        const int col = j == 1 || j >= 2 + kRowGroups;
+        const int want = j < 2 ? (1 << kTile) - 1
+                         : col ? 1 << (j - 2 - kRowGroups)
+                               : ((1 << kRows) - 1) << ((j - 2) * kRows);
+        const int* bits = s_bits + (e / kRanges * 2 + col) * p;
+        int lo = p, hi = -1;
+        for (int bin = 0; bin < p; ++bin) {
+          if (bits[bin] & want) {
+            lo = min(lo, bin);
+            hi = bin;
+          }
+        }
+        s_rng[e] = make_int2(lo, hi);
+      }
+      __syncthreads();
+      // the hits in runs whose dOut bins fit the stage. Every warp works the
+      // run out itself: lane i holds the first staged bin of hit k0 + i.
+      for (int k0 = 0; k0 < nh;) {
+        int bins = 0;
+        if (k0 + wl < nh) {
+          const int2 rr = s_rng[(k0 + wl) * kRanges], qq = s_rng[(k0 + wl) * kRanges + 1];
+          bins = rr.x > rr.y || qq.x > qq.y ? 0 : (rr.y - rr.x + 1) * (qq.y - qq.x + 1);
+        }
+        int incl = bins;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int v = __shfl_up_sync(kFull, incl, d);
+          if (wl >= d) incl += v;
+        }
+        const int first = incl - bins;
+        const int run = __popc(__ballot_sync(
+            kFull, k0 + wl < nh && (wl == 0 || (size_t)incl * kSlice * sizeof(T) <= sm.stage_bytes)));
+        const int staged = __shfl_sync(kFull, incl, run - 1);
+        // stage dOut [row rect][column rect][kSlice] of the run's hits; the
+        // loop runs alike in all lanes of a warp, for the shuffles
+        for (int e0 = warp * 32; e0 < staged * kChunks; e0 += kThreads) {
+          const int e = e0 + wl, bin = e / kChunks, part = e % kChunks;
+          int i = 0;
+          for (int j = 1; j < run; ++j) i = __shfl_sync(kFull, first, j) <= bin ? j : i;
+          const int at = __shfl_sync(kFull, first, i);
+          if (e >= staged * kChunks || c0 + part * kPer >= c) continue;
+          const int k = k0 + i;
+          const int2 rr = s_rng[k * kRanges], qq = s_rng[k * kRanges + 1];
+          const int qn = qq.y - qq.x + 1, local = bin - at;
+          const T* src = dout + ((size_t)s_roi[h0 + k] * p * p + (rr.x + local / qn) * p + qq.x +
+                                 local % qn) * c + c0 + part * kPer;
+          cp_async16(s_stage + (size_t)e * kPer, src);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        for (int i = 0; i < run; ++i) {
+          const int at = __shfl_sync(kFull, first, i);
+          const int k = k0 + i;
+          const int2 qr = s_rng[k * kRanges + 2 + kRowGroups + x], pr = s_rng[k * kRanges + 2 + rg];
+          if (ch >= c || qr.x > qr.y || pr.x > pr.y) continue;  // no cell of this thread
+          const int2 rr = s_rng[k * kRanges], qq = s_rng[k * kRanges + 1];
+          const int qn = qq.y - qq.x + 1;
+          const float* rw = s_w + k * 2 * pt + rg * kRows;
+          const float* cw = s_w + k * 2 * pt + pt + x;
+          const T* st = s_stage + (size_t)at * kSlice + lane * 8;
+          for (int pi = pr.x; pi <= pr.y; ++pi) {
+            float wr[kRows];
+#pragma unroll
+            for (int y = 0; y < kRows; ++y) wr[y] = rw[pi * kTile + y];
+            // T = sum over the column's bins of ColW * dOut, without
+            // branches on the weights and two bins a step, so that the
+            // shared loads of a step issue together
+            float tv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            const T* sq = st + ((size_t)(pi - rr.x) * qn + qr.x - qq.x) * kSlice;
+            const float* wq = cw + qr.x * kTile;
+            const int nq = qr.y - qr.x + 1;
+            int q = 0;
+            for (; q + 1 < nq; q += 2) {
+              const float w0 = wq[q * kTile], w1 = wq[(q + 1) * kTile];
+              float v0[8], v1[8];
+              stage8(sq + (size_t)q * kSlice, v0);
+              stage8(sq + (size_t)(q + 1) * kSlice, v1);
+#pragma unroll
+              for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w0, v0[kk], tv[kk]);
+#pragma unroll
+              for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w1, v1[kk], tv[kk]);
+            }
+            if (q < nq) {
+              const float w0 = wq[q * kTile];
+              float v0[8];
+              stage8(sq + (size_t)q * kSlice, v0);
+#pragma unroll
+              for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w0, v0[kk], tv[kk]);
+            }
+#pragma unroll
+            for (int y = 0; y < kRows; ++y) {
+              if (wr[y] == 0.f) continue;
+#pragma unroll
+              for (int kk = 0; kk < 8; ++kk) acc[y][kk] = __fmaf_rn(wr[y], tv[kk], acc[y][kk]);
+            }
+          }
+        }
+        __syncthreads();  // before the next run restages
+        k0 += run;
+      }
+    }
+  }
+
+  if (x0 + x < w && ch < c) {
+    T* g = (T*)lv.data[l] + (((size_t)b * h + y0 + rg * kRows) * w + x0 + x) * c + ch;
+#pragma unroll
+    for (int y = 0; y < kRows; ++y) {
+      if (y0 + rg * kRows + y < h) {
+        float v[8];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          v[kk] = pow2 ? __fmul_rn(acc[y][kk], inv) : __fdiv_rn(acc[y][kk], count);
+        }
+        store8(g + (size_t)y * w * c, v);
+      }
+    }
+  }
+}
+
+// Level gradients of the window backwards: float32 NHWC accumulation
+// buffers, one per level.
 struct GradLevels {
   float* data[kMaxLevels];
   int h[kMaxLevels];
@@ -177,8 +574,10 @@ struct GradLevels {
   float scale[kMaxLevels];
 };
 
-// `only`, when given, restricts the scatter to the ROIs it flags (the
-// window backwards hand it their oversize ROIs); the others' blocks return.
+// The exact per-sample scatter: one block per (ROI, output row), one
+// channel a thread, each corner's share added by float32 atomicAdd. `only`,
+// when given, restricts it to the ROIs it flags (the window backwards hand
+// it their oversize ROIs); the others' blocks return.
 template <typename T>
 __global__ void roi_align_bwd_kernel(GradLevels lv, const float4* __restrict__ boxes,
                                      const int* __restrict__ batch_idx,
@@ -258,7 +657,7 @@ __global__ void cast_to_bf16_kernel(const float* __restrict__ src, size_t n,
 //     per bin and thread, not 48;
 //   * a window is flushed once from the registers: float32 atomicAdd of its
 //     non-zero cells inside the level, in the rows its ROIs reached, into
-//     the same zeroed NHWC buffer as the "roi" backward. Windows overlap
+//     one zeroed float32 NHWC buffer (GradLevels). Windows overlap
 //     (origins 8 apart, 48 wide) and blocks run concurrently, so the flush
 //     adds; its order, and so the result's last bits, change from run to
 //     run;
@@ -272,7 +671,7 @@ __global__ void cast_to_bf16_kernel(const float* __restrict__ src, size_t n,
 // dense level gradient out); their arithmetic is small. What this design
 // spends beyond that: per ROI and channel tile, three block barriers and a
 // staging of its weights and dOut from L2; per window a flush of up to
-// 48 * 48 * C atomic adds, fewer than the "roi" backward's
+// 48 * 48 * C atomic adds, fewer than the exact scatter's
 // 4 * S * S * P * P * C per ROI only when ROIs share windows (PERF.md
 // measures how many do on the training step).
 
@@ -456,10 +855,35 @@ roi_align_bwd_chunk_kernel(GradLevels lv, int c, int p, const T* __restrict__ do
 
 extern "C" int roi_align_max_levels() { return kMaxLevels; }
 
+namespace {
+
+bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
+
+template <typename T>
+cudaError_t launch_tile_backward(const TileLevels& lv, int nb, const void* boxes,
+                                 const void* order, const void* seg_start, int c, int p,
+                                 int s, const void* dout, cudaStream_t st) {
+  const size_t smem = tile_smem(p, s, sizeof(T)).total;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        roi_align_bwd_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(lv.tiles[lv.num_levels], (c + kSlice - 1) / kSlice);
+  roi_align_bwd_tile_kernel<T><<<grid, kThreads, smem, st>>>(
+      lv, nb, (const float4*)boxes, (const int*)order, (const int*)seg_start, c, p, s,
+      (const T*)dout);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // level_ptrs/hs/ws/scales: host arrays of num_levels entries, each level an
-// NHWC-contiguous [B, H, W, c] map of `dtype` (0 = f32, 1 = bf16);
-// boxes [r, 4] f32, batch_idx [r] i32, level [r] i32 in [0, num_levels);
-// out [r, p, p, c] of `dtype`. Returns cudaGetLastError() after the launch.
+// NHWC-contiguous [B, H, W, c] map of `dtype` (0 = f32, 1 = bf16), 16-byte
+// aligned, c % 8 == 0; boxes [r, 4] f32, batch_idx [r] i32, level [r] i32 in
+// [0, num_levels); out [r, p, p, c] of `dtype`, 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int roi_align_forward(const void* const* level_ptrs, const int* hs,
                                  const int* ws, const float* scales,
                                  int num_levels, const void* boxes,
@@ -467,38 +891,80 @@ extern "C" int roi_align_forward(const void* const* level_ptrs, const int* hs,
                                  int r, int c, int p, int s, int dtype,
                                  void* out, void* stream) {
   if (r <= 0) return 0;
-  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1) {
+  const size_t smem = sizeof(Axis) * 2 * p * s;
+  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1 || c <= 0 ||
+      c % 8 != 0 || p < 1 || s < 1 || smem > 48 * 1024 || !aligned16(out)) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv = {};
   for (int i = 0; i < num_levels; ++i) {
+    if (!aligned16(level_ptrs[i])) return (int)cudaErrorInvalidValue;
     lv.data[i] = level_ptrs[i];
     lv.h[i] = hs[i];
     lv.w[i] = ws[i];
     lv.scale[i] = scales[i];
   }
-  const int threads = c >= 256 ? 256 : (c + 31) / 32 * 32;
-  dim3 grid(r, p);
+  const int bands = (p * p + kBandBins - 1) / kBandBins;
+  const int band = (p * p + bands - 1) / bands;
+  const dim3 grid(r, bands);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, threads, 0, st>>>(
-        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c,
-        p, s, (float*)out);
+    roi_align_fwd_kernel<float><<<grid, kThreads, smem, st>>>(
+        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c, p, s, band,
+        (float*)out);
   } else {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c,
-        p, s, (__nv_bfloat16*)out);
+    roi_align_fwd_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
+        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c, p, s, band,
+        (__nv_bfloat16*)out);
   }
   return (int)cudaGetLastError();
 }
 
-// acc: float32 buffer of `total` elements holding every level's NHWC
-// gradient back to back (level l at acc_offsets[l] elements, [B, H, W, c]);
-// zeroed here. dout [r, p, p, c] of `dtype` (0 = f32, 1 = bf16); boxes,
-// batch_idx, level as for the forward. For dtype 1 the float32 sums are
-// cast once into out (bf16, same layout as acc); for dtype 0 acc is the
-// result and out is unused. Returns cudaGetLastError() after the launches.
+// The "roi" backward. out: every level's NHWC [nb, H, W, c] gradient of
+// `dtype` back to back (level l at out_offsets[l] elements), written whole
+// here, 16-byte aligned, c % 8 == 0; hs/ws/scales as for the forward; boxes
+// [r, 4] f32; order [r] i32, the ROIs sorted by (level, image), stable;
+// seg_start [num_levels * nb + 1] i32, the first position in order of each
+// (level, image); dout [r, p, p, c] of `dtype`, 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
+extern "C" int roi_align_backward(void* out, const long long* out_offsets, const int* hs,
+                                  const int* ws, const float* scales, int num_levels, int nb,
+                                  const void* boxes, const void* order,
+                                  const void* seg_start, int c, int p, int s, int dtype,
+                                  const void* dout, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1 || nb < 1 ||
+      c <= 0 || c % 8 != 0 || p < 1 || s < 1 || !aligned16(out) || !aligned16(dout)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t item = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  TileLevels lv = {};
+  lv.num_levels = num_levels;
+  for (int i = 0; i < num_levels; ++i) {
+    lv.data[i] = (char*)out + out_offsets[i] * item;
+    lv.h[i] = hs[i];
+    lv.w[i] = ws[i];
+    lv.scale[i] = scales[i];
+    lv.tiles_x[i] = (ws[i] + kTile - 1) / kTile;
+    lv.tiles[i + 1] = lv.tiles[i] + lv.tiles_x[i] * ((hs[i] + kTile - 1) / kTile) * nb;
+  }
+  if (lv.tiles[num_levels] == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e =
+      dtype == 0
+          ? launch_tile_backward<float>(lv, nb, boxes, order, seg_start, c, p, s, dout, st)
+          : launch_tile_backward<__nv_bfloat16>(lv, nb, boxes, order, seg_start, c, p, s, dout,
+                                                st);
+  return (int)e;
+}
+
 namespace {
+
+// The buffers of the window backwards: acc, a float32 buffer of `total`
+// elements holding every level's NHWC gradient back to back (level l at
+// acc_offsets[l] elements, [B, H, W, c]), zeroed here; dout [r, p, p, c] of
+// `dtype` (0 = f32, 1 = bf16); boxes, batch_idx, level as for the forward.
+// For dtype 1 the float32 sums are cast once into out (bf16, same layout as
+// acc); for dtype 0 acc is the result and out is unused.
 
 // Zero acc and describe its levels.
 cudaError_t begin_backward(void* acc, const long long* acc_offsets, long long total,
@@ -551,24 +1017,6 @@ size_t window_smem_bytes(int p) {
 }
 
 }  // namespace
-
-extern "C" int roi_align_backward(void* acc, const long long* acc_offsets,
-                                  long long total, const int* hs, const int* ws,
-                                  const float* scales, int num_levels,
-                                  const void* boxes, const void* batch_idx,
-                                  const void* level, int r, int c, int p, int s,
-                                  int dtype, const void* dout, void* out,
-                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  GradLevels lv = {};
-  cudaError_t e = begin_backward(acc, acc_offsets, total, hs, ws, scales, num_levels,
-                                 dtype, st, &lv);
-  if (e == cudaSuccess) {
-    e = scatter_exact(lv, boxes, batch_idx, level, nullptr, r, c, p, s, dtype, dout, st);
-  }
-  if (e == cudaSuccess) e = finish_backward(acc, total, dtype, out, st);
-  return (int)e;
-}
 
 // The largest P the window backwards take (their staging in shared memory
 // stays under the default 48 KB).

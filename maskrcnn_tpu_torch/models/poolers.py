@@ -12,15 +12,19 @@ hand-written kernel csrc/roi_align.cu:roi_align_forward (replacing the TPU
 kernel ops/pallas/roi_align_kernel.py:multilevel_roi_align_pallas) and whose
 backward launches one of three kernels of the same file, chosen at the
 forward as the JAX package chooses (``backward_choice``):
-  * "roi" (default): roi_align_backward, the exact per-sample scatter
-    (replacing _roi_align_bwd_roi);
+  * "roi" (default): roi_align_backward, one block per 8 x 8 cell tile of
+    the gradient gathering the ROIs that meet it (replacing
+    _roi_align_bwd_roi); ``roi_tile_inputs`` sorts its ROI lists, and
+    ``tile_owner_gradient`` is its decomposition in plain PyTorch;
   * "rmw": roi_align_backward_rmw, one block per window of ROIs
     (replacing _roi_align_bwd);
   * "chunk": roi_align_backward_chunk, one block per 8-row chunk of the
     chunk layout (replacing _roi_align_bwd_chunk).
 The window backwards consume ``window_layout`` (and ``chunk_layout``),
 computed here in plain PyTorch as the JAX package computes ``_precompute``
-in jnp. There is no fallback between the kernels and the plain version.
+in jnp. The kernels take NHWC levels with C % 8 == 0 and 16-byte aligned
+buffers, and the wrappers raise on anything else. There is no fallback
+between the kernels and the plain version.
 """
 
 import ctypes
@@ -101,18 +105,7 @@ def sample_corners(level_shapes, boxes, batch_idx, pcfg):
     roi_h = _const(hs, dev)[lvl]
     roi_w = _const(ws, dev)[lvl]
     roi_off = _const(offsets, dev)[lvl] + batch_idx.long() * (roi_h * roi_w)
-    scale = _const(pcfg.scales, dev, torch.float32)[lvl]
-
-    rois = boxes.float() * scale[:, None]
-    rw = torch.clamp(rois[:, 2] - rois[:, 0], min=1.0)
-    rh = torch.clamp(rois[:, 3] - rois[:, 1], min=1.0)
-    bin_w = _true_div(rw, p)
-    bin_h = _true_div(rh, p)
-    j = torch.arange(p * s, device=dev)
-    ib = (j // s).float()
-    sb = (j % s).float()
-    ys = rois[:, 1:2] + ib[None, :] * bin_h[:, None] + (sb[None, :] + 0.5) * _true_div(bin_h[:, None], s)
-    xs = rois[:, 0:1] + ib[None, :] * bin_w[:, None] + (sb[None, :] + 0.5) * _true_div(bin_w[:, None], s)
+    ys, xs = _sample_coords(boxes, lvl, pcfg)
 
     y = ys[:, :, None].expand(r, p * s, p * s)
     x = xs[:, None, :].expand(r, p * s, p * s)
@@ -161,6 +154,132 @@ def multilevel_roi_align_plain(features, boxes, batch_idx, pcfg):
            + w[2] * flat[index[2]] + w[3] * flat[index[3]])
     val = torch.where(outside[..., None], torch.zeros((), dtype=dtype, device=boxes.device), val)
     return val.reshape(r, p, s, p, s, c).mean(dim=(2, 4))
+
+
+# -- separable geometry and the "roi" backward's tiles ---------------------------
+
+TILE = 8  # side in cells of the tiles the "roi" backward's blocks own
+
+
+def _level_rois(boxes, lvl, pcfg):
+    """Each ROI's box on its level, [R, 4] float32, and its width and height
+    floored at 1 (roi_geom and meets_tile in csrc/roi_align.cu)."""
+    scale = _const(pcfg.scales, boxes.device, torch.float32)[lvl.long()]
+    rois = boxes.float() * scale[:, None]
+    rw = torch.clamp(rois[:, 2] - rois[:, 0], min=1.0)
+    rh = torch.clamp(rois[:, 3] - rois[:, 1], min=1.0)
+    return rois, rw, rh
+
+
+def _sample_coords(boxes, lvl, pcfg):
+    """Sample rows ys and columns xs of every ROI on its level, [R, P*S]
+    each (sample j % S of bin j // S), rounded as the kernels round them."""
+    p, s = pcfg.output_size, pcfg.sampling_ratio
+    rois, rw, rh = _level_rois(boxes, lvl, pcfg)
+    bin_w = _true_div(rw, p)
+    bin_h = _true_div(rh, p)
+    j = torch.arange(p * s, device=boxes.device)
+    ib = (j // s).float()
+    sb = (j % s).float()
+    ys = rois[:, 1:2] + ib[None] * bin_h[:, None] + (sb[None] + 0.5) * _true_div(bin_h[:, None], s)
+    xs = rois[:, 0:1] + ib[None] * bin_w[:, None] + (sb[None] + 0.5) * _true_div(bin_w[:, None], s)
+    return ys, xs
+
+
+def _axis(v, size):
+    """Bilinear cells of sample coordinates v [R, N] on an axis of `size`
+    [R, 1] cells, by the gather path's rules: lo, hi [R, N] long (equal at
+    the snapped last cell), their weights wlo, whi, and valid (v in
+    [-1, size]; an invalid sample contributes 0)."""
+    valid = (v >= -1.0) & (v <= size.float())
+    v = v.clamp(min=0.0)
+    lo = torch.minimum(v.long(), size - 1)
+    hi = torch.minimum(lo + 1, size - 1)
+    v = torch.where(lo >= size - 1, lo.float(), v)
+    whi = v - lo
+    return {"lo": lo, "hi": hi, "wlo": 1.0 - whi, "whi": whi, "valid": valid}
+
+
+def sample_axes(level_shapes, boxes, lvl, pcfg):
+    """The separable sample axes of every ROI on its level (the kernels'
+    sample_axis): (rows, cols), each a dict of lo, hi, wlo, whi, valid
+    [R, P*S] as ``_axis`` gives them. Sample (i, j) of an ROI has the
+    corners (rows lo/hi i) x (cols lo/hi j), weights the products of the
+    axes' weights, and lies outside unless both axes are valid.
+    level_shapes: [(B, Hl, Wl, ...)] per level; lvl [R]."""
+    lvl = lvl.long()
+    hs = _const([sh[1] for sh in level_shapes], boxes.device)[lvl][:, None]
+    ws = _const([sh[2] for sh in level_shapes], boxes.device)[lvl][:, None]
+    ys, xs = _sample_coords(boxes, lvl, pcfg)
+    return _axis(ys, hs), _axis(xs, ws)
+
+
+def roi_footprints(boxes, lvl, pcfg):
+    """The cells each ROI's samples may touch on its level, as the "roi"
+    backward's blocks test them (meets_tile): [R, 4] float32 of first row,
+    last row, first column, last column = floor(y1), floor(y1 + roi_h) + 1,
+    floor(x1), floor(x1 + roi_w) + 1. A sample lies in (y1, y1 + roi_h), at
+    least half a sample step (roi_h / (2 P S) >= 1 / (2 P S) cells) from
+    either end, far beyond its rounding, and touches floor(y) and the next
+    cell, clamped into the map; so this holds every cell it touches."""
+    rois, rw, rh = _level_rois(boxes, lvl, pcfg)
+    y1, x1 = rois[:, 1], rois[:, 0]
+    return torch.stack([torch.floor(y1), torch.floor(y1 + rh) + 1,
+                        torch.floor(x1), torch.floor(x1 + rw) + 1], dim=1)
+
+
+def tile_lists(level_shapes, boxes, batch_idx, lvl, pcfg):
+    """The "roi" backward's ROI lists, in plain PyTorch: {(level, image,
+    tile row, tile column): [ROI, ...]} for every TILE x TILE tile of a
+    level's gradient (ragged at the far edges) whose full TILE x TILE extent
+    meets an ROI's footprint, the ROIs of that level and image in index
+    order (the kernel's order: a stable sort by level, then image)."""
+    foot = roi_footprints(boxes, lvl, pcfg).tolist()
+    lists = {}
+    for r, (l, b) in enumerate(zip(lvl.tolist(), batch_idx.tolist())):
+        h, w = level_shapes[l][1], level_shapes[l][2]
+        ylo, yhi, xlo, xhi = foot[r]
+        for ty in range(-(-h // TILE)):
+            if not (yhi >= ty * TILE and ylo <= ty * TILE + TILE - 1):
+                continue
+            for tx in range(-(-w // TILE)):
+                if xhi >= tx * TILE and xlo <= tx * TILE + TILE - 1:
+                    lists.setdefault((l, b, ty, tx), []).append(r)
+    return lists
+
+
+def _tile_weights(axis, r, cells, p, s):
+    """[P, len(cells)]: per bin, the summed bilinear weights that ROI r's
+    valid samples give each of `cells` on one axis."""
+    lo, hi = axis["lo"][r][:, None], axis["hi"][r][:, None]
+    w = (axis["wlo"][r][:, None] * (lo == cells) + axis["whi"][r][:, None] * (hi == cells))
+    w = w * axis["valid"][r][:, None]
+    return w.reshape(p, s, -1).sum(dim=1)
+
+
+def tile_owner_gradient(level_shapes, boxes, batch_idx, pcfg, dout):
+    """d features of the pooler in the "roi" backward's decomposition, in
+    plain float32 PyTorch: each tile of each level's gradient is the sum,
+    over the ROIs ``tile_lists`` gives it, of RowW^T . dOut . ColW over the
+    tile's rows and columns, / S^2; tiles no ROI meets stay zero. dout
+    [R, P, P, C] -> one [B, Hl, Wl, C] gradient per level."""
+    p, s = pcfg.output_size, pcfg.sampling_ratio
+    dev = boxes.device
+    lvl = assign_levels(boxes, pcfg) if len(level_shapes) > 1 else \
+        torch.zeros((boxes.shape[0],), dtype=torch.int32, device=dev)
+    rows, cols = sample_axes(level_shapes, boxes, lvl, pcfg)
+    grads = [torch.zeros(tuple(sh), dtype=torch.float32, device=dev) for sh in level_shapes]
+    for (l, b, ty, tx), rois in tile_lists(level_shapes, boxes, batch_idx, lvl, pcfg).items():
+        h, w = level_shapes[l][1], level_shapes[l][2]
+        y0, x0 = ty * TILE, tx * TILE
+        ycells = torch.arange(y0, min(y0 + TILE, h), device=dev)
+        xcells = torch.arange(x0, min(x0 + TILE, w), device=dev)
+        tile = grads[l][b, y0:y0 + TILE, x0:x0 + TILE]
+        for r in rois:
+            roww = _tile_weights(rows, r, ycells, p, s)
+            colw = _tile_weights(cols, r, xcells, p, s)
+            tile += torch.einsum("py,pqc,qx->yxc", roww, dout[r].float(), colw)
+    return [g / (s * s) for g in grads]
 
 
 # -- window layout of the "rmw" and "chunk" backwards ------------------------
@@ -232,18 +351,7 @@ def window_layout(shapes, boxes, batch_idx, lvl, pcfg):
     # the largest origin: TPU levels are padded to >= 48 and a multiple of 8
     top = _const([[max(PATCH, -(-sh[i] // 8) * 8) - PATCH for i in (1, 2)] for sh in shapes],
                  dev)[lvl]
-    scale = _const(pcfg.scales, dev, torch.float32)[lvl]
-
-    rois = boxes.float() * scale[:, None]
-    rw = torch.clamp(rois[:, 2] - rois[:, 0], min=1.0)
-    rh = torch.clamp(rois[:, 3] - rois[:, 1], min=1.0)
-    bin_w = _true_div(rw, p)
-    bin_h = _true_div(rh, p)
-    j = torch.arange(p * s, device=dev)
-    ib = (j // s).float()
-    sb = (j % s).float()
-    ys = rois[:, 1:2] + ib[None] * bin_h[:, None] + (sb[None] + 0.5) * _true_div(bin_h[:, None], s)
-    xs = rois[:, 0:1] + ib[None] * bin_w[:, None] + (sb[None] + 0.5) * _true_div(bin_w[:, None], s)
+    ys, xs = _sample_coords(boxes, lvl, pcfg)
     ymask = (ys >= -1.0) & (ys <= hs)
     xmask = (xs >= -1.0) & (xs <= ws)
     ys = torch.minimum(torch.clamp(ys, min=0.0), hs - 1.0)
@@ -336,8 +444,8 @@ def window_kernel_inputs(kind, shapes, boxes, batch_idx, lvl, pcfg):
 # -- CUDA kernels ---------------------------------------------------------------
 
 _I, _P, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-# roi_align_backward's arguments, which the window backwards begin with
-_BWD_ARGS = [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+# the leading arguments of the window backwards (_window_args)
+_WINDOW_ARGS = [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
 
 
 def _lib():
@@ -345,9 +453,10 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.roi_align_forward.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _P, _P]
-        lib.roi_align_backward.argtypes = _BWD_ARGS + [_P]
-        lib.roi_align_backward_rmw.argtypes = _BWD_ARGS + [_P, _I, _P, _P, _P, _P]
-        lib.roi_align_backward_chunk.argtypes = _BWD_ARGS + [_P, _I, _P, _P, _I, _I, _P, _P]
+        lib.roi_align_backward.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                                           _I, _P, _P]
+        lib.roi_align_backward_rmw.argtypes = _WINDOW_ARGS + [_P, _I, _P, _P, _P, _P]
+        lib.roi_align_backward_chunk.argtypes = _WINDOW_ARGS + [_P, _I, _P, _P, _I, _I, _P, _P]
         for fn in (lib.roi_align_forward, lib.roi_align_backward, lib.roi_align_backward_rmw,
                    lib.roi_align_backward_chunk, lib.roi_align_max_levels,
                    lib.roi_align_window_max_p):
@@ -359,15 +468,38 @@ def _lib():
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _check_vector_access(what, c, tensors):
+    """The kernels move 8 channels a thread in 16-byte loads and stores."""
+    if c % 8 != 0:
+        raise ValueError("{} kernel takes C % 8 == 0 channels, not {}".format(what, c))
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("{} kernel takes 16-byte aligned buffers".format(what))
+
+
+def _level_arrays(shapes, pcfg):
+    """Heights, widths and scales of the levels as ctypes arrays."""
+    n = len(shapes)
+    return ((ctypes.c_int * n)(*[shape[1] for shape in shapes]),
+            (ctypes.c_int * n)(*[shape[2] for shape in shapes]),
+            (ctypes.c_float * n)(*pcfg.scales))
+
+
+def _level_offsets(shapes):
+    """(start of each level in the flat gradient, total elements)."""
+    offsets, off = [], 0
+    for shape in shapes:
+        offsets.append(off)
+        off += math.prod(shape)
+    return (ctypes.c_longlong * len(shapes))(*offsets), off
+
+
 def launch(features, boxes, bidx, lvl, pcfg, out):
     """The kernel alone, on prepared buffers: NHWC-contiguous levels, boxes
     [R, 4] f32, batch_idx and level [R] int32 in, out [R, P, P, C] in the
     features' dtype. Launches on the current stream."""
     num_levels = len(features)
     ptrs = (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in features])
-    hs = (ctypes.c_int * num_levels)(*[f.shape[1] for f in features])
-    ws = (ctypes.c_int * num_levels)(*[f.shape[2] for f in features])
-    scales = (ctypes.c_float * num_levels)(*pcfg.scales)
+    hs, ws, scales = _level_arrays([f.shape for f in features], pcfg)
     r, p, c = out.shape[0], out.shape[1], out.shape[3]
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     rc = _lib().roi_align_forward(
@@ -378,20 +510,26 @@ def launch(features, boxes, bidx, lvl, pcfg, out):
     native.check(rc, "roi_align")
 
 
-def _backward_args(shapes, boxes, bidx, lvl, pcfg, dout, acc, out):
-    """The leading arguments every backward entry point takes."""
-    num_levels = len(shapes)
-    offsets, off = [], 0
-    for shape in shapes:
-        offsets.append(off)
-        off += math.prod(shape)
+def roi_tile_inputs(shapes, bidx, lvl):
+    """The "roi" backward's ROI lists on the device, without a read-back:
+    order [R] int32, the ROIs sorted by (level, image), stable; seg
+    [levels * B + 1] int32, the first position in order of each (level,
+    image) segment, then R."""
+    nb = shapes[0][0]
+    key = lvl.long() * nb + bidx.long()
+    order = torch.argsort(key, stable=True)
+    bounds = torch.arange(len(shapes) * nb + 1, device=key.device)
+    seg = torch.searchsorted(key[order], bounds)
+    return {"order": order.to(torch.int32), "seg": seg.to(torch.int32)}
+
+
+def _window_args(shapes, boxes, bidx, lvl, pcfg, dout, acc, out):
+    """The leading arguments of the window backwards' entry points."""
+    offsets, total = _level_offsets(shapes)
     r, p, c = dout.shape[0], dout.shape[1], dout.shape[3]
     return [
-        acc.data_ptr(), (ctypes.c_longlong * num_levels)(*offsets), off,
-        (ctypes.c_int * num_levels)(*[shape[1] for shape in shapes]),
-        (ctypes.c_int * num_levels)(*[shape[2] for shape in shapes]),
-        (ctypes.c_float * num_levels)(*pcfg.scales), num_levels, boxes.data_ptr(),
-        bidx.data_ptr(), lvl.data_ptr(), r, c, p, pcfg.sampling_ratio,
+        acc.data_ptr(), offsets, total, *_level_arrays(shapes, pcfg), len(shapes),
+        boxes.data_ptr(), bidx.data_ptr(), lvl.data_ptr(), r, c, p, pcfg.sampling_ratio,
         _DTYPE_CODES[dout.dtype], dout.data_ptr(), out.data_ptr(),
     ]
 
@@ -399,17 +537,23 @@ def _backward_args(shapes, boxes, bidx, lvl, pcfg, dout, acc, out):
 def launch_backward(shapes, boxes, bidx, lvl, pcfg, dout, acc, out, kind="roi", inputs=None):
     """A backward kernel alone, on prepared buffers: level shapes [(B, Hl,
     Wl, C)], boxes [R, 4] f32, batch_idx and level [R] int32, dout
-    [R, P, P, C] contiguous; acc a float32 buffer of sum(B*Hl*Wl*C)
-    elements (zeroed by the kernel), out a buffer of the same size in
-    dout's dtype (unused for float32, where acc is the gradient). `kind`
-    names the backward; "rmw" and "chunk" take `inputs` from
-    window_kernel_inputs. Launches on the current stream."""
-    args = _backward_args(shapes, boxes, bidx, lvl, pcfg, dout, acc, out)
+    [R, P, P, C] contiguous, out a buffer of sum(B*Hl*Wl*C) elements in
+    dout's dtype. "roi" writes out whole from `inputs` of roi_tile_inputs
+    and takes no acc. "rmw" and "chunk" take `inputs` from
+    window_kernel_inputs and acc, a float32 buffer of out's size (zeroed by
+    the kernel; for float32 it is the gradient and out is unused).
+    Launches on the current stream."""
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     lib = _lib()
     if kind == "roi":
-        rc = lib.roi_align_backward(*args, stream)
+        offsets, _ = _level_offsets(shapes)
+        rc = lib.roi_align_backward(
+            out.data_ptr(), offsets, *_level_arrays(shapes, pcfg), len(shapes), shapes[0][0],
+            boxes.data_ptr(), inputs["order"].data_ptr(), inputs["seg"].data_ptr(),
+            dout.shape[3], dout.shape[1], pcfg.sampling_ratio, _DTYPE_CODES[dout.dtype],
+            dout.data_ptr(), stream)
     else:
+        args = _window_args(shapes, boxes, bidx, lvl, pcfg, dout, acc, out)
         common = [inputs["oversize"].data_ptr(), inputs["rows"].shape[1],
                   inputs["rows"].data_ptr(), inputs["weights"].data_ptr()]
         if kind == "rmw":
@@ -428,19 +572,24 @@ def _backward(kind, dout, shapes, boxes, bidx, lvl, pcfg):
         raise ValueError("the window backwards take P <= {}".format(
             _lib().roi_align_window_max_p()))
     dout = dout.contiguous()
-    inputs = None if kind == "roi" else window_kernel_inputs(kind, shapes, boxes, bidx, lvl, pcfg)
     sizes = [math.prod(shape) for shape in shapes]
-    acc = torch.empty((sum(sizes),), dtype=torch.float32, device=dout.device)
-    out = acc if dout.dtype == torch.float32 else torch.empty_like(acc, dtype=dout.dtype)
+    out = torch.empty((sum(sizes),), dtype=dout.dtype, device=dout.device)
+    if kind == "roi":
+        _check_vector_access("roi_align backward", dout.shape[3], [dout])
+        acc, inputs = None, roi_tile_inputs(shapes, bidx, lvl)
+    else:
+        inputs = window_kernel_inputs(kind, shapes, boxes, bidx, lvl, pcfg)
+        acc = out if dout.dtype == torch.float32 else torch.empty_like(out, dtype=torch.float32)
     launch_backward(shapes, boxes, bidx, lvl, pcfg, dout, acc, out, kind, inputs)
     return [g.view(shape) for g, shape in zip(out.split(sizes), shapes)]
 
 
 def roi_align_backward(dout, shapes, boxes, bidx, lvl, pcfg):
     """d features of the kernel's forward by the "roi" backward: dout
-    [R, P, P, C] (float32 or bfloat16, CUDA) -> one NHWC-contiguous
-    [B, Hl, Wl, C] gradient per level in dout's dtype, summed in float32
-    and rounded once."""
+    [R, P, P, C] (float32 or bfloat16, CUDA, C % 8 == 0) -> one
+    NHWC-contiguous [B, Hl, Wl, C] gradient per level in dout's dtype,
+    summed in float32 in a fixed order and rounded once: two calls give the
+    same bits."""
     grads = _backward("roi", dout, shapes, boxes, bidx, lvl, pcfg)
     roi_align_backward.launches += 1
     return grads
@@ -510,6 +659,7 @@ def _roi_align_cuda(features, boxes, batch_idx, pcfg, bwd):
     if len(features) > _lib().roi_align_max_levels():
         raise ValueError("roi_align kernel takes at most {} levels"
                          .format(_lib().roi_align_max_levels()))
+    _check_vector_access("roi_align", c, features)
     boxes = boxes.detach().contiguous()
     bidx = batch_idx.to(torch.int32).contiguous()
     if len(features) > 1:

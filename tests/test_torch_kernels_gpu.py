@@ -10,12 +10,13 @@ Tolerances: NMS keep-masks and matcher outputs exact; ROIAlign in float32
 atol 1e-5 (the kernel and the plain version round the same products and
 sums, in another order for the S x S mean); in bfloat16 at most
 1e-2 * max|x| (the plain version rounds every step in bfloat16, the kernel
-accumulates in float32). The ROIAlign backward against autograd through the
-plain version: float32 within 1e-5 * max|grad| (float32 atomic adds in an
+accumulates in float32). The ROIAlign backwards against autograd through
+the plain version: float32 within 1e-5 * max|grad| (the tile sums of the
+"roi" backward and the window sums of "rmw" and "chunk" run in another
+order than the per-sample adds; the window backwards' atomic flushes in an
 order that changes from run to run), bfloat16 against the float32 plain
-gradient within 1e-2 * max|grad| (one rounding of each sum to bfloat16); the
-same for the "rmw" and "chunk" backwards (window sums in another order than
-the per-sample adds).
+gradient within 1e-2 * max|grad| (one rounding of each sum to bfloat16).
+The "roi" backward sums in a fixed order: two calls are bitwise equal.
 """
 
 import numpy as np
@@ -97,8 +98,9 @@ def _rois(cuda, r, b=2, seed=1):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("p,r", [(7, 1000), (14, 100)])
-def test_roi_align_kernel_matches_plain_float32(cuda, p, r):
-    feats = _pyramid(cuda, torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_matches_plain(cuda, dtype, p, r):
+    feats = _pyramid(cuda, dtype)
     boxes, bidx = _rois(cuda, r)
     pcfg = PoolerConfig(p, SCALES, 2)
     before = multilevel_roi_align.launches
@@ -106,20 +108,12 @@ def test_roi_align_kernel_matches_plain_float32(cuda, p, r):
     torch.cuda.synchronize()
     assert multilevel_roi_align.launches == before + 1
     want = multilevel_roi_align_plain(feats, boxes, bidx, pcfg)
-    assert got.shape == want.shape == (r, p, p, 256)
-    assert (got - want).abs().max().item() <= 1e-5
-
-
-@pytest.mark.gpu
-def test_roi_align_kernel_matches_plain_bfloat16(cuda):
-    feats = _pyramid(cuda, torch.bfloat16)
-    boxes, bidx = _rois(cuda, 1000)
-    pcfg = PoolerConfig(7, SCALES, 2)
-    got = multilevel_roi_align(feats, boxes, bidx, pcfg)
-    want = multilevel_roi_align_plain(feats, boxes, bidx, pcfg)
-    assert got.dtype == torch.bfloat16
-    scale = max(f.abs().max().item() for f in feats)
-    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
+    assert got.dtype == dtype and got.shape == want.shape == (r, p, p, 256)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        scale = max(f.abs().max().item() for f in feats)
+        assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
 
 
 @pytest.mark.gpu
@@ -188,31 +182,116 @@ def _edge_rois(cuda, r, b=2):
     return boxes, bidx
 
 
+def _plain_grad(cuda, boxes, bidx, pcfg, dout, b=2):
+    feats = [f.detach().requires_grad_() for f in _pyramid(cuda, torch.float32, b=b)]
+    (multilevel_roi_align_plain(feats, boxes, bidx, pcfg) * dout).sum().backward()
+    return [f.grad for f in feats]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("p,r", [(7, 1000), (14, 200)])
-def test_roi_align_backward_matches_plain_autograd(cuda, p, r):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_matches_plain_autograd(cuda, dtype, p, r):
     boxes, bidx = _edge_rois(cuda, r)
     pcfg = PoolerConfig(p, SCALES, 2)
     g = torch.Generator().manual_seed(p)
     dout = torch.randn(r, p, p, 256, generator=g).to(cuda)
-
-    plain_feats = [f.detach().requires_grad_() for f in _pyramid(cuda, torch.float32)]
-    (multilevel_roi_align_plain(plain_feats, boxes, bidx, pcfg) * dout).sum().backward()
-    want = [f.grad for f in plain_feats]
+    want = _plain_grad(cuda, boxes, bidx, pcfg, dout)
     scale = max(w.abs().max().item() for w in want)
     assert scale > 0
 
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-        feats = [f.detach().requires_grad_() for f in _pyramid(cuda, dtype)]
-        before = roi_align_backward.launches
-        out = multilevel_roi_align(feats, boxes, bidx, pcfg)
-        out.backward(dout.to(dtype))
-        torch.cuda.synchronize()
-        assert roi_align_backward.launches == before + 1
-        for f, w in zip(feats, want):
-            assert f.grad.dtype == dtype and f.grad.shape == w.shape
-            err = (f.grad.float() - w).abs().max().item()
-            assert err <= tol * scale, (dtype, err, scale)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    feats = [f.detach().requires_grad_() for f in _pyramid(cuda, dtype)]
+    before = roi_align_backward.launches
+    out = multilevel_roi_align(feats, boxes, bidx, pcfg)
+    out.backward(dout.to(dtype))
+    torch.cuda.synchronize()
+    assert roi_align_backward.launches == before + 1
+    for f, w in zip(feats, want):
+        assert f.grad.dtype == dtype and f.grad.shape == w.shape
+        err = (f.grad.float() - w).abs().max().item()
+        assert err <= tol * scale, (dtype, err, scale)
+
+
+def _roi_backward(cuda, dout, boxes, bidx, pcfg, b=2):
+    shapes = [(b, 200 >> i, 336 >> i, dout.shape[-1]) for i in range(4)]
+    lvl = assign_levels(boxes, pcfg)
+    return roi_align_backward(dout, shapes, boxes, bidx.int(), lvl, pcfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_is_deterministic(cuda, dtype):
+    boxes, bidx = _edge_rois(cuda, 1000)
+    pcfg = PoolerConfig(7, SCALES, 2)
+    dout = torch.randn(1000, 7, 7, 256, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    first = _roi_backward(cuda, dout, boxes, bidx, pcfg)
+    second = _roi_backward(cuda, dout, boxes, bidx, pcfg)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert any(a.any() for a in first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_without_rois_is_zero(cuda, dtype):
+    pcfg = PoolerConfig(14, SCALES, 2)
+    boxes = torch.zeros(0, 4, device=cuda)
+    bidx = torch.zeros(0, dtype=torch.int32, device=cuda)
+    grads = _roi_backward(cuda, torch.zeros(0, 14, 14, 256, dtype=dtype, device=cuda), boxes,
+                          bidx, pcfg)
+    assert [tuple(g.shape) for g in grads] == [(2, 200 >> i, 336 >> i, 256) for i in range(4)]
+    assert all(g.dtype == dtype and not g.any() for g in grads)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [7, 14])
+def test_roi_align_kernels_on_rois_beyond_the_map_and_degenerate(cuda, p):
+    """ROIs wholly or partly outside the 800 x 1344 image, degenerate and
+    zero-width ROIs, ROIs in [-1, 0) and snapped at the far edges; the third
+    image gets no ROI."""
+    boxes = torch.tensor([
+        [-3, -2, 30, 25], [1300, 780, 1343.9, 799.9], [1320, 790, 1400, 820],
+        [1330, 10, 1500, 60], [1400, 820, 1500, 900], [-400, -400, -300, -300],
+        [100, 100, 100, 100], [50, 60, 50, 90], [0, 0, 1343, 799], [-50, 700, 60, 900],
+    ], device=cuda)
+    bidx = torch.tensor([0, 1, 0, 1, 0, 1, 0, 1, 0, 1], dtype=torch.int32, device=cuda)
+    pcfg = PoolerConfig(p, SCALES, 2)
+    f32 = [f.detach().requires_grad_() for f in _pyramid(cuda, torch.float32, b=3)]
+    got = multilevel_roi_align(f32, boxes, bidx, pcfg)
+    want = multilevel_roi_align_plain(f32, boxes, bidx, pcfg)
+    assert (got - want).abs().max().item() <= 1e-5
+    dout = torch.randn(got.shape, generator=torch.Generator().manual_seed(p)).to(cuda)
+    got.backward(dout)
+    plain = _plain_grad(cuda, boxes, bidx, pcfg, dout, b=3)
+    scale = max(w.abs().max().item() for w in plain)
+    for f, w in zip(f32, plain):
+        assert not f.grad[2].any()
+        assert (f.grad - w).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_roi_align_kernels_refuse_unaligned_buffers_and_c_not_multiple_of_8(cuda):
+    boxes, bidx = _rois(cuda, 4)
+    pcfg = PoolerConfig(7, SCALES, 2)
+    lvl = assign_levels(boxes, pcfg)
+    odd = _pyramid(cuda, torch.float32, c=12, h=32, w=32)
+    with pytest.raises(ValueError):
+        multilevel_roi_align(odd, boxes, bidx, pcfg)
+    shapes = [(2, 32 >> i, 32 >> i, 12) for i in range(4)]
+    with pytest.raises(ValueError):
+        roi_align_backward(torch.zeros(4, 7, 7, 12, device=cuda), shapes, boxes, bidx, lvl, pcfg)
+
+    def shifted(shape):  # contiguous, 4 bytes past a 16-byte boundary
+        return torch.zeros(int(np.prod(shape)) + 1, device=cuda)[1:].view(shape)
+
+    feats = _pyramid(cuda, torch.float32, c=8, h=32, w=32)
+    feats[1] = shifted(feats[1].shape)
+    with pytest.raises(ValueError):
+        multilevel_roi_align(feats, boxes, bidx, pcfg)
+    shapes = [(2, 32 >> i, 32 >> i, 8) for i in range(4)]
+    with pytest.raises(ValueError):
+        roi_align_backward(shifted((4, 7, 7, 8)), shapes, boxes, bidx, lvl, pcfg)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,163 @@
+"""The decomposition of the port's "roi" ROIAlign backward, against the gather
+pooler and the JAX package.
+
+The CUDA kernel (csrc/roi_align.cu, roi_align_bwd_tile_kernel) owns 8 x 8
+cell tiles of the gradient; each tile sums RowW^T . dOut . ColW over the
+ROIs whose footprint meets it, with RowW / ColW built from the ROI's
+separable sample axes. Its plain-PyTorch counterparts in models/poolers.py
+are held here, float32, on level sides that are not multiples of the tile,
+with samples in [-1, 0), samples snapped to the last row and column,
+samples outside the map and degenerate boxes:
+  * ``sample_axes``, as an outer product, equals ``sample_corners``' indices,
+    weights and outside flags exactly (the same roundings);
+  * every non-zero (ROI, cell) pair of the gather's corners lies in a tile
+    whose ``tile_lists`` entry lists the ROI;
+  * ``roi_tile_inputs`` groups the ROIs by (level, image) in index order, as
+    the tile lists do;
+  * ``tile_owner_gradient`` equals autograd through the gather pooler and
+    ``jax.grad`` of the JAX gather pooler within 1e-5 * max|grad| (sums in
+    another order).
+The kernel itself is held against the plain gradient on the card by
+tests/test_torch_kernels_gpu.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from maskrcnn_tpu.models.poolers import PoolerConfig as JaxPoolerConfig
+from maskrcnn_tpu.models.poolers import multilevel_roi_align as jax_roi_align
+from maskrcnn_tpu_torch.models import poolers
+from maskrcnn_tpu_torch.models.poolers import PoolerConfig
+
+SCALES = (0.25, 0.125, 0.0625, 0.03125)
+# an image of 404 x 680: level sides that are not multiples of 8
+SHAPES = [(2, 101, 170, 16), (2, 51, 85, 16), (2, 26, 43, 16), (2, 13, 22, 16)]
+EDGE_BOXES = [
+    [-3, -2, 30, 25],          # first samples in [-1, 0) on P2: clamped to row/column 0
+    [640, 380, 679, 403],      # last samples in (H - 1, H]: snapped to the last row/column
+    [600, 395, 640, 410],      # lower samples beyond H: outside
+    [660, 10, 720, 60],        # straddles the right edge
+    [700, 420, 760, 470],      # wholly beyond the map
+    [-400, -400, -300, -300],  # wholly before it
+    [100, 100, 100, 100],      # degenerate: roi_w = roi_h = 1
+    [50, 60, 50, 90],          # zero width
+    [0, 0, 600, 400],          # large: a coarse level
+]
+
+
+def _problem(p, r=40, seed=0):
+    rs = np.random.RandomState(seed + p)
+    ctr = rs.uniform(-20, 700, (r, 2)) * [1.0, 0.6]
+    wh = rs.uniform(2, 300, (r, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    boxes[:len(EDGE_BOXES)] = EDGE_BOXES
+    bidx = rs.randint(0, 2, r).astype(np.int32)
+    dout = rs.randn(r, p, p, SHAPES[0][3]).astype(np.float32)
+    return torch.from_numpy(boxes), torch.from_numpy(bidx), torch.from_numpy(dout)
+
+
+def _levels(boxes, pcfg):
+    return poolers.assign_levels(boxes, pcfg)
+
+
+@pytest.mark.parametrize("p", [7, 14])
+def test_sample_axes_outer_product_equals_sample_corners(p):
+    boxes, bidx, _ = _problem(p)
+    pcfg = PoolerConfig(p, SCALES, 2)
+    lvl = _levels(boxes, pcfg).long()
+    index, weight, outside = poolers.sample_corners([s[:3] for s in SHAPES], boxes, bidx, pcfg)
+    rows, cols = poolers.sample_axes(SHAPES, boxes, lvl, pcfg)
+
+    offsets = np.cumsum([0] + [b * h * w for b, h, w, _ in SHAPES])[:-1]
+    hw = torch.tensor([[h, w] for _, h, w, _ in SHAPES])[lvl]
+    base = (torch.from_numpy(offsets)[lvl] + bidx.long() * hw[:, 0] * hw[:, 1])[:, None, None]
+    w_l = hw[:, 1][:, None, None]
+    corners = [(rows["lo"], cols["lo"], rows["wlo"], cols["wlo"]),
+               (rows["lo"], cols["hi"], rows["wlo"], cols["whi"]),
+               (rows["hi"], cols["lo"], rows["whi"], cols["wlo"]),
+               (rows["hi"], cols["hi"], rows["whi"], cols["whi"])]
+    for k, (ry, cx, wy, wx) in enumerate(corners):
+        assert torch.equal(index[k], base + ry[:, :, None] * w_l + cx[:, None, :])
+        assert torch.equal(weight[k], wy[:, :, None] * wx[:, None, :])
+    assert torch.equal(outside, ~(rows["valid"][:, :, None] & cols["valid"][:, None, :]))
+
+    # the problem reaches every edge rule on both axes
+    ys, _ = poolers._sample_coords(boxes, lvl, pcfg)
+    h_r = hw[:, 0][:, None].float()
+    assert ((ys >= -1) & (ys < 0)).any()
+    assert (rows["valid"] & (rows["lo"] == rows["hi"])).any()
+    assert (ys > h_r).any() and (ys < -1).any()
+
+
+@pytest.mark.parametrize("p", [7, 14])
+def test_tile_lists_cover_gather_corners(p):
+    boxes, bidx, _ = _problem(p)
+    pcfg = PoolerConfig(p, SCALES, 2)
+    lvl = _levels(boxes, pcfg)
+    index, weight, outside = poolers.sample_corners([s[:3] for s in SHAPES], boxes, bidx, pcfg)
+    lists = poolers.tile_lists(SHAPES, boxes, bidx, lvl, pcfg)
+    listed = {(key, r) for key, rois in lists.items() for r in rois}
+
+    offsets = np.cumsum([0] + [b * h * w for b, h, w, _ in SHAPES])[:-1]
+    touched = set()
+    for k in range(4):
+        live = (weight[k] != 0) & ~outside
+        rr = torch.nonzero(live)[:, 0]
+        for r, i in zip(rr.tolist(), index[k][live].tolist()):
+            l = int(lvl[r])
+            _, h, w, _ = SHAPES[l]
+            b, cell = divmod(i - int(offsets[l]), h * w)
+            touched.add(((l, b, cell // w // poolers.TILE, cell % w // poolers.TILE), r))
+    assert touched and touched <= listed
+    # a superset, but not a loose one: a footprint's margin adds at most a
+    # ring of tiles around the ones the samples touch
+    assert len(listed) <= 4 * len(touched)
+
+
+@pytest.mark.parametrize("r", [40, 0])
+def test_roi_tile_inputs_group_rois_as_tile_lists(r):
+    boxes, bidx, _ = _problem(7, r=max(r, len(EDGE_BOXES)))
+    boxes, bidx = boxes[:r], bidx[:r]
+    pcfg = PoolerConfig(7, SCALES, 2)
+    lvl = _levels(boxes, pcfg)
+    got = poolers.roi_tile_inputs(SHAPES, bidx, lvl)
+    order, seg = got["order"].long(), got["seg"].long()
+    assert got["order"].dtype == got["seg"].dtype == torch.int32
+    nb = SHAPES[0][0]
+    assert seg.shape == (len(SHAPES) * nb + 1,) and int(seg[-1]) == r
+    for key, rois in poolers.tile_lists(SHAPES, boxes, bidx, lvl, pcfg).items():
+        s = key[0] * nb + key[1]
+        segment = order[seg[s]:seg[s + 1]].tolist()
+        assert segment == sorted(segment)
+        assert [i for i in segment if i in rois] == rois
+    for s in range(len(SHAPES) * nb):
+        for i in order[seg[s]:seg[s + 1]].tolist():
+            assert int(lvl[i]) * nb + int(bidx[i]) == s
+
+
+@pytest.mark.parametrize("p", [7, 14])
+def test_tile_owner_gradient_equals_gather_and_jax_gradients(p):
+    boxes, bidx, dout = _problem(p)
+    pcfg = PoolerConfig(p, SCALES, 2)
+    got = poolers.tile_owner_gradient(SHAPES, boxes, bidx, pcfg, dout)
+
+    leaves = [torch.zeros(s, requires_grad=True) for s in SHAPES]
+    out = poolers.multilevel_roi_align_plain(leaves, boxes, bidx, pcfg)
+    want = torch.autograd.grad(out, leaves, dout)
+    scale = max(w.abs().max().item() for w in want)
+    assert scale > 0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-5 * scale
+
+    jpcfg = JaxPoolerConfig(p, SCALES, 2)
+    jb, ji, jd = jnp.asarray(boxes.numpy()), jnp.asarray(bidx.numpy()), jnp.asarray(dout.numpy())
+    jgrad = jax.grad(lambda fs: (jax_roi_align(fs, jb, ji, jpcfg, compute_dtype=jnp.float32,
+                                               backend="gather") * jd).sum())(
+        [jnp.zeros(s, jnp.float32) for s in SHAPES])
+    for g, w in zip(got, jgrad):
+        assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-5 * scale
