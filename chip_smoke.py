@@ -21,7 +21,8 @@ Serving:
      no matcher and no ROIAlign backward;
   5. each kernel against its plain PyTorch version on the inputs the main
      path fed it in the first request, timed with CUDA events beside the
-     least time the card could take for the same work;
+     least time the card could take for the same work (NMS also launch by
+     launch under torch.profiler);
   6. the outputs: finite and of the expected shapes, and the same weights in
      float32 on a small image agreeing between the card (kernels) and the
      CPU (plain versions).
@@ -34,9 +35,10 @@ Training (a second model instance):
   8. the launch counts of the counted step: matcher 1, NMS 1, ROIAlign
      forward 2, the default "roi" ROIAlign backward 2;
   9. each kernel against its plain version on the inputs that step fed it,
-     timed beside its bound; the three ROIAlign backwards ("roi", "rmw",
-     "chunk") each on the gradients that step gave the two poolers, and two
-     calls of "roi" giving the same bits;
+     timed beside its bound (NMS and the matcher also launch by launch); the
+     three ROIAlign backwards ("roi", "rmw", "chunk") each on the gradients
+     that step gave the two poolers, and two calls of "roi" giving the same
+     bits;
  10. one float32 step on a small batch, the same weights and sampler draws
      on the card (kernels) and on the CPU (plain versions): losses and a
      handful of gradients agree; then again with the "rmw" backward at P=7
@@ -61,9 +63,9 @@ The training entry point (a third model instance):
      the loader's own rate at these settings (24 batches past its first);
  14. a resumed run to 12: it loads model_final, starts from the saved
      parameters and logs no iteration below 9.
-Then the redesigned ROIAlign kernels' times beside their earlier designs'
-(PERF.md), one JSON line of the six kernels, the card's line, and the result
-line.
+Then the redesigned kernels' times (NMS, the matcher, the ROIAlign forward
+and "roi" backward) beside their earlier designs' (PERF.md), one JSON line of
+the six kernels, the card's line, and the result line.
 """
 
 import contextlib
@@ -95,11 +97,14 @@ BF16_FLOPS_PER_S = 989e12
 # 3 sums, 1 accumulate; the backward's 4 products and 4 adds alike)
 NMS_OPS_PER_PAIR = 15
 ROI_OPS_PER_SAMPLE = 8
-# The times of the ROIAlign forward and "roi" backward designs before the
-# current ones (PERF.md: this script on an NVIDIA H100 80GB HBM3 at 700 W),
-# wrapper / kernel alone in ms, by (kernel, path, P), printed beside this
-# run's times.
+# The times of the redesigned kernels' earlier designs (PERF.md: this script
+# on an NVIDIA H100 80GB HBM3 at 700 W), wrapper / kernel alone in ms, by
+# (kernel, path, P) for ROIAlign and (kernel, path, lanes) for NMS and the
+# matcher, printed beside this run's times.
 EARLIER_MS = {
+    ("nms", "serving", (5, 1000)): (0.2567, 0.1840), ("nms", "serving", (80, 200)): (0.2592, 0.0577),
+    ("nms", "training", (40, 2000)): (0.6366, 0.5703),
+    ("matcher", "training", (8, 268569)): (0.1264, 0.1223),
     ("roi_align", "serving", 7): (0.3146, 0.2187), ("roi_align", "serving", 14): (0.2642, 0.0954),
     ("roi_align", "training", 7): (0.8746, 0.8305), ("roi_align", "training", 14): (0.4711, 0.4263),
     ("roi_align_backward", "training", 7): (3.3741, 3.4335),
@@ -193,6 +198,26 @@ def environ(**values):
                 os.environ[k] = v
 
 
+def launch_ms(torch, fn, iters=20):
+    """{device kernel or memset name: ms per call of fn}, from torch.profiler
+    (empty where the profiler sees no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].strip()[:60]:
+            self_device_us(e) / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and self_device_us(e) > 0}
+
+
 def bound(nbytes, ops):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -210,17 +235,16 @@ def nms_site(torch, nms, boxes, scores, valid, thresh, plain_iters):
     later = svalid.flip(1).cumsum(1).flip(1) - svalid.long()
     pairs = int((skeep.long() * later).sum())
     g, n = scores.shape
-    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
-    su8 = svalid.to(torch.uint8).contiguous()
-    scratch = torch.empty((g, n, (n + 63) // 64), dtype=torch.int64, device=boxes.device)
-    keep = torch.empty((g, n), dtype=torch.uint8, device=boxes.device)
+    prepared = nms.prepare(boxes, scores, valid)
+    keep = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
     nbytes = g * n * (16 + 4 + 1) + g * n  # boxes, scores, valid in; keep out
     b_ms, b_by = bound(nbytes, NMS_OPS_PER_PAIR * pairs)
     return {
         "shape": [g, n], "iou_threshold": thresh, "kept": int(want.sum()),
         "max_abs_err": float((got != want).sum()),
         "ms": cuda_ms(torch, lambda: nms.batched_nms(boxes, scores, valid, thresh), 50),
-        "kernel_ms": cuda_ms(torch, lambda: nms.launch_sorted(sboxes, su8, scratch, keep, thresh), 50),
+        "kernel_ms": cuda_ms(torch, lambda: nms.launch(*prepared, keep, thresh), 50),
+        "launch_ms": launch_ms(torch, lambda: nms.launch(*prepared, keep, thresh)),
         "plain_ms": cuda_ms(torch, lambda: nms.batched_nms_plain(boxes, scores, valid, thresh),
                             plain_iters, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "iou_tests": pairs,
@@ -265,9 +289,9 @@ def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low):
     check(torch.equal(got, want), "matcher kernel disagrees with its plain version")
     b, g = gt_valid.shape
     n = anchors.shape[0]
-    gv8 = gt_valid.to(torch.uint8).contiguous()
     best = torch.empty((b, g), dtype=torch.int32, device=anchors.device)
     out = torch.empty((b, n), dtype=torch.int32, device=anchors.device)
+    inputs = (anchors.contiguous(), gt_boxes.contiguous(), gt_valid.contiguous())
     # bytes: anchors, gt and validity read once, the matches written once;
     # operations: one IoU test of every anchor with every valid gt
     valid_gt = int(gt_valid.sum())
@@ -277,8 +301,8 @@ def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low):
         "max_abs_err": float((got != want).sum()),
         "ms": cuda_ms(torch, lambda: matcher.match_anchors_batched(
             anchors, gt_boxes, gt_valid, high, low), 50),
-        "kernel_ms": cuda_ms(torch, lambda: matcher.launch(
-            anchors, gt_boxes, gv8, high, low, best, out), 50),
+        "kernel_ms": cuda_ms(torch, lambda: matcher.launch(*inputs, high, low, best, out), 50),
+        "launch_ms": launch_ms(torch, lambda: matcher.launch(*inputs, high, low, best, out)),
         "plain_ms": cuda_ms(torch, lambda: matcher.match_anchors_plain(
             anchors, gt_boxes, gt_valid, high, low), 5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -568,17 +592,26 @@ def run(torch):
         kernel_entry("matcher", "maskrcnn_tpu_torch/csrc/matcher.cu",
                      tpu + "matcher_kernel.py:183", by_path("matcher"), tr["matcher_sites"]),
     ]
+
+    def shape(name, s):
+        if name == "nms":
+            return tuple(s["shape"])
+        return (s["images"], s["anchors"]) if name == "matcher" else s["P"]
+
     redesigned = [
-        {"kernel": name, "path": path, "rois": s["rois"], "P": s["P"], "ms": s["ms"],
-         "kernel_ms": s["kernel_ms"], "bound_ms": s["bound_ms"],
-         "earlier_ms": EARLIER_MS[(name, path, s["P"])][0],
-         "earlier_kernel_ms": EARLIER_MS[(name, path, s["P"])][1]}
-        for name, path, sites in (("roi_align", "serving", roi_sites),
+        {"kernel": name, "path": path, "shape": shape(name, s), "ms": s["ms"],
+         "kernel_ms": s["kernel_ms"], "launch_ms": s.get("launch_ms"), "bound_ms": s["bound_ms"],
+         "earlier_ms": EARLIER_MS[(name, path, shape(name, s))][0],
+         "earlier_kernel_ms": EARLIER_MS[(name, path, shape(name, s))][1]}
+        for name, path, sites in (("nms", "serving", nms_sites),
+                                  ("nms", "training", tr["nms_sites"]),
+                                  ("matcher", "training", tr["matcher_sites"]),
+                                  ("roi_align", "serving", roi_sites),
                                   ("roi_align", "training", tr["roi_sites"]),
                                   ("roi_align_backward", "training", tr["bwd_sites_roi"]))
         for s in sites]
-    print("redesigned ROIAlign kernels, this run against the earlier designs' times in "
-          "PERF.md [{}]: {}".format(card, json.dumps(redesigned)), flush=True)
+    print("redesigned kernels, this run against the earlier designs' times in PERF.md "
+          "[{}]: {}".format(card, json.dumps(redesigned)), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     return torch.cuda.get_device_name(0), torch.cuda.device_count()

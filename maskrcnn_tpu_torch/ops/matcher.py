@@ -60,6 +60,40 @@ def match_anchors_plain(anchors, gt_boxes, gt_valid, high_threshold, low_thresho
     ])
 
 
+def match_anchors_blocked(anchors, gt_boxes, gt_valid, high_threshold, low_threshold,
+                          tile=512, grid=4):
+    """The CUDA kernel's algorithm in plain PyTorch, for the tests: the
+    contract of ``match_anchors_plain`` with the kernel's pruned restore.
+
+    The kernel's blocks walk anchor tiles of `tile` grid-stride, so anchor i
+    belongs to block (i // tile) % grid. Pass 1: each anchor's first best
+    valid gt, thresholded, and each block's maximum IoU per gt; a gt's best
+    is the maximum over blocks. Pass 2 revisits a block's anchors only for
+    the valid gt j whose block maximum equals best[j] > 0, and restores the
+    anchors there whose IoU with j equals best[j]."""
+    b, n = gt_boxes.shape[0], anchors.shape[0]
+    block = (torch.arange(n, device=anchors.device) // tile) % grid
+    out = []
+    for k in range(b):
+        iou = box_iou(gt_boxes[k], anchors)  # [G, N]
+        iou = torch.where(gt_valid[k][:, None], iou, torch.full_like(iou, -1.0))
+        if iou.shape[0] == 0:
+            out.append(torch.full((n,), BELOW_LOW_QUALITY, dtype=torch.int32,
+                                  device=anchors.device))
+            continue
+        vals, matches = iou.max(dim=0)
+        m = _thresholds(vals, matches.to(torch.int32), high_threshold, low_threshold)
+        bmax = torch.stack([torch.where(block[None] == q, iou, torch.full_like(iou, -1.0))
+                            .max(dim=1).values for q in range(grid)])  # [grid, G]
+        best = bmax.max(dim=0).values
+        hit = (bmax == best) & (best > 0) & gt_valid[k]  # [grid, G]
+        revisit = hit[block].T  # [G, N]: anchor i's block holds gt j's best
+        restore = (revisit & (iou == best[:, None])).any(dim=0)
+        out.append(torch.where(restore, matches.to(torch.int32), m))
+    return torch.stack(out) if out else torch.empty((0, n), dtype=torch.int32,
+                                                    device=anchors.device)
+
+
 def _lib():
     lib = native.load("matcher")
     if not getattr(lib, "_typed", False):
@@ -74,14 +108,15 @@ def _lib():
     return lib
 
 
-def launch(anchors, gt_boxes, gt_valid_u8, high_threshold, low_threshold, best, out):
+def launch(anchors, gt_boxes, gt_valid, high_threshold, low_threshold, best, out):
     """The kernel alone, on prepared buffers: anchors [N, 4] f32, gt_boxes
-    [B, G, 4] f32, gt_valid [B, G] uint8 in; scratch best [B, G] int32 (the
-    kernel zeroes it); out [B, N] int32. Launches on the current stream."""
-    b, g = gt_valid_u8.shape
+    [B, G, 4] f32, gt_valid [B, G] bool in; scratch best [B, G] int32 (the
+    kernel zeroes it); out [B, N] int32. One cooperative launch on the
+    current stream."""
+    b, g = gt_valid.shape
     stream = torch.cuda.current_stream(anchors.device).cuda_stream
     rc = _lib().match_anchors(
-        anchors.data_ptr(), gt_boxes.data_ptr(), gt_valid_u8.data_ptr(),
+        anchors.data_ptr(), gt_boxes.data_ptr(), gt_valid.data_ptr(),
         anchors.shape[0], b, g, float(high_threshold), float(low_threshold),
         best.data_ptr(), out.data_ptr(), stream,
     )
@@ -104,7 +139,7 @@ def _match_cuda(anchors, gt_boxes, gt_valid, high_threshold, low_threshold):
     if b == 0 or n == 0:
         return out
     best = torch.empty((b, max(g, 1)), dtype=torch.int32, device=anchors.device)
-    launch(anchors.contiguous(), gt_boxes.contiguous(), gt_valid.to(torch.uint8).contiguous(),
+    launch(anchors.contiguous(), gt_boxes.contiguous(), gt_valid.contiguous(),
            high_threshold, low_threshold, best, out)
     match_anchors_batched.launches += 1
     return out

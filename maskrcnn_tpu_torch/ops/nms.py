@@ -47,28 +47,73 @@ def batched_nms_plain(boxes, scores, valid, iou_threshold):
     return _unsort(order, keep)
 
 
+def blocked_nms_sorted(sboxes, svalid, iou_threshold, block=64):
+    """The CUDA kernel's algorithm in plain PyTorch, for the tests: score-
+    sorted boxes [G, N, 4] and valid [G, N] -> keep [G, N] in sorted order.
+
+    Suppression words as the mask launch stores them: sup[g, i, j] when j
+    comes after i and IoU(i, j) > threshold, with i a valid row and j a
+    valid column (other entries are never read). The walk of the reduce
+    launch: `removed` starts as the invalid rows; block k of `block` rows is
+    resolved row by row from its own columns (a row still alive removes
+    the later rows it names), then the kept rows of the block remove the
+    columns after it at once; the walk stops after the last block holding a
+    valid row."""
+    g, n, _ = sboxes.shape
+    later = torch.ones((n, n), dtype=torch.bool, device=sboxes.device).triu(1)
+    sup = (box_iou(sboxes, sboxes) > iou_threshold) & later
+    sup &= svalid[:, :, None] & svalid[:, None, :]
+    removed = ~svalid.clone()
+    rows = torch.arange(n, device=sboxes.device)
+    last = int(torch.where(svalid, rows + 1, 0).max()) if n else 0
+    for k0 in range(0, last, block):
+        k1 = min(k0 + block, n)
+        cur = removed[:, k0:k1].clone()
+        for i in range(k1 - k0):
+            cur |= ~cur[:, i:i + 1] & sup[:, k0 + i, k0:k1]
+        removed[:, k0:k1] = cur
+        hit = (~cur[:, :, None] & sup[:, k0:k1, k1:]).any(dim=1)
+        removed[:, k1:] |= hit
+    return ~removed
+
+
 def _lib():
     lib = native.load("nms")
     if not getattr(lib, "_typed", False):
-        lib.nms_keep_sorted.argtypes = [
+        lib.nms_keep.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
-        lib.nms_keep_sorted.restype = ctypes.c_int
+        lib.nms_keep.restype = ctypes.c_int
+        lib.nms_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.nms_scratch_words.restype = ctypes.c_longlong
         lib.nms_max_boxes.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def launch_sorted(sboxes, svalid, mask, keep, iou_threshold):
-    """The kernel alone, on prepared buffers: score-sorted boxes [G, N, 4]
-    f32 and valid [G, N] uint8 in, scratch mask [G, N, ceil(N/64)] int64,
-    keep [G, N] uint8 out in sorted order. Launches on the current stream."""
-    g, n = svalid.shape
+def prepare(boxes, scores, valid):
+    """The kernel's inputs: (score-sorted boxes [G, N, 4], the sort's order
+    [G, N] int64, valid [G, N] bool in the original order, scratch), each
+    contiguous: the kernel indexes them by lane * N. The sort's outputs keep
+    their input's strides, and the box head hands over transposed scores."""
+    g, n = scores.shape
+    masked = torch.where(valid, scores, NEG_INF)
+    order = torch.sort(masked, dim=1, descending=True, stable=True).indices.contiguous()
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    scratch = torch.empty((_lib().nms_scratch_words(g, n),), dtype=torch.int64,
+                          device=boxes.device)
+    return sboxes, order, valid.contiguous(), scratch
+
+
+def launch(sboxes, order, valid, scratch, keep, iou_threshold):
+    """The kernel alone, on prepare()'s buffers: writes keep [G, N] bool in
+    the original order. Launches on the current stream."""
+    g, n = valid.shape
     stream = torch.cuda.current_stream(sboxes.device).cuda_stream
-    rc = _lib().nms_keep_sorted(
-        sboxes.data_ptr(), svalid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
-        g, n, float(iou_threshold), stream,
+    rc = _lib().nms_keep(
+        sboxes.data_ptr(), order.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+        keep.data_ptr(), g, n, float(iou_threshold), stream,
     )
     native.check(rc, "nms")
 
@@ -84,16 +129,12 @@ def _batched_nms_cuda(boxes, scores, valid, iou_threshold):
     if n > _lib().nms_max_boxes():
         raise ValueError("nms kernel takes at most {} boxes per lane, got {}"
                          .format(_lib().nms_max_boxes(), n))
+    keep = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
     if g == 0 or n == 0:
-        return torch.zeros((g, n), dtype=torch.bool, device=boxes.device)
-    order, sboxes, svalid = _sort_lanes(boxes, scores, valid)
-    sboxes = sboxes.contiguous()
-    svalid = svalid.to(torch.uint8).contiguous()
-    mask = torch.empty((g, n, (n + 63) // 64), dtype=torch.int64, device=boxes.device)
-    keep = torch.empty((g, n), dtype=torch.uint8, device=boxes.device)
-    launch_sorted(sboxes, svalid, mask, keep, iou_threshold)
+        return keep
+    launch(*prepare(boxes, scores, valid), keep, iou_threshold)
     batched_nms.launches += 1
-    return _unsort(order, keep.bool())
+    return keep
 
 
 def batched_nms(boxes, scores, valid, iou_threshold):

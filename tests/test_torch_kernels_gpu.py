@@ -70,6 +70,60 @@ def test_nms_kernel_matches_plain(cuda, g, n, thresh):
     assert not got[~valid].any()
 
 
+def _nms_edge_lanes(rs, n):
+    """Lanes of n boxes for the blocked walk's edges: a dense lane (rows of
+    later blocks already removed by earlier ones), a lane with no valid box,
+    a lane of one box repeated (one kept), a lane whose only valid boxes sit
+    past the first block, a lane where every box is valid, and pairs at
+    exactly IoU 0.5 and 0.7 (not suppressed: the test is IoU > threshold)."""
+    boxes = _boxes(rs, (5, n), 0, 300, 4, 200)
+    scores = np.round(rs.uniform(size=(5, n)) * 16) / 16  # ties: order by position
+    valid = rs.uniform(size=(5, n)) > 0.1
+    valid[1] = False
+    boxes[2] = [10, 20, 110, 90]
+    scores[2] = 0.5  # all equal: the first one is kept
+    valid[2] = True
+    valid[3, :min(n, 70)] = False
+    valid[4] = True
+    if n >= 4:  # [0,0,9,9] vs [0,0,9,19]: 100 / 200; vs [0,0,9,6]: 70 / 100
+        boxes[0, :4] = [[0, 0, 9, 9], [0, 0, 9, 19], [100, 100, 109, 109], [100, 100, 109, 106]]
+        scores[0, :4] = [2.0, 1.9, 1.8, 1.7]
+        valid[0, :4] = True
+    return boxes, scores.astype(np.float32), valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 200, 2049, 8192])
+@pytest.mark.parametrize("thresh", [0.5, 0.7])
+def test_nms_kernel_blocked_edges(cuda, n, thresh):
+    rs = np.random.RandomState(n)
+    boxes, scores, valid = (torch.from_numpy(x).to(cuda) for x in _nms_edge_lanes(rs, n))
+    got = batched_nms(boxes, scores, valid, thresh)
+    again = batched_nms(boxes, scores, valid, thresh)
+    torch.cuda.synchronize()
+    want = batched_nms_plain(boxes, scores, valid, thresh)
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert not got[1].any() and int(got[2].sum()) == 1 and bool(got[2, 0])
+    if n >= 4:
+        # IoU exactly at the threshold does not suppress; 0.7 > 0.5 does
+        assert got[0, :4].tolist() == [True, True, True, thresh >= 0.7]
+
+
+@pytest.mark.gpu
+def test_nms_kernel_on_transposed_inputs(cuda):
+    """Boxes, scores and validity as strided views (the box head's scores
+    are a transpose): the kernel's sorted inputs must still be contiguous."""
+    rs = np.random.RandomState(9)
+    boxes = torch.from_numpy(_boxes(rs, (200, 80))).to(cuda).transpose(0, 1)
+    scores = torch.from_numpy(rs.uniform(size=(200, 80)).astype(np.float32)).to(cuda).t()
+    valid = torch.from_numpy(rs.uniform(size=(200, 80)) > 0.1).to(cuda).t()
+    assert not scores.is_contiguous() and not boxes.is_contiguous()
+    got = batched_nms(boxes, scores, valid, 0.5)
+    torch.cuda.synchronize()
+    want = batched_nms_plain(boxes.contiguous(), scores.contiguous(), valid.contiguous(), 0.5)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 def test_nms_kernel_rejects_what_it_does_not_take(cuda):
     boxes = torch.zeros(2, 8, 4, dtype=torch.float64, device=cuda)
@@ -158,6 +212,43 @@ def test_matcher_kernel_matches_plain_at_flagship_anchors(cuda):
     assert (got[1] == -1).all()
     assert (got[3] == 0).sum() >= 2  # the tiny gt's tied best anchors restored
     assert (got >= 0).any() and (got == -2).any()
+
+
+@pytest.mark.gpu
+def test_matcher_kernel_at_1024_gt_and_ties_across_blocks(cuda):
+    """1024 gt slots with validity holes and the last slot valid; one anchor
+    copied into many tiles of 256, so a gt's best is tied in several blocks;
+    an image without valid gt."""
+    rs = np.random.RandomState(5)
+    n, g = 40000, 1024
+    anchors = _boxes(rs, (n,), 0, 1300, 8, 400)
+    anchors[::997] = [2000, 2000, 2060, 2050]  # the same anchor in ~40 tiles
+    gt = _boxes(rs, (3, g), 0, 1300, 8, 500)
+    valid = rs.uniform(size=(3, g)) > 0.5
+    valid[:, -1] = True
+    gt[0, 7] = [1900, 1900, 2300, 2300]  # met by the copies only, IoU ~0.02
+    valid[0, 7] = True
+    valid[2] = False
+    anchors, gt, valid = (torch.from_numpy(x).to(cuda) for x in (anchors, gt, valid))
+    got = match_anchors_batched(anchors, gt, valid, 0.7, 0.3)
+    torch.cuda.synchronize()
+    want = match_anchors_plain(anchors, gt, valid, 0.7, 0.3)
+    assert torch.equal(got, want)
+    assert (got[0, ::997] == 7).all() and (got[2] == -1).all()
+
+
+@pytest.mark.gpu
+def test_matcher_kernel_with_more_anchor_tiles_than_resident_blocks(cuda):
+    """2,000,000 anchors: more tiles of 256 than blocks the card holds at
+    once, so each block walks several tiles in both passes."""
+    rs = np.random.RandomState(6)
+    anchors = torch.from_numpy(_boxes(rs, (2000000,), 0, 1300, 8, 400)).to(cuda)
+    gt = torch.from_numpy(_boxes(rs, (2, 12), 0, 1300, 16, 500)).to(cuda)
+    valid = torch.ones(2, 12, dtype=torch.bool, device=cuda)
+    valid[1, 5:] = False
+    got = match_anchors_batched(anchors, gt, valid, 0.7, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, match_anchors_plain(anchors, gt, valid, 0.7, 0.3))
 
 
 @pytest.mark.gpu
