@@ -37,16 +37,18 @@ Training (a second model instance):
   9. each kernel against its plain version on the inputs that step fed it,
      timed beside its bound (NMS and the matcher also launch by launch); the
      three ROIAlign backwards ("roi", "rmw", "chunk") each on the gradients
-     that step gave the two poolers, and two calls of "roi" giving the same
-     bits;
+     that step gave the two poolers, two calls of each giving the same bits;
  10. one float32 step on a small batch, the same weights and sampler draws
      on the card (kernels) and on the CPU (plain versions): losses and a
      handful of gradients agree; then again with the "rmw" backward at P=7
      and "chunk" at P=14;
  11. training img/s and MFU (FLOPs of one step from FlopCounterMode against
      the H100's 989 TFLOP/s dense bf16), the step's peak memory, and a
-     torch.profiler breakdown of two steps' device time, in which the "roi"
-     backward runs no scatter and no cast.
+     torch.profiler breakdown of two steps' device time, with the default
+     "roi" backward and again with "rmw" at P=7 and "chunk" at P=14: the
+     launch counters show the backward each run was given ("roi" twice a
+     step; "rmw" and "chunk" once each), two tile launches a step, no
+     scatter, no cast, and as many memsets as the default step.
 The training entry point (a third model instance):
  12. a synthetic COCO-format tree of 32 images of 480x640 from the seed,
      with bench.py's gt statistics and polygon masks; the images are handed
@@ -64,8 +66,8 @@ The training entry point (a third model instance):
  14. a resumed run to 12: it loads model_final, starts from the saved
      parameters and logs no iteration below 9.
 Then the redesigned kernels' times (NMS, the matcher, the ROIAlign forward
-and "roi" backward) beside their earlier designs' (PERF.md), one JSON line of
-the six kernels, the card's line, and the result line.
+and its three backwards) beside their earlier designs' (PERF.md), one JSON
+line of the six kernels, the card's line, and the result line.
 """
 
 import contextlib
@@ -109,6 +111,10 @@ EARLIER_MS = {
     ("roi_align", "training", 7): (0.8746, 0.8305), ("roi_align", "training", 14): (0.4711, 0.4263),
     ("roi_align_backward", "training", 7): (3.3741, 3.4335),
     ("roi_align_backward", "training", 14): (1.6866, 1.6799),
+    ("roi_align_backward_rmw", "training", 7): (5.1030, 4.3008),
+    ("roi_align_backward_rmw", "training", 14): (2.8047, 1.5114),
+    ("roi_align_backward_chunk", "training", 7): (6.7971, 5.9448),
+    ("roi_align_backward_chunk", "training", 14): (4.4408, 1.9995),
 }
 
 
@@ -320,11 +326,11 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
     wrapper = poolers.BACKWARD_KERNELS[kind]
     got = wrapper(dout, shapes, b32, i32, lvl, pcfg)
     got32 = wrapper(dout.float(), shapes, b32, i32, lvl, pcfg)
-    if kind == "roi":  # a fixed order of sums: a second call gives the same bits
-        again = wrapper(dout, shapes, b32, i32, lvl, pcfg)
-        check(all(torch.equal(a, g) for a, g in zip(again, got)),
-              "two calls of the roi backward differ at P={}".format(pcfg.output_size))
-        del again
+    # a fixed order of sums: a second call gives the same bits
+    again = wrapper(dout, shapes, b32, i32, lvl, pcfg)
+    check(all(torch.equal(a, g) for a, g in zip(again, got)),
+          "two calls of the {} backward differ at P={}".format(kind, pcfg.output_size))
+    del again
     leaves = [torch.zeros(sh, device=dout.device, requires_grad=True) for sh in shapes]
     plain_out = poolers.multilevel_roi_align_plain(leaves, b32, bidx, pcfg)
     want = torch.autograd.grad(plain_out, leaves, dout.float(), retain_graph=True)
@@ -337,9 +343,6 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
     check(err <= 1e-2 * scale, "ROIAlign {} backward kernel ({}) off by {} > 1e-2 * {}".format(
         kind, dout.dtype, err, scale))
     total = sum(math.prod(sh) for sh in shapes)
-    # the window backwards' float32 sums; the roi backward writes out alone
-    acc = None if kind == "roi" else torch.empty((total,), dtype=torch.float32,
-                                                 device=dout.device)
     out = torch.empty((total,), dtype=dout.dtype, device=dout.device)
     dc = dout.contiguous()
     r, p, s, c = dout.shape[0], pcfg.output_size, pcfg.sampling_ratio, dout.shape[-1]
@@ -348,14 +351,14 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
     # every pooled level written once in the compute dtype
     b_ms, b_by = bound(dout.numel() * item + r * 20 + total * item,
                        r * p * p * c * (ROI_OPS_PER_SAMPLE * s * s + 1))
-    site = {"kind": kind, "rois": r, "P": p, "dtype": str(dout.dtype).replace("torch.", "")}
+    site = {"kind": kind, "rois": r, "P": p, "dtype": str(dout.dtype).replace("torch.", ""),
+            "bitwise_repeatable": True}
     if kind == "roi":
         inputs = poolers.roi_tile_inputs(shapes, i32, lvl)
         # how the ROIs load the tiles: the crowded tiles set the kernel's time
         per_tile = [len(v) for v in poolers.tile_lists(shapes, b32.cpu(), i32.cpu(), lvl.cpu(),
                                                          pcfg).values()]
-        site.update(bitwise_repeatable=True,
-                    rois_per_level=torch.bincount(lvl.long(), minlength=len(shapes)).tolist(),
+        site.update(rois_per_level=torch.bincount(lvl.long(), minlength=len(shapes)).tolist(),
                     tiles=sum(-(-sh[1] // poolers.TILE) * -(-sh[2] // poolers.TILE) * sh[0]
                               for sh in shapes),
                     tiles_met=len(per_tile), tile_roi_pairs=sum(per_tile),
@@ -363,11 +366,12 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
                     tiles_met_by_100_rois_or_more=sum(n >= 100 for n in per_tile))
     else:
         inputs = poolers.window_kernel_inputs(kind, shapes, b32, i32, lvl, pcfg)
-        lay = inputs["layout"]
-        per_window = torch.bincount(lay["rwid"][:r])
-        site.update(windows=int(per_window.numel()), rois_per_window_mean=r / per_window.numel(),
-                    rois_per_window_max=int(per_window.max()),
-                    oversize_rois=int(lay["oversize"].sum()))
+        # the window index: windows holding an ROI that fits, and their rows
+        rows = (inputs["end"] - inputs["first"]).clamp(min=0)
+        windows = int((rows > 0).sum())
+        site.update(windows=windows, rows_per_window_mean=int(rows.sum()) / max(windows, 1),
+                    rows_per_window_max=int(rows.max()),
+                    oversize_rois=int(inputs["oversize"].sum()))
         if kind == "chunk":
             pure = inputs["chunks"]["pure"]
             site.update(chunks=int(pure.numel()), pure_chunk_share=float(pure.float().mean()))
@@ -375,7 +379,7 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
         "max_abs_err": err, "max_abs_err_float32": err32, "max_abs_grad": scale,
         "ms": cuda_ms(torch, lambda: wrapper(dout, shapes, b32, i32, lvl, pcfg), 20),
         "kernel_ms": cuda_ms(torch, lambda: poolers.launch_backward(
-            shapes, b32, i32, lvl, pcfg, dc, acc, out, kind, inputs), 20),
+            shapes, b32, pcfg, dc, out, kind, inputs), 20),
         "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
             plain_out, leaves, dout.float(), retain_graph=True), 5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -481,7 +485,8 @@ def run(torch):
     warm = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
     images = [rs.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in REQUEST_SIZES]
     t0 = time.perf_counter()
-    pred = Predictor(cfg, device="cuda", seed=SEED)
+    pred = Predictor(cfg, device="cuda", seed=SEED,
+                     min_image_size=cfg.INPUT.MIN_SIZE_TEST)
     calibrate_frozen_bn(torch, pred.model, pred.preprocess(warm)[0])
     torch.cuda.synchronize()
     print("model built in {:.1f} s; frozen-BN statistics set from the warm-up image"
@@ -608,7 +613,10 @@ def run(torch):
                                   ("matcher", "training", tr["matcher_sites"]),
                                   ("roi_align", "serving", roi_sites),
                                   ("roi_align", "training", tr["roi_sites"]),
-                                  ("roi_align_backward", "training", tr["bwd_sites_roi"]))
+                                  ("roi_align_backward", "training", tr["bwd_sites_roi"]),
+                                  ("roi_align_backward_rmw", "training", tr["bwd_sites_rmw"]),
+                                  ("roi_align_backward_chunk", "training",
+                                   tr["bwd_sites_chunk"]))
         for s in sites]
     print("redesigned kernels, this run against the earlier designs' times in PERF.md "
           "[{}]: {}".format(card, json.dumps(redesigned)), flush=True)
@@ -789,14 +797,39 @@ def train_phase(torch, np, card):
     print("training throughput: " + json.dumps(thr), flush=True)
     print("training step peak memory: {:.3f} GB (torch.cuda.max_memory_allocated over the "
           "warm-up, counted and timed steps) [{}]".format(peak_gb, card), flush=True)
-    prof = profile_steps(torch, step, batch)
+    backwards = ("roi_align_backward",) + window_kernels
+
+    def backward_launches():
+        return [counters[k].launches for k in backwards]
+
+    # the profiled steps run the backward they were given: "roi" twice a
+    # step by default, "rmw" and "chunk" once each a step with the overrides
+    steps_profiled = 2
+    before = backward_launches()
+    prof = profile_steps(torch, step, batch, steps_profiled)
     print("training step profile: " + json.dumps(prof), flush=True)
-    if prof["device_busy_ms"] != "not measured":
-        # the roi backward writes its gradient whole: no scatter, no cast
-        names = prof["roi_align_kernels_per_step"]
-        check(not any("cast_to_bf16" in k or "roi_align_bwd_kernel" in k for k in names)
-              and sum(v for k, v in names.items() if "bwd_tile" in k) == 2,
-              "the step's ROIAlign kernels: {}".format(names))
+    check([a - b for a, b in zip(backward_launches(), before)] == [2 * steps_profiled, 0, 0],
+          "the profiled default steps ran the backwards {}".format(backward_launches()))
+    # the same step as the entry point runs it, "rmw" at P=7 and "chunk" at P=14
+    before = backward_launches()
+    with environ(MASKRCNN_POOLER_BWD_P7="rmw", MASKRCNN_POOLER_BWD_P14="chunk"):
+        prof_w = profile_steps(torch, step, batch, steps_profiled)
+    print("training step profile with rmw/chunk: " + json.dumps(prof_w), flush=True)
+    check([a - b for a, b in zip(backward_launches(), before)] ==
+          [0, steps_profiled, steps_profiled],
+          "the profiled rmw/chunk steps ran the backwards {}".format(backward_launches()))
+    if prof["device_busy_ms"] != "not measured" and prof_w["device_busy_ms"] != "not measured":
+        # every backward writes its gradient whole: two tile launches a step,
+        # no scatter, no cast, and no memset beyond the rest of the step's
+        for p_ in (prof, prof_w):
+            names = p_["roi_align_kernels_per_step"]
+            check(not any("cast_to_bf16" in k or "roi_align_bwd_kernel" in k or "rmw_kernel" in k
+                          or "chunk_kernel" in k for k in names)
+                  and sum(v for k, v in names.items() if "bwd_tile" in k) == 2,
+                  "the step's ROIAlign kernels: {}".format(names))
+        check(prof_w["memsets_per_step"] == prof["memsets_per_step"],
+              "memsets a step: {} with rmw/chunk, {} with roi".format(
+                  prof_w["memsets_per_step"], prof["memsets_per_step"]))
     sites["launches"] = launches
     sites["throughput"] = thr
     return sites

@@ -5,8 +5,9 @@
 //     with its jnp prep _precompute and _bin_weights;
 //   * roi_align_backward: the default "roi" backward, _roi_align_bwd_roi /
 //     _roi_bwd_kernel (:955, :1020);
-//   * roi_align_backward_rmw and roi_align_backward_chunk, at the end of the
-//     file: the "rmw" and "chunk" backwards (:646, :850).
+//   * roi_align_backward_windows: the "rmw" and "chunk" backwards,
+//     _roi_align_bwd / _bwd_kernel and _roi_align_bwd_chunk /
+//     _chunk_bwd_kernel (:646, :850).
 // Semantics are those of the exact gather path
 // (maskrcnn_tpu/models/poolers.py:_pool_roi_block, non-adaptive branch),
 // the legacy aligned=False ROIAlign:
@@ -81,10 +82,44 @@
 // on small gt boxes), and those blocks add them one batch after another
 // while the rest of the card is done (PERF.md).
 //
-// roi_align_bwd_kernel, the former "roi" backward (a float32 atomicAdd
-// scatter of every sample into one zeroed buffer, then one cast), stays as
-// the helper of the window backwards, which scatter their oversize ROIs
-// exactly with it.
+// "rmw" and "chunk" backwards. The TPU kernels sort the ROIs by window
+// (level, image, y0/8, x0/8: an origin quantized to 8 cells, each window
+// 48 x 48 cells), sum dPatch = RowW^T . dOut . ColW per window in VMEM
+// (one ROI at a time, or a pure chunk of 8 ROIs of one window as one
+// stacked MXU contraction) and add each window into the bf16 gradient with
+// one read-modify-write, the grid running in order. On this card windows
+// overlap across blocks that run concurrently, so here the same tile
+// blocks as the "roi" backward own the gradient, and the window sort is
+// their index: an 8 x 8 tile at (ty, tx) (in tiles) lies in a window only
+// if the window's origin is in [ty - 5, ty] x [tx - 5, tx], so the block
+// walks those kSpan x kSpan = 36 windows in key order through a dense table
+// of each window's first and last row (about 11 k entries at B=8), tests
+// their rows' ROIs with meets_tile, and then its (level, image)'s oversize
+// ROIs (those whose samples reach beyond their window: the TPU kernel clamps
+// them, here they get their exact gradient from their geometry). At the
+// training box head the rows of a tile's windows are 18 on average against
+// the 478 ROIs of its segment that the "roi" block scans (PERF.md). The
+// weights of a hit come from its geometry as in the "roi" backward, so the
+// wrapper builds no RowW/ColW. "rmw" walks the sorted rows and adds each
+// hit on the CUDA cores. "chunk" walks the chunk layout's rows (padding rows
+// carry no ROI; the rows of pure chunks, 8 rows of one window, are flagged)
+// and keeps the pure chunks' hits ahead of the others. In bf16, when a pass
+// has at least 8 of them, it adds them as one stacked contraction on the
+// tensor cores, the TPU kernel's MXU matmul: dTile[64 cells, slice] +=
+// A . dOut, K running over every staged bin of those hits, A[cell, bin] =
+// RowW[bin row][cell row] * ColW[bin column][cell column] rounded to bf16
+// as the TPU kernel rounds its operands, dOut read from the stage by
+// ldmatrix (mma.sync m16n8k16, float32 sums; M = the tile's 64 cells, so no
+// row padding). The other hits, and all hits in float32, take the "rmw"
+// sums (PERF.md: the box head's crowded tiles gain, a few pure hits do
+// not). Each tile is written once in the output dtype: no atomics, no
+// float32 scratch, no memset, no cast, and two calls give the same bits.
+// The sums stay float32 to that one rounding (the TPU kernel rounds each
+// window's flush into its bf16 buffer). The block finds its 37 candidate
+// ranges once, a thread each, with their prefix sums in shared memory, so
+// that they hold no registers through the sums; the tile blocks of all three backwards run at 3 blocks
+// an SM (at most 85 registers a thread), where the mask head's many nearly
+// empty tiles run 15-20% faster than at 2 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,6 +144,17 @@ constexpr int kHits = 16;              // ROIs whose tile weights are staged at 
 // reaching each row group's rows, then each column
 constexpr int kRanges = 2 + kRowGroups + kTile;
 constexpr int kStageBytes = 40 * 1024; // dOut staged at once (at least one ROI's bins)
+constexpr int kPatch = 48;             // window side in cells of the "rmw" / "chunk" layout
+constexpr int kSpan = kPatch / kTile;  // window origins per axis whose cells reach a tile
+constexpr int kCands = kSpan * kSpan + 1;  // candidate ranges of a tile: windows, oversize ROIs
+// the "chunk" backward's tensor-core sum (bf16): each warp owns one 16-cell
+// M tile (two tile rows) and half the slice's channels
+constexpr int kMmaM = kTile * kTile / 16;  // M tiles of a tile's cells
+constexpr int kMmaN = kSlice / (kWarps / kMmaM) / 8;  // n8 tiles a warp covers
+static_assert(kWarps % kMmaM == 0 && kMmaN * 8 * (kWarps / kMmaM) == kSlice,
+              "the warps' mma tiles cover the tile's cells and the slice once");
+constexpr int kMmaMinHits = 8;  // the fewest pure-chunk hits of a pass the tensor cores take
+constexpr size_t kMaxSmem = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Levels {
@@ -117,11 +163,6 @@ struct Levels {
   int w[kMaxLevels];
   float scale[kMaxLevels];
 };
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // 8 consecutive channels from a 16-byte aligned address, as float32.
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
@@ -280,22 +321,35 @@ struct TileLevels {
   int num_levels;
 };
 
+// How a tile block finds its ROIs (see TileRois).
+enum Walk { kScan, kWindows, kChunks };
+
 // Byte offsets of the tile kernel's shared arrays, and the size of its dOut
-// stage: kStageBytes, or one ROI's P x P bins if that is more.
+// stage: kStageBytes, or one ROI's P x P bins if that is more. `walk` is the
+// kernel's Walk: the window walks add their candidate ranges.
 struct TileSmem {
-  size_t rng, ints, geom, wts, bits, stage, stage_bytes, total;
+  size_t rng, ints, geom, wts, bits, kbin, stage, stage_bytes, total;
 };
 
-__host__ __device__ inline TileSmem tile_smem(int p, int s, int item) {
+// The bf16 "chunk" backward adds its pure chunks on the tensor cores, with a
+// table of the staged bins (kbin: hit, row bin, column bin of each).
+__host__ __device__ inline bool tile_mma(int item, int walk) {
+  return walk == kChunks && item == 2;
+}
+
+__host__ __device__ inline TileSmem tile_smem(int p, int item, int walk) {
   TileSmem m;
-  m.rng = 0;                                               // int2 [kHits * kRanges]
-  m.ints = m.rng + sizeof(int2) * kHits * kRanges;
-  m.geom = m.ints + sizeof(int) * (kThreads + kWarps);
-  m.wts = m.geom + sizeof(RoiGeom) * kThreads;             // float [kHits * 2 * p * kTile]
-  m.bits = m.wts + sizeof(float) * kHits * 2 * p * kTile;  // int [kHits * 2 * p]
-  m.stage = (m.bits + sizeof(int) * kHits * 2 * p + 15) / 16 * 16;
   const size_t one_roi = (size_t)p * p * kSlice * item;
   m.stage_bytes = one_roi > (size_t)kStageBytes ? one_roi : (size_t)kStageBytes;
+  m.rng = 0;                                               // int2 [kHits * kRanges]
+  m.ints = m.rng + sizeof(int2) * kHits * kRanges;
+  const int ints = kThreads + kWarps + (walk != kScan ? 3 * kCands + 1 : 0);
+  m.geom = m.ints + sizeof(int) * ints;
+  m.wts = m.geom + sizeof(RoiGeom) * kThreads;             // float [kHits * 2 * p * kTile]
+  m.bits = m.wts + sizeof(float) * kHits * 2 * p * kTile;  // int [kHits * 2 * p]
+  m.kbin = m.bits + sizeof(int) * kHits * 2 * p;           // int [staged bins]
+  const size_t kbin = tile_mma(item, walk) ? sizeof(int) * (m.stage_bytes / (kSlice * item)) : 0;
+  m.stage = (m.kbin + kbin + 15) / 16 * 16;
   m.total = m.stage + m.stage_bytes;
   return m;
 }
@@ -319,6 +373,31 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
+// Two float32 as the low and high bf16 of an mma operand register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices of shared memory, transposed: the B operands of
+// two m16n8k16 products.
+__device__ __forceinline__ void ldmatrix_x4_trans(const void* smem, uint32_t r[4]) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a . b, m16n8k16, bf16 operands, float32 sums.
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 8 consecutive channels of the stage, as float32.
 __device__ __forceinline__ void stage8(const float* p, float v[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -337,19 +416,57 @@ __device__ __forceinline__ void stage8(const __nv_bfloat16* p, float v[8]) {
   }
 }
 
-// order [R]: ROI indices sorted by (level, image), stable; seg_start
-// [num_levels * nb + 1]: the first position of each (level, image) segment.
+// Where a tile block finds the ROIs that may meet its tile:
+//   kScan ("roi"): order [R], the ROIs sorted by (level, image), stable, and
+//     seg [num_levels * nb + 1], the first position of each (level, image)
+//     segment; the block tests the whole segment;
+//   kWindows ("rmw") and kChunks ("chunk"): the window index of
+//     poolers.window_kernel_inputs. first, end [tiles]: the rows [first,
+//     end) of the window whose origin is that tile, numbered as the blocks'
+//     tiles (none where end <= first); roi [rows]: the ROI of each row, -1
+//     for padding rows and oversize ROIs; order and seg as for kScan, of
+//     the oversize ROIs only. The block walks the kSpan x kSpan windows
+//     whose cells cover the tile in key order, each window's rows in order,
+//     then its segment's oversize ROIs. For kChunks, roi has kPureRow set
+//     on the rows of pure chunks (one window's rows).
+struct TileRois {
+  const int* order;
+  const int* seg;
+  const int* first;
+  const int* end;
+  const int* roi;
+};
+constexpr int kPureRow = 1 << 30;
+
+// Candidate range j of a window walk's tile (ty, tx) of level l, image b:
+// for j < kSpan * kSpan the rows of the window with origin (ty - kSpan + 1 +
+// j / kSpan, tx - kSpan + 1 + j % kSpan) in tiles, for the last the
+// segment's oversize ROIs [first, first + n); beyond, none. (first row,
+// count).
+__device__ __forceinline__ int2 window_range(const TileLevels& lv, const TileRois& rois, int l,
+                                             int b, int ty, int tx, int first, int n, int j) {
+  if (j >= kCands) return make_int2(0, 0);
+  if (j == kCands - 1) return make_int2(first, n);
+  const int wy = ty - (kSpan - 1) + j / kSpan, wx = tx - (kSpan - 1) + j % kSpan;
+  if (wy < 0 || wx < 0) return make_int2(0, 0);
+  const int key = lv.tiles[l] + (b * ((lv.h[l] + kTile - 1) / kTile) + wy) * lv.tiles_x[l] + wx;
+  const int start = rois.first[key];
+  return make_int2(start, max(rois.end[key] - start, 0));
+}
+
 // Block (tile, slice) owns the tile's channels [slice * kSlice, + kSlice).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxes,
-                          const int* __restrict__ order, const int* __restrict__ seg_start,
+template <typename T, int kWalk>
+__global__ void __launch_bounds__(kThreads, 3)
+roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxes, TileRois rois,
                           int c, int p, int s, const T* __restrict__ dout) {
   extern __shared__ __align__(16) unsigned char s_tile_raw[];
-  const TileSmem sm = tile_smem(p, s, sizeof(T));
+  const TileSmem sm = tile_smem(p, sizeof(T), kWalk);
   int2* s_rng = reinterpret_cast<int2*>(s_tile_raw + sm.rng);  // [kHits][kRanges]
   int* s_roi = reinterpret_cast<int*>(s_tile_raw + sm.ints);
   int* s_count = s_roi + kThreads;              // hits per warp of the scan
+  int* s_cbeg = s_count + kWarps;               // the window walks' candidate ranges:
+  int* s_clen = s_cbeg + kCands;                //   first row and length of each,
+  int* s_pre = s_clen + kCands;                 //   and the rows before each
   RoiGeom* s_geom = reinterpret_cast<RoiGeom*>(s_tile_raw + sm.geom);
   float* s_w = reinterpret_cast<float*>(s_tile_raw + sm.wts);
   int* s_bits = reinterpret_cast<int*>(s_tile_raw + sm.bits);
@@ -361,7 +478,7 @@ roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxe
   const int c0 = blockIdx.y * kSlice;
   const int ch = c0 + lane * 8;
   const int ps = p * s, pt = p * kTile;
-  constexpr int kChunks = kSlice * (int)sizeof(T) / 16;  // 16-byte pieces of a staged bin
+  constexpr int kPieces = kSlice * (int)sizeof(T) / 16;  // 16-byte pieces of a staged bin
   constexpr int kPer = 16 / (int)sizeof(T);              // channels of a piece
   const int cnt = s * s;
   const float count = (float)cnt;
@@ -386,165 +503,328 @@ roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxe
   }
 
   const int seg = l * nb + b;
-  const int begin = seg_start[seg], end = seg_start[seg + 1];
-  for (int base = begin; base < end; base += kThreads) {
-    // the ROIs of this part of the segment that meet the tile, in list order
+  int begin = rois.seg[seg], total = rois.seg[seg + 1] - begin;
+  if (kWalk != kScan) {
+    // the candidate ranges: the windows with origins [ty - kSpan + 1, ty] x
+    // [tx - kSpan + 1, tx] in tiles (the only ones whose 48 x 48 cells
+    // reach the tile), in key order, then the segment's oversize ROIs
+    if (threadIdx.x < kCands) {
+      const int2 rg = window_range(lv, rois, l, b, y0 / kTile, x0 / kTile, begin, total,
+                                   threadIdx.x);
+      s_cbeg[threadIdx.x] = rg.x;
+      s_clen[threadIdx.x] = rg.y;
+    }
+    __syncthreads();
+    if (warp == 0) {  // s_pre: the inclusive prefix sums of the lengths, shifted by one
+      int a = wl < kCands ? s_clen[wl] : 0, a2 = wl + 32 < kCands ? s_clen[wl + 32] : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(kFull, a, d), v2 = __shfl_up_sync(kFull, a2, d);
+        if (wl >= d) {
+          a += v;
+          a2 += v2;
+        }
+      }
+      const int low = __shfl_sync(kFull, a, 31);
+      if (wl == 0) s_pre[0] = 0;
+      if (wl < kCands) s_pre[wl + 1] = a;
+      if (wl + 32 < kCands) s_pre[wl + 33] = low + a2;
+    }
+    __syncthreads();
+    begin = 0;
+    total = s_pre[kCands];
+  }
+  // "chunk" keeps the hits of its pure chunks (rows of one window: the TPU
+  // kernel's stacked contraction) ahead of the others in each pass, and in
+  // bf16 sums them on the tensor cores. Their sums (dacc: warp (mt, half)
+  // owns cells [16 mt, 16 mt + 16), tile rows 2 mt and 2 mt + 1, and
+  // channels [half, half + 1) * kMmaN * 8 of the slice; lane (mrow, tq)
+  // holds cells mrow and mrow + 8 of those, channels 2 tq and 2 tq + 1 of
+  // each n8 tile) pass to and from acc through the stage (s_sum, float32
+  // [cell][kSlice]), so that only one of the two is live at a time.
+  constexpr bool kMma = kWalk == kChunks && sizeof(T) == 2;
+  int* s_kbin = reinterpret_cast<int*>(s_tile_raw + sm.kbin);      // [staged bins]
+  float* s_sum = reinterpret_cast<float*>(s_tile_raw + sm.stage);  // [kTile^2][kSlice]
+  const int mt = warp % kMmaM, half = warp / kMmaM, mrow = wl / 4, tq = wl % 4;
+  for (int base = 0; base < total; base += kThreads) {
+    // the candidates of this pass that meet the tile, in walk order ("chunk":
+    // those of pure chunks first)
     const int i = base + threadIdx.x;
     int r = -1;
     float4 box = make_float4(0.f, 0.f, 0.f, 0.f);
-    bool hit = false;
-    if (i < end) {
-      r = order[i];
-      box = boxes[r];
-      hit = meets_tile(box, scale, y0, x0);
+    bool hit = false, pure = false;
+    if (i < total) {
+      if (kWalk == kScan) {
+        r = rois.order[begin + i];
+      } else {
+        int j = 0, hi = kCands - 1;  // the range holding candidate i
+        while (j < hi) {
+          const int mid = (j + hi + 1) / 2;
+          if (s_pre[mid] <= i) {
+            j = mid;
+          } else {
+            hi = mid - 1;
+          }
+        }
+        const int row = s_cbeg[j] + i - s_pre[j];
+        if (j < kSpan * kSpan) {
+          r = rois.roi[row];
+          pure = kWalk == kChunks && r >= 0 && (r & kPureRow);
+          r = pure ? r & ~kPureRow : r;
+        } else {
+          r = rois.order[row];
+        }
+      }
+      if (r >= 0) {
+        box = boxes[r];
+        hit = meets_tile(box, scale, y0, x0);
+      }
     }
-    const unsigned m = __ballot_sync(kFull, hit);
-    if (wl == 0) s_count[warp] = __popc(m);
+    // a warp's hits, its pure-chunk hits in the high half
+    const unsigned m = __ballot_sync(kFull, hit && !pure);
+    const unsigned mp = kWalk == kChunks ? __ballot_sync(kFull, hit && pure) : 0u;
+    if (wl == 0) s_count[warp] = __popc(m) | __popc(mp) << 16;
     __syncthreads();
     int before = 0, nhit = 0;
     for (int k = 0; k < kWarps; ++k) {
       before += k < warp ? s_count[k] : 0;
       nhit += s_count[k];
     }
+    const int npure = nhit >> 16;
+    nhit = (nhit & 0xffff) + npure;
     if (hit) {
-      const int k = before + __popc(m & ((1u << wl) - 1u));
+      const unsigned below = (1u << wl) - 1u;
+      const int k = pure ? (before >> 16) + __popc(mp & below)
+                         : npure + (before & 0xffff) + __popc(m & below);
       s_roi[k] = r;
       s_geom[k] = roi_geom(box, scale, p, s);
     }
     __syncthreads();
 
-    for (int h0 = 0; h0 < nhit; h0 += kHits) {
-      const int nh = min(kHits, nhit - h0);
-      // RowW [p][kTile] then ColW [p][kTile] of each ROI over the tile: a
-      // thread per bin computes its samples' axes and the weights they give
-      // each cell, with a bit per cell the bin reaches
-      for (int e = threadIdx.x; e < nh * 2 * p; e += kThreads) {
-        const int col = e / p % 2, bin = e % p;
-        const RoiGeom g = s_geom[h0 + e / (2 * p)];
-        const int at0 = col ? x0 : y0;
-        float wt[kTile];
+    // bf16 "chunk": the pure chunks' hits [0, npure) on the tensor cores if
+    // there are kMmaMinHits of them, then the others; else every hit on the
+    // CUDA cores
+    const bool use_mma = kMma && npure >= kMmaMinHits;
 #pragma unroll
-        for (int cell = 0; cell < kTile; ++cell) wt[cell] = 0.f;
-        for (int j = 0; j < s; ++j) {
-          const Axis a = roi_axis(g, col * ps + bin * s + j, p, s, h, w);
-          if (a.lo < 0) continue;
+    for (int part = 0; part < (kMma ? 2 : 1); ++part) {
+      const bool tensor = kMma && part == 0;
+      const int from = kMma && part == 1 && use_mma ? npure : 0, to = tensor ? npure : nhit;
+      if (from >= to || (tensor && !use_mma)) continue;
+      float dacc[kMmaN][4];
+      if (tensor) {
+        if (base > 0) {  // acc holds an earlier pass's sums
+#pragma unroll
+          for (int y = 0; y < kRows; ++y) {
+            store8(s_sum + ((rg * kRows + y) * kTile + x) * kSlice + lane * 8, acc[y]);
+          }
+          __syncthreads();
+        }
+#pragma unroll
+        for (int n = 0; n < kMmaN; ++n) {
+          const float* at = s_sum + (16 * mt + mrow) * kSlice + (half * kMmaN + n) * 8 + 2 * tq;
+          dacc[n][0] = base > 0 ? at[0] : 0.f;
+          dacc[n][1] = base > 0 ? at[1] : 0.f;
+          dacc[n][2] = base > 0 ? at[8 * kSlice] : 0.f;
+          dacc[n][3] = base > 0 ? at[8 * kSlice + 1] : 0.f;
+        }
+        if (base > 0) __syncthreads();  // before the stage is refilled
+      }
+      for (int h0 = from; h0 < to; h0 += kHits) {
+        const int nh = min(kHits, to - h0);
+        // RowW [p][kTile] then ColW [p][kTile] of each ROI over the tile: a
+        // thread per bin computes its samples' axes and the weights they give
+        // each cell, with a bit per cell the bin reaches
+        for (int e = threadIdx.x; e < nh * 2 * p; e += kThreads) {
+          const int col = e / p % 2, bin = e % p;
+          const RoiGeom g = s_geom[h0 + e / (2 * p)];
+          const int at0 = col ? x0 : y0;
+          float wt[kTile];
+#pragma unroll
+          for (int cell = 0; cell < kTile; ++cell) wt[cell] = 0.f;
+          for (int j = 0; j < s; ++j) {
+            const Axis a = roi_axis(g, col * ps + bin * s + j, p, s, h, w);
+            if (a.lo < 0) continue;
+#pragma unroll
+            for (int cell = 0; cell < kTile; ++cell) {
+              if (a.lo == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.h);
+              if (a.hi == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.l);
+            }
+          }
+          int bits = 0;
 #pragma unroll
           for (int cell = 0; cell < kTile; ++cell) {
-            if (a.lo == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.h);
-            if (a.hi == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.l);
+            s_w[e * kTile + cell] = wt[cell];
+            bits |= (wt[cell] != 0.f) << cell;
           }
+          s_bits[e] = bits;
         }
-        int bits = 0;
-#pragma unroll
-        for (int cell = 0; cell < kTile; ++cell) {
-          s_w[e * kTile + cell] = wt[cell];
-          bits |= (wt[cell] != 0.f) << cell;
-        }
-        s_bits[e] = bits;
-      }
-      __syncthreads();
-      // the bins reaching the tile, each row group's rows and each column
-      for (int e = threadIdx.x; e < nh * kRanges; e += kThreads) {
-        const int j = e % kRanges;
-        const int col = j == 1 || j >= 2 + kRowGroups;
-        const int want = j < 2 ? (1 << kTile) - 1
-                         : col ? 1 << (j - 2 - kRowGroups)
-                               : ((1 << kRows) - 1) << ((j - 2) * kRows);
-        const int* bits = s_bits + (e / kRanges * 2 + col) * p;
-        int lo = p, hi = -1;
-        for (int bin = 0; bin < p; ++bin) {
-          if (bits[bin] & want) {
-            lo = min(lo, bin);
-            hi = bin;
-          }
-        }
-        s_rng[e] = make_int2(lo, hi);
-      }
-      __syncthreads();
-      // the hits in runs whose dOut bins fit the stage. Every warp works the
-      // run out itself: lane i holds the first staged bin of hit k0 + i.
-      for (int k0 = 0; k0 < nh;) {
-        int bins = 0;
-        if (k0 + wl < nh) {
-          const int2 rr = s_rng[(k0 + wl) * kRanges], qq = s_rng[(k0 + wl) * kRanges + 1];
-          bins = rr.x > rr.y || qq.x > qq.y ? 0 : (rr.y - rr.x + 1) * (qq.y - qq.x + 1);
-        }
-        int incl = bins;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int v = __shfl_up_sync(kFull, incl, d);
-          if (wl >= d) incl += v;
-        }
-        const int first = incl - bins;
-        const int run = __popc(__ballot_sync(
-            kFull, k0 + wl < nh && (wl == 0 || (size_t)incl * kSlice * sizeof(T) <= sm.stage_bytes)));
-        const int staged = __shfl_sync(kFull, incl, run - 1);
-        // stage dOut [row rect][column rect][kSlice] of the run's hits; the
-        // loop runs alike in all lanes of a warp, for the shuffles
-        for (int e0 = warp * 32; e0 < staged * kChunks; e0 += kThreads) {
-          const int e = e0 + wl, bin = e / kChunks, part = e % kChunks;
-          int i = 0;
-          for (int j = 1; j < run; ++j) i = __shfl_sync(kFull, first, j) <= bin ? j : i;
-          const int at = __shfl_sync(kFull, first, i);
-          if (e >= staged * kChunks || c0 + part * kPer >= c) continue;
-          const int k = k0 + i;
-          const int2 rr = s_rng[k * kRanges], qq = s_rng[k * kRanges + 1];
-          const int qn = qq.y - qq.x + 1, local = bin - at;
-          const T* src = dout + ((size_t)s_roi[h0 + k] * p * p + (rr.x + local / qn) * p + qq.x +
-                                 local % qn) * c + c0 + part * kPer;
-          cp_async16(s_stage + (size_t)e * kPer, src);
-        }
-        cp_async_wait_all();
         __syncthreads();
-        for (int i = 0; i < run; ++i) {
-          const int at = __shfl_sync(kFull, first, i);
-          const int k = k0 + i;
-          const int2 qr = s_rng[k * kRanges + 2 + kRowGroups + x], pr = s_rng[k * kRanges + 2 + rg];
-          if (ch >= c || qr.x > qr.y || pr.x > pr.y) continue;  // no cell of this thread
-          const int2 rr = s_rng[k * kRanges], qq = s_rng[k * kRanges + 1];
-          const int qn = qq.y - qq.x + 1;
-          const float* rw = s_w + k * 2 * pt + rg * kRows;
-          const float* cw = s_w + k * 2 * pt + pt + x;
-          const T* st = s_stage + (size_t)at * kSlice + lane * 8;
-          for (int pi = pr.x; pi <= pr.y; ++pi) {
-            float wr[kRows];
-#pragma unroll
-            for (int y = 0; y < kRows; ++y) wr[y] = rw[pi * kTile + y];
-            // T = sum over the column's bins of ColW * dOut, without
-            // branches on the weights and two bins a step, so that the
-            // shared loads of a step issue together
-            float tv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            const T* sq = st + ((size_t)(pi - rr.x) * qn + qr.x - qq.x) * kSlice;
-            const float* wq = cw + qr.x * kTile;
-            const int nq = qr.y - qr.x + 1;
-            int q = 0;
-            for (; q + 1 < nq; q += 2) {
-              const float w0 = wq[q * kTile], w1 = wq[(q + 1) * kTile];
-              float v0[8], v1[8];
-              stage8(sq + (size_t)q * kSlice, v0);
-              stage8(sq + (size_t)(q + 1) * kSlice, v1);
-#pragma unroll
-              for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w0, v0[kk], tv[kk]);
-#pragma unroll
-              for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w1, v1[kk], tv[kk]);
-            }
-            if (q < nq) {
-              const float w0 = wq[q * kTile];
-              float v0[8];
-              stage8(sq + (size_t)q * kSlice, v0);
-#pragma unroll
-              for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w0, v0[kk], tv[kk]);
-            }
-#pragma unroll
-            for (int y = 0; y < kRows; ++y) {
-              if (wr[y] == 0.f) continue;
-#pragma unroll
-              for (int kk = 0; kk < 8; ++kk) acc[y][kk] = __fmaf_rn(wr[y], tv[kk], acc[y][kk]);
+        // the bins reaching the tile, each row group's rows and each column
+        for (int e = threadIdx.x; e < nh * kRanges; e += kThreads) {
+          const int j = e % kRanges;
+          const int col = j == 1 || j >= 2 + kRowGroups;
+          const int want = j < 2 ? (1 << kTile) - 1
+                           : col ? 1 << (j - 2 - kRowGroups)
+                                 : ((1 << kRows) - 1) << ((j - 2) * kRows);
+          const int* bits = s_bits + (e / kRanges * 2 + col) * p;
+          int lo = p, hi = -1;
+          for (int bin = 0; bin < p; ++bin) {
+            if (bits[bin] & want) {
+              lo = min(lo, bin);
+              hi = bin;
             }
           }
+          s_rng[e] = make_int2(lo, hi);
         }
-        __syncthreads();  // before the next run restages
-        k0 += run;
+        __syncthreads();
+        // the hits in runs whose dOut bins fit the stage. Every warp works the
+        // run out itself: lane i holds the first staged bin of hit k0 + i.
+        for (int k0 = 0; k0 < nh;) {
+          int bins = 0;
+          if (k0 + wl < nh) {
+            const int2 rr = s_rng[(k0 + wl) * kRanges], qq = s_rng[(k0 + wl) * kRanges + 1];
+            bins = rr.x > rr.y || qq.x > qq.y ? 0 : (rr.y - rr.x + 1) * (qq.y - qq.x + 1);
+          }
+          int incl = bins;
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const int v = __shfl_up_sync(kFull, incl, d);
+            if (wl >= d) incl += v;
+          }
+          const int first = incl - bins;
+          const int run = __popc(__ballot_sync(
+              kFull, k0 + wl < nh && (wl == 0 || (size_t)incl * kSlice * sizeof(T) <= sm.stage_bytes)));
+          const int staged = __shfl_sync(kFull, incl, run - 1);
+          // stage dOut [row rect][column rect][kSlice] of the run's hits; the
+          // loop runs alike in all lanes of a warp, for the shuffles
+          for (int e0 = warp * 32; e0 < staged * kPieces; e0 += kThreads) {
+            const int e = e0 + wl, bin = e / kPieces, part = e % kPieces;
+            int i = 0;
+            for (int j = 1; j < run; ++j) i = __shfl_sync(kFull, first, j) <= bin ? j : i;
+            const int at = __shfl_sync(kFull, first, i);
+            if (e >= staged * kPieces || c0 + part * kPer >= c) continue;
+            const int k = k0 + i;
+            const int2 rr = s_rng[k * kRanges], qq = s_rng[k * kRanges + 1];
+            const int qn = qq.y - qq.x + 1, local = bin - at;
+            const T* src = dout + ((size_t)s_roi[h0 + k] * p * p + (rr.x + local / qn) * p + qq.x +
+                                   local % qn) * c + c0 + part * kPer;
+            if (tensor) {
+              // a bin's pieces swizzled by the bin, so that ldmatrix reads 8
+              // bins' rows from distinct banks; the bin's hit and bins
+              cp_async16(s_stage + ((size_t)bin * kPieces + (part ^ (bin % 8))) * kPer, src);
+              if (part == 0) s_kbin[bin] = k << 16 | (rr.x + local / qn) << 8 | (qq.x + local % qn);
+            } else {
+              cp_async16(s_stage + (size_t)e * kPer, src);
+            }
+          }
+          cp_async_wait_all();
+          __syncthreads();
+          if (tensor) {
+            // dTile[cell, ch] += sum over the staged bins of RowW[y] ColW[x]
+            // . dOut[bin, ch]: the run's hits stacked along K, 16 bins a
+            // step; A, the weights' products rounded to bf16, from the bin
+            // table, B by ldmatrix from the stage; bins past the run get
+            // zero weight and read the step's first bin
+            const int ycell = 2 * mt;
+            for (int kb = 0; kb < staged; kb += 16) {
+              float lo[4], hi[4];  // A of cells mrow, mrow + 8 at bins kb + 2 tq + {0, 1, 8, 9}
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int bin = kb + 2 * tq + (j & 1) + (j >> 1) * 8;
+                lo[j] = hi[j] = 0.f;
+                if (bin < staged) {
+                  const int code = s_kbin[bin];
+                  const float* wk = s_w + (code >> 16) * 2 * pt;
+                  const float* wr = wk + ((code >> 8) & 255) * kTile + ycell;
+                  const float cx = wk[pt + (code & 255) * kTile + mrow];
+                  lo[j] = __fmul_rn(wr[0], cx);
+                  hi[j] = __fmul_rn(wr[1], cx);
+                }
+              }
+              const uint32_t a[4] = {pack_bf16(lo[0], lo[1]), pack_bf16(hi[0], hi[1]),
+                                     pack_bf16(lo[2], lo[3]), pack_bf16(hi[2], hi[3])};
+              // lane (8 mat + row) addresses row `row` of matrix mat: bins
+              // kb + 8 (mat % 2) + row, channels of n8 tile 2 np + mat / 2
+              int bin = kb + (wl / 8 % 2) * 8 + wl % 8;
+              bin = bin < staged ? bin : kb;
+#pragma unroll
+              for (int np = 0; np < kMmaN / 2; ++np) {
+                const int piece = half * kMmaN + 2 * np + wl / 16;
+                uint32_t bq[4];
+                ldmatrix_x4_trans(s_stage + ((size_t)bin * kPieces + (piece ^ (bin % 8))) * kPer,
+                                  bq);
+                mma_bf16(dacc[2 * np], a, bq[0], bq[1]);
+                mma_bf16(dacc[2 * np + 1], a, bq[2], bq[3]);
+              }
+            }
+            __syncthreads();  // before the next run restages
+            k0 += run;
+            continue;
+          }
+          for (int i = 0; i < run; ++i) {
+            const int at = __shfl_sync(kFull, first, i);
+            const int k = k0 + i;
+            const int2 qr = s_rng[k * kRanges + 2 + kRowGroups + x], pr = s_rng[k * kRanges + 2 + rg];
+            if (ch >= c || qr.x > qr.y || pr.x > pr.y) continue;  // no cell of this thread
+            const int2 rr = s_rng[k * kRanges], qq = s_rng[k * kRanges + 1];
+            const int qn = qq.y - qq.x + 1;
+            const float* rw = s_w + k * 2 * pt + rg * kRows;
+            const float* cw = s_w + k * 2 * pt + pt + x;
+            const T* st = s_stage + (size_t)at * kSlice + lane * 8;
+            for (int pi = pr.x; pi <= pr.y; ++pi) {
+              float wr[kRows];
+#pragma unroll
+              for (int y = 0; y < kRows; ++y) wr[y] = rw[pi * kTile + y];
+              // T = sum over the column's bins of ColW * dOut, without
+              // branches on the weights and two bins a step, so that the
+              // shared loads of a step issue together
+              float tv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+              const T* sq = st + ((size_t)(pi - rr.x) * qn + qr.x - qq.x) * kSlice;
+              const float* wq = cw + qr.x * kTile;
+              const int nq = qr.y - qr.x + 1;
+              int q = 0;
+              for (; q + 1 < nq; q += 2) {
+                const float w0 = wq[q * kTile], w1 = wq[(q + 1) * kTile];
+                float v0[8], v1[8];
+                stage8(sq + (size_t)q * kSlice, v0);
+                stage8(sq + (size_t)(q + 1) * kSlice, v1);
+#pragma unroll
+                for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w0, v0[kk], tv[kk]);
+#pragma unroll
+                for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w1, v1[kk], tv[kk]);
+              }
+              if (q < nq) {
+                const float w0 = wq[q * kTile];
+                float v0[8];
+                stage8(sq + (size_t)q * kSlice, v0);
+#pragma unroll
+                for (int kk = 0; kk < 8; ++kk) tv[kk] = __fmaf_rn(w0, v0[kk], tv[kk]);
+              }
+#pragma unroll
+              for (int y = 0; y < kRows; ++y) {
+                if (wr[y] == 0.f) continue;
+#pragma unroll
+                for (int kk = 0; kk < 8; ++kk) acc[y][kk] = __fmaf_rn(wr[y], tv[kk], acc[y][kk]);
+              }
+            }
+          }
+          __syncthreads();  // before the next run restages
+          k0 += run;
+        }
+      }
+      if (tensor) {  // the tensor-core sums into acc
+#pragma unroll
+        for (int n = 0; n < kMmaN; ++n) {
+          float* at = s_sum + (16 * mt + mrow) * kSlice + (half * kMmaN + n) * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(at) = make_float2(dacc[n][0], dacc[n][1]);
+          *reinterpret_cast<float2*>(at + 8 * kSlice) = make_float2(dacc[n][2], dacc[n][3]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int y = 0; y < kRows; ++y) {
+          stage8(s_sum + ((rg * kRows + y) * kTile + x) * kSlice + lane * 8, acc[y]);
+        }
+        __syncthreads();  // before the stage is refilled
       }
     }
   }
@@ -565,292 +845,6 @@ roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxe
   }
 }
 
-// Level gradients of the window backwards: float32 NHWC accumulation
-// buffers, one per level.
-struct GradLevels {
-  float* data[kMaxLevels];
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  float scale[kMaxLevels];
-};
-
-// The exact per-sample scatter: one block per (ROI, output row), one
-// channel a thread, each corner's share added by float32 atomicAdd. `only`,
-// when given, restricts it to the ROIs it flags (the window backwards hand
-// it their oversize ROIs); the others' blocks return.
-template <typename T>
-__global__ void roi_align_bwd_kernel(GradLevels lv, const float4* __restrict__ boxes,
-                                     const int* __restrict__ batch_idx,
-                                     const int* __restrict__ level, int c,
-                                     int p, int s, const T* __restrict__ dout,
-                                     const unsigned char* __restrict__ only) {
-  const int r = blockIdx.x;
-  if (only != nullptr && !only[r]) return;
-  const int py = blockIdx.y;
-  const int l = level[r];
-  const int h = lv.h[l];
-  const int w = lv.w[l];
-  float* grad = lv.data[l] + (size_t)batch_idx[r] * h * w * c;
-
-  const RoiGeom gm = roi_geom(boxes[r], lv.scale[l], p, s);
-  const float y0 = __fadd_rn(gm.y1, __fmul_rn((float)py, gm.bin_h));
-  const float count = (float)(s * s);
-
-  const T* d = dout + ((size_t)r * p + py) * p * c;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float* g = grad + ch;
-    for (int px = 0; px < p; ++px) {
-      const float share = __fdiv_rn(load_f(d + (size_t)px * c + ch), count);
-      const float x0 = __fadd_rn(gm.x1, __fmul_rn((float)px, gm.bin_w));
-      for (int iy = 0; iy < s; ++iy) {
-        const float y = __fadd_rn(y0, __fmul_rn((float)iy + 0.5f, gm.sub_h));
-        if (y < -1.f || y > (float)h) continue;
-        const Axis ay = axis_weights(y, h);
-        for (int ix = 0; ix < s; ++ix) {
-          const float x = __fadd_rn(x0, __fmul_rn((float)ix + 0.5f, gm.sub_w));
-          if (x < -1.f || x > (float)w) continue;
-          const Axis ax = axis_weights(x, w);
-          atomicAdd(g + ((size_t)ay.lo * w + ax.lo) * c, __fmul_rn(__fmul_rn(ay.h, ax.h), share));
-          atomicAdd(g + ((size_t)ay.lo * w + ax.hi) * c, __fmul_rn(__fmul_rn(ay.h, ax.l), share));
-          atomicAdd(g + ((size_t)ay.hi * w + ax.lo) * c, __fmul_rn(__fmul_rn(ay.l, ax.h), share));
-          atomicAdd(g + ((size_t)ay.hi * w + ax.hi) * c, __fmul_rn(__fmul_rn(ay.l, ax.l), share));
-        }
-      }
-    }
-  }
-}
-
-__global__ void cast_to_bf16_kernel(const float* __restrict__ src, size_t n,
-                                    __nv_bfloat16* __restrict__ dst) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    dst[i] = __float2bfloat16(src[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Window-merged backwards ("rmw" and "chunk").
-//
-// They replace the TPU kernels _roi_align_bwd / _bwd_kernel ("rmw",
-// roi_align_kernel.py:594) and _roi_align_bwd_chunk / _chunk_bwd_kernel
-// ("chunk", :813). Both compute the same gradient as roi_align_bwd_kernel in
-// the separable form: ROIs are sorted by window (level, image, y0/8, x0/8,
-// computed in PyTorch by poolers.window_layout), each ROI carries row and
-// column weights RowW, ColW [P, 48] over its window's 48 x 48 cells (the
-// S x S bilinear samples of a bin summed and / S), and a window's gradient is
-//   dPatch = sum over its ROIs of RowW^T . dOut . ColW   [48, 48, C].
-// An ROI whose samples reach beyond its window ("oversize") has zero
-// weights in the layout and goes through the exact per-sample scatter above
-// (`only`), so no ROI is clamped.
-//
-// Design for the card (CUDA cores, float32 FMA throughout):
-//   * one block per window run ("rmw"; blocks stride over the windows) or
-//     per 8-row chunk of the chunk layout ("chunk"), times a tile of
-//     kCt = 8 channels; 384 threads, thread (x, ch) owning column x of the
-//     window at channel ch and all 48 rows of it in registers;
-//   * per ROI: its weights and its dOut [P, P, kCt] staged in shared
-//     memory; stage 1, T[pi] = sum_q ColW[q, x] dOut[pi, q, ch], is the
-//     thread's own (x, ch) entry, so it never leaves registers; stage 2 adds
-//     RowW[pi, y] * T[pi] into the 48 row accumulators. Both stages skip
-//     exact zeros: a column x meets one or two column bins, a bin's row
-//     weights a few rows (found once per ROI), so an ROI costs a few FMAs
-//     per bin and thread, not 48;
-//   * a window is flushed once from the registers: float32 atomicAdd of its
-//     non-zero cells inside the level, in the rows its ROIs reached, into
-//     one zeroed float32 NHWC buffer (GradLevels). Windows overlap
-//     (origins 8 apart, 48 wide) and blocks run concurrently, so the flush
-//     adds; its order, and so the result's last bits, change from run to
-//     run;
-//   * "chunk": a pure chunk (all rows of one window) flushes once; an
-//     impure one flushes at each window start inside it. Padding rows of
-//     the layout carry no ROI and are skipped.
-// The sums stay float32 to the single cast at the end (the TPU kernel
-// rounds each window flush into a bfloat16 buffer).
-//
-// What bounds them: the same bytes as the "roi" backward (dOut in, the
-// dense level gradient out); their arithmetic is small. What this design
-// spends beyond that: per ROI and channel tile, three block barriers and a
-// staging of its weights and dOut from L2; per window a flush of up to
-// 48 * 48 * C atomic adds, fewer than the exact scatter's
-// 4 * S * S * P * P * C per ROI only when ROIs share windows (PERF.md
-// measures how many do on the training step).
-
-constexpr int kPatch = 48;
-constexpr int kPatch4 = kPatch / 4;
-constexpr int kCt = 8;
-constexpr int kWindowThreads = kPatch * kCt;
-
-// The thread's 48 row sums, and the groups of 4 rows [lo4, hi4] that any
-// ROI added so far reached (the same in every thread of the block).
-struct WindowAcc {
-  float v[kPatch];
-  int lo4, hi4;
-};
-
-__device__ __forceinline__ void window_reset(WindowAcc& acc) {
-#pragma unroll
-  for (int y = 0; y < kPatch; ++y) acc.v[y] = 0.f;
-  acc.lo4 = kPatch4;
-  acc.hi4 = -1;
-}
-
-// Add one ROI's contribution to the thread's accumulators. Every thread of
-// the block calls it with the same arguments. Only non-zero weights do
-// work: a bin's row weights cover a few of the 48 rows (s_rng), and a
-// column meets the weights of one or two column bins (qlo..qhi).
-template <typename T>
-__device__ __forceinline__ void window_add_roi(WindowAcc& acc, const T* __restrict__ d,
-                                               const float* __restrict__ roww,
-                                               const float* __restrict__ colw, int p,
-                                               int c, int c0, float* s_row, float* s_col,
-                                               float* s_d, int2* s_rng, int x, int ch) {
-  __syncthreads();  // the previous ROI's stage 2 is done with the staging
-  for (int i = threadIdx.x; i < p * kPatch; i += blockDim.x) {
-    s_row[i] = roww[i];
-    s_col[i] = colw[i];
-  }
-  for (int i = threadIdx.x; i < p * p * kCt; i += blockDim.x) {
-    const int k = i % kCt;
-    s_d[i] = c0 + k < c ? load_f(d + (size_t)(i / kCt) * c + c0 + k) : 0.f;
-  }
-  __syncthreads();
-  if (threadIdx.x < p) {  // the groups of 4 rows with a non-zero weight of bin pi
-    const float* r = s_row + threadIdx.x * kPatch;
-    int lo = kPatch, hi = -1;
-    for (int y = 0; y < kPatch; ++y) {
-      if (r[y] != 0.f) {
-        lo = min(lo, y);
-        hi = y;
-      }
-    }
-    s_rng[threadIdx.x] = make_int2(lo / 4, hi < 0 ? -1 : hi / 4);
-  }
-  __syncthreads();
-  for (int pi = 0; pi < p; ++pi) {
-    acc.lo4 = min(acc.lo4, s_rng[pi].x);
-    acc.hi4 = max(acc.hi4, s_rng[pi].y);
-  }
-  int qlo = p, qhi = -1;
-  for (int q = 0; q < p; ++q) {
-    if (s_col[q * kPatch + x] != 0.f) {
-      qlo = min(qlo, q);
-      qhi = q;
-    }
-  }
-  if (qlo > qhi) return;  // the ROI does not reach column x
-  for (int pi = 0; pi < p; ++pi) {
-    const int2 rng = s_rng[pi];
-    if (rng.x > rng.y) continue;
-    float t = 0.f;
-    const float* dq = s_d + pi * p * kCt + ch;
-    for (int q = qlo; q <= qhi; ++q) t = __fmaf_rn(s_col[q * kPatch + x], dq[q * kCt], t);
-    const float4* rr = reinterpret_cast<const float4*>(s_row + pi * kPatch);
-#pragma unroll
-    for (int y4 = 0; y4 < kPatch4; ++y4) {
-      if (y4 < rng.x || y4 > rng.y) continue;
-      const float4 w4 = rr[y4];
-      acc.v[4 * y4] = __fmaf_rn(w4.x, t, acc.v[4 * y4]);
-      acc.v[4 * y4 + 1] = __fmaf_rn(w4.y, t, acc.v[4 * y4 + 1]);
-      acc.v[4 * y4 + 2] = __fmaf_rn(w4.z, t, acc.v[4 * y4 + 2]);
-      acc.v[4 * y4 + 3] = __fmaf_rn(w4.w, t, acc.v[4 * y4 + 3]);
-    }
-  }
-}
-
-// grad[l][b, y0 + y, x0 + x, c0 + ch] += acc[y] for the non-zero sums of the
-// rows the window's ROIs reached, inside the level; then reset.
-__device__ __forceinline__ void window_flush(WindowAcc& acc, const GradLevels& lv, int c,
-                                             int l, int b, int y0, int x0, int c0, int x,
-                                             int ch) {
-  const int h = lv.h[l];
-  const int w = lv.w[l];
-  if (x0 + x < w && c0 + ch < c) {
-    float* g = lv.data[l] + (((size_t)b * h + y0) * w + x0 + x) * c + c0 + ch;
-#pragma unroll
-    for (int y = 0; y < kPatch; ++y) {
-      if (y / 4 >= acc.lo4 && y / 4 <= acc.hi4 && y0 + y < h && acc.v[y] != 0.f) {
-        atomicAdd(g + (size_t)y * w * c, acc.v[y]);
-      }
-    }
-  }
-  window_reset(acc);
-}
-
-// rows [5, rp] int32 per sorted row: ROI index (-1: padding or oversize,
-// skipped), level, image, y0, x0. weights [2, rp, P, 48] float32: RowW then
-// ColW. wstart [rp + 2]: first sorted row of window w for w < the window
-// count, rp after it.
-template <typename T>
-__global__ void __launch_bounds__(kWindowThreads, 2)
-roi_align_bwd_rmw_kernel(GradLevels lv, int c, int p, const T* __restrict__ dout, int rp,
-                         const int* __restrict__ rows, const float* __restrict__ weights,
-                         const int* __restrict__ wstart) {
-  extern __shared__ float smem[];
-  float* s_row = smem;
-  float* s_col = s_row + p * kPatch;
-  float* s_d = s_col + p * kPatch;
-  int2* s_rng = reinterpret_cast<int2*>(s_d + p * p * kCt);
-  const int x = threadIdx.x / kCt;
-  const int ch = threadIdx.x % kCt;
-  const int c0 = blockIdx.y * kCt;
-  const int* roi = rows;
-  const int *lvl = rows + rp, *bi = rows + 2 * rp, *wy0 = rows + 3 * rp, *wx0 = rows + 4 * rp;
-  const size_t wsize = (size_t)p * kPatch;
-  WindowAcc acc;
-  window_reset(acc);
-  for (int wi = blockIdx.x; wi < rp; wi += gridDim.x) {
-    const int start = wstart[wi];
-    if (start >= rp) break;
-    const int end = wstart[wi + 1];
-    for (int i = start; i < end; ++i) {
-      const int r = roi[i];
-      if (r < 0) continue;
-      window_add_roi(acc, dout + (size_t)r * p * p * c, weights + i * wsize,
-                     weights + (rp + i) * wsize, p, c, c0, s_row, s_col, s_d, s_rng, x, ch);
-    }
-    window_flush(acc, lv, c, lvl[start], bi[start], wy0[start], wx0[start], c0, x, ch);
-  }
-}
-
-// crow [3, n] int32 per chunk-layout row: sorted row (padding rows repeat
-// their window's last one), 1 for a real row, 1 where a window starts (in a
-// pure chunk, only at its first row). rows and weights as for the rmw
-// kernel.
-template <typename T>
-__global__ void __launch_bounds__(kWindowThreads, 2)
-roi_align_bwd_chunk_kernel(GradLevels lv, int c, int p, const T* __restrict__ dout, int rp,
-                           const int* __restrict__ rows, const float* __restrict__ weights,
-                           int n, int q, const int* __restrict__ crow) {
-  extern __shared__ float smem[];
-  float* s_row = smem;
-  float* s_col = s_row + p * kPatch;
-  float* s_d = s_col + p * kPatch;
-  int2* s_rng = reinterpret_cast<int2*>(s_d + p * p * kCt);
-  const int x = threadIdx.x / kCt;
-  const int ch = threadIdx.x % kCt;
-  const int c0 = blockIdx.y * kCt;
-  const int *src = crow, *real = crow + n, *rnew = crow + 2 * n;
-  const int* roi = rows;
-  const int *lvl = rows + rp, *bi = rows + 2 * rp, *wy0 = rows + 3 * rp, *wx0 = rows + 4 * rp;
-  const size_t wsize = (size_t)p * kPatch;
-  const int j0 = blockIdx.x * q;
-  WindowAcc acc;
-  window_reset(acc);
-  int cur = src[j0];  // the sorted row whose window the accumulators hold
-  for (int j = j0; j < j0 + q; ++j) {
-    const int i = src[j];
-    if (j > j0 && rnew[j]) {
-      window_flush(acc, lv, c, lvl[cur], bi[cur], wy0[cur], wx0[cur], c0, x, ch);
-      cur = i;
-    }
-    const int r = real[j] ? roi[i] : -1;
-    if (r < 0) continue;
-    window_add_roi(acc, dout + (size_t)r * p * p * c, weights + i * wsize,
-                   weights + (rp + i) * wsize, p, c, c0, s_row, s_col, s_d, s_rng, x, ch);
-  }
-  window_flush(acc, lv, c, lvl[cur], bi[cur], wy0[cur], wx0[cur], c0, x, ch);
-}
-
 }  // namespace
 
 extern "C" int roi_align_max_levels() { return kMaxLevels; }
@@ -859,22 +853,61 @@ namespace {
 
 bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
 
-template <typename T>
+template <typename T, int kWalk>
 cudaError_t launch_tile_backward(const TileLevels& lv, int nb, const void* boxes,
-                                 const void* order, const void* seg_start, int c, int p,
-                                 int s, const void* dout, cudaStream_t st) {
-  const size_t smem = tile_smem(p, s, sizeof(T)).total;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+                                 const TileRois& rois, int c, int p, int s, const void* dout,
+                                 cudaStream_t st) {
+  const size_t smem = tile_smem(p, sizeof(T), kWalk).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        roi_align_bwd_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(roi_align_bwd_tile_kernel<T, kWalk>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(lv.tiles[lv.num_levels], (c + kSlice - 1) / kSlice);
-  roi_align_bwd_tile_kernel<T><<<grid, kThreads, smem, st>>>(
-      lv, nb, (const float4*)boxes, (const int*)order, (const int*)seg_start, c, p, s,
-      (const T*)dout);
+  roi_align_bwd_tile_kernel<T, kWalk><<<grid, kThreads, smem, st>>>(
+      lv, nb, (const float4*)boxes, rois, c, p, s, (const T*)dout);
   return cudaGetLastError();
+}
+
+// The tile backward of `walk` for every level's NHWC gradient in out (see
+// roi_align_backward).
+cudaError_t tile_backward(int walk, void* out, const long long* out_offsets, const int* hs,
+                          const int* ws, const float* scales, int num_levels, int nb,
+                          const void* boxes, const TileRois& rois, int c, int p, int s,
+                          int dtype, const void* dout, cudaStream_t st) {
+  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1 || nb < 1 ||
+      c <= 0 || c % 8 != 0 || p < 1 || s < 1 || !aligned16(out) || !aligned16(dout)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t item = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  TileLevels lv = {};
+  lv.num_levels = num_levels;
+  for (int i = 0; i < num_levels; ++i) {
+    lv.data[i] = (char*)out + out_offsets[i] * item;
+    lv.h[i] = hs[i];
+    lv.w[i] = ws[i];
+    lv.scale[i] = scales[i];
+    lv.tiles_x[i] = (ws[i] + kTile - 1) / kTile;
+    lv.tiles[i + 1] = lv.tiles[i] + lv.tiles_x[i] * ((hs[i] + kTile - 1) / kTile) * nb;
+  }
+  if (lv.tiles[num_levels] == 0) return cudaSuccess;
+  if (dtype == 0) {
+    if (walk == kScan) {
+      return launch_tile_backward<float, kScan>(lv, nb, boxes, rois, c, p, s, dout, st);
+    }
+    if (walk == kWindows) {
+      return launch_tile_backward<float, kWindows>(lv, nb, boxes, rois, c, p, s, dout, st);
+    }
+    return launch_tile_backward<float, kChunks>(lv, nb, boxes, rois, c, p, s, dout, st);
+  }
+  using B = __nv_bfloat16;
+  if (walk == kScan) return launch_tile_backward<B, kScan>(lv, nb, boxes, rois, c, p, s, dout, st);
+  if (walk == kWindows) {
+    return launch_tile_backward<B, kWindows>(lv, nb, boxes, rois, c, p, s, dout, st);
+  }
+  return launch_tile_backward<B, kChunks>(lv, nb, boxes, rois, c, p, s, dout, st);
 }
 
 }  // namespace
@@ -932,171 +965,34 @@ extern "C" int roi_align_backward(void* out, const long long* out_offsets, const
                                   const void* boxes, const void* order,
                                   const void* seg_start, int c, int p, int s, int dtype,
                                   const void* dout, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1 || nb < 1 ||
-      c <= 0 || c % 8 != 0 || p < 1 || s < 1 || !aligned16(out) || !aligned16(dout)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t item = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
-  TileLevels lv = {};
-  lv.num_levels = num_levels;
-  for (int i = 0; i < num_levels; ++i) {
-    lv.data[i] = (char*)out + out_offsets[i] * item;
-    lv.h[i] = hs[i];
-    lv.w[i] = ws[i];
-    lv.scale[i] = scales[i];
-    lv.tiles_x[i] = (ws[i] + kTile - 1) / kTile;
-    lv.tiles[i + 1] = lv.tiles[i] + lv.tiles_x[i] * ((hs[i] + kTile - 1) / kTile) * nb;
-  }
-  if (lv.tiles[num_levels] == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e =
-      dtype == 0
-          ? launch_tile_backward<float>(lv, nb, boxes, order, seg_start, c, p, s, dout, st)
-          : launch_tile_backward<__nv_bfloat16>(lv, nb, boxes, order, seg_start, c, p, s, dout,
-                                                st);
-  return (int)e;
+  const TileRois rois = {(const int*)order, (const int*)seg_start, nullptr, nullptr, nullptr};
+  return (int)tile_backward(kScan, out, out_offsets, hs, ws, scales, num_levels, nb, boxes, rois,
+                            c, p, s, dtype, dout, (cudaStream_t)stream);
 }
 
-namespace {
-
-// The buffers of the window backwards: acc, a float32 buffer of `total`
-// elements holding every level's NHWC gradient back to back (level l at
-// acc_offsets[l] elements, [B, H, W, c]), zeroed here; dout [r, p, p, c] of
-// `dtype` (0 = f32, 1 = bf16); boxes, batch_idx, level as for the forward.
-// For dtype 1 the float32 sums are cast once into out (bf16, same layout as
-// acc); for dtype 0 acc is the result and out is unused.
-
-// Zero acc and describe its levels.
-cudaError_t begin_backward(void* acc, const long long* acc_offsets, long long total,
-                           const int* hs, const int* ws, const float* scales,
-                           int num_levels, int dtype, cudaStream_t st, GradLevels* lv) {
-  if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1) {
-    return cudaErrorInvalidValue;
-  }
-  for (int i = 0; i < num_levels; ++i) {
-    lv->data[i] = (float*)acc + acc_offsets[i];
-    lv->h[i] = hs[i];
-    lv->w[i] = ws[i];
-    lv->scale[i] = scales[i];
-  }
-  return cudaMemsetAsync(acc, 0, (size_t)total * sizeof(float), st);
+// The largest P the window backwards take: one ROI's float32 bins of a
+// channel slice and its tile weights fit a block's shared memory.
+extern "C" int roi_align_window_max_p() {
+  int p = 1;
+  while (tile_smem(p + 1, sizeof(float), kChunks).total <= kMaxSmem) ++p;
+  return p;
 }
 
-// The exact per-sample scatter of every ROI, or of those `only` flags.
-cudaError_t scatter_exact(const GradLevels& lv, const void* boxes, const void* batch_idx,
-                          const void* level, const void* only, int r, int c, int p,
-                          int s, int dtype, const void* dout, cudaStream_t st) {
-  if (r <= 0) return cudaSuccess;
-  const int threads = c >= 256 ? 256 : (c + 31) / 32 * 32;
-  dim3 grid(r, p);
-  if (dtype == 0) {
-    roi_align_bwd_kernel<float><<<grid, threads, 0, st>>>(
-        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c, p, s,
-        (const float*)dout, (const unsigned char*)only);
-  } else {
-    roi_align_bwd_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c, p, s,
-        (const __nv_bfloat16*)dout, (const unsigned char*)only);
-  }
-  return cudaGetLastError();
-}
-
-// For bf16, the one rounding of the float32 sums into out.
-cudaError_t finish_backward(const void* acc, long long total, int dtype, void* out,
-                            cudaStream_t st) {
-  if (dtype == 1 && total > 0) {
-    const long long blocks = (total + 255) / 256;
-    cast_to_bf16_kernel<<<(unsigned)(blocks < 132 * 32 ? blocks : 132 * 32), 256, 0, st>>>(
-        (const float*)acc, (size_t)total, (__nv_bfloat16*)out);
-  }
-  return cudaGetLastError();
-}
-
-size_t window_smem_bytes(int p) {
-  return sizeof(float) * (2 * p * kPatch + p * p * kCt) + sizeof(int2) * p;
-}
-
-}  // namespace
-
-// The largest P the window backwards take (their staging in shared memory
-// stays under the default 48 KB).
-extern "C" int roi_align_window_max_p() { return 32; }
-
-// The "rmw" backward. The arguments of roi_align_backward, then: oversize
-// [r] uint8 (ROIs scattered exactly), rp the padded row count of the window
-// layout, rows [5, rp] and weights [2, rp, p, 48] as for
-// roi_align_bwd_rmw_kernel, wstart [rp + 2] int32.
-extern "C" int roi_align_backward_rmw(void* acc, const long long* acc_offsets,
-                                      long long total, const int* hs, const int* ws,
-                                      const float* scales, int num_levels,
-                                      const void* boxes, const void* batch_idx,
-                                      const void* level, int r, int c, int p, int s,
-                                      int dtype, const void* dout, void* out,
-                                      const void* oversize, int rp, const void* rows,
-                                      const void* weights, const void* wstart,
-                                      void* stream) {
-  if (p < 1 || p > roi_align_window_max_p()) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  GradLevels lv = {};
-  cudaError_t e = begin_backward(acc, acc_offsets, total, hs, ws, scales, num_levels,
-                                 dtype, st, &lv);
-  if (e == cudaSuccess && rp > 0) {
-    dim3 grid(rp < 512 ? rp : 512, (c + kCt - 1) / kCt);
-    const size_t smem = window_smem_bytes(p);
-    if (dtype == 0) {
-      roi_align_bwd_rmw_kernel<float><<<grid, kWindowThreads, smem, st>>>(
-          lv, c, p, (const float*)dout, rp, (const int*)rows, (const float*)weights,
-          (const int*)wstart);
-    } else {
-      roi_align_bwd_rmw_kernel<__nv_bfloat16><<<grid, kWindowThreads, smem, st>>>(
-          lv, c, p, (const __nv_bfloat16*)dout, rp, (const int*)rows,
-          (const float*)weights, (const int*)wstart);
-    }
-    e = cudaGetLastError();
-  }
-  if (e == cudaSuccess) {
-    e = scatter_exact(lv, boxes, batch_idx, level, oversize, r, c, p, s, dtype, dout, st);
-  }
-  if (e == cudaSuccess) e = finish_backward(acc, total, dtype, out, st);
-  return (int)e;
-}
-
-// The "chunk" backward. As roi_align_backward_rmw, with the chunk layout in
-// place of wstart: n rows of q-row chunks, crow [3, n] int32 as for
-// roi_align_bwd_chunk_kernel.
-extern "C" int roi_align_backward_chunk(void* acc, const long long* acc_offsets,
-                                        long long total, const int* hs, const int* ws,
-                                        const float* scales, int num_levels,
-                                        const void* boxes, const void* batch_idx,
-                                        const void* level, int r, int c, int p, int s,
-                                        int dtype, const void* dout, void* out,
-                                        const void* oversize, int rp, const void* rows,
-                                        const void* weights, int n, int q,
-                                        const void* crow, void* stream) {
-  if (p < 1 || p > roi_align_window_max_p() || q < 1 || n % q != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  GradLevels lv = {};
-  cudaError_t e = begin_backward(acc, acc_offsets, total, hs, ws, scales, num_levels,
-                                 dtype, st, &lv);
-  if (e == cudaSuccess && n > 0) {
-    dim3 grid(n / q, (c + kCt - 1) / kCt);
-    const size_t smem = window_smem_bytes(p);
-    if (dtype == 0) {
-      roi_align_bwd_chunk_kernel<float><<<grid, kWindowThreads, smem, st>>>(
-          lv, c, p, (const float*)dout, rp, (const int*)rows, (const float*)weights, n, q,
-          (const int*)crow);
-    } else {
-      roi_align_bwd_chunk_kernel<__nv_bfloat16><<<grid, kWindowThreads, smem, st>>>(
-          lv, c, p, (const __nv_bfloat16*)dout, rp, (const int*)rows,
-          (const float*)weights, n, q, (const int*)crow);
-    }
-    e = cudaGetLastError();
-  }
-  if (e == cudaSuccess) {
-    e = scatter_exact(lv, boxes, batch_idx, level, oversize, r, c, p, s, dtype, dout, st);
-  }
-  if (e == cudaSuccess) e = finish_backward(acc, total, dtype, out, st);
-  return (int)e;
+// The "rmw" (chunk = 0) and "chunk" (chunk = 1) backwards: the arguments of
+// roi_align_backward, with the window index of poolers.window_kernel_inputs
+// in place of order and seg_start: first, end [tiles] i32; roi [rows] i32;
+// over_order [r] and over_seg [num_levels * nb + 1] i32, the oversize ROIs
+// by (level, image). Returns cudaGetLastError() after the launch.
+extern "C" int roi_align_backward_windows(int chunk, void* out, const long long* out_offsets,
+                                          const int* hs, const int* ws, const float* scales,
+                                          int num_levels, int nb, const void* boxes, int c,
+                                          int p, int s, int dtype, const void* dout,
+                                          const void* first, const void* end, const void* roi,
+                                          const void* over_order, const void* over_seg,
+                                          void* stream) {
+  const TileRois rois = {(const int*)over_order, (const int*)over_seg, (const int*)first,
+                         (const int*)end, (const int*)roi};
+  return (int)tile_backward(chunk ? kChunks : kWindows, out, out_offsets, hs, ws, scales,
+                            num_levels, nb, boxes, rois, c, p, s, dtype, dout,
+                            (cudaStream_t)stream);
 }

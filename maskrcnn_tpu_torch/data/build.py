@@ -13,7 +13,7 @@ hand back CPU tensors; they never touch CUDA, so the default fork start is
 safe after the parent has initialized the card. On a CUDA device the loader
 pins its batches, so that the trainer's copies to the card are
 asynchronous. Batch-size semantics: SOLVER.IMS_PER_BATCH images a step
-(one process; multi-card training waits, ROADMAP.md Queue 1 item 13).
+(one process; multi-card training waits, ROADMAP.md Queue 1 item 3).
 """
 
 import importlib.util
@@ -41,10 +41,10 @@ def build_dataset(dataset_list, transforms, dataset_catalog, is_train=True):
         raise RuntimeError("dataset_list should be a list of strings, got {}".format(dataset_list))
     if len(dataset_list) != 1:
         raise NotImplementedError("{} datasets: concatenation (ConcatDataset) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 12)".format(len(dataset_list)))
+                                  "(ROADMAP.md Queue 1 item 4)".format(len(dataset_list)))
     data = dataset_catalog.get(dataset_list[0])
     if data["factory"] != "COCODataset":
-        raise NotImplementedError("{} ({}) is not ported yet (ROADMAP.md Queue 1 item 12)"
+        raise NotImplementedError("{} ({}) is not ported yet (ROADMAP.md Queue 1 item 4)"
                                   .format(data["factory"], dataset_list[0]))
     args = dict(data["args"])
     args["remove_images_without_annotations"] = is_train

@@ -8,7 +8,7 @@ maskrcnn_benchmark/data/samplers): numpy ``RandomState`` seeded as there
     follows the underlying sampler as closely as possible
   * IterationBasedBatchSampler: resample indefinitely until num_iterations
 The distributed sampler waits for multi-card training (ROADMAP.md Queue 1
-item 13).
+item 3).
 """
 
 import numpy as np

@@ -162,7 +162,7 @@ def build_transforms(cfg, is_train=True, seed=0):
         jitter = (cfg.INPUT.BRIGHTNESS, cfg.INPUT.CONTRAST, cfg.INPUT.SATURATION, cfg.INPUT.HUE)
         if any(jitter):
             raise NotImplementedError("INPUT.BRIGHTNESS/CONTRAST/SATURATION/HUE (ColorJitter) "
-                                      "are not ported yet (ROADMAP.md Queue 1 item 12)")
+                                      "are not ported yet (ROADMAP.md Queue 1 item 4)")
     else:
         min_size = cfg.INPUT.MIN_SIZE_TEST
         max_size = cfg.INPUT.MAX_SIZE_TEST

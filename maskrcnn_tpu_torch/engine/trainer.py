@@ -11,7 +11,10 @@ Each batch is copied to the device with ``non_blocking=True`` (the loader
 pins it on CUDA). The losses are read back only on logging iterations, so
 the other steps queue on the card without a wait; the time meter of a step
 is then its host time, and the log line's read brings it up to date. The
-samplers' draws come from the step's own generator (``draws=None``).
+samplers' draws come from the step's own generator (``draws=None``), seeded
+before each step from the iteration (``step_seed``) as the JAX trainer folds
+the iteration into its key: a run resumed at iteration k draws from k + 1
+on what a straight run draws there.
 """
 
 import datetime
@@ -25,6 +28,15 @@ from ..utils.metric_logger import MetricLogger
 from .train_step import make_train_step
 
 
+DRAW_SEED = 0  # the JAX trainer's PRNGKey(0)
+
+
+def step_seed(iteration):
+    """The draw generator's seed at `iteration`: a function of (DRAW_SEED,
+    iteration), the counterpart of jax.random.fold_in(PRNGKey(0), iteration)."""
+    return (DRAW_SEED << 32) | iteration
+
+
 def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, checkpoint_period,
              arguments, test_period=0):
     """Train for the loader's iterations after arguments["iteration"]
@@ -34,14 +46,14 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
     if test_period > 0:
         raise NotImplementedError(
             "SOLVER.TEST_PERIOD > 0: validation during training waits for engine/inference.py "
-            "(ROADMAP.md Queue 1 item 11)")
+            "(ROADMAP.md Queue 1 item 2)")
     logger = logging.getLogger("maskrcnn_tpu_torch.trainer")
     logger.info("Start training")
     meters = MetricLogger(delimiter="  ")
     max_iter = len(data_loader)
     start_iter = arguments["iteration"]
-    step = make_train_step(model, optimizer, scheduler,
-                           generator=torch.Generator(device=device).manual_seed(0))
+    generator = torch.Generator(device=device)
+    step = make_train_step(model, optimizer, scheduler, generator=generator)
 
     start_training_time = time.time()
     end = time.time()
@@ -55,6 +67,7 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
             end = time.time()
             continue
 
+        generator.manual_seed(step_seed(iteration))
         metrics = step({k: v.to(device, non_blocking=True) for k, v in batch.items()
                         if k != "indices"})
         logged = iteration % 20 == 0 or iteration == max_iter

@@ -16,18 +16,21 @@ forward as the JAX package chooses (``backward_choice``):
     the gradient gathering the ROIs that meet it (replacing
     _roi_align_bwd_roi); ``roi_tile_inputs`` sorts its ROI lists, and
     ``tile_owner_gradient`` is its decomposition in plain PyTorch;
-  * "rmw": roi_align_backward_rmw, one block per window of ROIs
-    (replacing _roi_align_bwd);
-  * "chunk": roi_align_backward_chunk, one block per 8-row chunk of the
-    chunk layout (replacing _roi_align_bwd_chunk).
-The window backwards consume ``window_layout`` (and ``chunk_layout``),
-computed here in plain PyTorch as the JAX package computes ``_precompute``
-in jnp. The kernels take NHWC levels with C % 8 == 0 and 16-byte aligned
-buffers, and the wrappers raise on anything else. There is no fallback
-between the kernels and the plain version.
+  * "rmw" and "chunk": roi_align_backward_rmw / _chunk, the same tile
+    blocks taking their ROIs from the window index of the TPU kernels'
+    layout, by sorted rows or by chunk rows (replacing _roi_align_bwd and
+    _roi_align_bwd_chunk); ``window_kernel_inputs`` builds the index on the
+    device, and ``window_tile_gradient`` is their decomposition in plain
+    PyTorch.
+``window_layout`` and ``chunk_layout`` port the JAX package's
+``_precompute`` and ``_chunk_layout`` (the window sort, its weights and
+the chunk rows), which the index shares. The kernels take NHWC levels with
+C % 8 == 0 and 16-byte aligned buffers, and the wrappers raise on anything
+else. There is no fallback between the kernels and the plain version.
 """
 
 import ctypes
+import itertools
 import math
 import os
 
@@ -303,6 +306,13 @@ def backward_choice(pcfg):
     return name
 
 
+def _oversize(coords, mask):
+    """[R]: a valid sample of `coords` [R, P*S] (relative to the window
+    origin) reaches a cell beyond the window."""
+    low = torch.floor(coords)
+    return (mask & (low.long() + (coords > low).long() >= PATCH)).any(dim=1)
+
+
 def _window_weights(coords, mask, p, s):
     """Separable weights of the samples `coords` [R, P*S] (relative to the
     window origin; `mask` false where a sample contributes 0) -> ([R, P,
@@ -318,8 +328,46 @@ def _window_weights(coords, mask, p, s):
          + (low[..., None] + 1 == cells).float() * frac[..., None])
     w = w * mask[..., None].float()
     w = _true_div(w.reshape(r, p, s, PATCH).sum(dim=2), s)
-    oversize = (mask & (low + (frac > 0).long() >= PATCH)).any(dim=1)
-    return w, oversize
+    return w, _oversize(coords, mask)
+
+
+def _level_rows(shapes):
+    """Per level: H, W, the largest window origin on each axis (TPU levels
+    are padded to >= 48 and a multiple of 8), and the tiles of the tile
+    kernels: the level's first tile number, tile rows and tile columns
+    (tiles numbered image-major, then row-major, level after level). Also
+    returns the number of tiles."""
+    rows, first = [], 0
+    for nb, h, w, *_ in shapes:
+        ty, tx = -(-h // TILE), -(-w // TILE)
+        rows.append([h, w, max(PATCH, ty * TILE) - PATCH, max(PATCH, tx * TILE) - PATCH,
+                     first, ty, tx])
+        first += nb * ty * tx
+    return rows, first
+
+
+def _window_geometry(shapes, boxes, bidx, lvl, pcfg):
+    """Each ROI's window, as _precompute (roi_align_kernel.py:126) places
+    it: an origin y0, x0 [R] long at the first sample's cell rounded down
+    to 8 and clipped so the window ends within the TPU kernel's padded
+    level; the sample coordinates clamped into the level, relative to the
+    origin, ys, xs [R, P*S], with masks ymask, xmask (false where a sample
+    contributes 0); and tile [R], the number of the 8 x 8 tile at the
+    origin in the tile kernels' numbering, which orders the ROIs as the
+    window key (level, image, y0 / 8, x0 / 8) does."""
+    lvl = lvl.long()
+    lv = _const(_level_rows(shapes)[0], boxes.device)[lvl]
+    hs, ws = lv[:, 0:1].float(), lv[:, 1:2].float()
+    ys, xs = _sample_coords(boxes, lvl, pcfg)
+    ymask = (ys >= -1.0) & (ys <= hs)
+    xmask = (xs >= -1.0) & (xs <= ws)
+    ys = torch.minimum(torch.clamp(ys, min=0.0), hs - 1.0)
+    xs = torch.minimum(torch.clamp(xs, min=0.0), ws - 1.0)
+    y0 = torch.minimum(torch.floor(ys.amin(dim=1)).long() // 8 * 8, lv[:, 2])
+    x0 = torch.minimum(torch.floor(xs.amin(dim=1)).long() // 8 * 8, lv[:, 3])
+    tile = lv[:, 4] + (bidx.long() * lv[:, 5] + y0 // TILE) * lv[:, 6] + x0 // TILE
+    return dict(ys=ys - y0[:, None].float(), ymask=ymask, xs=xs - x0[:, None].float(),
+                xmask=xmask, y0=y0, x0=x0, tile=tile)
 
 
 def window_layout(shapes, boxes, batch_idx, lvl, pcfg):
@@ -337,29 +385,18 @@ def window_layout(shapes, boxes, batch_idx, lvl, pcfg):
       lvl, b, y0, x0 [Rp]    the window of each sorted row
       roww, colw [Rp, P, 48] weights of each sorted row (zero for padding
                              rows and oversize ROIs)
-      oversize [R]           ROIs whose samples reach beyond their window;
-                             the kernels scatter them exactly
+      oversize [R]           ROIs whose samples reach beyond their window
       rp                     R padded to a multiple of CHUNK; padding rows
                              repeat the last row's window
-    On ROIs that fit their window every entry equals _precompute's."""
+    On ROIs that fit their window every entry equals _precompute's. The
+    kernels read the window index (window_kernel_inputs), not this layout."""
     p, s = pcfg.output_size, pcfg.sampling_ratio
-    dev = boxes.device
     r = boxes.shape[0]
     lvl = lvl.long()
-    hs = _const([sh[1] for sh in shapes], dev)[lvl].float()[:, None]
-    ws = _const([sh[2] for sh in shapes], dev)[lvl].float()[:, None]
-    # the largest origin: TPU levels are padded to >= 48 and a multiple of 8
-    top = _const([[max(PATCH, -(-sh[i] // 8) * 8) - PATCH for i in (1, 2)] for sh in shapes],
-                 dev)[lvl]
-    ys, xs = _sample_coords(boxes, lvl, pcfg)
-    ymask = (ys >= -1.0) & (ys <= hs)
-    xmask = (xs >= -1.0) & (xs <= ws)
-    ys = torch.minimum(torch.clamp(ys, min=0.0), hs - 1.0)
-    xs = torch.minimum(torch.clamp(xs, min=0.0), ws - 1.0)
-    y0 = torch.minimum(torch.floor(ys.amin(dim=1)).long() // 8 * 8, top[:, 0])
-    x0 = torch.minimum(torch.floor(xs.amin(dim=1)).long() // 8 * 8, top[:, 1])
-    roww, over_y = _window_weights(ys - y0[:, None].float(), ymask, p, s)
-    colw, over_x = _window_weights(xs - x0[:, None].float(), xmask, p, s)
+    geo = _window_geometry(shapes, boxes, batch_idx, lvl, pcfg)
+    y0, x0 = geo["y0"], geo["x0"]
+    roww, over_y = _window_weights(geo["ys"], geo["ymask"], p, s)
+    colw, over_x = _window_weights(geo["xs"], geo["xmask"], p, s)
     oversize = over_y | over_x
     fits = (~oversize).float()[:, None, None]
     roww, colw = roww * fits, colw * fits
@@ -390,10 +427,12 @@ def chunk_layout(layout):
     """The chunk backward's rows: the port of _chunk_layout
     (roi_align_kernel.py:663) with q = CHUNK. Each window's run of sorted
     rows is padded to a multiple of q while a budget of rp / 2 padding rows
-    lasts, so that most q-row chunks hold one window only. Returns src [n]
-    (the sorted row of each chunk row; padding rows repeat their window's
-    last one), real [n] (false for padding), rnew [n] (1 where a window
-    starts), pure [n / q] (1 for a chunk of one window) and n."""
+    lasts, so that most q-row chunks hold one window only. Takes rwid, rnew
+    [rp] and rp of a layout; returns src [n] (the sorted row of each chunk
+    row; padding rows repeat their window's last one), real [n] (false for
+    padding), rnew [n] (1 where a window starts), pure [n / q] (1 for a
+    chunk of one window), pos [rp] (the chunk row of each sorted row) and
+    n."""
     rwid, rnew, rp = layout["rwid"], layout["rnew"], layout["rp"]
     q = CHUNK
     dev = rwid.device
@@ -410,42 +449,117 @@ def chunk_layout(layout):
     src = torch.cummax(hit, 0).values.clamp(min=0)
     rnew_c = torch.zeros(n, dtype=torch.long, device=dev).scatter_(0, pos, rnew)
     pure = 1 - rnew_c.reshape(-1, q)[:, 1:].amax(dim=1)
-    return dict(src=src, real=hit >= 0, rnew=rnew_c, pure=pure, n=n)
+    return dict(src=src, real=hit >= 0, rnew=rnew_c, pure=pure, pos=pos, n=n)
+
+
+# -- window index of the "rmw" and "chunk" backwards --------------------------
+
+SPAN = PATCH // TILE  # window origins per axis (in tiles) whose cells reach a tile
+PURE_ROW = 1 << 30    # flags the "chunk" index's rows of pure chunks (roi_align.cu kPureRow)
+
+
+def row_roi(v):
+    """(ROI, pure) of an entry of the window index's ``roi``: ROI -1 for
+    padding rows and oversize ROIs; pure for the "chunk" index's rows of
+    pure chunks."""
+    return (v & ~PURE_ROW, bool(v & PURE_ROW)) if v >= 0 else (-1, False)
+_NONE = torch.iinfo(torch.int32).max  # `first` of a tile that is no window's origin
 
 
 def window_kernel_inputs(kind, shapes, boxes, batch_idx, lvl, pcfg):
-    """The window layout as the "rmw" or "chunk" kernel reads it: rows
-    [5, rp] int32 (ROI, or -1 for padding rows and oversize ROIs; level,
-    image, y0, x0), weights [2, rp, P, 48] float32 (roww, colw), oversize
-    [R] uint8; with wstart [rp + 2] int32 for "rmw" (first row of each
-    window, then rp) or crow [3, n] int32 (src, real, rnew) for "chunk".
-    Also returns the layout dicts under "layout" and "chunks"."""
-    lay = window_layout(shapes, boxes, batch_idx, lvl, pcfg)
-    rp, r, dev = lay["rp"], boxes.shape[0], boxes.device
-    roi = torch.full((rp,), -1, dtype=torch.long, device=dev)
-    roi[:r] = torch.where(lay["oversize"][lay["perm"]], -1, lay["perm"])
-    out = {
-        "layout": lay,
-        "rows": torch.stack([roi, lay["lvl"], lay["b"], lay["y0"], lay["x0"]]).int().contiguous(),
-        "weights": torch.stack([lay["roww"], lay["colw"]]).contiguous(),
-        "oversize": lay["oversize"].to(torch.uint8).contiguous(),
-    }
-    if kind == "rmw":
-        wstart = torch.full((rp + 2,), rp, dtype=torch.int32, device=dev)
-        slot = torch.where(lay["rnew"] == 1, lay["rwid"], rp + 1)  # rp + 1: a spare slot
-        out["wstart"] = wstart.scatter_(0, slot, torch.arange(rp, dtype=torch.int32, device=dev))
-    else:
-        ch = chunk_layout(lay)
+    """The window index the "rmw" or "chunk" kernel walks, on the ROIs'
+    device and without a read-back to the host. The rows are the sorted
+    rows of ``window_layout`` ("rmw"), or the rows of its ``chunk_layout``
+    ("chunk"); a tile's candidates are the rows of the SPAN x SPAN windows
+    whose origin lies in [ty - SPAN + 1, ty] x [tx - SPAN + 1, tx] tiles
+    (the only windows whose 48 x 48 cells reach it), then its (level,
+    image)'s oversize ROIs. Returns a dict:
+      roi [rows] int32         the ROI of each row, -1 for padding rows and
+                               oversize ROIs; ("chunk") PURE_ROW added on
+                               the rows of pure chunks (``row_roi``)
+      first, end [tiles] int32 the rows [first, end) of the window whose
+                               origin is each 8 x 8 tile, tiles numbered as
+                               the tile kernels' blocks (end <= first: none)
+      over_order, over_seg     ``roi_tile_inputs`` of the oversize ROIs alone
+      oversize [R] bool, and ("chunk") the chunk layout under "chunks"."""
+    dev, r = boxes.device, boxes.shape[0]
+    geo = _window_geometry(shapes, boxes, batch_idx, lvl, pcfg)
+    oversize = _oversize(geo["ys"], geo["ymask"]) | _oversize(geo["xs"], geo["xmask"])
+    perm = torch.argsort(geo["tile"], stable=True)
+    stile = geo["tile"][perm]
+    roi = torch.where(oversize[perm], -1, perm)
+    out = {"oversize": oversize}
+    if kind == "chunk":
+        rnew = torch.ones_like(stile)
+        rnew[1:] = (stile[1:] != stile[:-1]).long()
+        pad = (-r) % CHUNK
+        rnew = torch.cat([rnew, rnew.new_zeros(pad)])
+        ch = chunk_layout({"rwid": torch.cumsum(rnew, 0) - 1, "rnew": rnew, "rp": r + pad})
+        at = ch["pos"][:r]
+        roi = torch.where(ch["real"], torch.cat([roi, roi.new_full((pad,), -1)])[ch["src"]], -1)
+        pure = ch["pure"].repeat_interleave(CHUNK).bool() & (roi >= 0)
+        roi = torch.where(pure, roi | PURE_ROW, roi)
         out["chunks"] = ch
-        out["crow"] = torch.stack([ch["src"], ch["real"].long(), ch["rnew"]]).int().contiguous()
+    else:
+        at = torch.arange(r, device=dev)
+    ntiles = _level_rows(shapes)[1]
+    out["first"] = torch.full((ntiles,), _NONE, dtype=torch.long, device=dev).scatter_reduce_(
+        0, stile, at, "amin").int()
+    out["end"] = torch.zeros(ntiles, dtype=torch.long, device=dev).scatter_reduce_(
+        0, stile, at + 1, "amax").int()
+    out["roi"] = roi.int()
+    over = roi_tile_inputs(shapes, batch_idx, torch.where(oversize, lvl.long(), len(shapes)))
+    out["over_order"], out["over_seg"] = over["order"], over["seg"]
     return out
+
+
+def window_tile_gradient(kind, level_shapes, boxes, batch_idx, pcfg, dout):
+    """d features of the pooler in the "rmw" / "chunk" backwards'
+    decomposition, in plain float32 PyTorch: the tile owners of
+    ``tile_owner_gradient`` with each tile's ROIs taken from the window
+    index (``window_kernel_inputs``): the rows of its SPAN x SPAN windows in
+    key, then row order, then its (level, image)'s oversize ROIs, those
+    whose footprint meets the tile adding RowW^T . dOut . ColW ("chunk":
+    the rows of pure chunks first, as its kernel sums them apart). dout
+    [R, P, P, C] -> one [B, Hl, Wl, C] gradient per level."""
+    p, s = pcfg.output_size, pcfg.sampling_ratio
+    dev = boxes.device
+    lvl = assign_levels(boxes, pcfg) if len(level_shapes) > 1 else \
+        torch.zeros((boxes.shape[0],), dtype=torch.int32, device=dev)
+    idx = window_kernel_inputs(kind, level_shapes, boxes, batch_idx, lvl, pcfg)
+    first, end, roi = idx["first"].tolist(), idx["end"].tolist(), idx["roi"].tolist()
+    order, seg = idx["over_order"].tolist(), idx["over_seg"].tolist()
+    foot = roi_footprints(boxes, lvl, pcfg).tolist()
+    rows, cols = sample_axes(level_shapes, boxes, lvl, pcfg)
+    grads = [torch.zeros(tuple(sh), dtype=torch.float32, device=dev) for sh in level_shapes]
+    nb, base = level_shapes[0][0], 0
+    for l, (_, h, w, _) in enumerate(level_shapes):
+        ty_n, tx_n = -(-h // TILE), -(-w // TILE)
+        for b, ty, tx in itertools.product(range(nb), range(ty_n), range(tx_n)):
+            keys = [base + (b * ty_n + wy) * tx_n + wx
+                    for wy in range(max(ty - SPAN + 1, 0), ty + 1)
+                    for wx in range(max(tx - SPAN + 1, 0), tx + 1)]
+            walk = [row_roi(roi[j]) for key in keys for j in range(first[key], end[key])]
+            cands = [r for r, pure in walk if pure] + [r for r, pure in walk if not pure]
+            cands += order[seg[l * nb + b]:seg[l * nb + b + 1]]
+            y0, x0 = ty * TILE, tx * TILE
+            hits = [r for r in cands if r >= 0 and foot[r][1] >= y0 and foot[r][0] <= y0 + TILE - 1
+                    and foot[r][3] >= x0 and foot[r][2] <= x0 + TILE - 1]
+            if not hits:
+                continue
+            ycells = torch.arange(y0, min(y0 + TILE, h), device=dev)
+            xcells = torch.arange(x0, min(x0 + TILE, w), device=dev)
+            tile = grads[l][b, y0:y0 + TILE, x0:x0 + TILE]
+            for r in hits:
+                tile += torch.einsum("py,pqc,qx->yxc", _tile_weights(rows, r, ycells, p, s),
+                                     dout[r].float(), _tile_weights(cols, r, xcells, p, s))
+        base += nb * ty_n * tx_n
+    return [g / (s * s) for g in grads]
 
 
 # -- CUDA kernels ---------------------------------------------------------------
 
-_I, _P, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-# the leading arguments of the window backwards (_window_args)
-_WINDOW_ARGS = [_P, _P, _LL, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+_I, _P = ctypes.c_int, ctypes.c_void_p
 
 
 def _lib():
@@ -455,10 +569,10 @@ def _lib():
                                           _P, _P]
         lib.roi_align_backward.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                                            _I, _P, _P]
-        lib.roi_align_backward_rmw.argtypes = _WINDOW_ARGS + [_P, _I, _P, _P, _P, _P]
-        lib.roi_align_backward_chunk.argtypes = _WINDOW_ARGS + [_P, _I, _P, _P, _I, _I, _P, _P]
-        for fn in (lib.roi_align_forward, lib.roi_align_backward, lib.roi_align_backward_rmw,
-                   lib.roi_align_backward_chunk, lib.roi_align_max_levels,
+        lib.roi_align_backward_windows.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
+                                                   _I, _I, _P, _P, _P, _P, _P, _P, _P]
+        for fn in (lib.roi_align_forward, lib.roi_align_backward,
+                   lib.roi_align_backward_windows, lib.roi_align_max_levels,
                    lib.roi_align_window_max_p):
             fn.restype = ctypes.c_int
         lib._typed = True
@@ -523,45 +637,27 @@ def roi_tile_inputs(shapes, bidx, lvl):
     return {"order": order.to(torch.int32), "seg": seg.to(torch.int32)}
 
 
-def _window_args(shapes, boxes, bidx, lvl, pcfg, dout, acc, out):
-    """The leading arguments of the window backwards' entry points."""
-    offsets, total = _level_offsets(shapes)
-    r, p, c = dout.shape[0], dout.shape[1], dout.shape[3]
-    return [
-        acc.data_ptr(), offsets, total, *_level_arrays(shapes, pcfg), len(shapes),
-        boxes.data_ptr(), bidx.data_ptr(), lvl.data_ptr(), r, c, p, pcfg.sampling_ratio,
-        _DTYPE_CODES[dout.dtype], dout.data_ptr(), out.data_ptr(),
-    ]
-
-
-def launch_backward(shapes, boxes, bidx, lvl, pcfg, dout, acc, out, kind="roi", inputs=None):
+def launch_backward(shapes, boxes, pcfg, dout, out, kind="roi", inputs=None):
     """A backward kernel alone, on prepared buffers: level shapes [(B, Hl,
-    Wl, C)], boxes [R, 4] f32, batch_idx and level [R] int32, dout
-    [R, P, P, C] contiguous, out a buffer of sum(B*Hl*Wl*C) elements in
-    dout's dtype. "roi" writes out whole from `inputs` of roi_tile_inputs
-    and takes no acc. "rmw" and "chunk" take `inputs` from
-    window_kernel_inputs and acc, a float32 buffer of out's size (zeroed by
-    the kernel; for float32 it is the gradient and out is unused).
+    Wl, C)], boxes [R, 4] f32, dout [R, P, P, C] contiguous, out a buffer of
+    sum(B*Hl*Wl*C) elements in dout's dtype, written whole; `inputs` from
+    roi_tile_inputs ("roi") or window_kernel_inputs ("rmw", "chunk").
     Launches on the current stream."""
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    offsets, _ = _level_offsets(shapes)
+    levels = [out.data_ptr(), offsets, *_level_arrays(shapes, pcfg), len(shapes), shapes[0][0],
+              boxes.data_ptr()]
+    grad = [dout.shape[3], dout.shape[1], pcfg.sampling_ratio, _DTYPE_CODES[dout.dtype],
+            dout.data_ptr()]
     lib = _lib()
     if kind == "roi":
-        offsets, _ = _level_offsets(shapes)
-        rc = lib.roi_align_backward(
-            out.data_ptr(), offsets, *_level_arrays(shapes, pcfg), len(shapes), shapes[0][0],
-            boxes.data_ptr(), inputs["order"].data_ptr(), inputs["seg"].data_ptr(),
-            dout.shape[3], dout.shape[1], pcfg.sampling_ratio, _DTYPE_CODES[dout.dtype],
-            dout.data_ptr(), stream)
+        rc = lib.roi_align_backward(*levels, inputs["order"].data_ptr(),
+                                    inputs["seg"].data_ptr(), *grad, stream)
     else:
-        args = _window_args(shapes, boxes, bidx, lvl, pcfg, dout, acc, out)
-        common = [inputs["oversize"].data_ptr(), inputs["rows"].shape[1],
-                  inputs["rows"].data_ptr(), inputs["weights"].data_ptr()]
-        if kind == "rmw":
-            rc = lib.roi_align_backward_rmw(*args, *common, inputs["wstart"].data_ptr(), stream)
-        else:
-            crow = inputs["crow"]
-            rc = lib.roi_align_backward_chunk(*args, *common, crow.shape[1], CHUNK,
-                                              crow.data_ptr(), stream)
+        rc = lib.roi_align_backward_windows(
+            int(kind == "chunk"), *levels, *grad, inputs["first"].data_ptr(),
+            inputs["end"].data_ptr(), inputs["roi"].data_ptr(),
+            inputs["over_order"].data_ptr(), inputs["over_seg"].data_ptr(), stream)
     native.check(rc, "roi_align_backward ({})".format(kind))
 
 
@@ -572,15 +668,14 @@ def _backward(kind, dout, shapes, boxes, bidx, lvl, pcfg):
         raise ValueError("the window backwards take P <= {}".format(
             _lib().roi_align_window_max_p()))
     dout = dout.contiguous()
+    _check_vector_access("roi_align backward", dout.shape[3], [dout])
     sizes = [math.prod(shape) for shape in shapes]
     out = torch.empty((sum(sizes),), dtype=dout.dtype, device=dout.device)
     if kind == "roi":
-        _check_vector_access("roi_align backward", dout.shape[3], [dout])
-        acc, inputs = None, roi_tile_inputs(shapes, bidx, lvl)
+        inputs = roi_tile_inputs(shapes, bidx, lvl)
     else:
         inputs = window_kernel_inputs(kind, shapes, boxes, bidx, lvl, pcfg)
-        acc = out if dout.dtype == torch.float32 else torch.empty_like(out, dtype=torch.float32)
-    launch_backward(shapes, boxes, bidx, lvl, pcfg, dout, acc, out, kind, inputs)
+    launch_backward(shapes, boxes, pcfg, dout, out, kind, inputs)
     return [g.view(shape) for g, shape in zip(out.split(sizes), shapes)]
 
 
@@ -596,14 +691,18 @@ def roi_align_backward(dout, shapes, boxes, bidx, lvl, pcfg):
 
 
 def roi_align_backward_rmw(dout, shapes, boxes, bidx, lvl, pcfg):
-    """The same gradient by the "rmw" backward (one block per window)."""
+    """The same gradient by the "rmw" backward: the tile blocks take their
+    ROIs from the window index's sorted rows. Two calls give the same
+    bits."""
     grads = _backward("rmw", dout, shapes, boxes, bidx, lvl, pcfg)
     roi_align_backward_rmw.launches += 1
     return grads
 
 
 def roi_align_backward_chunk(dout, shapes, boxes, bidx, lvl, pcfg):
-    """The same gradient by the "chunk" backward (one block per chunk)."""
+    """The same gradient by the "chunk" backward: the tile blocks take their
+    ROIs from the window index's chunk rows. Two calls give the same
+    bits."""
     grads = _backward("chunk", dout, shapes, boxes, bidx, lvl, pcfg)
     roi_align_backward_chunk.launches += 1
     return grads

@@ -5,9 +5,9 @@ engine/inference.py:detections_to_boxlists, without the drawing code. Every
 step runs on the model's device:
 
   1. the BGR uint8 image is resized bilinearly (half-pixel centres, as
-     cv2.INTER_LINEAR) so its short side is INPUT.MIN_SIZE_TEST, unless its
-     long side would then pass INPUT.MAX_SIZE_TEST, and rounded back to
-     uint8 values;
+     cv2.INTER_LINEAR) so its short side is ``min_image_size`` (224 by
+     default, as COCODemo's), unless its long side would then pass
+     INPUT.MAX_SIZE_TEST, and rounded back to uint8 values;
   2. normalized ((x - PIXEL_MEAN) / PIXEL_STD, BGR at 0-255 when
      INPUT.TO_BGR255, else RGB / 255) and zero-padded to a multiple of
      DATALOADER.SIZE_DIVISIBILITY;
@@ -36,10 +36,13 @@ def resized_size(h, w, min_size, max_size):
 
 class Predictor:
     """Serves one model. ``model`` defaults to the seeded random-weight model
-    of ``cfg`` on ``device`` (the card unless the caller asks for "cpu")."""
+    of ``cfg`` on ``device`` (the card unless the caller asks for "cpu").
+    ``min_image_size`` is the resized short side (COCODemo's argument of the
+    same name; pass cfg.INPUT.MIN_SIZE_TEST to serve at the test size)."""
 
-    def __init__(self, cfg, model=None, device="cuda", seed=0):
+    def __init__(self, cfg, model=None, device="cuda", seed=0, min_image_size=224):
         self.cfg = cfg.clone()
+        self.min_image_size = min_image_size
         self.device = torch.device(device)
         self.model = model if model is not None else build_detection_model(
             self.cfg, device=device, seed=seed)
@@ -53,8 +56,7 @@ class Predictor:
         float32 images [1, Hp, Wp, 3], image_sizes [1, 2] int32)."""
         img = torch.as_tensor(bgr_image).to(self.device)
         h, w = img.shape[:2]
-        nh, nw = resized_size(h, w, self.cfg.INPUT.MIN_SIZE_TEST,
-                              self.cfg.INPUT.MAX_SIZE_TEST)
+        nh, nw = resized_size(h, w, self.min_image_size, self.cfg.INPUT.MAX_SIZE_TEST)
         x = img.permute(2, 0, 1)[None].float()
         x = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False)
         x = x.round().clamp(0, 255)[0].permute(1, 2, 0)  # [nh, nw, 3] BGR

@@ -6,7 +6,7 @@ per-instance COCO polygon lists whose crop, resize and flip stay in polygon
 space; rasterization (``get_mask_tensor``) happens on demand through the
 native scanline fill of ``utils/maskops.py``. The binary-mask mode of the
 JAX package resizes with OpenCV, which the card's machine lacks; it is not
-ported yet (ROADMAP.md Queue 1 item 12) and raises.
+ported yet (ROADMAP.md Queue 1 item 4) and raises.
 """
 
 import numpy as np
@@ -136,7 +136,7 @@ class SegmentationMask:
         if mode != "poly":
             raise NotImplementedError(
                 "SegmentationMask mode {!r}: only polygons are ported (binary masks wait, "
-                "ROADMAP.md Queue 1 item 12)".format(mode))
+                "ROADMAP.md Queue 1 item 4)".format(mode))
         self.instances = (
             instances if isinstance(instances, PolygonList) else PolygonList(instances, size)
         )

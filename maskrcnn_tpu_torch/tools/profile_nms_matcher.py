@@ -215,7 +215,8 @@ def capture_sites(cs):
     cfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
     rs = np.random.RandomState(cs.SEED)
     warm = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
-    pred = Predictor(cfg, device="cuda", seed=cs.SEED)
+    pred = Predictor(cfg, device="cuda", seed=cs.SEED,
+                     min_image_size=cfg.INPUT.MIN_SIZE_TEST)
     cs.calibrate_frozen_bn(torch, pred.model, pred.preprocess(warm)[0])
     pred.compute_prediction(warm)
     with cs.Capture([rpn, box_head], "batched_nms") as serve_nms:

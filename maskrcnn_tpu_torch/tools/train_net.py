@@ -9,7 +9,7 @@ default, "cpu" on request). The model trains from MODEL.WEIGHT (a .pth of
 this package or a .npz of the JAX package; "" for the seeded init) or
 resumes from OUTPUT_DIR's last_checkpoint. Evaluation after training (and
 during it, SOLVER.TEST_PERIOD) waits for engine/inference.py (ROADMAP.md
-Queue 1 item 11): without ``--skip-test`` the command stops before training
+Queue 1 item 2): without ``--skip-test`` the command stops before training
 rather than skip the test silently.
 """
 
@@ -64,7 +64,7 @@ def main(argv=None):
     if not args.skip_test:
         raise NotImplementedError(
             "evaluation (engine/inference.py, tools/test_net.py) is not ported yet (ROADMAP.md "
-            "Queue 1 item 11): pass --skip-test")
+            "Queue 1 item 2): pass --skip-test")
 
     output_dir = cfg.OUTPUT_DIR
     if output_dir:

@@ -11,7 +11,7 @@ package's Checkpointer wrote, whose model parameters ``params_from_jax``
 converts (its optimizer state, in optax's layout, and its iteration are not
 read: training starts afresh from those weights). Caffe2 ``.pkl`` files,
 URLs and catalog:// names wait for the weight loader (ROADMAP.md Queue 1
-item 11).
+item 5).
 """
 
 import os
@@ -141,7 +141,7 @@ class DetectronCheckpointer(Checkpointer):
         if f.startswith(("catalog://", "http://", "https://")) or f.endswith(".pkl"):
             raise NotImplementedError(
                 "{}: Caffe2 weights, URLs and catalog:// names are not ported yet (ROADMAP.md "
-                "Queue 1 item 11); give a .pth of this package or a .npz of the JAX package"
+                "Queue 1 item 5); give a .pth of this package or a .npz of the JAX package"
                 .format(f))
         if f.endswith(".npz"):
             return {"model": load_jax_npz(f)}

@@ -3,7 +3,7 @@
 Port of maskrcnn_tpu/utils/comm.py for one process: the rank of an
 initialized ``torch.distributed`` group, else 0. Gathers and
 reductions across processes wait for multi-card training (ROADMAP.md
-Queue 1 item 13).
+Queue 1 item 3).
 """
 
 import torch.distributed as dist

@@ -5,12 +5,17 @@
   CPU. Labels and validity exact, scores 1e-5, boxes 1e-3 px, mask
   probabilities 1e-4.
 * ``Predictor.compute_prediction`` with ``device="cpu"``: its preprocessing
-  against the demo's cv2 resize, then the rest against the JAX pipeline the
+  against the demo's cv2 resize (the short side to ``min_image_size``, 224
+  by default, as COCODemo's), then the rest against the JAX pipeline the
   demo runs (infer_forward, detections_to_boxlists, BoxList.resize and the
   cv2 Masker) on the same preprocessed image. Pasted masks agree on at least
   99.5% of pixels: cv2's and torch's bilinear arithmetic differ where a
   probability sits at the 0.5 threshold.
 """
+
+import importlib.util
+import os
+import types
 
 import numpy as np
 import pytest
@@ -62,9 +67,8 @@ def test_predictor_matches_demo_pipeline(pair):
     jm, params, tm = pair
     jcfg, tcfg = configs()
     for c in (jcfg, tcfg):
-        c.INPUT.MIN_SIZE_TEST = 120
         c.INPUT.MAX_SIZE_TEST = 200
-    pred = Predictor(tcfg, model=tm, device="cpu")
+    pred = Predictor(tcfg, model=tm, device="cpu", min_image_size=120)
     bgr = np.random.RandomState(1).randint(0, 256, (150, 210, 3)).astype(np.uint8)
 
     images, sizes = pred.preprocess(bgr)
@@ -89,6 +93,37 @@ def test_predictor_matches_demo_pipeline(pair):
     assert out["masks"].shape == pasted.shape == (len(want), 150, 210)
     assert out["masks"].dtype == np.uint8
     assert (out["masks"] == pasted).mean() >= 0.995
+
+
+def _demo_preprocess(cfg, bgr, min_image_size):
+    """COCODemo._preprocess (demo/predictor.py) without building its model."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo",
+                        "predictor.py")
+    spec = importlib.util.spec_from_file_location("demo_predictor", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    demo = types.SimpleNamespace(
+        cfg=cfg, min_image_size=min_image_size, to_bgr255=cfg.INPUT.TO_BGR255,
+        pixel_mean=np.asarray(cfg.INPUT.PIXEL_MEAN, np.float32),
+        pixel_std=np.asarray(cfg.INPUT.PIXEL_STD, np.float32))
+    return mod.COCODemo._preprocess(demo, bgr)
+
+
+def test_predictor_resizes_by_min_image_size_as_coco_demo(pair):
+    """At the default, the short side goes to COCODemo's min_image_size of
+    224, not to INPUT.MIN_SIZE_TEST: a 480x640 image becomes 224x299, padded
+    to the size divisibility."""
+    _, _, tm = pair
+    jcfg, tcfg = configs()
+    assert tcfg.INPUT.MIN_SIZE_TEST != 224
+    bgr = np.random.RandomState(2).randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    images, sizes = Predictor(tcfg, model=tm, device="cpu").preprocess(bgr)
+    want, (nh, nw) = _demo_preprocess(jcfg, bgr, 224)
+    assert (nh, nw) == (224, 299) and tuple(sizes[0].tolist()) == (nh, nw)
+    assert tuple(images.shape) == want.shape
+    std = np.asarray(jcfg.INPUT.PIXEL_STD)
+    # in grey levels: cv2 rounds in fixed point
+    assert np.abs((images.numpy() - want) * std).max() <= 1.0 + 1e-3
 
 
 def test_masker_matches_cv2_paste():

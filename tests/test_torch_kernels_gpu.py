@@ -11,12 +11,11 @@ atol 1e-5 (the kernel and the plain version round the same products and
 sums, in another order for the S x S mean); in bfloat16 at most
 1e-2 * max|x| (the plain version rounds every step in bfloat16, the kernel
 accumulates in float32). The ROIAlign backwards against autograd through
-the plain version: float32 within 1e-5 * max|grad| (the tile sums of the
-"roi" backward and the window sums of "rmw" and "chunk" run in another
-order than the per-sample adds; the window backwards' atomic flushes in an
-order that changes from run to run), bfloat16 against the float32 plain
-gradient within 1e-2 * max|grad| (one rounding of each sum to bfloat16).
-The "roi" backward sums in a fixed order: two calls are bitwise equal.
+the plain version: float32 within 1e-5 * max|grad| (the tile sums of all
+three backwards run in another order than the per-sample adds), bfloat16
+against the float32 plain gradient within 1e-2 * max|grad| (one rounding of
+each sum to bfloat16). All three sum in a fixed order: two calls are
+bitwise equal.
 """
 
 import numpy as np
@@ -32,6 +31,7 @@ from maskrcnn_tpu_torch.models.poolers import (
     multilevel_roi_align_plain,
     roi_align_backward,
     roi_align_backward_rmw,
+    window_kernel_inputs,
     window_layout,
 )
 from maskrcnn_tpu_torch.ops.matcher import match_anchors_batched, match_anchors_plain
@@ -440,3 +440,138 @@ def test_window_backward_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         roi_align_backward_rmw(torch.zeros(4, 40, 40, 256, device=cuda), shapes, boxes, bidx,
                                lvl, PoolerConfig(40, SCALES, 2))
+
+
+def _window_backward(cuda, kind, dout, boxes, bidx, pcfg, b=2):
+    shapes = [(b, 200 >> i, 336 >> i, dout.shape[-1]) for i in range(4)]
+    lvl = assign_levels(boxes, pcfg)
+    return BACKWARD_KERNELS[kind](dout, shapes, boxes, bidx.int(), lvl, pcfg)
+
+
+def _check_window_backward(cuda, kind, dout, boxes, bidx, pcfg, tol=1e-5):
+    """The kernel of `kind` against autograd through the plain float32
+    version, within tol * max|grad|; returns the kernel's gradients."""
+    got = _window_backward(cuda, kind, dout, boxes, bidx, pcfg)
+    torch.cuda.synchronize()
+    want = _plain_grad(cuda, boxes, bidx, pcfg, dout.float())
+    scale = max(w.abs().max().item() for w in want)
+    assert scale > 0
+    for g, w in zip(got, want):
+        assert g.dtype == dout.dtype and g.shape == w.shape
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * scale, (kind, err, scale)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rmw", "chunk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_backward_is_deterministic(cuda, kind, dtype):
+    boxes, bidx = _edge_rois(cuda, 1000)
+    boxes[6] = torch.tensor([10.0, 40.0, 1300.0, 60.0], device=cuda)  # oversize
+    pcfg = PoolerConfig(7, SCALES, 2)
+    dout = torch.randn(1000, 7, 7, 256, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    first = _window_backward(cuda, kind, dout, boxes, bidx, pcfg)
+    second = _window_backward(cuda, kind, dout, boxes, bidx, pcfg)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert any(a.any() for a in first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rmw", "chunk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_backward_without_rois_is_zero(cuda, kind, dtype):
+    pcfg = PoolerConfig(14, SCALES, 2)
+    boxes = torch.zeros(0, 4, device=cuda)
+    bidx = torch.zeros(0, dtype=torch.int32, device=cuda)
+    grads = _window_backward(cuda, kind, torch.zeros(0, 14, 14, 256, dtype=dtype, device=cuda),
+                             boxes, bidx, pcfg)
+    assert [tuple(g.shape) for g in grads] == [(2, 200 >> i, 336 >> i, 256) for i in range(4)]
+    assert all(g.dtype == dtype and not g.any() for g in grads)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rmw", "chunk"])
+@pytest.mark.parametrize("p", [7, 14])
+def test_window_backward_when_every_roi_is_oversize(cuda, kind, p):
+    """Long thin boxes that stay at P2 and reach beyond their 48-cell
+    window: the index lists no window row, and the tiles add them all from
+    the oversize lists."""
+    rs = np.random.RandomState(p)
+    r = 64
+    y = rs.uniform(0, 780, r)
+    x = rs.uniform(0, 300, r)
+    boxes = np.stack([x, y, x + rs.uniform(400, 1000, r), y + rs.uniform(4, 12, r)], 1)
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda)
+    bidx = torch.from_numpy(rs.randint(0, 2, r).astype(np.int32)).to(cuda)
+    pcfg = PoolerConfig(p, SCALES, 2)
+    shapes = [(2, 200 >> i, 336 >> i, 256) for i in range(4)]
+    idx = window_kernel_inputs(kind, shapes, boxes, bidx, assign_levels(boxes, pcfg), pcfg)
+    assert bool(idx["oversize"].all()) and not (idx["roi"] >= 0).any()
+    dout = torch.randn(r, p, p, 256, generator=torch.Generator().manual_seed(p)).to(cuda)
+    _check_window_backward(cuda, kind, dout, boxes, bidx, pcfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rmw", "chunk"])
+def test_window_backward_on_a_tile_met_by_300_rois(cuda, kind):
+    """300 small ROIs of one image around one point of P2, as the training
+    box head's positives cluster on a small gt box (up to 176 ROIs a tile
+    there), with 200 others spread over the map."""
+    rs = np.random.RandomState(11)
+    ctr = np.array([412.0, 300.0]) + rs.uniform(-6, 6, (300, 2))
+    wh = rs.uniform(20, 44, (300, 2))
+    crowd = np.concatenate([ctr - wh / 2, ctr + wh / 2], 1)
+    boxes = np.concatenate([crowd, _boxes(rs, (200,), 0, 1300, 8, 300)]).astype(np.float32)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    bidx = torch.from_numpy(np.r_[np.zeros(300), rs.randint(0, 2, 200)].astype(np.int32)).to(cuda)
+    pcfg = PoolerConfig(7, SCALES, 2)
+    lvl = assign_levels(boxes, pcfg)
+    assert bool((lvl[:300] == 0).all())
+    # the tile of P2 holding the crowd's centre (cell 103, 75) meets them all
+    foot = torch.stack([boxes[:300, 1] / 4, boxes[:300, 3] / 4, boxes[:300, 0] / 4,
+                        boxes[:300, 2] / 4], 1)
+    assert bool(((foot[:, 0] <= 79) & (foot[:, 1] >= 72) & (foot[:, 2] <= 103)
+                 & (foot[:, 3] >= 96)).all())
+    g = torch.Generator().manual_seed(5)
+    dout = torch.randn(500, 7, 7, 256, generator=g).to(cuda)
+    _check_window_backward(cuda, kind, dout, boxes, bidx, pcfg)
+    _check_window_backward(cuda, kind, dout.bfloat16(), boxes, bidx, pcfg, tol=1e-2)
+
+
+@pytest.mark.gpu
+def test_chunk_backward_sums_a_crowded_tiles_pure_chunks_on_the_tensor_cores(cuda):
+    """300 ROIs of one window's neighbourhood: their pure chunks reach the
+    tile blocks many at a time, and in bf16 "chunk" adds them on the tensor
+    cores (operands rounded to bf16) where "rmw" adds each on the CUDA
+    cores: both hold the plain gradient, and they differ in the last bits
+    only there (P2; the other levels get no ROI)."""
+    rs = np.random.RandomState(12)
+    ctr = np.array([412.0, 300.0]) + rs.uniform(-6, 6, (300, 2))
+    wh = rs.uniform(20, 44, (300, 2))
+    boxes = torch.from_numpy(np.concatenate([ctr - wh / 2, ctr + wh / 2], 1)
+                             .astype(np.float32)).to(cuda)
+    bidx = torch.zeros(300, dtype=torch.int32, device=cuda)
+    pcfg = PoolerConfig(7, SCALES, 2)
+    shapes = [(2, 200 >> i, 336 >> i, 256) for i in range(4)]
+    idx = window_kernel_inputs("chunk", shapes, boxes, bidx, assign_levels(boxes, pcfg), pcfg)
+    assert int(idx["chunks"]["pure"].sum()) >= 8
+    dout = torch.randn(300, 7, 7, 256, generator=torch.Generator().manual_seed(6)).to(cuda)
+    got = _check_window_backward(cuda, "chunk", dout.bfloat16(), boxes, bidx, pcfg, tol=1e-2)
+    ref = _check_window_backward(cuda, "rmw", dout.bfloat16(), boxes, bidx, pcfg, tol=1e-2)
+    assert not torch.equal(got[0], ref[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["roi", "rmw", "chunk"])
+def test_roi_align_backwards_on_transposed_dout(cuda, kind):
+    """A gradient that reaches the backward as a strided view: the wrapper
+    makes it contiguous for the kernel's 16-byte loads."""
+    boxes, bidx = _edge_rois(cuda, 300)
+    pcfg = PoolerConfig(7, SCALES, 2)
+    dout = torch.randn(300, 256, 7, 7, generator=torch.Generator().manual_seed(8)).to(cuda)
+    dout = dout.permute(0, 2, 3, 1)
+    assert not dout.is_contiguous()
+    _check_window_backward(cuda, kind, dout, boxes, bidx, pcfg)

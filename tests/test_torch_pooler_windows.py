@@ -5,16 +5,17 @@ the backward selection, against the JAX package.
     fit their window: perm, rnew, rwid, lvl, b, y0 and x0 exactly, the
     weights to 1e-6; ``chunk_layout`` equals ``_chunk_layout`` exactly
     (row sources, window starts, pure flags).
-  * The window form the CUDA kernels compute from that layout (per sorted
-    row, RowW^T . dOut . ColW added into its window; oversize ROIs through
-    the exact scatter), written out here in plain PyTorch, equals the
+  * The window form the TPU kernels compute from that layout (per sorted
+    row, RowW^T . dOut . ColW added into its window; oversize ROIs exactly,
+    as the port gives them), written out here in plain PyTorch, equals the
     gradient of the exact gather pooler to 1e-5 * max|grad| (float32, sums
     in another order), oversize ROIs and level edges included.
   * The plain gradient (autograd through the gather pooler, what the port
     runs on CPU tensors) equals ``jax.grad`` of the TPU "rmw" and "chunk"
     backwards in interpret mode to 1e-5 * max|grad|.
-The CUDA kernels themselves are held against the plain gradient on the card
-by tests/test_torch_kernels_gpu.py.
+The port's kernels take their ROIs from the window index instead
+(tests/test_torch_pooler_window_tiles.py); on the card they are held
+against the plain gradient by tests/test_torch_kernels_gpu.py.
 """
 
 import numpy as np
@@ -104,37 +105,39 @@ def test_chunk_layout_matches_jax(name):
 
 
 def _window_form_gradient(kind, shapes, boxes, bidx, pcfg, dout):
-    """What the "rmw" / "chunk" kernels compute, in plain PyTorch: every row
-    they visit adds RowW^T . dOut . ColW into its window, clipped to the
-    level; the oversize ROIs go through the exact scatter (here autograd
-    through the gather pooler)."""
+    """What the TPU "rmw" / "chunk" kernels compute from the layout, in plain
+    PyTorch: every sorted row they visit (each in turn, or by chunk rows)
+    adds RowW^T . dOut . ColW into its window, clipped to the level; the
+    oversize ROIs get their exact gradient (here autograd through the
+    gather pooler)."""
     lvl = poolers.assign_levels(boxes, pcfg)
-    inputs = poolers.window_kernel_inputs(kind, shapes, boxes, bidx, lvl, pcfg)
-    rows, weights = inputs["rows"].long(), inputs["weights"]
+    lay = poolers.window_layout(shapes, boxes, bidx, lvl, pcfg)
+    r = boxes.shape[0]
     if kind == "rmw":
-        visited = range(rows.shape[1])
+        visited = range(lay["rp"])
     else:
-        ch = inputs["chunks"]
+        ch = poolers.chunk_layout(lay)
         visited = [int(i) for i, real in zip(ch["src"], ch["real"]) if real]
-        assert sorted(visited) == list(range(boxes.shape[0]))
+        assert sorted(visited) == list(range(lay["rp"]))
     grads = [torch.zeros(s) for s in shapes]
     for i in visited:
-        r, l, b, y0, x0 = (int(v) for v in rows[:, i])
-        if r < 0:
+        if i >= r or lay["oversize"][lay["perm"][i]]:
             continue
-        t = torch.einsum("pqc,qx->pxc", dout[r], weights[1, i])
-        patch = torch.einsum("py,pxc->yxc", weights[0, i], t)
+        roi = int(lay["perm"][i])
+        l, b, y0, x0 = (int(lay[k][i]) for k in ("lvl", "b", "y0", "x0"))
+        t = torch.einsum("pqc,qx->pxc", dout[roi], lay["colw"][i])
+        patch = torch.einsum("py,pxc->yxc", lay["roww"][i], t)
         h, w = shapes[l][1], shapes[l][2]
         ye, xe = min(y0 + poolers.PATCH, h), min(x0 + poolers.PATCH, w)
         grads[l][b, y0:ye, x0:xe] += patch[: ye - y0, : xe - x0]
         assert not patch[ye - y0:].any() and not patch[:, xe - x0:].any()
-    over = inputs["oversize"].bool()
+    over = lay["oversize"]
     if over.any():
         leaves = [torch.zeros(s, requires_grad=True) for s in shapes]
         out = poolers.multilevel_roi_align_plain(leaves, boxes[over], bidx[over], pcfg)
         for g, e in zip(grads, torch.autograd.grad(out, leaves, dout[over])):
             g += e
-    return grads, inputs
+    return grads, lay
 
 
 def _plain_gradient(shapes, boxes, bidx, pcfg, dout):
@@ -155,9 +158,9 @@ def test_window_form_with_oversize_rois_equals_gather_gradient(kind):
     tb, ti = torch.from_numpy(boxes), torch.from_numpy(bidx)
     dout = torch.from_numpy(np.random.RandomState(3).randn(len(boxes), p, p, 16)
                             .astype(np.float32))
-    got, inputs = _window_form_gradient(kind, shapes, tb, ti, pcfg, dout)
-    assert inputs["oversize"][-3:].tolist() == [1, 1, 1]
-    assert not inputs["oversize"][:-3].any()
+    got, lay = _window_form_gradient(kind, shapes, tb, ti, pcfg, dout)
+    assert lay["oversize"][-3:].tolist() == [True, True, True]
+    assert not lay["oversize"][:-3].any()
     want = _plain_gradient(shapes, tb, ti, pcfg, dout)
     scale = max(w.abs().max().item() for w in want)
     for g, w in zip(got, want):

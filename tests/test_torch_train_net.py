@@ -4,8 +4,9 @@ The CLI in a subprocess on the CPU (MODEL.DEVICE cpu), as tests/test_cli.py
 runs the JAX one: a narrow Mask R-CNN R-50-FPN from the reference YAML on a
 synthetic COCO tree, 2 loader workers, 4 iterations with a checkpoint every
 2, then a resumed run to 6 that must load model_final and continue at
-iteration 5. Then what the CLI refuses: running without --skip-test
-(evaluation is not ported), MODEL.DEVICE "tpu", SOLVER.TEST_PERIOD > 0.
+iteration 5; a unit test of the trainer's draws across such a resume. Then
+what the CLI refuses: running without --skip-test (evaluation is not
+ported), MODEL.DEVICE "tpu", SOLVER.TEST_PERIOD > 0.
 """
 
 import os
@@ -13,10 +14,14 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
+import torch
 import yaml
 
+from maskrcnn_tpu_torch.engine import trainer
+from maskrcnn_tpu_torch.ops.sampler import uniform_draws
 from maskrcnn_tpu_torch.tools import train_net
 from synthetic_coco import make_synthetic_coco
 
@@ -89,6 +94,52 @@ def test_train_net_trains_saves_and_resumes(tmp_path):
     assert re.search(r"Loading checkpoint from .*model_final\.pth", log2), log2[-2000:]
     assert [int(m) for m in re.findall(r"iter: (\d+)", log2)] == [6]
     assert (out / "model_0000006.pth").exists()
+
+
+class _Loader:
+    """The iteration-based loader's shape: len() is the last iteration, and
+    a loader resumed after `start` yields the batches from start + 1."""
+
+    def __init__(self, start, total):
+        self.start, self.total = start, total
+
+    def __len__(self):
+        return self.total
+
+    def __iter__(self):
+        for _ in range(self.total - self.start):
+            yield {"gt_labels": torch.ones(1, 2, dtype=torch.int32)}
+
+
+def _recorded_draws(monkeypatch, start, total):
+    """The samplers' draws of each iteration do_train runs after `start`,
+    taken from the generator it hands the step, as train_forward takes them."""
+    draws = []
+
+    def make_train_step(model, optimizer, scheduler, generator=None):
+        def step(batch):
+            draws.append(torch.cat(uniform_draws((2, 8), generator, "cpu")))
+            return {"loss": torch.zeros(())}
+        return step
+
+    monkeypatch.setattr(trainer, "make_train_step", make_train_step)
+    saver = types.SimpleNamespace(save=lambda name, **kw: None)
+    optimizer = types.SimpleNamespace(param_groups=[{"lr": 0.01}])
+    trainer.do_train(None, optimizer, None, _Loader(start, total), saver, torch.device("cpu"),
+                     2, {"iteration": start})
+    return draws
+
+
+def test_resumed_training_draws_what_a_straight_run_draws(monkeypatch):
+    """A run resumed after iteration 4 draws at iterations 5 and 6 what a
+    straight run to 6 draws there (the JAX trainer folds the iteration into
+    its key), and no iteration repeats another's draws."""
+    straight = _recorded_draws(monkeypatch, 0, 6)
+    resumed = _recorded_draws(monkeypatch, 4, 6)
+    assert len(straight) == 6 and len(resumed) == 2
+    for got, want in zip(resumed, straight[4:]):
+        assert torch.equal(got, want)
+    assert all(not torch.equal(a, b) for i, a in enumerate(straight) for b in straight[i + 1:])
 
 
 def test_train_net_refuses_to_skip_the_test_silently():
