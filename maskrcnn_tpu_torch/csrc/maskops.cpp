@@ -1,10 +1,19 @@
-// COCO-compatible polygon rasterization for the port's data pipeline.
+// Host mask operations of the port's data pipeline and evaluation.
 //
-// Copy of polygons_to_mask in the JAX package's csrc/maskops.cpp (which
-// maskrcnn_tpu/utils/_maskops_native.py binds): a 5x supersampled scanline
-// even-odd fill with the boundary marked, max-pooled back to the coarse
-// grid, as COCO's frPoly. The port has no OpenCV (the JAX package's numpy
-// fallback calls cv2.fillPoly), so this routine is its only rasterizer.
+// Copies of three routines of the JAX package's csrc/maskops.cpp (which
+// maskrcnn_tpu/utils/_maskops_native.py binds), so that the port's masks and
+// RLEs are bit-equal to that package's native path:
+//
+//   polygons_to_mask  : COCO-compatible polygon rasterization, a 5x
+//                       supersampled scanline even-odd fill with the boundary
+//                       marked, max-pooled back to the coarse grid, as COCO's
+//                       frPoly (the port has no OpenCV, so this is its only
+//                       rasterizer)
+//   run_intersection  : intersection area of two column-major RLEs
+//   paste_encode_mask : one detection's [M, M] mask probabilities pasted into
+//                       its box on the image and emitted as COCO RLE counts,
+//                       without the [h, w] canvas
+//
 // Built by the host C++ compiler at first use (ops/native.py), called
 // through ctypes from maskrcnn_tpu_torch/utils/maskops.py.
 
@@ -96,4 +105,130 @@ void polygons_to_mask(const double* coords, const int64_t* sizes,
   }
 }
 
+// Intersection area of two column-major RLEs (counts arrays).
+int64_t run_intersection(const int64_t* a, int64_t na, const int64_t* b,
+                         int64_t nb) {
+  int64_t ia = 0, ib = 0;
+  int64_t ea = na > 0 ? a[0] : 0;  // end position of current a-run
+  int64_t eb = nb > 0 ? b[0] : 0;
+  int64_t pos = 0, inter = 0;
+  int va = 0, vb = 0;
+  while (ia < na && ib < nb) {
+    int64_t nxt = std::min(ea, eb);
+    if (va && vb) inter += nxt - pos;
+    pos = nxt;
+    if (ea == nxt) {
+      ++ia;
+      va ^= 1;
+      if (ia < na) ea += a[ia];
+    }
+    if (eb == nxt) {
+      ++ib;
+      vb ^= 1;
+      if (ib < nb) eb += b[ib];
+    }
+  }
+  return inter;
+}
+
 }  // extern "C"
+
+// -- fused mask paste + column-major RLE encode ------------------------------
+//
+// One call bilinearly resizes the padded [M, M] probability patch onto its
+// (expanded, integerized) box, thresholds, and emits COCO column-major RLE
+// counts directly: the [im_h, im_w] canvas is never materialized (the
+// reference accounts the per-image paste at +0.034 s/im, MODEL_ZOO.md:26).
+//
+// Semantics mirror reference mask_head/inference.py:119-160: zero pad by
+// `padding`, expand the box by (M+2p)/M about its center, truncate to
+// int64, resize to (bw, bh) with pixel-center bilinear sampling (clamped
+// borders, as cv2 INTER_LINEAR), threshold strictly, clip to the image.
+// counts_out must hold im_h * im_w + 2 entries.
+
+extern "C" int64_t paste_encode_mask(
+    const float* mask, int64_t m, int64_t padding, const double* box_xyxy,
+    double thresh, int64_t im_h, int64_t im_w, int64_t* counts_out) {
+  // padded patch
+  const int64_t n = m + 2 * padding;
+  std::vector<float> padded(n * n, 0.f);
+  for (int64_t y = 0; y < m; ++y)
+    for (int64_t x = 0; x < m; ++x)
+      padded[(y + padding) * n + x + padding] = mask[y * m + x];
+
+  // expand about center by (m+2p)/m, then truncate (numpy int64 cast)
+  const double scale = (double)n / (double)m;
+  double wh = (box_xyxy[2] - box_xyxy[0]) * 0.5 * scale;
+  double hh = (box_xyxy[3] - box_xyxy[1]) * 0.5 * scale;
+  double xc = (box_xyxy[2] + box_xyxy[0]) * 0.5;
+  double yc = (box_xyxy[3] + box_xyxy[1]) * 0.5;
+  const int64_t bx0 = (int64_t)(xc - wh), bx1 = (int64_t)(xc + wh);
+  const int64_t by0 = (int64_t)(yc - hh), by1 = (int64_t)(yc + hh);
+  int64_t bw = bx1 - bx0 + 1;  if (bw < 1) bw = 1;
+  int64_t bh = by1 - by0 + 1;  if (bh < 1) bh = 1;
+
+  // clip to the image
+  int64_t x_0 = bx0 > 0 ? bx0 : 0;
+  int64_t x_1 = bx1 + 1 < im_w ? bx1 + 1 : im_w;
+  int64_t y_0 = by0 > 0 ? by0 : 0;
+  int64_t y_1 = by1 + 1 < im_h ? by1 + 1 : im_h;
+
+  int64_t nc = 0;          // counts written
+  int64_t run = 0;         // current run length
+  int cur = 0;             // current value (counts start at zeros)
+  auto emit = [&](int v, int64_t len) {
+    if (len == 0) return;
+    if (v == cur) { run += len; return; }
+    counts_out[nc++] = run;
+    cur = v;
+    run = len;
+  };
+
+  if (x_1 <= x_0 || y_1 <= y_0) {
+    counts_out[0] = (int64_t)im_h * im_w;
+    return 1;
+  }
+
+  // precomputed pixel-center row tables (y0/y1 indices + fraction) and a
+  // column-factored bilinear: per destination column, interpolate the two
+  // source columns along y once, then mix by fx — ~3 ops/pixel
+  const double sy_scale = (double)n / (double)bh;
+  const double sx_scale = (double)n / (double)bw;
+  const int64_t nrows = y_1 - y_0;
+  std::vector<int64_t> ry0(nrows), ry1(nrows);
+  std::vector<double> rfy(nrows);
+  for (int64_t y = y_0; y < y_1; ++y) {
+    double sy = ((double)(y - by0) + 0.5) * sy_scale - 0.5;
+    if (sy < 0) sy = 0;
+    if (sy > n - 1) sy = n - 1;
+    int64_t i0 = (int64_t)sy;
+    ry0[y - y_0] = i0;
+    ry1[y - y_0] = i0 + 1 < n ? i0 + 1 : i0;
+    rfy[y - y_0] = sy - i0;
+  }
+  std::vector<double> ca(nrows), cb(nrows);
+  const float* P = padded.data();
+
+  emit(0, x_0 * im_h);  // leading all-zero columns
+  for (int64_t x = x_0; x < x_1; ++x) {
+    double sx = ((double)(x - bx0) + 0.5) * sx_scale - 0.5;
+    if (sx < 0) sx = 0;
+    if (sx > n - 1) sx = n - 1;
+    const int64_t cx0 = (int64_t)sx;
+    const int64_t cx1 = cx0 + 1 < n ? cx0 + 1 : cx0;
+    const double fx = sx - cx0;
+    for (int64_t r = 0; r < nrows; ++r) {
+      ca[r] = P[ry0[r] * n + cx0] * (1 - rfy[r]) + P[ry1[r] * n + cx0] * rfy[r];
+      cb[r] = P[ry0[r] * n + cx1] * (1 - rfy[r]) + P[ry1[r] * n + cx1] * rfy[r];
+    }
+    emit(0, y_0);
+    for (int64_t r = 0; r < nrows; ++r) {
+      const double v = ca[r] * (1 - fx) + cb[r] * fx;
+      emit(v > thresh ? 1 : 0, 1);
+    }
+    emit(0, im_h - y_1);
+  }
+  emit(0, (im_w - x_1) * im_h);  // trailing all-zero columns
+  counts_out[nc++] = run;
+  return nc;
+}

@@ -6,14 +6,17 @@ maskrcnn_benchmark/data/build.py): dataset(s) from the catalog -> sampler
 ``torch.utils.data.DataLoader`` with the BatchCollator and
 DATALOADER.NUM_WORKERS worker processes. The JAX package's own
 shared-memory loader (maskrcnn_tpu/data/loader.py) exists because that
-package has no torch; here torch's loader takes its place.
+package has no torch; here torch's loader takes its place. For testing, one
+loader per name in DATASETS.TEST, each in order (sequential sampler, no
+aspect grouping), TEST.IMS_PER_BATCH images a batch; every batch carries
+the images' dataset indices.
 
 The workers run the dataset, the transforms and the collator on the CPU and
 hand back CPU tensors; they never touch CUDA, so the default fork start is
 safe after the parent has initialized the card. On a CUDA device the loader
-pins its batches, so that the trainer's copies to the card are
-asynchronous. Batch-size semantics: SOLVER.IMS_PER_BATCH images a step
-(one process; multi-card training waits, ROADMAP.md Queue 1 item 3).
+pins its batches, so that the copies to the card are asynchronous.
+Batch-size semantics: SOLVER.IMS_PER_BATCH images a step (one process;
+multi-card training waits, ROADMAP.md Queue 1 item 3).
 """
 
 import importlib.util
@@ -37,19 +40,24 @@ from .transforms import build_transforms
 
 
 def build_dataset(dataset_list, transforms, dataset_catalog, is_train=True):
+    """The datasets of `dataset_list`: one for training (concatenation is
+    not ported), one per name for testing."""
     if not isinstance(dataset_list, (list, tuple)):
         raise RuntimeError("dataset_list should be a list of strings, got {}".format(dataset_list))
-    if len(dataset_list) != 1:
+    if is_train and len(dataset_list) != 1:
         raise NotImplementedError("{} datasets: concatenation (ConcatDataset) is not ported yet "
                                   "(ROADMAP.md Queue 1 item 4)".format(len(dataset_list)))
-    data = dataset_catalog.get(dataset_list[0])
-    if data["factory"] != "COCODataset":
-        raise NotImplementedError("{} ({}) is not ported yet (ROADMAP.md Queue 1 item 4)"
-                                  .format(data["factory"], dataset_list[0]))
-    args = dict(data["args"])
-    args["remove_images_without_annotations"] = is_train
-    args["transforms"] = transforms
-    return COCODataset(**args)
+    datasets = []
+    for name in dataset_list:
+        data = dataset_catalog.get(name)
+        if data["factory"] != "COCODataset":
+            raise NotImplementedError("{} ({}) is not ported yet (ROADMAP.md Queue 1 item 4)"
+                                      .format(data["factory"], name))
+        args = dict(data["args"])
+        args["remove_images_without_annotations"] = is_train
+        args["transforms"] = transforms
+        datasets.append(COCODataset(**args))
+    return datasets
 
 
 def _compute_aspect_ratio_groups(dataset):
@@ -105,33 +113,38 @@ def _resolve_catalog(cfg):
 def make_data_loader(cfg, is_train=True, start_iter=0):
     """The training loader (SOLVER.MAX_ITER batches of SOLVER.IMS_PER_BATCH
     images from DATASETS.TRAIN, resuming after `start_iter`) or, with
-    is_train=False, one loader over DATASETS.TEST. Batches are dicts of CPU
-    tensors in the collator's layout, pinned when MODEL.DEVICE is CUDA."""
+    is_train=False, a list of one loader per name in DATASETS.TEST. Batches
+    are dicts of CPU tensors in the collator's layout, pinned when
+    MODEL.DEVICE is CUDA."""
     if is_train:
         images_per_batch = cfg.SOLVER.IMS_PER_BATCH
         num_iters = cfg.SOLVER.MAX_ITER
         dataset_list = cfg.DATASETS.TRAIN
     else:
         if cfg.TEST.BBOX_AUG.ENABLED:
-            raise NotImplementedError("test-time augmentation is not ported yet")
+            raise NotImplementedError("test-time augmentation (TEST.BBOX_AUG) is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 14)")
         images_per_batch = cfg.TEST.IMS_PER_BATCH
         num_iters = None
         start_iter = 0
         dataset_list = cfg.DATASETS.TEST
-    dataset = build_dataset(dataset_list, build_transforms(cfg, is_train), _resolve_catalog(cfg),
-                            is_train)
-    sampler = RandomSampler(dataset) if is_train else SequentialSampler(dataset)
-    batch_sampler = make_batch_sampler(
-        dataset, sampler, cfg.DATALOADER.ASPECT_RATIO_GROUPING and is_train, images_per_batch,
-        num_iters, start_iter)
+    datasets = build_dataset(dataset_list, build_transforms(cfg, is_train), _resolve_catalog(cfg),
+                             is_train)
     if cfg.MODEL.MASK_ON:
-        # build the mask rasterizer once, before the workers start
+        # build the native mask ops once, before the workers start
         from ..utils import maskops
 
         maskops.library()
-    return torch.utils.data.DataLoader(
-        dataset, batch_sampler=batch_sampler,
-        collate_fn=TensorBatches(BatchCollator(cfg, is_train)),
-        num_workers=cfg.DATALOADER.NUM_WORKERS, worker_init_fn=_seed_worker,
-        pin_memory=cfg_device(cfg).type == "cuda",
-    )
+    loaders = []
+    for dataset in datasets:
+        sampler = RandomSampler(dataset) if is_train else SequentialSampler(dataset)
+        batch_sampler = make_batch_sampler(
+            dataset, sampler, cfg.DATALOADER.ASPECT_RATIO_GROUPING and is_train,
+            images_per_batch, num_iters, start_iter)
+        loaders.append(torch.utils.data.DataLoader(
+            dataset, batch_sampler=batch_sampler,
+            collate_fn=TensorBatches(BatchCollator(cfg, is_train)),
+            num_workers=cfg.DATALOADER.NUM_WORKERS, worker_init_fn=_seed_worker,
+            pin_memory=cfg_device(cfg).type == "cuda",
+        ))
+    return loaders[0] if is_train else loaders

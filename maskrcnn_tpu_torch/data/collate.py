@@ -39,7 +39,11 @@ def compute_image_buckets(cfg, is_train):
 
 
 def pick_bucket(buckets, h, w):
-    """Smallest bucket that fits (h, w); falls back to the largest."""
+    """Smallest bucket that fits (h, w); where none does (a test batch that
+    mixes portrait and landscape images: the test loader does not group by
+    aspect ratio), the largest height by the largest width of the buckets.
+    The JAX package falls back to its largest bucket, which such a batch
+    overflows (ROADMAP.md Queue 3)."""
     best = None
     for bh, bw in buckets:
         if h <= bh and w <= bw:
@@ -47,7 +51,7 @@ def pick_bucket(buckets, h, w):
             if best is None or area < best[0]:
                 best = (area, (bh, bw))
     if best is None:
-        return max(buckets, key=lambda b: b[0] * b[1])
+        return max(b[0] for b in buckets), max(b[1] for b in buckets)
     return best[1]
 
 

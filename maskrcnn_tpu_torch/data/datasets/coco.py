@@ -4,8 +4,10 @@ Port copy of maskrcnn_tpu/data/datasets/coco.py (after the reference
 maskrcnn_benchmark/data/datasets/coco.py, without pycocotools): the
 annotation JSON read with ``json``; images without usable annotations
 dropped for training; crowd annotations left out of the targets;
-contiguous category ids; targets are BoxLists with "labels" and, for
-polygon segmentations, "masks". Images are HWC uint8 RGB numpy arrays,
+contiguous category ids and, for the evaluator, their map back to the
+JSON's and the map of dataset index to image id (``id_to_img_map``);
+targets are BoxLists with "labels" and, for polygon segmentations,
+"masks". Images are HWC uint8 RGB numpy arrays,
 decoded with Pillow (imported in ``_load_image`` only). Keypoint targets
 wait for the keypoint family.
 """
@@ -60,6 +62,10 @@ class COCODataset:
         self.json_category_id_to_contiguous_id = {
             c["id"]: i + 1 for i, c in enumerate(cats)
         }
+        self.contiguous_category_id_to_json_id = {
+            v: k for k, v in self.json_category_id_to_contiguous_id.items()
+        }
+        self.id_to_img_map = {k: v for k, v in enumerate(self.ids)}
         self.transforms = transforms
 
     def __len__(self):

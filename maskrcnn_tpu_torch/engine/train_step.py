@@ -1,8 +1,9 @@
-"""The single-device training step.
+"""The single-device training and evaluation steps.
 
-PyTorch counterpart of maskrcnn_tpu/engine/train_step.py:make_train_step
-without a mesh: forward (``GeneralizedRCNN.train_forward``), the sum of the
-losses, backward, the SGD step and the learning-rate schedule's step.
+PyTorch counterparts of maskrcnn_tpu/engine/train_step.py without a mesh:
+``make_train_step`` (forward through ``GeneralizedRCNN.train_forward``, the
+sum of the losses, backward, the SGD step and the learning-rate schedule's
+step) and ``make_eval_step`` (``infer_forward``).
 """
 
 import torch
@@ -30,5 +31,17 @@ def make_train_step(model, optimizer, scheduler, generator=None):
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         return metrics
+
+    return step
+
+
+def make_eval_step(model):
+    """Returns step(batch) -> the padded detection dict of
+    ``model.infer_forward`` (on the model's device, not waited for), run
+    under torch.inference_mode()."""
+
+    def step(batch):
+        with torch.inference_mode():
+            return model.infer_forward(batch)
 
     return step

@@ -5,7 +5,9 @@ maskrcnn_benchmark/engine/trainer.py): batches from the loader through
 ``make_train_step``, batches without ground truth skipped, a log line every
 20 iterations and at the last (eta, losses, time and data-wait meters,
 learning rate), a warning on a non-finite loss, a checkpoint every
-``checkpoint_period`` iterations and ``model_final`` at the end.
+``checkpoint_period`` iterations, validation (the caller's
+``run_validation(model, iteration)``) every ``test_period`` iterations, and
+``model_final`` at the end. The time meters leave validation out.
 
 Each batch is copied to the device with ``non_blocking=True`` (the loader
 pins it on CUDA). The losses are read back only on logging iterations, so
@@ -38,15 +40,12 @@ def step_seed(iteration):
 
 
 def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, checkpoint_period,
-             arguments, test_period=0):
+             arguments, test_period=0, run_validation=None):
     """Train for the loader's iterations after arguments["iteration"]
-    (updated as it goes). Returns the MetricLogger: per-iteration "time"
-    and "data" (seconds waiting for the loader), and the losses of the
-    logged iterations."""
-    if test_period > 0:
-        raise NotImplementedError(
-            "SOLVER.TEST_PERIOD > 0: validation during training waits for engine/inference.py "
-            "(ROADMAP.md Queue 1 item 2)")
+    (updated as it goes), calling run_validation(model, iteration) after
+    every test_period-th iteration when both are given. Returns the
+    MetricLogger: per-iteration "time" and "data" (seconds waiting for the
+    loader), and the losses of the logged iterations."""
     logger = logging.getLogger("maskrcnn_tpu_torch.trainer")
     logger.info("Start training")
     meters = MetricLogger(delimiter="  ")
@@ -91,6 +90,10 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
             ))
         if iteration % checkpoint_period == 0:
             checkpointer.save("model_{:07d}".format(iteration), **arguments)
+        if test_period > 0 and run_validation and iteration % test_period == 0:
+            logger.info("Validation at iteration {}".format(iteration))
+            run_validation(model, iteration)
+            end = time.time()
         if iteration >= max_iter:
             break
 

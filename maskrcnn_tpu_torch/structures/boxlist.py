@@ -45,6 +45,9 @@ class BoxList:
     def has_field(self, field):
         return field in self.extra_fields
 
+    def fields(self):
+        return list(self.extra_fields.keys())
+
     def _copy_extra_fields(self, other):
         for k, v in other.extra_fields.items():
             self.extra_fields[k] = v
@@ -153,6 +156,12 @@ class BoxList:
             keep = (box[:, 3] > box[:, 1]) & (box[:, 2] > box[:, 0])
             return self[keep]
         return self
+
+    def area(self):
+        box = self.bbox
+        if self.mode == "xyxy":
+            return (box[:, 2] - box[:, 0] + TO_REMOVE) * (box[:, 3] - box[:, 1] + TO_REMOVE)
+        return box[:, 2] * box[:, 3]
 
     # -- indexing ---------------------------------------------------------------
     def __getitem__(self, item):

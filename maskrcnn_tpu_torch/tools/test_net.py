@@ -1,0 +1,83 @@
+"""Evaluation entry point.
+
+    python -m maskrcnn_tpu_torch.tools.test_net [--config-file FILE] [--ckpt PATH] [KEY VALUE ...]
+
+The surface of the JAX package's tools/test_net.py (after the reference
+tools/test_net.py): a YAML config file, ``--ckpt`` and KEY VALUE overrides
+of the configuration. The device is MODEL.DEVICE ("cuda" by default, "cpu"
+on request). The weights come from OUTPUT_DIR's last_checkpoint when there
+is one, else from --ckpt, else from MODEL.WEIGHT: a .pth of this package or
+a .npz of the JAX package. Every dataset of DATASETS.TEST is evaluated (bbox,
+and segm for mask models), its predictions written to
+OUTPUT_DIR/inference/<name>/predictions.pkl when OUTPUT_DIR is set.
+"""
+
+import argparse
+import os
+
+import torch
+
+from ..config import cfg as default_cfg
+from ..data.build import make_data_loader
+from ..engine.inference import inference
+from ..models.detector import build_detection_model
+from ..utils import comm
+from ..utils.checkpoint import DetectronCheckpointer
+from ..utils.logger import setup_logger
+from ..utils.miscellaneous import cfg_device, mkdir
+
+
+def run_test(cfg, model):
+    """Evaluate `model` on every dataset of DATASETS.TEST; returns the list
+    of inference's results, one per dataset."""
+    iou_types = ("bbox",)
+    if cfg.MODEL.MASK_ON:
+        iou_types = iou_types + ("segm",)
+    if cfg.MODEL.KEYPOINT_ON:
+        iou_types = iou_types + ("keypoints",)
+    output_folders = [None] * len(cfg.DATASETS.TEST)
+    if cfg.OUTPUT_DIR:
+        for idx, dataset_name in enumerate(cfg.DATASETS.TEST):
+            output_folders[idx] = os.path.join(cfg.OUTPUT_DIR, "inference", dataset_name)
+            mkdir(output_folders[idx])
+    results = []
+    for output_folder, dataset_name, data_loader in zip(
+            output_folders, cfg.DATASETS.TEST, make_data_loader(cfg, is_train=False)):
+        results.append(inference(
+            model, data_loader, dataset_name=dataset_name, iou_types=iou_types,
+            box_only=cfg.MODEL.RPN_ONLY, output_folder=output_folder,
+            expected_results=cfg.TEST.EXPECTED_RESULTS,
+            expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL))
+        comm.synchronize()
+    return results
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Mask R-CNN inference (PyTorch/CUDA)")
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--ckpt", default=None,
+                        help="checkpoint file; defaults to last_checkpoint, then MODEL.WEIGHT")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+
+    cfg = default_cfg.clone()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(args.opts)
+    cfg.freeze()
+
+    logger = setup_logger("maskrcnn_tpu_torch", "", comm.get_rank())
+    device = cfg_device(cfg)
+    logger.info("Using {} (torch {}, CUDA {})".format(
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU",
+        torch.__version__, torch.version.cuda))
+    logger.info(cfg)
+
+    model = build_detection_model(cfg, device=device)
+    checkpointer = DetectronCheckpointer(cfg, model, save_dir=cfg.OUTPUT_DIR, logger=logger)
+    checkpointer.load(cfg.MODEL.WEIGHT if args.ckpt is None else args.ckpt)
+    return run_test(cfg, model)
+
+
+if __name__ == "__main__":
+    main()

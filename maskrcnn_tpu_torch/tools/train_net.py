@@ -1,16 +1,16 @@
 """Training entry point.
 
-    python -m maskrcnn_tpu_torch.tools.train_net [--config-file FILE] --skip-test [KEY VALUE ...]
+    python -m maskrcnn_tpu_torch.tools.train_net [--config-file FILE] [--skip-test] [KEY VALUE ...]
 
 The surface of the JAX package's tools/train_net.py (after the reference
 tools/train_net.py): a YAML config file, ``--skip-test`` and KEY VALUE
 overrides of the configuration. The device is MODEL.DEVICE ("cuda" by
 default, "cpu" on request). The model trains from MODEL.WEIGHT (a .pth of
 this package or a .npz of the JAX package; "" for the seeded init) or
-resumes from OUTPUT_DIR's last_checkpoint. Evaluation after training (and
-during it, SOLVER.TEST_PERIOD) waits for engine/inference.py (ROADMAP.md
-Queue 1 item 2): without ``--skip-test`` the command stops before training
-rather than skip the test silently.
+resumes from OUTPUT_DIR's last_checkpoint. With SOLVER.TEST_PERIOD > 0 the
+datasets of DATASETS.TEST are evaluated (bbox) every TEST_PERIOD
+iterations; after training, unless --skip-test, they are evaluated as
+test_net does.
 """
 
 import argparse
@@ -20,6 +20,7 @@ import torch
 
 from ..config import cfg as default_cfg
 from ..data.build import make_data_loader
+from ..engine.inference import inference
 from ..engine.trainer import do_train
 from ..models.detector import build_detection_model
 from ..solver import make_lr_scheduler, make_optimizer
@@ -27,10 +28,12 @@ from ..utils import comm
 from ..utils.checkpoint import DetectronCheckpointer
 from ..utils.logger import setup_logger
 from ..utils.miscellaneous import cfg_device, mkdir, save_config, save_labels
+from .test_net import run_test
 
 
 def train(cfg, output_dir):
-    """Build, load or resume, and train; returns (model, meters)."""
+    """Build, load or resume, and train, validating every
+    SOLVER.TEST_PERIOD iterations; returns (model, meters)."""
     device = cfg_device(cfg)
     model = build_detection_model(cfg, device=device)
     optimizer = make_optimizer(cfg, model)
@@ -43,9 +46,20 @@ def train(cfg, output_dir):
     data_loader = make_data_loader(cfg, is_train=True, start_iter=arguments["iteration"])
     if output_dir:
         save_labels([data_loader.dataset], output_dir)
+    test_period = cfg.SOLVER.TEST_PERIOD
+    run_validation = None
+    if test_period > 0 and cfg.DATASETS.TEST:
+        val_loaders = make_data_loader(cfg, is_train=False)
+
+        def run_validation(val_model, iteration):
+            for name, loader in zip(cfg.DATASETS.TEST, val_loaders):
+                inference(val_model, loader, dataset_name=name, iou_types=("bbox",),
+                          box_only=cfg.MODEL.RPN_ONLY, output_folder=None)
+                comm.synchronize()
+
     meters = do_train(model, optimizer, scheduler, data_loader, checkpointer, device,
-                      cfg.SOLVER.CHECKPOINT_PERIOD, arguments,
-                      test_period=cfg.SOLVER.TEST_PERIOD)
+                      cfg.SOLVER.CHECKPOINT_PERIOD, arguments, test_period=test_period,
+                      run_validation=run_validation)
     return model, meters
 
 
@@ -61,10 +75,6 @@ def main(argv=None):
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)
     cfg.freeze()
-    if not args.skip_test:
-        raise NotImplementedError(
-            "evaluation (engine/inference.py, tools/test_net.py) is not ported yet (ROADMAP.md "
-            "Queue 1 item 2): pass --skip-test")
 
     output_dir = cfg.OUTPUT_DIR
     if output_dir:
@@ -80,7 +90,10 @@ def main(argv=None):
     logger.info("Running with config:\n{}".format(cfg))
     if output_dir:
         save_config(cfg, os.path.join(output_dir, "config.yml"))
-    return train(cfg, output_dir)
+    model, meters = train(cfg, output_dir)
+    if not args.skip_test:
+        run_test(cfg, model)
+    return model, meters
 
 
 if __name__ == "__main__":

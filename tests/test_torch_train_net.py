@@ -5,8 +5,9 @@ runs the JAX one: a narrow Mask R-CNN R-50-FPN from the reference YAML on a
 synthetic COCO tree, 2 loader workers, 4 iterations with a checkpoint every
 2, then a resumed run to 6 that must load model_final and continue at
 iteration 5; a unit test of the trainer's draws across such a resume. Then
-what the CLI refuses: running without --skip-test (evaluation is not
-ported), MODEL.DEVICE "tpu", SOLVER.TEST_PERIOD > 0.
+what the CLI refuses: MODEL.DEVICE "tpu", and a VOC dataset to validate on
+(the VOC dataset and evaluator are not ported). Evaluation through
+train_net is tested in test_torch_test_net.py.
 """
 
 import os
@@ -142,15 +143,10 @@ def test_resumed_training_draws_what_a_straight_run_draws(monkeypatch):
     assert all(not torch.equal(a, b) for i, a in enumerate(straight) for b in straight[i + 1:])
 
 
-def test_train_net_refuses_to_skip_the_test_silently():
-    with pytest.raises(NotImplementedError, match="skip-test"):
-        train_net.main(["MODEL.DEVICE", "cpu"])
-
-
 @pytest.mark.parametrize("opts,error", [
     (["MODEL.DEVICE", "tpu"], ValueError),
-    (["MODEL.DEVICE", "cpu", "SOLVER.TEST_PERIOD", "100", "MODEL.BACKBONE.CONV_BODY",
-      "R-50-FPN"], NotImplementedError),
+    (["MODEL.DEVICE", "cpu", "SOLVER.TEST_PERIOD", "100", "DATASETS.TEST",
+      "('voc_2007_test',)"], NotImplementedError),
 ])
 def test_train_net_rejects_what_the_port_lacks(tmp_path, monkeypatch, opts, error):
     data_root = _data_tree(tmp_path)
