@@ -48,7 +48,7 @@ Training (a second model instance):
      "roi" backward and again with "rmw" at P=7 and "chunk" at P=14: the
      launch counters show the backward each run was given ("roi" twice a
      step; "rmw" and "chunk" once each), two tile launches a step, no
-     scatter, no cast, and as many memsets as the default step.
+     scatter, no cast, and no memset asked for by the ROIAlign path.
 The training entry point (a third model instance):
  12. a synthetic COCO-format tree of 32 images of 480x640 from the seed,
      with bench.py's gt statistics and polygon masks; the images are handed
@@ -91,10 +91,38 @@ Evaluation (a fourth model instance):
      detections with a partner (label exact, score 1e-4, box 1e-2 px, mask
      1e-3, as phase 6), the share at scores 1e-5 and boxes 1e-3 px
      reported.
+Multi-card (two ranks of a gloo group on the one card, this script's own
+worker processes: python3 chip_smoke.py --worker ...; NCCL does not take two
+ranks on one device):
+ 20. float32, the flagship at full width on a batch of two 320x480 images
+     (the second at half the amplitude, the RPN objectness weights 20x for
+     spread scores), one image a rank, the same weights and the global
+     batch's draws: one SGD step against the one-process step on both
+     images (losses 1e-5 relative, parameters within 2e-4 of the step's
+     max|change|), both ranks' parameters bitwise equal, and the proposals
+     each rank keeps under the global FPN k-th score against under its own;
+ 21. bf16, the flagship at global batch 8 (4 images of bench.py's batch a
+     rank), 3 steps: launches per rank (matcher 1, NMS 1, ROIAlign forward
+     2, "roi" backward 2 a step), finite losses, bitwise-equal parameters;
+     each kernel against its plain version at the per-rank shapes (NMS
+     20x2000, the matcher on 4 x 268,569 anchors, ROIAlign 2048 ROIs at P=7
+     and 512 at P=14, the backward), rank by rank; the per-rank step time,
+     the gradient all-reduce's time (176.5 MB through gloo) and the
+     gathered FPN top-k's;
+ 22. train_net under the two ranks on phase 12's tree, global batch 8: 4
+     iterations with a checkpoint at 4 (written by rank 0 only), then a
+     resume to 6 on both ranks without --skip-test on the 8-image val tree
+     (sharded test loaders: rank 0 gathers every image once, rank 1
+     returns None); then phase 18's known answer through test_net under two
+     ranks, phase 18's batches of 8 on each: bbox AP50 >= 0.99;
+ 23. NCCL at world size 1: train_net for 2 iterations in a process made
+     from a torchrun-style environment (init_distributed makes the NCCL
+     group; the step's collectives and the broadcast run through it), then
+     the gradient all-reduce and the broadcast timed.
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
-designs' (PERF.md), one JSON line of the six kernels, the card's line, and
-the result line.
+designs' (PERF.md), one JSON line of the six kernels (launches by path, the
+multi-card path's the two ranks' sum), the card's line, and the result line.
 """
 
 import contextlib
@@ -119,6 +147,9 @@ TIMED_STEPS = 5
 # landscape images, then 16 portrait (the test loader keeps the order, so each
 # batch of 8 fills one of the two buckets), with COCO's 80 sparse category ids
 VAL_IMAGES = 8
+# the multi-card phases: two ranks on the one card; the float32 step's two images
+MULTI_WORLD, MULTI_STEPS = 2, 3
+F32_HW = (320, 480)
 EVAL_SIZES = ((480, 640),) * 16 + ((640, 480),) * 16
 EVAL_BATCH = 8
 COCO_CATEGORY_IDS = [c for c in range(1, 91)
@@ -620,34 +651,47 @@ def run(torch):
     tr = train_phase(torch, np, card)
     torch.cuda.empty_cache()
     phase_s["training"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    entry = entry_point_phase(torch, np, card, tr["throughput"])
-    torch.cuda.empty_cache()
-    phase_s["entry_point"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ev = evaluation_phase(torch, np, card)
-    phase_s["evaluation"] = time.perf_counter() - t0
+    keep = {name: tempfile.mkdtemp(prefix="chip_smoke_{}_".format(name))
+            for name in ("entry", "eval")}
+    try:
+        t0 = time.perf_counter()
+        entry = entry_point_phase(torch, np, card, tr["throughput"], keep["entry"])
+        torch.cuda.empty_cache()
+        phase_s["entry_point"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev = evaluation_phase(torch, np, card, keep["eval"])
+        torch.cuda.empty_cache()
+        phase_s["evaluation"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mc = multi_card_phase(torch, np, card, keep)
+        phase_s["multi_card"] = time.perf_counter() - t0
+    finally:
+        for d in keep.values():
+            shutil.rmtree(d, ignore_errors=True)
     print("phase wall seconds: " + json.dumps(phase_s), flush=True)
 
     def by_path(key):
         return {"serving": serving[key], "training": tr["launches"][key],
-                "entry_point": entry["launches"][key], "evaluation": ev["launches"][key]}
+                "entry_point": entry["launches"][key], "evaluation": ev["launches"][key],
+                "multi_card": mc["launches"][key]}
 
     roi_cu = "maskrcnn_tpu_torch/csrc/roi_align.cu"
     tpu = "maskrcnn_tpu/ops/pallas/"
     kernels = [
         kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu", tpu + "nms_kernel.py:161",
-                     by_path("nms"), nms_sites + tr["nms_sites"] + ev["nms_sites"]),
+                     by_path("nms"), nms_sites + tr["nms_sites"] + ev["nms_sites"]
+                     + mc["nms_sites"]),
         kernel_entry("roi_align", roi_cu, tpu + "roi_align_kernel.py:434", by_path("roi_align"),
-                     roi_sites + tr["roi_sites"] + ev["roi_sites"]),
+                     roi_sites + tr["roi_sites"] + ev["roi_sites"] + mc["roi_sites"]),
         kernel_entry("roi_align_backward", roi_cu, tpu + "roi_align_kernel.py:1020",
-                     by_path("roi_align_backward"), tr["bwd_sites_roi"]),
+                     by_path("roi_align_backward"), tr["bwd_sites_roi"] + mc["bwd_sites_roi"]),
         kernel_entry("roi_align_backward_rmw", roi_cu, tpu + "roi_align_kernel.py:646",
                      by_path("roi_align_backward_rmw"), tr["bwd_sites_rmw"]),
         kernel_entry("roi_align_backward_chunk", roi_cu, tpu + "roi_align_kernel.py:850",
                      by_path("roi_align_backward_chunk"), tr["bwd_sites_chunk"]),
         kernel_entry("matcher", "maskrcnn_tpu_torch/csrc/matcher.cu",
-                     tpu + "matcher_kernel.py:183", by_path("matcher"), tr["matcher_sites"]),
+                     tpu + "matcher_kernel.py:183", by_path("matcher"),
+                     tr["matcher_sites"] + mc["matcher_sites"]),
     ]
 
     def shape(name, s):
@@ -872,16 +916,19 @@ def train_phase(torch, np, card):
           "the profiled rmw/chunk steps ran the backwards {}".format(backward_launches()))
     if prof["device_busy_ms"] != "not measured" and prof_w["device_busy_ms"] != "not measured":
         # every backward writes its gradient whole: two tile launches a step,
-        # no scatter, no cast, and no memset beyond the rest of the step's
+        # no scatter, no cast, and no memset asked for by the ROIAlign path
+        # (the step's other memsets come from cuDNN, sorts and reductions,
+        # whose count can differ by one between two profiled runs)
         for p_ in (prof, prof_w):
             names = p_["roi_align_kernels_per_step"]
             check(not any("cast_to_bf16" in k or "roi_align_bwd_kernel" in k or "rmw_kernel" in k
                           or "chunk_kernel" in k for k in names)
                   and sum(v for k, v in names.items() if "bwd_tile" in k) == 2,
                   "the step's ROIAlign kernels: {}".format(names))
-        check(prof_w["memsets_per_step"] == prof["memsets_per_step"],
-              "memsets a step: {} with rmw/chunk, {} with roi".format(
-                  prof_w["memsets_per_step"], prof["memsets_per_step"]))
+            check(p_["roi_align_memsets_per_step"] == 0
+                  and p_["roi_align_launch_calls_per_step"] >= 4,
+                  "the ROIAlign path asked for {} memsets and {} launches a step".format(
+                      p_["roi_align_memsets_per_step"], p_["roi_align_launch_calls_per_step"]))
     sites["launches"] = launches
     sites["throughput"] = thr
     return sites
@@ -954,12 +1001,13 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def entry_point_phase(torch, np, card, step_throughput):
+def entry_point_phase(torch, np, card, step_throughput, keep):
     """12-14. The training entry point, python -m maskrcnn_tpu_torch.tools.train_net, run
     in-process on the flagship at full width: the dataset catalog, COCODataset, the
     transforms, the collator, the samplers and 4 DataLoader workers over a synthetic COCO
     tree, the trainer and the checkpointer, with the "rmw" backward at P=7 and "chunk" at
-    P=14. 8 iterations with a checkpoint every 4, then a resumed run to 12."""
+    P=14. 8 iterations with a checkpoint every 4, then a resumed run to 12. The trees, the
+    images and the weights are copied to `keep` for the multi-card phases."""
     from maskrcnn_tpu_torch.config import cfg as defaults
     from maskrcnn_tpu_torch.config import flagship_cfg
     from maskrcnn_tpu_torch.data.build import make_data_loader
@@ -997,6 +1045,7 @@ def entry_point_phase(torch, np, card, step_throughput):
         calibrate_frozen_bn(torch, model, model._prepare_images(first, sizes))
         weights = os.path.join(work, "weights.pth")
         torch.save({"model": model.state_dict()}, weights)
+        keep_tree(keep, work, weights, trees)
         del model, first
         torch.cuda.empty_cache()
         out = os.path.join(work, "out")
@@ -1129,11 +1178,12 @@ def test_size(h, w, min_size=800, max_size=1333):
     return (int(size * h / w), size) if w < h else (size, int(size * w / h))
 
 
-def evaluation_phase(torch, np, card):
+def evaluation_phase(torch, np, card, keep):
     """15-19. Evaluation through python -m maskrcnn_tpu_torch.tools.test_net, in-process, on
     the flagship at full width (bf16) over a synthetic COCO val tree of 32 images at
     TEST.IMS_PER_BATCH 8: the kernels at the evaluation shapes, a known-answer pass, and
-    the card against the CPU on a test batch."""
+    the card against the CPU on a test batch. The known-answer tree, its images, the weights
+    and the test options are copied to `keep` for the multi-card phases."""
     import pickle
 
     from maskrcnn_tpu_torch.config import cfg as defaults
@@ -1294,6 +1344,7 @@ def evaluation_phase(torch, np, card):
         infos = [{"id": i + 1, "file_name": "{:06d}.jpg".format(i + 1), "height": h, "width": w}
                  for i, (h, w) in enumerate(EVAL_SIZES)]
         write_coco_json(ann_file, infos, gts, COCO_CATEGORY_IDS)
+        keep_tree(keep, work, weights, {"val2017": images}, opts + ["MODEL.MASK_ON", "False"])
         out2 = os.path.join(work, "out2")
         with environ(MASKRCNN_TPU_DATA_DIR=work):
             ((res2, _),) = test_net.main(["--ckpt", weights] + opts + [
@@ -1369,6 +1420,21 @@ def profile_steps(torch, step, batch, steps=2):
     busy_ms = sum(self_device_us(e) for e in events) / 1e3 / steps
     if busy_ms <= 0:
         return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+
+    def in_roi_align(e):
+        while e is not None:
+            if "RoIAlignFunction" in e.name:
+                return True
+            e = e.cpu_parent
+        return False
+
+    # memsets asked for by the ROIAlign path (its forward, the window index,
+    # its backward): host calls under the pooler's autograd function; its
+    # kernel launches there show that the profiler links such calls to it
+    roi_calls = [e.name.lower() for e in prof.events() if e.device_type == DeviceType.CPU
+                 and e.name.lower().startswith(("cuda", "cu")) and in_roi_align(e.cpu_parent)]
+    roi_memsets = sum("memset" in n for n in roi_calls)
+    roi_launches = sum("launchkernel" in n for n in roi_calls)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "top_kernels_ms": [[e.key[:90], self_device_us(e) / 1e3 / steps, e.count / steps]
@@ -1376,6 +1442,8 @@ def profile_steps(torch, step, batch, steps=2):
         "roi_align_kernels_per_step": {e.key[:90]: e.count / steps for e in events
                                        if "roi_align" in e.key or "cast_to_bf16" in e.key},
         "memsets_per_step": sum(e.count for e in events if "memset" in e.key.lower()) / steps,
+        "roi_align_memsets_per_step": roi_memsets / steps,
+        "roi_align_launch_calls_per_step": roi_launches / steps,
     }
 
 
@@ -1515,7 +1583,580 @@ def train_reference_check(torch, np, cfg, state, backwards):
     check(all(v <= 1e-2 for v in grad_err.values()), "card and CPU gradients differ")
 
 
+def keep_tree(keep, work, weights, trees, opts=None):
+    """Copy a phase's synthetic COCO tree (annotations and split folders),
+    its images (pickled, by split and image id) and its weights to `keep`,
+    where the multi-card phases' processes read them; with the options of
+    a test_net run that reads them."""
+    import pickle
+
+    shutil.copytree(os.path.join(work, "coco"), os.path.join(keep, "coco"), dirs_exist_ok=True)
+    shutil.copy(weights, os.path.join(keep, "weights.pth"))
+    with open(os.path.join(keep, "images.pkl"), "wb") as f:
+        pickle.dump(trees, f)
+    if opts is not None:
+        with open(os.path.join(keep, "opts.json"), "w") as f:
+            json.dump(opts, f)
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_ranks(phases, world, work, timeout, env=None):
+    """Run this script's multi-card `phases` (comma-separated) in `world`
+    worker processes on the card (python3 chip_smoke.py --worker ...): one
+    rank each, their logs in `work`. Returns each rank's results; fails,
+    after stopping every rank, as soon as one fails or at `timeout`."""
+    port = str(free_port())
+    procs, logs = [], []
+    for rank in range(world):
+        log = open(os.path.join(work, "rank{}.log".format(rank)), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", phases, str(rank), str(world),
+             port, work], stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+            env=dict(os.environ, **(env or {}))))
+    deadline = time.time() + timeout
+    try:
+        while True:
+            states = [p.poll() for p in procs]
+            if None not in states or any(s not in (None, 0) for s in states) \
+                    or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    tails = []
+    for rank, p in enumerate(procs):
+        with open(os.path.join(work, "rank{}.log".format(rank))) as f:
+            tails.append(f.read()[-3000:])
+    for rank, p in enumerate(procs):
+        check(p.returncode == 0, "multi-card phases {}: rank {} of {} ended with {}{}:\n{}".format(
+            phases, rank, world, p.returncode,
+            " (stopped at the time limit)" if time.time() > deadline else "",
+            "\n".join("--- rank {} ---\n{}".format(r, t) for r, t in enumerate(tails))))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(work, "rank{}.json".format(rank))) as f:
+            results.append(json.load(f))
+    return results
+
+
+def proposal_slots(cfg, per_level, gt_slots):
+    """The training proposals of an image (select_proposals' output, the
+    gt appended) for levels of `per_level` anchors."""
+    r = cfg.MODEL.RPN
+    k_post = min(r.POST_NMS_TOP_N_TRAIN, max(min(r.PRE_NMS_TOP_N_TRAIN, n) for n in per_level))
+    n = len(per_level) * k_post
+    return (min(r.FPN_POST_NMS_TOP_N_TRAIN, n) if len(per_level) > 1 else n) + gt_slots
+
+
+def multi_card_phase(torch, np, card, keep):
+    """20-23. The multi-card path on the one card: two ranks of a gloo group
+    (this script's workers), a float32 step against one process, the
+    flagship's bf16 steps at global batch 8 with the kernels at the
+    per-rank shapes, train_net and test_net under two ranks; then NCCL at
+    world size 1 through train_net."""
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.config import flagship_cfg
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.models import build_detection_model
+    from maskrcnn_tpu_torch.ops.sampler import uniform_draws
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    try:
+        # 20. the one-process float32 step the two ranks are held to
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = flagship_cfg()
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        model = build_detection_model(cfg, device="cuda", seed=SEED)
+        batch = train_batch(torch, np, 2, F32_HW, F32_HW, cfg.TPU.MAX_GT_BOXES,
+                            cfg.TPU.GT_MASK_SIZE, SEED + 3, "cuda", block_masks=True)
+        batch["images"][1] *= 0.5  # the second image's scores at another scale
+        calibrate_frozen_bn(torch, model, batch["images"])
+        with torch.no_grad():  # spread objectness scores: few near-ties to round apart
+            model.rpn.cls_logits.weight.mul_(20)
+            model.rpn.cls_logits.bias.mul_(20)
+            per_level = [a.shape[0] for a in model._backbone(batch)[1]]
+        state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        draws = {}
+        draws["rpn_pos"], draws["rpn_neg"] = uniform_draws((2, sum(per_level)), gen, "cuda")
+        draws["box_pos"], draws["box_neg"] = uniform_draws(
+            (2, proposal_slots(cfg, per_level, cfg.TPU.MAX_GT_BOXES)), gen, "cuda")
+        opt = make_optimizer(cfg, model)
+        metrics = make_train_step(model, opt, make_lr_scheduler(cfg, opt))(batch, draws=draws)
+        torch.save({"cfg": cfg._to_plain(), "state": state,
+                    "batch": {k: v.cpu() for k, v in batch.items()},
+                    "draws": {k: v.cpu() for k, v in draws.items()},
+                    "losses": {k: v.item() for k, v in metrics.items()},
+                    "after": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+                   os.path.join(work, "f32_job.pt"))
+        del model, opt, batch, draws, state
+        # 21. the flagship with frozen-BN statistics from bench.py's batch of 8
+        cfg = flagship_cfg()
+        model = build_detection_model(cfg, device="cuda", seed=SEED)
+        batch = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+                            cfg.TPU.GT_MASK_SIZE, SEED, "cuda")
+        calibrate_frozen_bn(torch, model, batch["images"])
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   os.path.join(work, "bf16_state.pth"))
+        del model, batch
+        torch.cuda.empty_cache()
+        # 22. train_net's flagship options (phase 13's, the default backward)
+        base = config_opts(flagship_cfg(), defaults)
+        with open(os.path.join(keep["eval"], "opts.json")) as f:
+            eval_opts = json.load(f)
+        job = {"root": keep["entry"], "images": os.path.join(keep["entry"], "images.pkl"),
+               "opts": base + [
+                   "MODEL.DEVICE", "cuda:0",
+                   "MODEL.WEIGHT", os.path.join(keep["entry"], "weights.pth"),
+                   "DATASETS.TRAIN", "('coco_2017_train',)", "SOLVER.IMS_PER_BATCH", "8",
+                   "INPUT.MIN_SIZE_TRAIN", "(800,)", "INPUT.MAX_SIZE_TRAIN", "1333",
+                   "SOLVER.CHECKPOINT_PERIOD", "4", "DATALOADER.NUM_WORKERS", "2",
+                   "OUTPUT_DIR", os.path.join(work, "out")],
+               "eval_root": keep["eval"], "eval_images": os.path.join(keep["eval"], "images.pkl"),
+               # phase 18's batches of 8 on each rank: bf16 detections of random
+               # weights move with a batch's make-up (at 4 a rank AP50 was 0.972)
+               "eval_opts": ["--ckpt", os.path.join(keep["eval"], "weights.pth")] + eval_opts + [
+                   "MODEL.DEVICE", "cuda:0", "DATALOADER.NUM_WORKERS", "2",
+                   "TEST.IMS_PER_BATCH", str(MULTI_WORLD * EVAL_BATCH),
+                   "OUTPUT_DIR", os.path.join(work, "known")],
+               "nccl_out": os.path.join(work, "nccl_out")}
+        with open(os.path.join(work, "entry_job.json"), "w") as f:
+            json.dump(job, f)
+        print("multi-card: two ranks of a gloo group on the one card (this script's workers), "
+              "then NCCL at world size 1; the float32 one-process reference stepped: {}".format(
+                  json.dumps({k: v.item() for k, v in metrics.items()})), flush=True)
+
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("f32,bf16,entry", MULTI_WORLD, work, 720)
+        print("multi-card: phases 20-22 in {:.1f} s".format(time.perf_counter() - t0), flush=True)
+        out = check_two_ranks(ranks, card)
+
+        # 23. NCCL at world size 1 from a torchrun-style environment
+        t0 = time.perf_counter()
+        (nccl,) = spawn_ranks("nccl", 1, work, 300, env={
+            "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(free_port())})
+        nccl = nccl["nccl"]
+        print("multi-card NCCL at world size 1 through train_net ({:.1f} s) [{}]: {}".format(
+            time.perf_counter() - t0, card, json.dumps(nccl)), flush=True)
+        check(nccl["backend"] == "nccl" and nccl["world"] == 1, "phase 23 ran {} at world {}"
+              .format(nccl["backend"], nccl["world"]))
+        per_step = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2,
+                    "roi_align_backward_rmw": 0, "roi_align_backward_chunk": 0}
+        check(nccl["launches"] == {k: 2 * v for k, v in per_step.items()},
+              "phase 23 launched {}".format(nccl["launches"]))
+        check(all(math.isfinite(v) for v in nccl["losses"].values()) and nccl["losses"],
+              "phase 23 losses {}".format(nccl["losses"]))
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def check_two_ranks(ranks, card):
+    """The checks of phases 20-22 on both ranks' results; returns the
+    multi-card path's launches (both ranks' sum) and per-rank kernel sites."""
+    f32 = [r["f32"] for r in ranks]
+    print("multi-card float32 step, two ranks against one process: " + json.dumps(f32),
+          flush=True)
+    for rank, r in enumerate(f32):
+        check(max(r["loss_rel_err"].values()) <= 1e-5, "rank {}: losses off the one-process "
+              "step's by {}".format(rank, r["loss_rel_err"]))
+        check(r["param_err"] <= 2e-4 * r["param_step"], "rank {}: parameters off by {} > 2e-4 * "
+              "max|step| {}".format(rank, r["param_err"], r["param_step"]))
+        check(r["bitwise_equal_to_rank0"], "rank {}: parameters differ from rank 0's".format(rank))
+        check(r["kept_global"] != r["kept_local"], "rank {}: the global FPN k-th score keeps {} "
+              "proposals, its own k-th score as many".format(rank, r["kept_global"]))
+    check(sum(r["kept_global"] for r in f32) == f32[0]["fpn_post"],
+          "the global k-th score kept {}".format([r["kept_global"] for r in f32]))
+
+    bf16 = [r["bf16"] for r in ranks]
+    for rank, r in enumerate(bf16):
+        print("multi-card bf16 rank {} [{}]: {}".format(rank, card, json.dumps(
+            {k: v for k, v in r.items() if k != "sites"})), flush=True)
+        per_step = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2,
+                    "roi_align_backward_rmw": 0, "roi_align_backward_chunk": 0}
+        check(r["launches"] == {k: MULTI_STEPS * v for k, v in per_step.items()},
+              "rank {} launched {} in {} steps".format(rank, r["launches"], MULTI_STEPS))
+        check(all(math.isfinite(v) for m in r["losses"] for v in m.values()),
+              "rank {}: losses {}".format(rank, r["losses"]))
+        check(r["bitwise_equal_to_rank0"], "rank {}: bf16 parameters differ from rank 0's"
+              .format(rank))
+        sites = r["sites"]
+        b = TRAIN_BATCH // MULTI_WORLD
+        check(sites["nms_sites"][0]["shape"] == [5 * b, 2000] and
+              sites["matcher_sites"][0]["images"] == b and
+              [(x["rois"], x["P"]) for x in sites["roi_sites"]] == [(512 * b, 7), (128 * b, 14)] and
+              [(x["rois"], x["P"]) for x in sites["bwd_sites_roi"]] == [(512 * b, 7), (128 * b, 14)],
+              "rank {}: per-rank kernel sites {}".format(rank, {
+                  k: [(x.get("shape"), x.get("rois"), x.get("P")) for x in v]
+                  for k, v in sites.items()}))
+        for k, v in sites.items():
+            for site in v:
+                print("multi-card rank {} kernel site [{}]: {}".format(rank, card, json.dumps(
+                    dict(site, rank=rank))), flush=True)
+
+    entry = [r["entry"] for r in ranks]
+    print("multi-card train_net and test_net under two ranks: " + json.dumps(entry), flush=True)
+    check(entry[0]["saves"] == ["model_0000004.pth", "model_final.pth"] and entry[1]["saves"] == [],
+          "checkpoints written by rank 0 {}, by rank 1 {}".format(entry[0]["saves"],
+                                                                 entry[1]["saves"]))
+    check(all(e["resumed"] for e in entry), "a rank did not resume from model_final")
+    check(entry[0]["iterations"] == [[4], [6]], "rank 0 logged iterations {}".format(
+        entry[0]["iterations"]))
+    for e, n in (("test_gathered", VAL_IMAGES), ("known_gathered", len(EVAL_SIZES))):
+        shards = entry[0][e]
+        check(sorted(i for s in shards for i in s) == list(range(n)),
+              "the gathered predictions' images {}".format(shards))
+    check(entry[0]["predictions"] == VAL_IMAGES, "predictions.pkl holds {} images".format(
+        entry[0]["predictions"]))
+    check(entry[1]["test"] is None and entry[1]["known"] is None, "rank 1 returned results")
+    check(set(entry[0]["test"]) == {"bbox", "segm"}, "rank 0's test results {}".format(
+        entry[0]["test"]))
+    check(entry[0]["known"]["bbox"]["AP50"] >= 0.99, "known-answer bbox AP50 {} < 0.99 under two "
+          "ranks".format(entry[0]["known"]["bbox"]["AP50"]))
+
+    launches = {k: sum(r["launches"][k] for r in bf16) for k in bf16[0]["launches"]}
+    out = {"launches": launches}
+    for k in ("nms_sites", "roi_sites", "bwd_sites_roi", "matcher_sites"):
+        out[k] = [dict(s, rank=rank) for rank, r in enumerate(bf16) for s in r["sites"][k]]
+    return out
+
+
+def _rank_params_equal(torch, model):
+    """Whether this rank's parameters equal rank 0's bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, 0)
+    return bool(torch.equal(flat, theirs))
+
+
+def _kth(torch, scores, k):
+    return float(torch.topk(scores.reshape(-1), min(k, scores.numel())).values[-1])
+
+
+def worker_f32(torch, np, rank, world, work):
+    """20. This rank's image of the float32 job's two, the global draws, one
+    SGD step; against the one-process step; the FPN top-k's kept counts."""
+    from maskrcnn_tpu_torch.config.cfgnode import CfgNode
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.utils import comm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = torch.load(os.path.join(work, "f32_job.pt"), weights_only=False)
+    cfg = CfgNode(job["cfg"])
+    model = GeneralizedRCNN(cfg)
+    model.load_state_dict(job["state"])
+    model.cuda()
+    b = job["batch"]["images"].shape[0] // world
+    batch = {k: v[rank * b:(rank + 1) * b].cuda() for k, v in job["batch"].items()}
+    draws = {k: v.cuda() for k, v in job["draws"].items()}
+    seen = []
+    gather_rows = comm.gather_rows
+    comm.gather_rows = lambda t: seen.append(t.clone()) or gather_rows(t)
+    try:
+        opt = make_optimizer(cfg, model)
+        metrics = make_train_step(model, opt, make_lr_scheduler(cfg, opt))(batch, draws=draws)
+    finally:
+        comm.gather_rows = gather_rows
+    losses = {k: v.item() for k, v in metrics.items()}
+    err, step = 0.0, 0.0
+    for name, p in model.state_dict().items():
+        want, before = job["after"][name].cuda(), job["state"][name].cuda()
+        err = max(err, float((p - want).abs().max()))
+        step = max(step, float((want - before).abs().max()))
+    k = cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN
+    local = seen[0]
+    gathered = gather_rows(local)
+    count = lambda kth: int((local >= max(kth, -5e9)).sum())  # noqa: E731
+    return {"losses": losses,
+            "loss_rel_err": {kk: abs(v - job["losses"][kk]) / max(abs(job["losses"][kk]), 1e-12)
+                             for kk, v in losses.items()},
+            "param_err": err, "param_step": step,
+            "bitwise_equal_to_rank0": _rank_params_equal(torch, model), "fpn_post": k,
+            "kept_global": count(_kth(torch, gathered, k)), "kept_local": count(_kth(torch, local, k))}
+
+
+def worker_bf16(torch, np, rank, world, work):
+    """21. The flagship in bf16 at global batch 8: this rank's 4 images of
+    bench.py's batch, MULTI_STEPS steps; launches, step times, the kernels
+    at the per-rank shapes (rank by rank), the gradient all-reduce's and the
+    gathered FPN top-k's times, and the ranks' parameters compared."""
+    import torch.distributed as dist
+
+    from maskrcnn_tpu_torch.config import flagship_cfg
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.engine.trainer import step_seed
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, rpn
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.parallel import reduce_gradients
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.utils import comm
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = flagship_cfg()
+    model = build_detection_model(cfg, device="cuda", seed=SEED)
+    model.load_state_dict(torch.load(os.path.join(work, "bf16_state.pth"), weights_only=True))
+    full = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+                       cfg.TPU.GT_MASK_SIZE, SEED, "cpu")
+    b = TRAIN_BATCH // world
+    batch = {k: v[rank * b:(rank + 1) * b].cuda() for k, v in full.items()}
+    del full
+    opt = make_optimizer(cfg, model)
+    gen = torch.Generator(device="cuda")
+    step = make_train_step(model, opt, make_lr_scheduler(cfg, opt), generator=gen)
+    counters = training_counters(poolers, matcher, nms)
+    for fn in counters.values():
+        fn.launches = 0
+    seen = []
+    gather_rows = comm.gather_rows
+    comm.gather_rows = lambda t: (seen.append(t.clone()) if not seen else None) or gather_rows(t)
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with Capture([rpn], "match_anchors_batched", limit=1) as match_cap, \
+                Capture([rpn], "batched_nms", limit=1) as nms_cap, \
+                Capture([detector], "multilevel_roi_align", grads=True, limit=2) as roi_cap:
+            for i in range(MULTI_STEPS):
+                gen.manual_seed(step_seed(i + 1))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append({k: v.item() for k, v in m.items()})
+    finally:
+        comm.gather_rows = gather_rows
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the gradient all-reduce (the last step's gradients) and the gathered
+    # FPN top-k, both ranks in step
+    n_grad = sum(p.grad.numel() for p in model.parameters() if p.grad is not None)
+    allreduce = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_gradients(model)
+        torch.cuda.synchronize()
+        allreduce.append((time.perf_counter() - t0) * 1e3)
+    k = cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN
+    topk = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _kth(torch, comm.gather_rows(seen[0]), k)
+        topk.append((time.perf_counter() - t0) * 1e3)
+    equal = _rank_params_equal(torch, model)
+    opt.zero_grad(set_to_none=True)
+    del opt, step
+    torch.cuda.empty_cache()
+    # the kernels at the per-rank shapes, one rank at a time
+    sites = {}
+    for turn in range(world):
+        if turn == rank:
+            sites["matcher_sites"] = [matcher_site(torch, matcher, *match_cap.calls[0])]
+            with torch.no_grad():
+                sites["nms_sites"] = [nms_site(torch, nms, *nms_cap.calls[0], plain_iters=3)]
+                sites["roi_sites"] = [roi_site(torch, poolers, [f.detach() for f in c[0]], *c[1:])
+                                      for c in roi_cap.calls]
+            sites["bwd_sites_roi"] = [
+                roi_backward_site(torch, poolers, [f.detach() for f in c[0]], *c[1:],
+                                  roi_cap.out_grads[i], "roi")
+                for i, c in enumerate(roi_cap.calls)]
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return {"launches": launches, "losses": losses, "step_ms": times,
+            "gradient_values": n_grad, "gradient_mb": n_grad * 4 / 1e6,
+            "allreduce_ms": allreduce, "gathered_topk_ms": topk,
+            "topk_scores_per_rank": seen[0].numel(), "peak_memory_gb": peak_gb,
+            "bitwise_equal_to_rank0": equal, "sites": sites}
+
+
+def _override_images(job_images):
+    """COCODataset hands over the phase's seeded arrays (no image decoder)."""
+    import pickle
+
+    from maskrcnn_tpu_torch.data.datasets import COCODataset
+
+    with open(job_images, "rb") as f:
+        trees = pickle.load(f)
+    COCODataset._load_image = (
+        lambda self, index: trees[os.path.basename(self.root)][self.ids[index]])
+
+
+def worker_entry(torch, np, rank, world, work):
+    """22. train_net in the group this worker made: 4 iterations (a
+    checkpoint at 4), a resume to 6 with the final test on the val tree;
+    then test_net on phase 18's known answer."""
+    import pickle
+
+    from maskrcnn_tpu_torch.tools import test_net, train_net
+    from maskrcnn_tpu_torch.utils import comm
+
+    with open(os.path.join(work, "entry_job.json")) as f:
+        job = json.load(f)
+    logs = LogLines()
+    for name in ("maskrcnn_tpu_torch", "maskrcnn_tpu_torch.checkpointer"):
+        logging.getLogger(name).addHandler(logs)
+    gathered, returned = [], []
+    all_gather, run_test = comm.all_gather, train_net.run_test
+
+    def recording(data):
+        out = all_gather(data)
+        if isinstance(data, dict) and data and all(isinstance(k, int) for k in data):
+            gathered.append([sorted(d) for d in out])  # inference's predictions by index
+        return out
+
+    def run_test_recording(cfg, model):
+        returned.append(run_test(cfg, model))
+        return returned[-1]
+
+    comm.all_gather, train_net.run_test = recording, run_test_recording
+    out_dir = job["opts"][job["opts"].index("OUTPUT_DIR") + 1]
+    try:
+        _override_images(job["images"])
+        with environ(MASKRCNN_TPU_DATA_DIR=job["root"]):
+            t0 = time.perf_counter()
+            train_net.main(["--skip-test"] + job["opts"] + ["SOLVER.MAX_ITER", "4"])
+            first_s = time.perf_counter() - t0
+            first = list(logs.lines)
+            logs.lines.clear()
+            t0 = time.perf_counter()
+            train_net.main(job["opts"] + ["SOLVER.MAX_ITER", "6", "DATASETS.TEST",
+                                          "('coco_2017_val',)", "TEST.IMS_PER_BATCH", "8"])
+            second_s = time.perf_counter() - t0
+            second = list(logs.lines)
+        test_gathered = gathered[-1]
+        _override_images(job["eval_images"])
+        with environ(MASKRCNN_TPU_DATA_DIR=job["eval_root"]):
+            t0 = time.perf_counter()
+            known = test_net.main(job["eval_opts"])
+            known_s = time.perf_counter() - t0
+    finally:
+        comm.all_gather, train_net.run_test = all_gather, run_test
+    pred_file = os.path.join(out_dir, "inference", "coco_2017_val", "predictions.pkl")
+    n_pred = None
+    if rank == 0:
+        with open(pred_file, "rb") as f:
+            n_pred = len(pickle.load(f))
+    ((test, _),) = returned[-1] if rank == 0 else ((None, None),)
+    return {"saves": [os.path.basename(line.split()[-1]) for line in first
+                      if line.startswith("Saving checkpoint to")],
+            "resumed": any(line == "Loading checkpoint from " + os.path.join(out_dir,
+                                                                              "model_final.pth")
+                           for line in second),
+            "iterations": [[int(m) for line in lines for m in re.findall(r"iter: (\d+)", line)]
+                           for lines in (first, second)],
+            "test_gathered": test_gathered, "predictions": n_pred,
+            "test": None if test is None else {k: dict(v) for k, v in test.results.items()},
+            "known_gathered": gathered[-1],
+            "known": None if known is None else {k: dict(v) for k, v in known[0][0].results.items()},
+            "returned_on_rank": [r is not None for r in returned[-1]],
+            "train_4_s": first_s, "resume_test_s": second_s, "known_test_s": known_s}
+
+
+def worker_nccl(torch, np, rank, world, work):
+    """23. train_net from a torchrun-style environment of one process: its
+    init_distributed makes an NCCL group, and the step's reductions, the
+    broadcast and the model's collectives run through it; then the
+    gradient all-reduce and the broadcast timed alone."""
+    import torch.distributed as dist
+
+    from maskrcnn_tpu_torch.models import poolers
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.parallel import broadcast_parameters, reduce_gradients
+    from maskrcnn_tpu_torch.tools import train_net
+    from maskrcnn_tpu_torch.utils import comm
+
+    with open(os.path.join(work, "entry_job.json")) as f:
+        job = json.load(f)
+    _override_images(job["images"])
+    counters = training_counters(poolers, matcher, nms)
+    for fn in counters.values():
+        fn.launches = 0
+    with environ(MASKRCNN_TPU_DATA_DIR=job["root"]):
+        t0 = time.perf_counter()
+        model, meters = train_net.main(["--skip-test"] + job["opts"] + [
+            "SOLVER.MAX_ITER", "2", "MODEL.DEVICE", "cuda", "OUTPUT_DIR", job["nccl_out"]])
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    backend, world_size = dist.get_backend(), dist.get_world_size()
+    n_grad = sum(p.grad.numel() for p in model.parameters() if p.grad is not None)
+    timed = {"allreduce_ms": lambda: reduce_gradients(model),
+             "broadcast_ms": lambda: broadcast_parameters(model),
+             "global_sum_ms": lambda: comm.global_sum(torch.ones((), device="cuda"))}
+    out = {k: cuda_ms(torch, fn, 10) for k, fn in timed.items()}
+    out.update(backend=backend, world=world_size, launches=launches, wall_s=wall,
+               gradient_values=n_grad, device=str(next(model.parameters()).device),
+               losses={k: m.global_avg for k, m in meters.meters.items() if k.startswith("loss")})
+    return out
+
+
+WORKER_PHASES = {"f32": worker_f32, "bf16": worker_bf16, "entry": worker_entry,
+                 "nccl": worker_nccl}
+
+
+def worker_main(argv):
+    """python3 chip_smoke.py --worker PHASES RANK WORLD PORT DIR: one rank of
+    the multi-card phases on cuda:0, its results in DIR/rank<RANK>.json.
+    Every phase but "nccl" runs in a gloo group this process makes."""
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    phases, rank, world, port, work = argv[0].split(","), int(argv[1]), int(argv[2]), argv[3], \
+        argv[4]
+    try:
+        torch.cuda.set_device(0)
+        if phases != ["nccl"]:
+            import datetime
+
+            dist.init_process_group("gloo", init_method="tcp://localhost:" + port, rank=rank,
+                                    world_size=world, timeout=datetime.timedelta(seconds=600))
+        results = {}
+        for phase in phases:
+            t0 = time.perf_counter()
+            results[phase] = WORKER_PHASES[phase](torch, np, rank, world, work)
+            print("rank {}: phase {} in {:.1f} s".format(rank, phase, time.perf_counter() - t0),
+                  flush=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    except Exception:
+        traceback.print_exc()
+        return 1
+    with open(os.path.join(work, "rank{}.json".format(rank)), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
 def main():
+    if sys.argv[1:2] == ["--worker"]:
+        return worker_main(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():

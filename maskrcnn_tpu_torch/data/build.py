@@ -15,8 +15,11 @@ The workers run the dataset, the transforms and the collator on the CPU and
 hand back CPU tensors; they never touch CUDA, so the default fork start is
 safe after the parent has initialized the card. On a CUDA device the loader
 pins its batches, so that the copies to the card are asynchronous.
-Batch-size semantics: SOLVER.IMS_PER_BATCH images a step (one process;
-multi-card training waits, ROADMAP.md Queue 1 item 3).
+Batch-size semantics: SOLVER.IMS_PER_BATCH and TEST.IMS_PER_BATCH are the
+global batch; with is_distributed each process loads its share of it
+(IMS_PER_BATCH // world images) from its shard of a DistributedSampler:
+shuffled from the epoch's seed for training, in order for testing (padded
+to a multiple of the processes: evaluation gathers by dataset index).
 """
 
 import importlib.util
@@ -26,11 +29,14 @@ import torch
 import torch.utils.data
 
 from ..config import paths_catalog
+from ..parallel.distributed import images_per_process
+from ..utils import comm
 from ..utils.miscellaneous import cfg_device
 from .collate import BatchCollator
 from .datasets import COCODataset
 from .samplers import (
     BatchSampler,
+    DistributedSampler,
     GroupedBatchSampler,
     IterationBasedBatchSampler,
     RandomSampler,
@@ -110,14 +116,18 @@ def _resolve_catalog(cfg):
     return module.DatasetCatalog
 
 
-def make_data_loader(cfg, is_train=True, start_iter=0):
+def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
     """The training loader (SOLVER.MAX_ITER batches of SOLVER.IMS_PER_BATCH
     images from DATASETS.TRAIN, resuming after `start_iter`) or, with
-    is_train=False, a list of one loader per name in DATASETS.TEST. Batches
-    are dicts of CPU tensors in the collator's layout, pinned when
+    is_train=False, a list of one loader per name in DATASETS.TEST. With
+    is_distributed, this process's share of each batch from its shard of
+    the dataset; ValueError if the processes cannot share the batch evenly.
+    Batches are dicts of CPU tensors in the collator's layout, pinned when
     MODEL.DEVICE is CUDA."""
+    num_replicas, rank = (comm.get_world_size(), comm.get_rank()) if is_distributed else (1, 0)
     if is_train:
         images_per_batch = cfg.SOLVER.IMS_PER_BATCH
+        key = "SOLVER.IMS_PER_BATCH"
         num_iters = cfg.SOLVER.MAX_ITER
         dataset_list = cfg.DATASETS.TRAIN
     else:
@@ -125,9 +135,12 @@ def make_data_loader(cfg, is_train=True, start_iter=0):
             raise NotImplementedError("test-time augmentation (TEST.BBOX_AUG) is not ported yet "
                                       "(ROADMAP.md Queue 1 item 14)")
         images_per_batch = cfg.TEST.IMS_PER_BATCH
+        key = "TEST.IMS_PER_BATCH"
         num_iters = None
         start_iter = 0
         dataset_list = cfg.DATASETS.TEST
+    if is_distributed:
+        images_per_batch = images_per_process(images_per_batch, key)
     datasets = build_dataset(dataset_list, build_transforms(cfg, is_train), _resolve_catalog(cfg),
                              is_train)
     if cfg.MODEL.MASK_ON:
@@ -137,7 +150,12 @@ def make_data_loader(cfg, is_train=True, start_iter=0):
         maskops.library()
     loaders = []
     for dataset in datasets:
-        sampler = RandomSampler(dataset) if is_train else SequentialSampler(dataset)
+        if is_distributed:
+            sampler = DistributedSampler(dataset, num_replicas, rank, shuffle=is_train)
+        elif is_train:
+            sampler = RandomSampler(dataset)
+        else:
+            sampler = SequentialSampler(dataset)
         batch_sampler = make_batch_sampler(
             dataset, sampler, cfg.DATALOADER.ASPECT_RATIO_GROUPING and is_train,
             images_per_batch, num_iters, start_iter)

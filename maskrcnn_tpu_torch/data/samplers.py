@@ -1,17 +1,49 @@
-"""Samplers: random and sequential order, aspect-ratio grouping,
-iteration-based.
+"""Samplers: distributed shard, random and sequential order, aspect-ratio
+grouping, iteration-based.
 
 Port copy of maskrcnn_tpu/data/samplers.py (after the reference
 maskrcnn_benchmark/data/samplers): numpy ``RandomState`` seeded as there
 (seed + epoch), so the index sequence is the JAX package's.
+  * DistributedSampler: epoch-seeded permutation, padded to a multiple of
+    num_replicas, contiguous rank slice (offset = num_samples * rank)
   * GroupedBatchSampler: batches contain only same-group elements, order
     follows the underlying sampler as closely as possible
   * IterationBasedBatchSampler: resample indefinitely until num_iterations
-The distributed sampler waits for multi-card training (ROADMAP.md Queue 1
-item 3).
 """
 
+import math
+
 import numpy as np
+
+
+class DistributedSampler:
+    def __init__(self, dataset, num_replicas=1, rank=0, shuffle=True, seed=0):
+        self.dataset = dataset
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.num_samples = int(math.ceil(len(dataset) / num_replicas))
+        self.total_size = self.num_samples * num_replicas
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            g = np.random.RandomState(self.seed + self.epoch)
+            indices = g.permutation(n).tolist()
+        else:
+            indices = list(range(n))
+        # pad to make evenly divisible
+        indices += indices[: self.total_size - len(indices)]
+        offset = self.num_samples * self.rank
+        return iter(indices[offset:offset + self.num_samples])
+
+    def __len__(self):
+        return self.num_samples
 
 
 class SequentialSampler:

@@ -8,6 +8,12 @@ the host in one wait, then become BoxLists resized to the original images.
 Keypoint fields (ROADMAP.md Queue 1 item 8) are not ported yet and raise;
 so does a test loader with test-time augmentation (item 14,
 data/build.py).
+
+In a process group each rank runs its shard of the dataset (the
+distributed test loader's), ``comm.all_gather`` merges the shards and rank
+0 keeps one prediction per dataset index (the sampler pads the last shard
+with repeated images), writes them and evaluates; the other ranks return
+None.
 """
 
 import logging
@@ -92,7 +98,8 @@ def inference(model, data_loader, dataset_name, iou_types=("bbox",), box_only=Fa
     """Detections for every image of `data_loader`, written to
     output_folder/predictions.pkl (a pickled list of BoxLists by dataset
     index) when an output folder is given, and evaluated; returns what
-    ``data.evaluation.evaluate`` returns, (COCOResults, {}) for COCO."""
+    ``data.evaluation.evaluate`` returns, (COCOResults, {}) for COCO; None
+    on the ranks other than 0 of a process group, which run their shards."""
     logger = logging.getLogger("maskrcnn_tpu_torch.inference")
     dataset = data_loader.dataset
     logger.info("Start evaluation on {} dataset({} images).".format(dataset_name, len(dataset)))
@@ -103,7 +110,7 @@ def inference(model, data_loader, dataset_name, iou_types=("bbox",), box_only=Fa
     comm.synchronize()
     total_time = total_timer.toc()
     logger.info("Total run time: {:.3f} s ({:.4f} s / img per device)".format(
-        total_time, total_time / max(len(dataset), 1)))
+        total_time, total_time / max(len(predictions), 1)))
     logger.info("Model inference time: {:.4f} s / img".format(
         inference_timer.total_time / max(len(predictions), 1)))
 

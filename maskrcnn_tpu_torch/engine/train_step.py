@@ -1,22 +1,33 @@
-"""The single-device training and evaluation steps.
+"""The training and evaluation steps.
 
-PyTorch counterparts of maskrcnn_tpu/engine/train_step.py without a mesh:
+PyTorch counterparts of maskrcnn_tpu/engine/train_step.py:
 ``make_train_step`` (forward through ``GeneralizedRCNN.train_forward``, the
 sum of the losses, backward, the SGD step and the learning-rate schedule's
 step) and ``make_eval_step`` (``infer_forward``).
+
+In a process group the train step is the JAX mesh step (one program over
+the global batch), one process a card: each process's losses are its
+shares of the global batch's (the model divides by the global counts and
+takes its rows of the global draws), the gradients are summed over the
+processes in one all-reduce before the optimizer steps
+(``parallel.reduce_gradients``; summed, not averaged, since each share is
+already divided by the global count), and the metrics are the global
+losses. Every process then holds the same parameters, bit for bit.
 """
 
 import torch
+
+from ..parallel.distributed import reduce_gradients
 
 
 def make_train_step(model, optimizer, scheduler, generator=None):
     """Returns step(batch, draws=None) -> metrics (the losses and their sum
     "loss", detached tensors on the model's device; reading one waits for
-    the step).
+    the step; in a process group the global batch's).
 
-    draws: the samplers' uniform draws for this step (see train_forward);
-    the ones not given are drawn from `generator`, by default a
-    torch.Generator on the model's device seeded with 0."""
+    draws: the samplers' uniform draws of the global batch for this step
+    (see train_forward); the ones not given are drawn from `generator`, by
+    default a torch.Generator on the model's device seeded with 0."""
     if generator is None:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(0)
@@ -26,10 +37,11 @@ def make_train_step(model, optimizer, scheduler, generator=None):
         total = sum(losses.values())
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        summed = reduce_gradients(model, list(losses.values()) + [total])
         optimizer.step()
         scheduler.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
+        metrics = dict(zip(losses, summed))
+        metrics["loss"] = summed[-1]
         return metrics
 
     return step

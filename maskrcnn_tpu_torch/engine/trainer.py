@@ -17,6 +17,14 @@ samplers' draws come from the step's own generator (``draws=None``), seeded
 before each step from the iteration (``step_seed``) as the JAX trainer folds
 the iteration into its key: a run resumed at iteration k draws from k + 1
 on what a straight run draws there.
+
+In a process group (one process a card, each loading its share of the
+global batch) the step is the global-batch step (train_step.py), so the
+trainer's decisions are global too: a batch is skipped only when no
+process's share holds ground truth (one process skipping alone would
+desync the step's collectives), the logged losses are reduced over the
+processes (``comm.reduce_dict``), checkpoints are written by rank 0 and
+followed by a barrier, so that a resume on any rank reads a whole file.
 """
 
 import datetime
@@ -26,6 +34,7 @@ import time
 
 import torch
 
+from ..utils import comm
 from ..utils.metric_logger import MetricLogger
 from .train_step import make_train_step
 
@@ -61,7 +70,7 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
         data_time = time.time() - end
         iteration += 1
         arguments["iteration"] = iteration
-        if not bool((batch["gt_labels"] > 0).any()):
+        if not any(comm.all_gather(bool((batch["gt_labels"] > 0).any()))):
             logger.warning("Iteration={} || batch has no ground truth, skipped".format(iteration))
             end = time.time()
             continue
@@ -70,7 +79,7 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
         metrics = step({k: v.to(device, non_blocking=True) for k, v in batch.items()
                         if k != "indices"})
         logged = iteration % 20 == 0 or iteration == max_iter
-        losses = {k: v.item() for k, v in metrics.items()} if logged else {}
+        losses = comm.reduce_dict(metrics) if logged else {}
         batch_time = time.time() - end
         end = time.time()
         meters.update(time=batch_time, data=data_time, **losses)
@@ -90,6 +99,7 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
             ))
         if iteration % checkpoint_period == 0:
             checkpointer.save("model_{:07d}".format(iteration), **arguments)
+            comm.synchronize()
         if test_period > 0 and run_validation and iteration % test_period == 0:
             logger.info("Validation at iteration {}".format(iteration))
             run_validation(model, iteration)
@@ -98,6 +108,7 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
             break
 
     checkpointer.save("model_final", **arguments)
+    comm.synchronize()
     total_training_time = time.time() - start_training_time
     logger.info("Total training time: {} ({:.4f} s / it)".format(
         str(datetime.timedelta(seconds=int(total_training_time))),

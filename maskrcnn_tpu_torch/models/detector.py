@@ -21,6 +21,15 @@ The two samplers' uniform draws (``draws``: rpn_pos, rpn_neg [B, N
 anchors], box_pos, box_neg [B, P proposals]) may be passed in; missing ones
 come from the caller's torch.Generator.
 
+In a process group each process's ``train_forward`` takes its share of the
+global batch (ranks hold equal shares, in rank order) and computes its
+share of the global batch's losses, as the JAX mesh step: the draws are its
+rows of the global batch's draws (those passed in are the global batch's;
+those drawn come from B * world rows), the losses divide by the global
+counts (rpn.py, box_head.py, mask_head.py, ops/losses.py), and the mask
+head keeps the positives that the batch-wide cap keeps over the global
+batch (``_cut_positives_globally``).
+
 RetinaNet, keypoint, RPN-only and C4 models wait for later slices.
 """
 
@@ -28,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.sampler import top_k_fast, uniform_draws
+from ..utils import comm
 from .anchors import make_anchor_generator
 from .backbone import build_backbone
 from .poolers import PoolerConfig, multilevel_roi_align
@@ -66,6 +76,24 @@ def _compact_positives(pos_state, cap):
         return pos_state
     sel = torch.sort(top_k_fast(valid.float(), cap)[1]).values
     return tuple(x[sel] for x in pos_state)
+
+
+def _cut_positives_globally(pos_state, cap, b):
+    """The batch-wide cap of _compact_positives over the global batch of a
+    process group: the first `cap` * (global images) valid positives of the
+    global batch in order (ranks in order, each holding `b` images) are
+    kept, wherever they lie, so this process keeps its valid rows whose
+    place in that order is below the cap. Rows are not compacted: a process
+    may hold every kept positive. Returns pos_state with the cut validity.
+    """
+    rois, batch_idx, valid, labels, mg = pos_state
+    if cap <= 0:
+        return pos_state
+    counts = comm.gather_rows(torch.stack([valid.sum(), valid.new_tensor(b, dtype=torch.int64)]))
+    offset = counts[:comm.get_rank(), 0].sum()
+    place = offset + torch.cumsum(valid.long(), 0) - 1
+    keep = valid & (place < cap * counts[:, 1].sum())
+    return rois, batch_idx, keep, labels, mg
 
 
 def _level_major(per_level, b, last):
@@ -168,13 +196,16 @@ class GeneralizedRCNN(nn.Module):
         gt_labels = batch["gt_labels"]
         gt_valid = gt_labels > 0
 
+        rank, world = comm.get_rank(), comm.get_world_size()
+
         def draw(kind, n):
+            """This process's rows of the global batch's draws."""
             if kind + "_pos" not in draws:
                 if generator is None:
                     raise ValueError("no {} sampler draws given and no generator".format(kind))
                 draws[kind + "_pos"], draws[kind + "_neg"] = uniform_draws(
-                    (b, n), generator, gt_boxes.device)
-            return draws[kind + "_pos"], draws[kind + "_neg"]
+                    (b * world, n), generator, gt_boxes.device)
+            return tuple(draws[kind + s][rank * b:(rank + 1) * b] for s in ("_pos", "_neg"))
 
         features, anchors = self._backbone(batch)
         objectness, bbox_reg = self.rpn(features)
@@ -217,12 +248,14 @@ class GeneralizedRCNN(nn.Module):
                 pos_idx, pos_valid = select_positive_rois(targets, self.num_pos_rois)
                 rows = torch.arange(b, device=pos_idx.device)[:, None]
                 pos_rois, pos_batch = _flatten_rois(targets["rois"][rows, pos_idx])
-                m_rois, m_batch, m_valid, m_labels, m_mg = _compact_positives(
-                    (pos_rois, pos_batch, pos_valid.reshape(-1),
-                     targets["labels"][rows, pos_idx].reshape(-1),
-                     targets["matched_gt_idx"][rows, pos_idx].reshape(-1)),
-                    cfg.TPU.MASK_ROI_CAP * b,
-                )
+                pos_state = (pos_rois, pos_batch, pos_valid.reshape(-1),
+                             targets["labels"][rows, pos_idx].reshape(-1),
+                             targets["matched_gt_idx"][rows, pos_idx].reshape(-1))
+                if world > 1:
+                    pos_state = _cut_positives_globally(pos_state, cfg.TPU.MASK_ROI_CAP, b)
+                else:
+                    pos_state = _compact_positives(pos_state, cfg.TPU.MASK_ROI_CAP * b)
+                m_rois, m_batch, m_valid, m_labels, m_mg = pos_state
             pooled = multilevel_roi_align(nhwc[: len(self.mask_pooler.scales)], m_rois,
                                           m_batch, self.mask_pooler)
             mask_logits = self.roi_heads.mask.logits_at_class(pooled, m_labels)

@@ -23,6 +23,7 @@ from ...ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ...ops.matcher import match_proposals
 from ...ops.nms import NEG_INF, batched_nms
 from ...ops.sampler import sample_topk_indices
+from ...utils import comm
 from ..layers import Linear, init_linear_
 from ..rpn import top_k_stable
 
@@ -114,7 +115,8 @@ def prepare_box_targets(proposals, prop_valid, gt_boxes, gt_labels, pos_draw, ne
 def box_head_loss(class_logits, box_regression, targets, cls_agnostic=False):
     """class_logits [B*K, C], box_regression [B*K, 4C] (or [B*K, 8]): the
     cross-entropy mean over the sampled ROIs, and smooth-L1 (beta 1) at the
-    gt-class columns of the positives, summed over the sampled count."""
+    gt-class columns of the positives, summed over the sampled count; both
+    counts those of the global batch in a process group."""
     labels = targets["labels"].reshape(-1)
     valid = targets["valid"].reshape(-1)
     is_pos = targets["is_pos"].reshape(-1) & valid
@@ -128,7 +130,7 @@ def box_head_loss(class_logits, box_regression, targets, cls_agnostic=False):
         cols = labels.clamp(0, num_reg - 1)[:, None] * 4 + cols
     picked = torch.gather(box_regression, 1, cols.expand(labels.shape[0], 4))
     l1 = smooth_l1_loss(picked, reg_targets, beta=1.0)
-    n_sampled = valid.sum().clamp(min=1)
+    n_sampled = comm.global_sum(valid.sum()).clamp(min=1)
     return cls_loss, (l1 * is_pos[:, None]).sum() / n_sampled
 
 

@@ -13,6 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.sampler import top_k_fast
+from ...utils import comm
 from ..layers import Conv2d, ConvTranspose2d, init_conv_
 
 
@@ -156,9 +157,10 @@ def project_gt_masks(gt_patches, gt_boxes, proposal_boxes, out_size):
 
 def mask_head_loss_picked(picked, mask_targets, valid):
     """BCE of the gt-class logits [R, M, M] against the targets binarised
-    at 0.5, mean over the valid ROIs' pixels."""
+    at 0.5, mean over the valid ROIs' pixels (of the global batch in a
+    process group)."""
     m = picked.shape[1]
     t = (mask_targets >= 0.5).float()
     per = F.softplus(picked) - picked * t
     w = valid.float()[:, None, None]
-    return (per * w).sum() / (w.sum() * m * m).clamp(min=1.0)
+    return (per * w).sum() / (comm.global_sum(w.sum()) * m * m).clamp(min=1.0)

@@ -7,6 +7,12 @@ lanes, per-lane top-k, then the FPN top-k over the concatenated levels (in
 training over the whole batch, FPN_POST_NMS_PER_BATCH, with the gt boxes
 appended); and ``rpn_loss``: anchor matcher, balanced sampler, BCE and
 smooth-L1 over the sampled anchors.
+
+In a process group (one process a card, each with its share of the global
+batch) the batch-wide reductions are global, as the JAX mesh step's: the
+FPN top-k's k-th score is taken over every process's scores
+(``comm.gather_rows``) and the RPN losses divide by the sampled anchors of
+the whole global batch (``comm.global_sum``).
 """
 
 import torch
@@ -18,6 +24,7 @@ from ..ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
 from ..ops.matcher import match_anchors_batched
 from ..ops.nms import NEG_INF, batched_nms
 from ..ops.sampler import sample_topk_indices
+from ..utils import comm
 from .layers import Conv2d, init_conv_
 
 
@@ -123,8 +130,8 @@ def select_proposals(anchors_per_level, objectness_per_level, bbox_reg_per_level
         masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
         if is_train and rpn_cfg.FPN_POST_NMS_PER_BATCH:
             # the Detectron quirk: in training the FPN top-k runs over the
-            # whole batch; a rank threshold keeps the per-image shape
-            flat = masked.reshape(-1)
+            # whole (global) batch; a rank threshold keeps the per-image shape
+            flat = comm.gather_rows(masked).reshape(-1)
             kth = torch.topk(flat, min(fpn_post, flat.numel())).values[-1]
             keep = masked >= torch.clamp(kth, min=NEG_INF / 2)
             masked = torch.where(keep, masked, torch.full_like(masked, NEG_INF))
@@ -146,7 +153,7 @@ def rpn_loss(anchors, visible, objectness, bbox_reg, gt_boxes, gt_valid, pos_dra
     logits and bbox_reg [B, N, 4] in the anchors' order, gt_boxes [B, G, 4],
     gt_valid [B, G], the sampler's uniform draws pos_draw and neg_draw
     [B, N]. Returns (objectness loss, box loss), both normalised by the
-    number of sampled anchors in the batch."""
+    number of sampled anchors in the global batch."""
     matched = match_anchors_batched(anchors, gt_boxes, gt_valid, fg_iou, bg_iou)
     labels = torch.where(matched >= 0, 1, torch.where(matched == -1, 0, -1))
     labels = torch.where(visible, labels, -1)
@@ -157,7 +164,7 @@ def rpn_loss(anchors, visible, objectness, bbox_reg, gt_boxes, gt_valid, pos_dra
     reg_t = encode_boxes(gt_sel, anchors[idx])
     obj_s = torch.gather(objectness, 1, idx)
     reg_s = torch.gather(bbox_reg, 1, idx[..., None].expand(-1, -1, 4))
-    n_sampled = valid.sum().clamp(min=1)
+    n_sampled = comm.global_sum(valid.sum()).clamp(min=1)
     box_l = smooth_l1_loss(reg_s.float(), reg_t, beta=1.0 / 9)
     box_loss = (box_l * is_pos[..., None]).sum() / n_sampled
     obj_l = binary_cross_entropy_with_logits(obj_s.float(), is_pos.float())

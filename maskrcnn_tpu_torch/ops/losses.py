@@ -9,6 +9,8 @@ for RetinaNet.
 import torch
 import torch.nn.functional as F
 
+from ..utils import comm
+
 
 def smooth_l1_loss(input, target, beta=1.0 / 9):
     """Elementwise beta-parameterised Huber loss."""
@@ -18,14 +20,16 @@ def smooth_l1_loss(input, target, beta=1.0 / 9):
 
 def softmax_cross_entropy(logits, labels, mask=None):
     """Mean cross-entropy over the masked rows. logits [N, C], labels [N]
-    int (clamped into range; masked-out rows may carry -1)."""
+    int (clamped into range; masked-out rows may carry -1). In a process
+    group the masked rows are counted over every process (the global
+    batch's mean)."""
     log_probs = F.log_softmax(logits, dim=-1)
     safe = labels.long().clamp(0, logits.shape[-1] - 1)
     nll = -log_probs.gather(-1, safe[..., None])[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.to(logits.dtype)
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / comm.global_sum(mask.sum()).clamp(min=1.0)
 
 
 def binary_cross_entropy_with_logits(logits, targets):

@@ -1,0 +1,125 @@
+"""Data parallelism with one process per card under ``torch.distributed``.
+
+The counterpart of maskrcnn_tpu/parallel/mesh.py. The JAX package jits one
+program over a device mesh: the batch sharded on the "data" axis, the
+parameters replicated, and sharding propagation keeping every reduction
+global, so the step on N devices computes what one device computes on the
+whole global batch. Here each process holds one card and one share of that
+batch, and the step keeps the same semantics explicitly:
+
+* the model's batch-wide reductions run over every process
+  (``utils/comm.py``: ``global_sum`` of the loss denominators,
+  ``gather_rows`` of the scores of the batch-wide FPN top-k and of the
+  mask head's positive counts), so each process's loss is its share of
+  the global loss;
+* ``reduce_gradients`` sums the gradients (not their mean) in one
+  all-reduce of a flat buffer, with the loss shares, before the optimizer
+  steps: every process then holds the global gradient and the same
+  parameters, bit for bit;
+* ``broadcast_parameters`` gives every process rank 0's parameters after
+  loading, as DDP does at construction.
+
+``init_distributed(cfg)`` makes the default group from the launcher's
+environment (``torchrun``: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT): NCCL on the card, gloo on the CPU. A group the caller made
+first is kept. Without WORLD_SIZE in the environment it does nothing.
+
+The mesh's "model" axis (TPU.MESH_AXES / MESH_SHAPE with a model axis
+above 1: output-channel tensor parallelism, mesh.py:60-90) goes beyond the
+reference and is not ported (ROADMAP.md Queue 1 item 16).
+"""
+
+import itertools
+import os
+
+import torch
+import torch.distributed as dist
+
+from ..utils import comm
+from ..utils.miscellaneous import cfg_device
+
+
+def _check_mesh(cfg):
+    axes, shape = tuple(cfg.TPU.MESH_AXES), tuple(cfg.TPU.MESH_SHAPE)
+    if "model" in axes and shape[axes.index("model")] != 1:
+        raise NotImplementedError(
+            "TPU.MESH_AXES {} / MESH_SHAPE {}: the tensor-parallel \"model\" axis is not "
+            "ported (ROADMAP.md Queue 1 item 16); the port is data-parallel, one process a "
+            "card".format(axes, shape))
+
+
+def init_distributed(cfg, timeout=None):
+    """The default process group and this process's device.
+
+    With a group already made (by the caller), keep it. Else, with
+    WORLD_SIZE in the environment, make it from the launcher's variables:
+    NCCL when MODEL.DEVICE is CUDA, gloo on the CPU; if it cannot be made,
+    raise (never carry on as one process). Without WORLD_SIZE, do nothing.
+    `timeout`: the group's (torch's default when None).
+
+    Returns the torch.device of this process: MODEL.DEVICE, where "cuda"
+    without an index means cuda:LOCAL_RANK in a group (made current)."""
+    _check_mesh(cfg)
+    device = cfg_device(cfg)
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ.get("RANK", 0))
+        kwargs = {} if timeout is None else {"timeout": timeout}
+        try:
+            dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                    init_method="env://", world_size=world, rank=rank, **kwargs)
+        except Exception as e:
+            raise RuntimeError(
+                "could not make the process group of rank {} of {} at {}:{}: {}".format(
+                    rank, world, os.environ.get("MASTER_ADDR"), os.environ.get("MASTER_PORT"),
+                    e)) from e
+    if device.type == "cuda" and dist.is_initialized():
+        if device.index is None:
+            device = torch.device("cuda", comm.get_local_rank())
+        torch.cuda.set_device(device)
+    return device
+
+
+def images_per_process(images_per_batch, key):
+    """The images each process takes of a global batch of
+    `images_per_batch` (the config key `key`); raises ValueError when the
+    processes cannot share it evenly."""
+    world = comm.get_world_size()
+    if images_per_batch % world != 0:
+        raise ValueError("{} ({}) must be divisible by the data-parallel mesh size ({})".format(
+            key, images_per_batch, world))
+    return images_per_batch // world
+
+
+def broadcast_parameters(model, src=0):
+    """Every process takes process `src`'s parameters and buffers: one
+    broadcast a dtype of the tensors flattened. Nothing without a group."""
+    if not dist.is_initialized():
+        return
+    by_dtype = {}
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        by_dtype.setdefault(t.dtype, []).append(t)
+    with torch.no_grad():
+        for group in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in group])
+            dist.broadcast(flat, src)
+            for t, v in zip(group, flat.split([t.numel() for t in group])):
+                t.copy_(v.view_as(t))
+
+
+def reduce_gradients(model, extra=()):
+    """Sum the gradient of every parameter of `model` that has one over the
+    processes, in place, with the 0-dim tensors `extra` (the loss shares)
+    in the same all-reduce of one flat float32 buffer. Returns the summed
+    `extra`; without a group `extra` detached and no collective."""
+    extra = [e.detach() for e in extra]
+    if not dist.is_initialized():
+        return extra
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [e.reshape(-1).float() for e in extra])
+    dist.all_reduce(flat)
+    sizes = [g.numel() for g in grads] + [1] * len(extra)
+    parts = flat.split(sizes)
+    for g, v in zip(grads, parts):
+        g.copy_(v.view_as(g))
+    return [v.reshape(()).to(e.dtype) for e, v in zip(extra, parts[len(grads):])]

@@ -1,6 +1,7 @@
 """Evaluation entry point.
 
     python -m maskrcnn_tpu_torch.tools.test_net [--config-file FILE] [--ckpt PATH] [KEY VALUE ...]
+    python -m torch.distributed.run --nproc_per_node N -m maskrcnn_tpu_torch.tools.test_net ...
 
 The surface of the JAX package's tools/test_net.py (after the reference
 tools/test_net.py): a YAML config file, ``--ckpt`` and KEY VALUE overrides
@@ -10,6 +11,11 @@ is one, else from --ckpt, else from MODEL.WEIGHT: a .pth of this package or
 a .npz of the JAX package. Every dataset of DATASETS.TEST is evaluated (bbox,
 and segm for mask models), its predictions written to
 OUTPUT_DIR/inference/<name>/predictions.pkl when OUTPUT_DIR is set.
+
+Under a launcher each process takes one card and its shard of every test
+dataset (TEST.IMS_PER_BATCH stays the global batch); rank 0 gathers,
+evaluates and returns the results, the other ranks return None
+(train_net.py has the group's set-up).
 """
 
 import argparse
@@ -21,15 +27,17 @@ from ..config import cfg as default_cfg
 from ..data.build import make_data_loader
 from ..engine.inference import inference
 from ..models.detector import build_detection_model
+from ..parallel.distributed import init_distributed
 from ..utils import comm
 from ..utils.checkpoint import DetectronCheckpointer
 from ..utils.logger import setup_logger
-from ..utils.miscellaneous import cfg_device, mkdir
+from ..utils.miscellaneous import mkdir
 
 
 def run_test(cfg, model):
-    """Evaluate `model` on every dataset of DATASETS.TEST; returns the list
-    of inference's results, one per dataset."""
+    """Evaluate `model` on every dataset of DATASETS.TEST, each process of a
+    group on its shard; returns the list of inference's results, one per
+    dataset (None on the ranks other than 0)."""
     iou_types = ("bbox",)
     if cfg.MODEL.MASK_ON:
         iou_types = iou_types + ("segm",)
@@ -42,7 +50,8 @@ def run_test(cfg, model):
             mkdir(output_folders[idx])
     results = []
     for output_folder, dataset_name, data_loader in zip(
-            output_folders, cfg.DATASETS.TEST, make_data_loader(cfg, is_train=False)):
+            output_folders, cfg.DATASETS.TEST,
+            make_data_loader(cfg, is_train=False, is_distributed=comm.get_world_size() > 1)):
         results.append(inference(
             model, data_loader, dataset_name=dataset_name, iou_types=iou_types,
             box_only=cfg.MODEL.RPN_ONLY, output_folder=output_folder,
@@ -57,6 +66,7 @@ def main(argv=None):
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--ckpt", default=None,
                         help="checkpoint file; defaults to last_checkpoint, then MODEL.WEIGHT")
+    parser.add_argument("--local_rank", "--local-rank", dest="local_rank", type=int, default=0)
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
 
@@ -66,8 +76,9 @@ def main(argv=None):
     cfg.merge_from_list(args.opts)
     cfg.freeze()
 
+    device = init_distributed(cfg)
     logger = setup_logger("maskrcnn_tpu_torch", "", comm.get_rank())
-    device = cfg_device(cfg)
+    logger.info("Using {} processes".format(comm.get_world_size()))
     logger.info("Using {} (torch {}, CUDA {})".format(
         torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU",
         torch.__version__, torch.version.cuda))
@@ -76,7 +87,8 @@ def main(argv=None):
     model = build_detection_model(cfg, device=device)
     checkpointer = DetectronCheckpointer(cfg, model, save_dir=cfg.OUTPUT_DIR, logger=logger)
     checkpointer.load(cfg.MODEL.WEIGHT if args.ckpt is None else args.ckpt)
-    return run_test(cfg, model)
+    results = run_test(cfg, model)
+    return results if comm.is_main_process() else None
 
 
 if __name__ == "__main__":

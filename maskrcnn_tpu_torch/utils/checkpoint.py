@@ -12,6 +12,10 @@ converts (its optimizer state, in optax's layout, and its iteration are not
 read: training starts afresh from those weights). Caffe2 ``.pkl`` files,
 URLs and catalog:// names wait for the weight loader (ROADMAP.md Queue 1
 item 5).
+
+In a process group rank 0 writes (``save_to_disk``) and every rank loads,
+onto its own device: ``load`` waits at a barrier first, so that the tag and
+the file rank 0 wrote before it are whole when any rank reads them.
 """
 
 import os
@@ -71,7 +75,8 @@ class Checkpointer:
         (reference checkpoint.py:57-66). Restores the model, and the
         optimizer and scheduler when the file has them; returns the
         remaining extras (e.g. {"iteration": n}), {} when nothing is
-        loaded."""
+        loaded. In a process group every rank calls it (a barrier)."""
+        comm.synchronize()
         if self.has_checkpoint():
             f = self.get_checkpoint_file()
         if not f:

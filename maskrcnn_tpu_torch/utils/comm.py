@@ -1,13 +1,26 @@
-"""Process-group bookkeeping for the host code.
+"""Process-group communication: the host's collectives and the model's
+global reductions.
 
-Port of maskrcnn_tpu/utils/comm.py for one process: the rank and world
-size of an initialized ``torch.distributed`` group, else 0 and 1; the
-barrier and the gather of evaluation results are those of one process
-(``synchronize`` does nothing, ``all_gather`` returns ``[data]``). Several
-processes wait for multi-card training (ROADMAP.md Queue 1 item 3), and
-until then these raise rather than gather one rank's share.
+Port of maskrcnn_tpu/utils/comm.py (after the reference
+maskrcnn_benchmark/utils/comm.py:48-117) over ``torch.distributed``, one
+process per card (parallel/distributed.py makes the default group, or the
+caller does). Without a process group every function is the identity of one
+process and runs no collective. In a group of one each collective runs and
+returns its input unchanged.
+
+The host's: ``synchronize`` (a barrier), ``all_gather`` of picklable data
+(ragged sizes), ``reduce_dict`` (the mean or the sum of a dict of scalars).
+The model's, on tensors of any device (gloo all-reduces CUDA tensors too):
+``global_sum`` (the sum of a detached tensor over the processes) and
+``gather_rows`` (every process's equal-shaped tensor, stacked by rank).
+The host's collectives run on the CPU, through a gloo group beside an
+NCCL one.
 """
 
+import os
+import pickle
+
+import torch
 import torch.distributed as dist
 
 
@@ -23,22 +36,89 @@ def get_world_size():
     return dist.get_world_size() if _initialized() else 1
 
 
+def get_local_rank():
+    """This process's card among its host's: the launcher's LOCAL_RANK in a
+    process group, else 0."""
+    return int(os.environ.get("LOCAL_RANK", 0)) if _initialized() else 0
+
+
 def is_main_process():
     return get_rank() == 0
 
 
-def _single_process(what):
-    if get_world_size() > 1:
-        raise NotImplementedError("comm.{} across {} processes waits for multi-card training "
-                                  "(ROADMAP.md Queue 1 item 3)".format(what, get_world_size()))
+_HOST_GROUPS = {}
+
+
+def _host_group():
+    """The group of the host's collectives: the default group under gloo;
+    under NCCL a gloo group of the same processes (made at the first host
+    collective, which every process reaches at the same point), so that
+    they run on the CPU and do not wait for the card's queue."""
+    if dist.get_backend() != "nccl":
+        return None
+    world = dist.group.WORLD
+    if world not in _HOST_GROUPS:
+        _HOST_GROUPS.clear()
+        _HOST_GROUPS[world] = dist.new_group(backend="gloo")
+    return _HOST_GROUPS[world]
 
 
 def synchronize():
-    """Barrier across processes: nothing to wait for in one process."""
-    _single_process("synchronize")
+    """Barrier across the processes of the group."""
+    if _initialized():
+        dist.barrier(group=_host_group())
 
 
 def all_gather(data):
-    """Picklable `data` of every process, as a list by rank."""
-    _single_process("all_gather")
-    return [data]
+    """Picklable `data` of every process, as a list by rank: the pickles,
+    padded to the longest, gathered as bytes on the CPU."""
+    if not _initialized():
+        return [data]
+    group = _host_group()
+    buf = torch.frombuffer(bytearray(pickle.dumps(data)), dtype=torch.uint8)
+    size = torch.tensor([buf.numel()], dtype=torch.int64)
+    sizes = [torch.empty_like(size) for _ in range(get_world_size())]
+    dist.all_gather(sizes, size, group=group)
+    sizes = [int(s) for s in sizes]
+    padded = torch.zeros(max(sizes), dtype=torch.uint8)
+    padded[:buf.numel()] = buf
+    out = [torch.empty_like(padded) for _ in sizes]
+    dist.all_gather(out, padded, group=group)
+    return [pickle.loads(t[:n].numpy().tobytes()) for t, n in zip(out, sizes)]
+
+
+def reduce_dict(input_dict, average=True):
+    """{key: the mean (or with average=False the sum) over the processes of
+    float(value)}; the values as floats in one process."""
+    local = {k: float(v) for k, v in input_dict.items()}
+    if not _initialized():
+        return local
+    gathered = all_gather(local)
+    out = {}
+    for k in gathered[0]:
+        total = sum(g[k] for g in gathered)
+        out[k] = total / len(gathered) if average else total
+    return out
+
+
+def global_sum(t):
+    """The sum of `t` over the processes: an all-reduce of a detached copy
+    (a count, say, that a loss divides by). `t` itself without a group."""
+    if not _initialized():
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out)
+    return out
+
+
+def gather_rows(t):
+    """[world, *t.shape]: every process's `t` (equal shapes), stacked by
+    rank; t[None] without a group. An all-reduce of a zero-filled buffer in
+    which each process writes its own row (adding zeros is exact), which
+    gloo runs on CUDA tensors as well (its all_gather does not)."""
+    if not _initialized():
+        return t[None]
+    buf = t.new_zeros((get_world_size(),) + tuple(t.shape))
+    buf[get_rank()] = t.detach()
+    dist.all_reduce(buf)
+    return buf

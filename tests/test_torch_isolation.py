@@ -29,6 +29,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         maskrcnn_tpu_torch.__path__, "maskrcnn_tpu_torch."))
     assert "maskrcnn_tpu_torch.ops.nms" in modules
+    assert "maskrcnn_tpu_torch.parallel.distributed" in modules
     code = (
         "import importlib, sys\n"
         "for m in {!r}: importlib.import_module(m)\n"

@@ -575,3 +575,52 @@ def test_roi_align_backwards_on_transposed_dout(cuda, kind):
     dout = dout.permute(0, 2, 3, 1)
     assert not dout.is_contiguous()
     _check_window_backward(cuda, kind, dout, boxes, bidx, pcfg)
+
+
+# The kernels at the shapes each of two ranks gives them at the flagship's
+# global training batch of 8 (4 images of 800x1344 a rank): RPN NMS over 20
+# lanes of 2000, the matcher on 4 x 268,569 anchors, the box head's 2048
+# ROIs at P=7 and the mask head's rows at P=14 (256 would be a per-rank cap;
+# the global batch's cap leaves each rank 4 x 128 = 512 rows).
+
+@pytest.mark.gpu
+def test_nms_kernel_at_a_ranks_training_lanes(cuda):
+    rs = np.random.RandomState(20)
+    boxes = torch.from_numpy(_boxes(rs, (20, 2000))).to(cuda)
+    scores = torch.from_numpy(rs.uniform(size=(20, 2000))).float().to(cuda)
+    valid = torch.from_numpy(rs.uniform(size=(20, 2000)) > 0.05).to(cuda)
+    assert torch.equal(batched_nms(boxes, scores, valid, 0.7),
+                       batched_nms_plain(boxes, scores, valid, 0.7))
+
+
+@pytest.mark.gpu
+def test_matcher_kernel_at_a_ranks_four_images(cuda):
+    anchors, gt, valid = _anchor_problem(cuda, b=4)
+    got = match_anchors_batched(anchors, gt, valid, 0.7, 0.3)
+    assert got.shape == (4, 268569)
+    assert torch.equal(got, match_anchors_plain(anchors, gt, valid, 0.7, 0.3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,r", [(7, 2048), (14, 256), (14, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_forward_and_backward_at_a_ranks_rois(cuda, dtype, p, r):
+    boxes, bidx = _edge_rois(cuda, r, b=4)
+    pcfg = PoolerConfig(p, SCALES, 2)
+    feats = [f.detach().requires_grad_() for f in _pyramid(cuda, dtype, b=4)]
+    got = multilevel_roi_align(feats, boxes, bidx, pcfg)
+    want = multilevel_roi_align_plain(feats, boxes, bidx, pcfg)
+    assert got.shape == (r, p, p, 256)
+    scale = max(f.abs().max().item() for f in feats)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2 * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+    dout = torch.randn(r, p, p, 256, generator=torch.Generator().manual_seed(r)).to(cuda)
+    grads = _plain_grad(cuda, boxes, bidx, pcfg, dout, b=4)
+    gscale = max(g.abs().max().item() for g in grads)
+    before = roi_align_backward.launches
+    got.backward(dout.to(dtype))
+    assert roi_align_backward.launches == before + 1
+    gtol = 1e-5 if dtype == torch.float32 else 1e-2
+    for f, w in zip(feats, grads):
+        assert (f.grad.float() - w).abs().max().item() <= gtol * gscale
