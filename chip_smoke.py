@@ -119,6 +119,49 @@ ranks on one device):
      from a torchrun-style environment (init_distributed makes the NCCL
      group; the step's collectives and the broadcast run through it), then
      the gradient all-reduce and the broadcast timed.
+The published configs as written (in-process, no download: urllib's
+retrieve raises; weights from catalog:// names in a local cache, the
+MASKRCNN_TPU_CACHE of the phase; data handed over in memory):
+ 24. train_net --config-file configs/e2e_mask_rcnn_R_50_FPN_1x.yaml, only
+     SOLVER.MAX_ITER 4, OUTPUT_DIR and --skip-test given: batch 16 on two
+     synthetic COCO trees at the catalog's coco_2014_train and
+     coco_2014_valminusminival (a ConcatDataset of their 24 + 16 images),
+     from a synthetic Detectron R-50.pkl (the seeded body, frozen BN
+     calibrated on 8 images, each block's last BN and its shortcut's at
+     weight R50_RESIDUAL_SCALE, written as Detectron's affine pairs, an
+     fc1000, _momentum blobs): the body's tensors equal the blobs bit for
+     bit, the loader's count printed, the FPN and heads at their init,
+     every iteration's losses finite, each iteration's solver (both
+     parameter groups' rate, weight decay and momentum) the config's
+     schedule computed here, only the stem and layer1 frozen; NMS
+     (80x2000), the matcher (16 x 268,569 anchors), the forward (P=7,
+     P=14) and the "roi" backward against their plain versions on the
+     run's first step, the matcher's phases from its own clock;
+     then a synthetic Detectron model_final.pkl of a seeded,
+     calibrated Mask R-CNN served by Predictor from
+     catalog://Caffe2Detectron/COCO/35858933/e2e_mask_rcnn_R-50-FPN_1x:
+     every tensor equal to the seeded model's (the frozen BN's running
+     statistics, which Detectron does not store, at 0 and 1 in both), the
+     detections of two requests equal, and another baseline's name on
+     another cache file;
+ 25. configs/cityscapes/e2e_mask_rcnn_R_50_FPN_1x_poly.yaml as written
+     (batch 8, short side 800-1024, long side 2048) for 3 iterations on a
+     synthetic gtFine tree of 16 + 8 frames of 2048x1024 with 20-39
+     instances each, then test_net on cityscapes_poly_instance_val through
+     the Cityscapes evaluator (its AP tables printed) and the evaluator's
+     known answer (the val instances as detections: AP50 >= 0.99); the
+     losses and solver checked as in 24; the kernels as in 24 (NMS 40x2000,
+     the matcher 8 x 523,776 anchors, P2 256x512);
+ 26. configs/cityscapes/e2e_mask_rcnn_R_50_FPN_1x_binarymask.yaml (batch
+     16, 800x1333) for 2 iterations on the concatenation
+     cityscapes_mask_instance_train + _val (binary masks from the
+     instance-id images), ColorJitter 0.2 / 0.2 / 0.2 / 0.05: the loader's
+     wait printed, the losses, the solver and the kernels (16 images) as in
+     24;
+ 27. test_net with configs/e2e_faster_rcnn_R_50_FPN_1x.yaml at 21 classes
+     on a synthetic VOC2007 test split of 16 images through the VOC
+     evaluator, then its known answer (the first pass's detections as the
+     gt: mAP >= 0.99).
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
@@ -129,12 +172,14 @@ import contextlib
 import json
 import logging
 import math
+import multiprocessing
 import os
 import re
 import shutil
 import tempfile
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -154,6 +199,20 @@ EVAL_SIZES = ((480, 640),) * 16 + ((640, 480),) * 16
 EVAL_BATCH = 8
 COCO_CATEGORY_IDS = [c for c in range(1, 91)
                      if c not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+# the data-layer phases: Cityscapes frames (train, val) at the dataset's
+# 2048x1024, with instances of the classes the binary-mask config's 9 hold
+# (label ids 24-31; motorcycle and bicycle, 32 and 33, would pass its
+# NUM_CLASSES); the VOC test split's images
+CITYSCAPES_HW = (1024, 2048)
+CITYSCAPES_FRAMES = (16, 8)
+CITYSCAPES_IDS = tuple(range(24, 32))
+CITYSCAPES_NAMES = dict(zip(CITYSCAPES_IDS, ("person", "rider", "car", "truck", "bus",
+                                             "caravan", "trailer", "train")))
+VOC_IMAGES = 16
+# the weight of each residual block's last frozen BN and its shortcut's in
+# the synthetic R-50.pkl: the body's outputs at a tenth of unit scale, so
+# that the published learning rates do not blow up the random heads
+R50_RESIDUAL_SCALE = 0.1
 # Published H100 SXM peaks at 700 W: HBM bandwidth, float32 arithmetic
 # outside the tensor cores (all four kernels run on the CUDA cores), and
 # dense bf16 on the tensor cores (for the step's MFU).
@@ -216,6 +275,30 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, iters=50):
+    """fn()'s device time alone and the host's time to issue it: the mean
+    milliseconds of `iters` calls issued while the stream waits behind a
+    spin of about 0.1 s, so that they run back to back whatever the host's
+    pace (CUDA events), and the host's mean wall time per call. None for the
+    device time where issuing them outlasted the spin."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    spin.record()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / iters
+    ahead = not spin.query()  # the spin still running: every call queued
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / iters if ahead else None), issue_ms
+
+
 class Capture:
     """Records the arguments of a kernel wrapper where the model's modules
     call it (the module attribute `name`), while active: of every call, or
@@ -274,8 +357,10 @@ def environ(**values):
 
 
 def launch_ms(torch, fn, iters=20):
-    """{device kernel or memset name: ms per call of fn}, from torch.profiler
-    (empty where the profiler sees no device time)."""
+    """{device kernel or memset name: ms per launch}, from torch.profiler's
+    records of `iters` calls of fn (empty where the profiler sees no device
+    time); where a name has not one record a call, "records" gives how many
+    it has (the mean is over those)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -288,9 +373,16 @@ def launch_ms(torch, fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].strip()[:60]:
-            self_device_us(e) / 1e3 / iters for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and self_device_us(e) > 0}
+    out, records = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and self_device_us(e) > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].strip()[:60]
+            out[name] = self_device_us(e) / 1e3 / e.count
+            if e.count != iters:
+                records[name] = e.count
+    if records:
+        out["records"] = dict(records, calls=iters)
+    return out
 
 
 def bound(nbytes, ops):
@@ -314,12 +406,14 @@ def nms_site(torch, nms, boxes, scores, valid, thresh, plain_iters):
     keep = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
     nbytes = g * n * (16 + 4 + 1) + g * n  # boxes, scores, valid in; keep out
     b_ms, b_by = bound(nbytes, NMS_OPS_PER_PAIR * pairs)
+    queued, issue = queued_ms(torch, lambda: nms.launch(*prepared, keep, thresh))
     return {
         "shape": [g, n], "iou_threshold": thresh, "kept": int(want.sum()),
         "max_abs_err": float((got != want).sum()),
         "ms": cuda_ms(torch, lambda: nms.batched_nms(boxes, scores, valid, thresh), 50),
         "kernel_ms": cuda_ms(torch, lambda: nms.launch(*prepared, keep, thresh), 50),
         "launch_ms": launch_ms(torch, lambda: nms.launch(*prepared, keep, thresh)),
+        "kernel_queued_ms": queued, "issue_ms": issue,
         "plain_ms": cuda_ms(torch, lambda: nms.batched_nms_plain(boxes, scores, valid, thresh),
                             plain_iters, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "iou_tests": pairs,
@@ -358,7 +452,14 @@ def roi_site(torch, poolers, feats, boxes, bidx, pcfg):
     }
 
 
-def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low):
+def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low, timeline=False):
+    """The matcher against its plain version, timed; with timeline=True also
+    the phases of one launch from the kernel's own clock (an instrumented
+    copy: tools/profile_nms_matcher.py --timeline), microseconds from the
+    first block's start to the last block's end of each phase."""
+    from maskrcnn_tpu_torch.ops import native
+    from maskrcnn_tpu_torch.tools.profile_nms_matcher import matcher_timeline
+
     got = matcher.match_anchors_batched(anchors, gt_boxes, gt_valid, high, low)
     want = matcher.match_anchors_plain(anchors, gt_boxes, gt_valid, high, low)
     check(torch.equal(got, want), "matcher kernel disagrees with its plain version")
@@ -368,16 +469,27 @@ def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low):
     out = torch.empty((b, n), dtype=torch.int32, device=anchors.device)
     inputs = (anchors.contiguous(), gt_boxes.contiguous(), gt_valid.contiguous())
     # bytes: anchors, gt and validity read once, the matches written once;
-    # operations: one IoU test of every anchor with every valid gt
+    # operations: one IoU of each anchor with each valid gt its box
+    # overlaps (a pair that does not overlap has IoU 0 without one: the
+    # kernel skips a gt outside a warp's anchors whole)
     valid_gt = int(gt_valid.sum())
-    b_ms, b_by = bound(16 * n + 17 * b * g + 4 * b * n, NMS_OPS_PER_PAIR * n * valid_gt)
+    overlapping = 0
+    for i in range(b):
+        gi = gt_boxes[i][gt_valid[i]]
+        lo = torch.maximum(anchors[:, None, :2], gi[None, :, :2])
+        hi = torch.minimum(anchors[:, None, 2:], gi[None, :, 2:])
+        overlapping += int(((hi - lo + 1) > 0).all(-1).sum())
+    b_ms, b_by = bound(16 * n + 17 * b * g + 4 * b * n, NMS_OPS_PER_PAIR * overlapping)
+    queued, issue = queued_ms(torch, lambda: matcher.launch(*inputs, high, low, best, out))
     return {
         "anchors": n, "images": b, "gt_per_image": g, "valid_gt": valid_gt,
-        "max_abs_err": float((got != want).sum()),
+        "overlapping_pairs": overlapping, "max_abs_err": float((got != want).sum()),
         "ms": cuda_ms(torch, lambda: matcher.match_anchors_batched(
             anchors, gt_boxes, gt_valid, high, low), 50),
         "kernel_ms": cuda_ms(torch, lambda: matcher.launch(*inputs, high, low, best, out), 50),
         "launch_ms": launch_ms(torch, lambda: matcher.launch(*inputs, high, low, best, out)),
+        "kernel_queued_ms": queued, "issue_ms": issue,
+        "timeline_us": matcher_timeline(native, matcher, *inputs, high, low) if timeline else None,
         "plain_ms": cuda_ms(torch, lambda: matcher.match_anchors_plain(
             anchors, gt_boxes, gt_valid, high, low), 5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -472,22 +584,30 @@ def kernel_entry(name, source, replaces, launches, sites):
     }
 
 
-def calibrate_frozen_bn(torch, model, images):
+def calibrate_frozen_bn(torch, model, images, residual_scale=1.0):
     """Set every frozen BN of the backbone body from one batch, layer by
     layer: running mean and variance (+1e-5) of the conv output it follows,
     weight 1, bias 0. Random weights with identity BN let activations grow
     by orders of magnitude through the 16 residual blocks; a trained
-    model's BN keeps them near unit scale, and so does this."""
+    model's BN keeps them near unit scale, and so does this.
+
+    residual_scale: the weight of each block's last BN and of its
+    shortcut's BN (1 above). The other BNs normalise whatever reaches them,
+    so every stage's output, and with it everything the FPN and the heads
+    compute at their init, scales by exactly this factor."""
     import torch.nn.functional as F
 
     from maskrcnn_tpu_torch.models import resnet
 
     folded = resnet.conv_frozen_bn
+    last = {id(m.bn3) for m in model.modules() if isinstance(m, resnet.Bottleneck)}
+    last |= {id(m.downsample.bn) for m in model.modules()
+             if isinstance(m, resnet.Bottleneck) and m.downsample is not None}
 
     def calibrating(x, conv, bn):
         y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation,
                      conv.groups)
-        bn.weight.fill_(1.0)
+        bn.weight.fill_(residual_scale if id(bn) in last else 1.0)
         bn.bias.zero_()
         bn.running_mean.copy_(y.mean(dim=(0, 2, 3)))
         bn.running_var.copy_(y.var(dim=(0, 2, 3)) + 1e-5)
@@ -500,6 +620,86 @@ def calibrate_frozen_bn(torch, model, images):
             model.backbone.body(x)
     finally:
         resnet.conv_frozen_bn = folded
+
+
+def detectron_blobs(np, state, imagenet=False, seed=0):
+    """The port's state_dict (numpy arrays by name) under Detectron's Caffe2
+    blob names, written from Detectron's own naming: an ImageNet backbone file
+    (imagenet=True: the ResNet body, a seeded fc1000 and a _momentum blob of
+    each) or a whole Mask R-CNN FPN model_final (body, FPN, RPN, box and mask
+    heads). Frozen BN becomes Detectron's affine pair (_bn_s, _bn_b), which
+    holds no running statistics; fc6's input columns go back from the port's
+    (P, P, C) flatten to Caffe2's (C, P, P)."""
+    blobs = {}
+
+    def affine(prefix, name):
+        w, b, m, v = (state[prefix + k] for k in (".weight", ".bias", ".running_mean",
+                                                  ".running_var"))
+        s = w / np.sqrt(v)
+        blobs[name + "_s"], blobs[name + "_b"] = s, b - m * s
+
+    def layer(prefix, name):
+        blobs[name + "_w"] = state[prefix + ".weight"]
+        if prefix + ".bias" in state:
+            blobs[name + "_b"] = state[prefix + ".bias"]
+
+    body = "backbone.body."
+    layer(body + "stem.conv1", "conv1")
+    affine(body + "stem.bn1", "res_conv1_bn")
+    blocks = {}
+    for k in state:
+        m = re.match(r"backbone\.body\.layer(\d)\.(\d+)\.", k)
+        if m:
+            blocks[int(m[1])] = max(blocks.get(int(m[1]), 0), int(m[2]) + 1)
+    for stage, n in sorted(blocks.items()):
+        for i in range(n):
+            p, r = "{}layer{}.{}.".format(body, stage, i), "res{}_{}_".format(stage + 1, i)
+            for k, branch in enumerate(("branch2a", "branch2b", "branch2c"), 1):
+                layer(p + "conv{}".format(k), r + branch)
+                affine(p + "bn{}".format(k), r + branch + "_bn")
+            if p + "downsample.conv.weight" in state:
+                layer(p + "downsample.conv", r + "branch1")
+                affine(p + "downsample.bn", r + "branch1_bn")
+    if imagenet:
+        rs = np.random.RandomState(seed)
+        c = blobs["res5_{}_branch2c_w".format(blocks[4] - 1)].shape[0]
+        blobs["fc1000_w"] = rs.normal(0, 0.01, (1000, c)).astype(np.float32)
+        blobs["fc1000_b"] = np.zeros(1000, np.float32)
+        blobs.update({k + "_momentum": np.zeros_like(v) for k, v in list(blobs.items())})
+        return blobs
+    for i in range(4):
+        stage = "res{}_{}_sum".format(i + 2, blocks[i + 1] - 1)
+        layer("backbone.fpn.inner.{}.conv".format(i),
+              "fpn_inner_" + stage + ("_lateral" if i < 3 else ""))
+        layer("backbone.fpn.layer.{}.conv".format(i), "fpn_" + stage)
+    heads = {"rpn.conv": "conv_rpn_fpn2", "rpn.cls_logits": "rpn_cls_logits_fpn2",
+             "rpn.bbox_pred": "rpn_bbox_pred_fpn2",
+             "roi_heads.box.feature_extractor.fc6": "fc6",
+             "roi_heads.box.feature_extractor.fc7": "fc7",
+             "roi_heads.box.predictor.cls_score": "cls_score",
+             "roi_heads.box.predictor.bbox_pred": "bbox_pred",
+             "roi_heads.mask.predictor.conv5_mask": "conv5_mask",
+             "roi_heads.mask.predictor.mask_fcn_logits": "mask_fcn_logits"}
+    heads.update({"roi_heads.mask.feature_extractor.convs.{}.conv".format(k):
+                  "_[mask]_fcn{}".format(k + 1) for k in range(4)})
+    for prefix, name in heads.items():
+        layer(prefix, name)
+    w = blobs["fc6_w"]
+    c = state["backbone.fpn.layer.0.conv.weight"].shape[0]
+    p = int(round((w.shape[1] // c) ** 0.5))
+    blobs["fc6_w"] = np.ascontiguousarray(
+        w.reshape(w.shape[0], p, p, c).transpose(0, 3, 1, 2).reshape(w.shape[0], -1))
+    return blobs
+
+
+def write_pkl(path, blobs, wrap):
+    """A Detectron weight file: the blobs themselves (ImageNet) or under
+    "blobs" (a detector's model_final), pickled as Python 2 pickled them."""
+    import pickle
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"blobs": blobs, "cfg": ""} if wrap else blobs, f, protocol=2)
 
 
 def match_detections(a, b, score_tol=1e-4, box_tol=1e-2, mask_tol=1e-3):
@@ -668,30 +868,41 @@ def run(torch):
     finally:
         for d in keep.values():
             shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    dl = data_layer_phase(torch, np, card)
+    torch.cuda.empty_cache()
+    phase_s["data_layer"] = time.perf_counter() - t0
+    phase_s.update({"data_layer_" + k: v for k, v in dl["phase_s"].items()})
     print("phase wall seconds: " + json.dumps(phase_s), flush=True)
 
     def by_path(key):
-        return {"serving": serving[key], "training": tr["launches"][key],
-                "entry_point": entry["launches"][key], "evaluation": ev["launches"][key],
-                "multi_card": mc["launches"][key]}
+        paths = {"serving": serving[key], "training": tr["launches"][key],
+                 "entry_point": entry["launches"][key], "evaluation": ev["launches"][key],
+                 "multi_card": mc["launches"][key]}
+        paths.update({path: n[key] for path, n in dl["launches"].items()})
+        return paths
 
     roi_cu = "maskrcnn_tpu_torch/csrc/roi_align.cu"
     tpu = "maskrcnn_tpu/ops/pallas/"
+    cs = {k: [s for path in dl["sites"].values() for s in path[k]]
+          for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
     kernels = [
         kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu", tpu + "nms_kernel.py:161",
                      by_path("nms"), nms_sites + tr["nms_sites"] + ev["nms_sites"]
-                     + mc["nms_sites"]),
+                     + mc["nms_sites"] + cs["nms"]),
         kernel_entry("roi_align", roi_cu, tpu + "roi_align_kernel.py:434", by_path("roi_align"),
-                     roi_sites + tr["roi_sites"] + ev["roi_sites"] + mc["roi_sites"]),
+                     roi_sites + tr["roi_sites"] + ev["roi_sites"] + mc["roi_sites"]
+                     + cs["roi_align"]),
         kernel_entry("roi_align_backward", roi_cu, tpu + "roi_align_kernel.py:1020",
-                     by_path("roi_align_backward"), tr["bwd_sites_roi"] + mc["bwd_sites_roi"]),
+                     by_path("roi_align_backward"), tr["bwd_sites_roi"] + mc["bwd_sites_roi"]
+                     + cs["roi_align_backward"]),
         kernel_entry("roi_align_backward_rmw", roi_cu, tpu + "roi_align_kernel.py:646",
                      by_path("roi_align_backward_rmw"), tr["bwd_sites_rmw"]),
         kernel_entry("roi_align_backward_chunk", roi_cu, tpu + "roi_align_kernel.py:850",
                      by_path("roi_align_backward_chunk"), tr["bwd_sites_chunk"]),
         kernel_entry("matcher", "maskrcnn_tpu_torch/csrc/matcher.cu",
                      tpu + "matcher_kernel.py:183", by_path("matcher"),
-                     tr["matcher_sites"] + mc["matcher_sites"]),
+                     tr["matcher_sites"] + mc["matcher_sites"] + cs["matcher"]),
     ]
 
     def shape(name, s):
@@ -935,9 +1146,9 @@ def train_phase(torch, np, card):
 
 
 def synthetic_coco(np, root, split="train2017", sizes=((480, 640),) * 32, seed=0,
-                   category_ids=range(1, 81)):
+                   category_ids=range(1, 81), ann=None):
     """A COCO-format tree under root, laid out as the dataset catalog's
-    `split` (coco/<split>, coco/annotations/instances_<split>.json): one
+    `split` (coco/<split>, coco/annotations/<ann> or instances_<split>.json): one
     image of each (h, w) of `sizes`, made from `seed` (returned as arrays by
     image id, not written: the card's machine has no image decoder), and
     annotations with bench.py's gt statistics at each image's size
@@ -969,7 +1180,7 @@ def synthetic_coco(np, root, split="train2017", sizes=((480, 640),) * 32, seed=0
                          "segmentation": [poly.ravel().tolist()]})
     os.makedirs(os.path.join(root, "coco", "annotations"), exist_ok=True)
     os.makedirs(os.path.join(root, "coco", split))
-    ann_file = os.path.join(root, "coco", "annotations", "instances_{}.json".format(split))
+    ann_file = os.path.join(root, "coco", "annotations", ann or "instances_{}.json".format(split))
     write_coco_json(ann_file, infos, anns, category_ids)
     return images, len(anns), ann_file
 
@@ -1393,6 +1604,585 @@ def evaluation_phase(torch, np, card, keep):
             setattr(mod, name, saved[name])
         cocoeval.COCOEvaluator.evaluate = evaluate
         logger.removeHandler(logs)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def fold_frozen_bn(torch, model):
+    """Fold every frozen BN's statistics into its affine pair (weight
+    w / sqrt(var), bias b - mean * that; mean 0, var 1): the same function,
+    in the form a Detectron file holds it."""
+    from maskrcnn_tpu_torch.models.layers import FrozenBatchNorm2d
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm2d):
+                s = m.weight * torch.rsqrt(m.running_var)
+                m.bias.copy_(m.bias - m.running_mean * s)
+                m.weight.copy_(s)
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+
+
+def imagenet_expected(np, body):
+    """The port's body tensors that a Detectron ImageNet file of `body`
+    loads: the convs as they are, each frozen BN as its affine pair with
+    the running mean and variance at their init (0 and 1)."""
+    out = dict(body)
+    for k in body:
+        if k.endswith(".running_mean"):
+            p = k[:-len(".running_mean")]
+            s = body[p + ".weight"] / np.sqrt(body[p + ".running_var"])
+            out[p + ".weight"], out[p + ".bias"] = s, body[p + ".bias"] - body[k] * s
+            out[k] = np.zeros_like(s)
+            out[p + ".running_var"] = np.ones_like(s)
+    return out
+
+
+def synthetic_cityscapes(np, root, split, frames, seed):
+    """A Cityscapes tree under root/cityscapes (leftImg8bit/<split>/smoke,
+    gtFine/<split>/smoke) of `frames` 2048x1024 frames made from `seed`, each
+    with 20-39 instances of the classes person to train (label ids 24-31)
+    drawn as ellipses of 24-320 x 24-240 px whose boxes overlap no earlier
+    one's by an IoU above 0.3 (so that no prediction equal to one instance
+    matches another: the evaluator's known answer is 1), later ones in front:
+    the
+    *_polygons.json as 16-gons (and a "cargroup" polygon the loader drops),
+    the instance-id image (label id * 1000 + k over a road band of id 7)
+    and the frame handed over in memory, their PNG files left empty (no image
+    decoder on the card). Returns (frames by path, id images by path,
+    instance count)."""
+    rs = np.random.RandomState(seed)
+    h, w = CITYSCAPES_HW
+    frames_by_path, ids_by_path, count = {}, {}, 0
+    img_dir = os.path.join(root, "cityscapes", "leftImg8bit", split, "smoke")
+    ann_dir = os.path.join(root, "cityscapes", "gtFine", split, "smoke")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    angles = np.arange(16) * np.pi / 8
+    for f in range(frames):
+        base = "smoke_{:06d}_000019".format(f)
+        img_path = os.path.join(img_dir, base + "_leftImg8bit.png")
+        ids_path = os.path.join(ann_dir, base + "_gtFine_instanceIds.png")
+        for path in (img_path, ids_path):
+            open(path, "wb").close()
+        frames_by_path[img_path] = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        ids = np.zeros((h, w), np.uint16)
+        ids[h * 3 // 4:] = 7
+        objects, per_class, boxes = [], {}, np.zeros((0, 4))
+        for _ in range(rs.randint(20, 40)):
+            while True:
+                rx, ry = rs.uniform(12, 160), rs.uniform(12, 120)
+                cx, cy = rs.uniform(rx, w - rx), rs.uniform(ry, h - ry)
+                box = np.array([cx - rx, cy - ry, cx + rx, cy + ry])
+                inter = np.prod(np.clip(np.minimum(boxes[:, 2:], box[2:])
+                                        - np.maximum(boxes[:, :2], box[:2]), 0, None), axis=1)
+                union = np.prod(box[2:] - box[:2]) + np.prod(boxes[:, 2:] - boxes[:, :2], 1)
+                if (inter <= 0.3 * (union - inter)).all():
+                    break
+            boxes = np.vstack([boxes, box])
+            cid = int(rs.choice(CITYSCAPES_IDS))
+            per_class[cid] = per_class.get(cid, 0) + 1
+            x0, x1, y0, y1 = int(cx - rx), int(cx + rx) + 1, int(cy - ry), int(cy + ry) + 1
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            inside = ((xx + 0.5 - cx) / rx) ** 2 + ((yy + 0.5 - cy) / ry) ** 2 <= 1
+            ids[y0:y1, x0:x1][inside] = cid * 1000 + per_class[cid]
+            poly = np.stack([cx + rx * np.cos(angles), cy + ry * np.sin(angles)], 1)
+            objects.append({"label": CITYSCAPES_NAMES[cid], "polygon": poly.round(2).tolist()})
+        count += len(objects)
+        objects.append({"label": "cargroup", "polygon": [[0, 0], [9, 0], [9, 9]]})
+        with open(os.path.join(ann_dir, base + "_gtFine_polygons.json"), "w") as fh:
+            json.dump({"imgHeight": h, "imgWidth": w, "objects": objects}, fh)
+        ids_by_path[ids_path] = ids
+    return frames_by_path, ids_by_path, count
+
+
+def write_voc_annotations(root, ids, sizes, objects):
+    """VOC2007's Annotations/<id>.xml (1-based pixel boxes) and its test
+    image set; objects[i] is a list of (class name, x0, y0, x1, y1) in
+    0-based pixels."""
+    voc = os.path.join(root, "voc", "VOC2007")
+    for d in ("Annotations", "JPEGImages", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(voc, d), exist_ok=True)
+    for img_id, (h, w), objs in zip(ids, sizes, objects):
+        xml = "".join(
+            "<object><name>{}</name><difficult>0</difficult><bndbox><xmin>{!r}</xmin>"
+            "<ymin>{!r}</ymin><xmax>{!r}</xmax><ymax>{!r}</ymax></bndbox></object>".format(
+                name, x0 + 1, y0 + 1, x1 + 1, y1 + 1) for name, x0, y0, x1, y1 in objs)
+        with open(os.path.join(voc, "Annotations", img_id + ".xml"), "w") as f:
+            f.write("<annotation><size><width>{}</width><height>{}</height><depth>3</depth>"
+                    "</size>{}</annotation>".format(w, h, xml))
+    with open(os.path.join(voc, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+def synthetic_voc(np, root, n, seed):
+    """A VOC2007 test split of n images of VOC's sizes from `seed`, 1-4
+    boxes each of its 20 classes; the images are returned by id (handed over
+    in memory), their JPEG files left empty."""
+    from maskrcnn_tpu_torch.data.datasets import PascalVOCDataset
+
+    rs = np.random.RandomState(seed)
+    ids = ["{:06d}".format(i) for i in range(n)]
+    sizes = [((375, 500), (500, 375), (333, 500))[i % 3] for i in range(n)]
+    images, objects = {}, []
+    for img_id, (h, w) in zip(ids, sizes):
+        images[img_id] = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        objs = []
+        for _ in range(rs.randint(1, 5)):
+            bw, bh = rs.randint(20, w // 2), rs.randint(20, h // 2)
+            x0, y0 = rs.randint(0, w - bw), rs.randint(0, h - bh)
+            objs.append((PascalVOCDataset.CLASSES[rs.randint(1, 21)], float(x0), float(y0),
+                         float(x0 + bw - 1), float(y0 + bh - 1)))
+        objects.append(objs)
+    write_voc_annotations(root, ids, sizes, objects)
+    for img_id in ids:
+        open(os.path.join(root, "voc", "VOC2007", "JPEGImages", img_id + ".jpg"), "wb").close()
+    return images, ids, sizes
+
+
+def data_layer_phase(torch, np, card):
+    """24-27. The published configs as written, through train_net and test_net
+    in-process: pretrained weights from catalog:// names in a local cache,
+    two concatenated COCO datasets, Cityscapes at 1024x2048 (polygons, then
+    binary masks with ColorJitter on a concatenation) with its evaluator, and
+    Pascal VOC with its evaluator. No phase may download: urllib's retrieve
+    raises here. Returns the launches and wall seconds by phase and the
+    kernel sites of phase 25."""
+    import pickle
+    import urllib.request
+
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.config.paths_catalog import ModelCatalog
+    from maskrcnn_tpu_torch.data.datasets import (
+        CityScapesDataset,
+        COCODataset,
+        ConcatDataset,
+        PascalVOCDataset,
+    )
+    from maskrcnn_tpu_torch.data.evaluation import evaluate
+    from maskrcnn_tpu_torch.engine import trainer
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, rpn
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.predictor import Predictor
+    from maskrcnn_tpu_torch.structures import BoxList
+    from maskrcnn_tpu_torch.tools import test_net, train_net
+    from maskrcnn_tpu_torch.utils.model_zoo import cached_name
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    cache = os.path.join(work, "cache")
+    patched = [(COCODataset, "_load_image"), (CityScapesDataset, "_load_image"),
+               (CityScapesDataset, "_load_instance_ids"), (PascalVOCDataset, "_load_image"),
+               (train_net, "do_train"), (urllib.request, "urlretrieve"),
+               (trainer, "make_train_step")]
+    saved = [getattr(obj, name) for obj, name in patched]
+    logs = LogLines()
+    loggers = [logging.getLogger(n) for n in ("maskrcnn_tpu_torch",
+                                              "maskrcnn_tpu_torch.checkpointer")]
+    for lg in loggers:
+        lg.addHandler(logs)
+        lg.setLevel(logging.INFO)
+        lg.propagate = False
+    counters = training_counters(poolers, matcher, nms)
+    record = {}
+    launches, phase_s = {}, {}
+
+    def refuse(url, *args, **kwargs):
+        raise SmokeError("a phase tried to download {}".format(url))
+
+    def recording(model, optimizer, scheduler, data_loader, *args, **kwargs):
+        record["start"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        record["dataset"] = data_loader.dataset
+        trained = {id(p) for g in optimizer.param_groups for p in g["params"]}
+        record["frozen"] = sorted(n for n, p in model.named_parameters() if id(p) not in trained)
+        check(all(p.requires_grad == (id(p) in trained) for p in model.parameters()),
+              "the optimizer's parameters are not the trainable ones")
+        return saved[4](model, optimizer, scheduler, data_loader, *args, **kwargs)
+
+    def recording_step(model, optimizer, *args, **kwargs):
+        step = saved[6](model, optimizer, *args, **kwargs)
+
+        def run(batch, draws=None):
+            record.setdefault("solver", []).append(
+                [(g["lr"], g["weight_decay"], g["momentum"]) for g in optimizer.param_groups])
+            metrics = step(batch, draws)
+            record.setdefault("losses", []).append({k: v.detach() for k, v in metrics.items()})
+            return metrics
+        return run
+
+    def reset():
+        logs.lines.clear()
+        record.clear()
+        for fn in counters.values():
+            fn.launches = 0
+        return time.perf_counter()
+
+    def done(path, t0, per_step, steps, extra=None):
+        """The launches of a phase's run: `steps` times per_step, plus extra."""
+        torch.cuda.synchronize()
+        phase_s[path] = time.perf_counter() - t0
+        launches[path] = {k: fn.launches for k, fn in counters.items()}
+        want = {k: steps * per_step.get(k, 0) + (extra or {}).get(k, 0) for k in counters}
+        check(launches[path] == want, "{} launched {}, expected {}".format(
+            path, launches[path], want))
+        print("{}: launches {} in {:.1f} s [{}]".format(path, json.dumps(launches[path]),
+                                                         phase_s[path], card), flush=True)
+
+    def loaded_count():
+        counts = [re.match(r"loaded (\d+)/(\d+) tensors", line) for line in logs.lines]
+        counts = [(int(m[1]), int(m[2])) for m in counts if m]
+        check(len(counts) == 1, "loader count lines: {}".format(counts))
+        return counts[0]
+
+    def train_summary(meters, config, opts=()):
+        """Each iteration's losses, every one finite, and the solver each
+        iteration ran: both parameter groups at the rate of the config's
+        schedule (linear warm-up from WARMUP_FACTOR, GAMMA at each of STEPS;
+        biases at BIAS_LR_FACTOR x with WEIGHT_DECAY_BIAS), computed here
+        from the config file, and only the stem and layer1 frozen
+        (FREEZE_CONV_BODY_AT 2)."""
+        losses = [{k: v.item() for k, v in m.items()} for m in record.pop("losses")]
+        check(all(len(it) == 6 and all(math.isfinite(v) for v in it.values()) for it in losses),
+              "losses {}".format(losses))
+        c = defaults.clone()
+        c.merge_from_file(config)
+        c.merge_from_list(list(opts))
+        s = c.SOLVER
+        check(s.WARMUP_METHOD == "linear" and c.MODEL.BACKBONE.FREEZE_CONV_BODY_AT == 2,
+              "{}: warm-up {}".format(config, s.WARMUP_METHOD))
+        solver = record.pop("solver")
+        check(len(solver) == len(losses), "{} solver states for {} iterations".format(
+            len(solver), len(losses)))
+        for k, groups in enumerate(solver):
+            alpha = k / s.WARMUP_ITERS
+            f = s.WARMUP_FACTOR * (1 - alpha) + alpha if k < s.WARMUP_ITERS else 1.0
+            f *= s.GAMMA ** sum(k >= m for m in s.STEPS)
+            want = [(s.BASE_LR * f, s.WEIGHT_DECAY, s.MOMENTUM),
+                    (s.BASE_LR * s.BIAS_LR_FACTOR * f, s.WEIGHT_DECAY_BIAS, s.MOMENTUM)]
+            check(len(groups) == 2 and all(
+                math.isclose(g[0], w[0], rel_tol=1e-12) and g[1:] == w[1:]
+                for g, w in zip(groups, want)),
+                  "iteration {} ran the solver groups {}, the schedule says {}".format(
+                      k, groups, want))
+        frozen = record.pop("frozen")
+        check(frozen and all(n.startswith(("backbone.body.stem.", "backbone.body.layer1."))
+                             for n in frozen), "frozen parameters {}".format(frozen))
+        waits, times = list(meters.meters["data"].deque), list(meters.meters["time"].deque)
+        return {"losses_each": losses, "lr_each": [g[0][0] for g in solver],
+                "frozen_parameters": len(frozen), "s_per_iter_each": times,
+                "data_wait_s_each": waits, "data_wait_share": sum(waits) / sum(times)}
+
+    @contextlib.contextmanager
+    def first_step():
+        """The kernels' inputs in the first training step of a run (and the
+        gradients that reach the pooled outputs)."""
+        caps = {"matcher": Capture([rpn], "match_anchors_batched", limit=1),
+                "nms": Capture([rpn], "batched_nms", limit=1),
+                "roi_align": Capture([detector], "multilevel_roi_align", grads=True, limit=2)}
+        with contextlib.ExitStack() as stack:
+            for c in caps.values():
+                stack.enter_context(c)
+            yield caps
+
+    def step_sites(path, caps, images, lanes):
+        """Each kernel of a run's first step against its plain version on
+        that step's inputs, timed beside its bound; the inputs are let go."""
+        m, n, r = caps["matcher"], caps["nms"], caps["roi_align"]
+        check(len(m.calls) == 1 and len(n.calls) == 1 and len(r.calls) == 2
+              and len(r.out_grads) == 2, "{}: captured {} matcher, {} NMS, {} ROIAlign calls"
+              .format(path, len(m.calls), len(n.calls), len(r.calls)))
+        host = {"loadavg_1min": os.getloadavg()[0], "threads": threading.active_count(),
+                "child_processes": len(multiprocessing.active_children())}
+        sites = {"matcher": [matcher_site(torch, matcher, *m.calls[0], timeline=True)]}
+        with torch.no_grad():
+            sites["nms"] = [nms_site(torch, nms, *n.calls[0], plain_iters=3)]
+            sites["roi_align"] = [roi_site(torch, poolers, [f.detach() for f in call[0]],
+                                           *call[1:]) for call in r.calls]
+        sites["roi_align_backward"] = [
+            roi_backward_site(torch, poolers, [f.detach() for f in call[0]], *call[1:],
+                              r.out_grads[i], "roi") for i, call in enumerate(r.calls)]
+        p2 = list(r.calls[0][0][0].shape)
+        for c in caps.values():
+            c.calls.clear()
+            c.out_grads.clear()
+        torch.cuda.empty_cache()
+        check(p2[0] == images and sites["matcher"][0]["images"] == images
+              and sites["nms"][0]["shape"] == list(lanes),
+              "{}: P2 {}, matcher {}, NMS lanes {}".format(
+                  path, p2, sites["matcher"][0]["images"], sites["nms"][0]["shape"]))
+        print("{}: the host while the kernels were timed: {}".format(path, json.dumps(host)),
+              flush=True)
+        for name, ss in sites.items():
+            for s_ in ss:
+                print("{} kernel site {} (P2 {}) [{}]: {}".format(
+                    path, name, p2, card, json.dumps(s_)), flush=True)
+        return sites, p2
+
+    step = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2}
+    urllib.request.urlretrieve = refuse
+    train_net.do_train = recording
+    trainer.make_train_step = recording_step
+    try:
+        with environ(MASKRCNN_TPU_DATA_DIR=work, MASKRCNN_TPU_CACHE=cache):
+            # 24. the flagship's published recipe
+            t0 = reset()
+            flagship = os.path.join(REPO, "configs", "e2e_mask_rcnn_R_50_FPN_1x.yaml")
+            coco = {}
+            coco["train2014"], n_a, _ = synthetic_coco(np, work, "train2014", ((480, 640),) * 24,
+                                                       seed=SEED + 10)
+            coco["val2014"], n_b, _ = synthetic_coco(
+                np, work, "val2014", ((480, 640),) * 16, seed=SEED + 11,
+                ann="instances_valminusminival2014.json")
+            COCODataset._load_image = (
+                lambda self, index: coco[os.path.basename(self.root)][self.ids[index]])
+            cfg = defaults.clone()
+            cfg.merge_from_file(flagship)
+            check(cfg.MODEL.WEIGHT == "catalog://ImageNetPretrained/MSRA/R-50"
+                  and cfg.DATASETS.TRAIN == ("coco_2014_train", "coco_2014_valminusminival"),
+                  "the flagship's YAML reads {} on {}".format(cfg.MODEL.WEIGHT,
+                                                              cfg.DATASETS.TRAIN))
+            first = torch.from_numpy(np.stack([coco["train2014"][i] for i in range(1, 9)])).cuda()
+            sizes = torch.tensor([[480, 640]] * 8, dtype=torch.int32, device="cuda")
+            model = build_detection_model(cfg, device="cuda", seed=SEED + 4)
+            calibrate_frozen_bn(torch, model, model._prepare_images(first, sizes),
+                                residual_scale=R50_RESIDUAL_SCALE)
+            body = {k: v.cpu().numpy() for k, v in model.state_dict().items()
+                    if k.startswith("backbone.body.")}
+            del model
+            r50 = os.path.join(cache, cached_name(ModelCatalog.get("ImageNetPretrained/MSRA/R-50")))
+            r50_blobs = detectron_blobs(np, body, imagenet=True, seed=SEED)
+            write_pkl(r50, r50_blobs, wrap=False)
+            print("flagship recipe: synthetic COCO trees coco_2014_train ({} images of 480x640, "
+                  "{} instances) and coco_2014_valminusminival ({}, {}); the cache holds a "
+                  "synthetic R-50.pkl ({} Detectron blobs, {:.1f} MB: the seeded body with "
+                  "frozen-BN affine pairs from 8 of the images, each block's last BN and its "
+                  "shortcut's at weight {}, an fc1000, _momentum blobs); "
+                  "train_net --config-file configs/e2e_mask_rcnn_R_50_FPN_1x.yaml --skip-test "
+                  "SOLVER.MAX_ITER 4 OUTPUT_DIR <dir> (SOLVER.IMS_PER_BATCH 16 as written)"
+                  .format(len(coco["train2014"]), n_a, len(coco["val2014"]), n_b, len(r50_blobs),
+                          os.path.getsize(r50) / 1e6, R50_RESIDUAL_SCALE), flush=True)
+            out = os.path.join(work, "flagship")
+            with first_step() as caps:
+                _, meters = train_net.main(["--config-file", flagship, "--skip-test",
+                                            "SOLVER.MAX_ITER", "4", "OUTPUT_DIR", out])
+                done("flagship_recipe", t0, step, 4)
+            sites = {}
+            dataset = record["dataset"]
+            check(isinstance(dataset, ConcatDataset) and len(dataset.datasets) == 2
+                  and len(dataset) == len(coco["train2014"]) + len(coco["val2014"]),
+                  "the training dataset is {} of {} images".format(type(dataset).__name__,
+                                                                   len(dataset)))
+            expected = imagenet_expected(np, body)
+            start = record["start"]
+            check(all(torch.equal(start[k].cpu(), torch.from_numpy(v))
+                      for k, v in expected.items()),
+                  "the body's tensors differ from the R-50.pkl blobs")
+            fresh = build_detection_model(cfg, device="cuda").state_dict()
+            heads = [k for k in start if not k.startswith("backbone.body.")]
+            check(all(torch.equal(start[k], fresh[k]) for k in heads),
+                  "a head's tensor moved from its init")
+            n_loaded, n_total = loaded_count()
+            n_stats = sum(k.endswith(("running_mean", "running_var")) for k in body)
+            check(n_loaded == len(body) - n_stats, "R-50.pkl loaded {} tensors".format(n_loaded))
+            summary = train_summary(meters, flagship)
+            print("flagship recipe: the concatenated dataset has {} images; loaded {}/{} tensors "
+                  "from R-50.pkl, every one of the body's {} convs and BN affine pairs equal to "
+                  "its blob bit for bit (its {} running statistics at 0 and 1); the {} tensors "
+                  "of the FPN and heads at their init; 4 iterations at batch 16: {} [{}]".format(
+                      len(dataset), n_loaded, n_total, n_loaded, n_stats, len(heads),
+                      json.dumps(summary), card), flush=True)
+            del start, fresh
+            record.clear()
+            sites["flagship_recipe"], _ = step_sites("flagship recipe", caps, 16, (80, 2000))
+
+            # a whole Detectron model_final served from its catalog:// name
+            t0 = reset()
+            seeded = build_detection_model(cfg, device="cuda", seed=SEED + 5)
+            calibrate_frozen_bn(torch, seeded, seeded._prepare_images(first, sizes))
+            fold_frozen_bn(torch, seeded)
+            state = {k: v.cpu().numpy() for k, v in seeded.state_dict().items()}
+            baseline = "Caffe2Detectron/COCO/35858933/e2e_mask_rcnn_R-50-FPN_1x"
+            other = "Caffe2Detectron/COCO/35861795/e2e_mask_rcnn_R-101-FPN_1x"
+            final = os.path.join(cache, cached_name(ModelCatalog.get(baseline)))
+            blobs = detectron_blobs(np, state)
+            write_pkl(final, blobs, wrap=True)
+            other_file = cached_name(ModelCatalog.get(other))
+            check(other_file != os.path.basename(final)
+                  and not os.path.exists(os.path.join(cache, other_file)),
+                  "two Detectron baselines share the cache file {}".format(other_file))
+            scfg = cfg.clone()
+            scfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
+            scfg.OUTPUT_DIR = os.path.join(work, "serve")
+            ref = Predictor(scfg, model=seeded, min_image_size=scfg.INPUT.MIN_SIZE_TEST)
+            scfg.MODEL.WEIGHT = "catalog://" + baseline
+            served = Predictor(scfg, device="cuda", seed=SEED,
+                               min_image_size=scfg.INPUT.MIN_SIZE_TEST)
+            own, theirs = served.model.state_dict(), seeded.state_dict()
+            check(set(own) == set(theirs) and all(torch.equal(own[k], v)
+                                                  for k, v in theirs.items()),
+                  "the served model's tensors differ from the seeded model's")
+            n_loaded, n_total = loaded_count()
+            n_stats = sum(k.endswith(("running_mean", "running_var")) for k in state)
+            check(n_loaded == n_total - n_stats, "model_final loaded {}/{} tensors".format(
+                n_loaded, n_total))
+            rs = np.random.RandomState(SEED + 6)
+            dets = []
+            for h, w in ((480, 640), (640, 480)):
+                img = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                a, b = served.compute_prediction(img), ref.compute_prediction(img)
+                check(set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a),
+                      "the served detections differ from the seeded model's")
+                dets.append(len(a["scores"]))
+            done("detectron_model_final", t0, {"nms": 2, "roi_align": 2}, 4)
+            print("detectron model_final: {} Detectron blobs ({:.1f} MB) under {} in the cache "
+                  "({} for the R-101-FPN baseline); Predictor from {}: loaded {}/{} tensors, "
+                  "the {} kept at init the frozen BN's running statistics (no such blob; 0 and 1 "
+                  "in both), all {} equal to the seeded model's bit for bit; {} detections on "
+                  "480x640 and 640x480 equal to the seeded model's".format(
+                      len(blobs), os.path.getsize(final) / 1e6, os.path.basename(final),
+                      other_file, scfg.MODEL.WEIGHT, n_loaded, n_total, n_stats, n_total, dets),
+                  flush=True)
+            del seeded, served, ref, own, theirs, first
+            torch.cuda.empty_cache()
+
+            # 25. Cityscapes at its own scale: polygons, 1024x2048
+            t0 = reset()
+            frames, id_images, n_inst = {}, {}, {}
+            for split, count, seed in (("train", CITYSCAPES_FRAMES[0], SEED + 20),
+                                       ("val", CITYSCAPES_FRAMES[1], SEED + 21)):
+                f, i, n_inst[split] = synthetic_cityscapes(np, work, split, count, seed)
+                frames.update(f)
+                id_images.update(i)
+            CityScapesDataset._load_image = lambda self, idx: frames[self.img_paths[idx]]
+            CityScapesDataset._load_instance_ids = (
+                lambda self, idx: id_images[self.ann_paths[idx]])
+            poly = os.path.join(REPO, "configs", "cityscapes",
+                                "e2e_mask_rcnn_R_50_FPN_1x_poly.yaml")
+            print("cityscapes: synthetic gtFine trees of {} train and {} val frames of 2048x1024 "
+                  "({} and {} instances); train_net --config-file "
+                  "configs/cityscapes/e2e_mask_rcnn_R_50_FPN_1x_poly.yaml --skip-test "
+                  "SOLVER.MAX_ITER 3 OUTPUT_DIR <dir> (batch 8, short side 800-1024, long side "
+                  "2048, its catalog:// R-50 from the cache), then test_net with the same config "
+                  "on cityscapes_poly_instance_val (its MODEL.WEIGHT: the R-50 body and the "
+                  "seeded heads)"
+                  .format(*CITYSCAPES_FRAMES, n_inst["train"], n_inst["val"]), flush=True)
+            torch.cuda.reset_peak_memory_stats()
+            with first_step() as caps:
+                _, meters = train_net.main(["--config-file", poly, "--skip-test",
+                                            "SOLVER.MAX_ITER", "3", "OUTPUT_DIR",
+                                            os.path.join(work, "cityscapes_poly")])
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            test_net.main(["--config-file", poly, "OUTPUT_DIR",
+                           os.path.join(work, "cityscapes_poly_test")])
+            test_batches = -(-CITYSCAPES_FRAMES[1] // 8)
+            done("cityscapes", t0, step, 3, {"nms": 2 * test_batches,
+                                            "roi_align": 2 * test_batches})
+            dataset = record["dataset"]
+            check(isinstance(dataset, CityScapesDataset) and dataset.mode == "poly"
+                  and len(dataset) == CITYSCAPES_FRAMES[0], "cityscapes dataset {}".format(dataset))
+            summary = train_summary(meters, poly)
+            tables = [line for line in logs.lines if line.startswith("Cityscapes ")]
+            check(len(tables) == 2, "the Cityscapes evaluator logged {} tables".format(len(tables)))
+            for line in tables:
+                print("  " + line.replace("\n", "\n  "), flush=True)
+            # a known answer for the evaluator at the frames' size: the val
+            # tree's own instances as detections (each mask cropped to its box
+            # at 28x28) must give AP50 1.0 for boxes and masks
+            t1 = time.perf_counter()
+            val = CityScapesDataset(os.path.join(work, "cityscapes", "leftImg8bit"),
+                                    os.path.join(work, "cityscapes", "gtFine"), "val", "poly")
+            preds = []
+            for idx in range(len(val)):
+                target = val[idx][1]
+                n = len(target)
+                masks = target.get_field("masks")
+                probs = np.stack([np.asarray(masks[j].crop(target.bbox[j]).resize((28, 28))
+                                             .get_mask_tensor(), np.float32).reshape(28, 28)
+                                  for j in range(n)])
+                p = BoxList(target.bbox.copy(), target.size, "xyxy")
+                p.add_field("labels", np.asarray(target.get_field("labels")))
+                p.add_field("scores", np.linspace(0.95, 0.6, n).astype(np.float32))
+                p.add_field("mask", probs[:, None])
+                preds.append(p)
+            known = evaluate(val, preds, None, iou_types=("bbox", "segm"))
+            known = {k: known[k]["allAp50%"] for k in ("bbox", "segm")}
+            print("cityscapes known answer (the val instances as detections, {} frames of "
+                  "2048x1024) in {:.1f} s: allAp50% {}".format(
+                      len(val), time.perf_counter() - t1, json.dumps(known)), flush=True)
+            check(min(known.values()) >= 0.99, "Cityscapes known answer {}".format(known))
+            print("cityscapes: 3 iterations: {}; peak memory {:.3f} GB (the first step's kernel "
+                  "inputs kept) [{}]".format(json.dumps(summary), peak_gb, card), flush=True)
+            sites["cityscapes"], p2 = step_sites("cityscapes", caps, 8, (40, 2000))
+            check(p2[:3] == [8, 256, 512] and sites["cityscapes"]["matcher"][0]["anchors"]
+                  == 523776, "cityscapes P2 {}, matcher {}".format(
+                      p2, sites["cityscapes"]["matcher"][0]))
+
+            # 26. binary masks on a concatenation, with ColorJitter
+            t0 = reset()
+            binary = os.path.join(REPO, "configs", "cityscapes",
+                                  "e2e_mask_rcnn_R_50_FPN_1x_binarymask.yaml")
+            opts = ["DATASETS.TRAIN", "('cityscapes_mask_instance_train', "
+                    "'cityscapes_mask_instance_val')", "INPUT.BRIGHTNESS", "0.2",
+                    "INPUT.CONTRAST", "0.2", "INPUT.SATURATION", "0.2", "INPUT.HUE", "0.05"]
+            print("binary masks: train_net --config-file "
+                  "configs/cityscapes/e2e_mask_rcnn_R_50_FPN_1x_binarymask.yaml --skip-test {} "
+                  "SOLVER.MAX_ITER 2 OUTPUT_DIR <dir> (SOLVER.IMS_PER_BATCH 16 and the default "
+                  "800x1333 as written; the instance-id images handed over in memory)".format(
+                      " ".join(opts)), flush=True)
+            with first_step() as caps:
+                _, meters = train_net.main(["--config-file", binary, "--skip-test"] + opts + [
+                    "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", os.path.join(work, "cityscapes_mask")])
+                done("binary_masks", t0, step, 2)
+            dataset = record["dataset"]
+            check(isinstance(dataset, ConcatDataset)
+                  and [d.mode for d in dataset.datasets] == ["mask", "mask"]
+                  and len(dataset) == sum(CITYSCAPES_FRAMES), "binary-mask dataset {}".format(
+                      dataset))
+            jitter = dataset.datasets[0].transforms.transforms[0]
+            check(type(jitter).__name__ == "ColorJitter"
+                  and (jitter.brightness, jitter.contrast, jitter.saturation, jitter.hue)
+                  == (0.2, 0.2, 0.2, 0.05), "the pipeline starts with {}".format(jitter))
+            summary = train_summary(meters, binary, opts)
+            print("binary masks: a concatenation of {} mask-mode frames, ColorJitter first; "
+                  "2 iterations at batch 16, the loader's wait: {} [{}]".format(
+                      len(dataset), json.dumps(summary), card), flush=True)
+            record.clear()
+            sites["binary_masks"], _ = step_sites("binary masks", caps, 16, (80, 2000))
+
+            # 27. Pascal VOC, then its known answer
+            t0 = reset()
+            voc_images, voc_ids, voc_sizes = synthetic_voc(np, work, VOC_IMAGES, SEED + 30)
+            PascalVOCDataset._load_image = lambda self, index: voc_images[self.ids[index]]
+            faster = os.path.join(REPO, "configs", "e2e_faster_rcnn_R_50_FPN_1x.yaml")
+            opts = ["MODEL.ROI_BOX_HEAD.NUM_CLASSES", "21", "MODEL.ROI_HEADS.SCORE_THRESH",
+                    "0.0", "DATASETS.TEST", "('voc_2007_test',)"]
+            print("voc: a synthetic VOC2007 test split of {} images (375x500, 500x375, "
+                  "333x500); test_net --config-file configs/e2e_faster_rcnn_R_50_FPN_1x.yaml {} "
+                  "OUTPUT_DIR <dir> (its catalog:// R-50 from the cache; SCORE_THRESH 0 for "
+                  "random heads)".format(VOC_IMAGES, " ".join(opts)), flush=True)
+            out = os.path.join(work, "voc")
+            (first_pass,) = test_net.main(["--config-file", faster] + opts + ["OUTPUT_DIR", out])
+            done("voc", t0, {"nms": 2, "roi_align": 1}, -(-VOC_IMAGES // 8))
+            with open(os.path.join(out, "inference", "voc_2007_test", "predictions.pkl"),
+                      "rb") as f:
+                preds = pickle.load(f)
+            check(len(preds) == VOC_IMAGES, "{} VOC predictions".format(len(preds)))
+            gt = [[(PascalVOCDataset.CLASSES[int(label)], *map(float, box))
+                   for box, label in zip(p.bbox, p.get_field("labels"))] for p in preds]
+            write_voc_annotations(work, voc_ids, voc_sizes, gt)
+            out2 = os.path.join(work, "voc2")
+            (second,) = test_net.main(["--config-file", faster] + opts + ["OUTPUT_DIR", out2])
+            known = {"map_first_pass": float(first_pass["map"]), "gt_from_detections":
+                     sum(len(g) for g in gt), "map_known_answer": float(second["map"])}
+            print("voc known answer (the first pass's detections as gt) [{}]: {}".format(
+                card, json.dumps(known)), flush=True)
+            check(second["map"] >= 0.99, "VOC known-answer mAP {} < 0.99".format(second["map"]))
+            phase_s["voc"] = time.perf_counter() - t0
+        return {"launches": launches, "phase_s": phase_s, "sites": sites}
+    finally:
+        for (obj, name), value in zip(patched, saved):
+            setattr(obj, name, value)
+        for lg in loggers:
+            lg.removeHandler(logs)
         shutil.rmtree(work, ignore_errors=True)
 
 

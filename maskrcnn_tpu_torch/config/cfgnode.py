@@ -15,11 +15,14 @@ config files rely on:
 
 Anything not listed above is intentionally not implemented.
 
-PyTorch port copy of maskrcnn_tpu/config/cfgnode.py. Two changes, so that
-the port runs where PyYAML is missing: ``yaml`` is imported only where a
-YAML file is parsed, and ``dump`` and the decoding of command-line values
-are the port's own (``_yaml_lines``, ``_decode_value``). For a tree of
-scalars and sequences, as the configuration is, ``dump`` writes what
+PyTorch port copy of maskrcnn_tpu/config/cfgnode.py. One change, so that
+the port runs where PyYAML is missing: the YAML is the port's own. Files
+are read by ``load_yaml``, which takes the subset the config files are
+written in (block mappings by indentation, comments, a scalar on its key's
+line or on the next one; the scalars, flow lists and tuples decoded as
+yacs decodes command-line values), and ``dump`` and the decoding of
+command-line values are ``_yaml_lines`` and ``_decode_value``. For a tree
+of scalars and sequences, as the configuration is, ``dump`` writes what
 ``yaml.safe_dump`` writes.
 """
 
@@ -112,12 +115,8 @@ class CfgNode(dict):
 
     # -- merging ---------------------------------------------------------------
     def merge_from_file(self, cfg_filename):
-        import yaml
-
         with open(cfg_filename, "r") as f:
-            loaded = yaml.safe_load(f)
-        if loaded is None:
-            return
+            loaded = load_yaml(f.read())
         self._merge_dict(loaded, [])
 
     def merge_from_other_cfg(self, other):
@@ -168,6 +167,74 @@ _YAML_WORDS = {
     "null": None, "~": None,
 }
 _PLAIN = re.compile(r"[A-Za-z_./][\w./-]*\Z")
+
+
+_KEY_LINE = re.compile(r"([A-Za-z0-9_.-]+)\s*:(?:\s+(.*))?\Z")
+
+
+def _uncomment(line):
+    """The line without a trailing '#' comment (a '#' at the start or after
+    a blank, outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1].isspace()):
+            return line[:i]
+    return line
+
+
+def _yaml_value(text):
+    """A scalar's text: quoted strings unquoted, the rest (numbers, words,
+    flow lists, tuples) as written, for _decode_value."""
+    if len(text) >= 2 and text[0] == text[-1] == "'":
+        return text[1:-1].replace("''", "'")
+    if len(text) >= 2 and text[0] == text[-1] == '"':
+        return ast.literal_eval(text)
+    return text
+
+
+def load_yaml(text):
+    """The nested dict of a config file in the YAML subset the configs use:
+    block mappings by indentation, '#' comments, each value a scalar or flow
+    list on its key's line or, indented, on the next line. Leaves are
+    strings that _merge_dict decodes; a key with no value is None."""
+    root = {}
+    stack = [(0, root)]  # (indentation of its keys, mapping)
+    open_key = None  # (mapping, key, indentation) of a key with no value yet
+    for number, raw in enumerate(text.splitlines(), 1):
+        line = _uncomment(raw).rstrip()
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        body = line.strip()
+        m = _KEY_LINE.match(body)
+        if open_key is not None:
+            mapping, key, key_indent = open_key
+            open_key = None
+            if indent > key_indent:
+                if m is None:
+                    mapping[key] = _yaml_value(body)
+                    continue
+                mapping[key] = {}
+                stack.append((indent, mapping[key]))
+        if m is None:
+            raise ValueError("line {}: {!r} is not in the YAML subset of the config files"
+                             .format(number, raw))
+        while indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            raise ValueError("line {}: bad indentation: {!r}".format(number, raw))
+        key, value = m.group(1), m.group(2)
+        if value:
+            stack[-1][1][key] = _yaml_value(value.strip())
+        else:
+            stack[-1][1][key] = None
+            open_key = (stack[-1][1], key, indent)
+    return root
 
 
 def _decode_value(v):

@@ -1,12 +1,12 @@
-"""Dataset catalog.
+"""Dataset and model catalogs.
 
 Port copy of maskrcnn_tpu/config/paths_catalog.py: the same dataset names
 (the YAML configs' DATASETS.TRAIN / TEST) and the same layout under one data
 root, so one data tree serves both packages. The root is "datasets" or the
-MASKRCNN_TPU_DATA_DIR environment variable, read at each lookup. Of the
-factories it names, the port has COCODataset; PascalVOCDataset and
-CityScapesDataset are not ported yet (ROADMAP.md). The JAX file's
-ModelCatalog (catalog:// weight URLs) waits with the Caffe2 weight loader.
+MASKRCNN_TPU_DATA_DIR environment variable, read at each lookup.
+ModelCatalog resolves the configs' ``catalog://`` weight names to the same
+Detectron and ImageNet-pretrained URLs as the JAX package's;
+utils/model_zoo.py finds them in the local cache.
 """
 
 import os
@@ -137,3 +137,64 @@ class DatasetCatalog:
                 args=dict(data_dir=os.path.join(root, data_dir), split=split),
             )
         raise RuntimeError("Dataset not available in catalog: {}".format(name))
+
+
+class ModelCatalog:
+    """Resolves catalog:// URIs to Detectron/ImageNet pretrained weight URLs."""
+
+    S3_PREFIX = "https://dl.fbaipublicfiles.com/detectron"
+
+    _IMAGENET = {
+        "MSRA/R-50": "ImageNetPretrained/MSRA/R-50.pkl",
+        "MSRA/R-101": "ImageNetPretrained/MSRA/R-101.pkl",
+        "MSRA/R-50-GN": "ImageNetPretrained/47261647/R-50-GN.pkl",
+        "MSRA/R-101-GN": "ImageNetPretrained/47592356/R-101-GN.pkl",
+        "FAIR/20171220/X-101-32x8d": "ImageNetPretrained/20171220/X-101-32x8d.pkl",
+        "FAIR/20171220/X-101-64x4d": "ImageNetPretrained/20171220/X-101-64x4d.pkl",
+    }
+
+    _DETECTRON_12_2017 = {
+        "35857197/e2e_faster_rcnn_R-50-C4_1x": "01_33_49.iAX0mXvW",
+        "35857345/e2e_faster_rcnn_R-50-FPN_1x": "01_36_30.cUF7QR7I",
+        "35857890/e2e_faster_rcnn_R-101-FPN_1x": "01_38_50.sNxI7sX7",
+        "36761737/e2e_faster_rcnn_X-101-32x8d-FPN_1x": "06_31_39.5MIHi1fZ",
+        "35858791/e2e_mask_rcnn_R-50-C4_1x": "01_45_57.ZgkA7hPB",
+        "35858933/e2e_mask_rcnn_R-50-FPN_1x": "01_48_14.DzEQe4wC",
+        "35861795/e2e_mask_rcnn_R-101-FPN_1x": "02_31_37.KqyEK4tT",
+        "36761843/e2e_mask_rcnn_X-101-32x8d-FPN_1x": "06_35_59.RZotkLKI",
+        "37129812/e2e_mask_rcnn_X-152-32x8d-FPN-IN5k_1.44x": "09_35_36.8pzTQKYK",
+        "37697547/e2e_keypoint_rcnn_R-50-FPN_1x": "08_42_54.kdzV35ao",
+    }
+
+    @staticmethod
+    def get(name):
+        if name.startswith("Caffe2Detectron/COCO"):
+            return ModelCatalog.get_c2_detectron_12_2017_baselines(name)
+        if name.startswith("ImageNetPretrained"):
+            return ModelCatalog.get_c2_imagenet_pretrained(name)
+        raise RuntimeError("model not present in the catalog {}".format(name))
+
+    @staticmethod
+    def get_c2_imagenet_pretrained(name):
+        name = name[len("ImageNetPretrained/"):]
+        return "/".join([ModelCatalog.S3_PREFIX, ModelCatalog._IMAGENET[name]])
+
+    @staticmethod
+    def get_c2_detectron_12_2017_baselines(name):
+        name = name[len("Caffe2Detectron/COCO/"):]
+        dataset = "keypoints_" if "keypoint" in name else ""
+        signature = ModelCatalog._DETECTRON_12_2017[name]
+        unique = name.split("/")[0]
+        model_name = name.split("/")[1]
+        return "/".join(
+            [
+                ModelCatalog.S3_PREFIX,
+                "35998355/12_2017_baselines",
+                "{}.yaml.{}".format(model_name, signature),
+                "output/train/{}coco_2014_train%3A{}coco_2014_valminusminival".format(
+                    dataset, dataset
+                ),
+                "generalized_rcnn",
+                "model_final.pkl",
+            ]
+        )

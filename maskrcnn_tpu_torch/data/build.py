@@ -1,7 +1,8 @@
 """Data loader construction.
 
 Port of maskrcnn_tpu/data/build.py (after the reference
-maskrcnn_benchmark/data/build.py): dataset(s) from the catalog -> sampler
+maskrcnn_benchmark/data/build.py): dataset(s) from the catalog (COCO,
+Pascal VOC, Cityscapes; several training datasets concatenated) -> sampler
 -> GroupedBatchSampler (aspect ratio) -> IterationBasedBatchSampler ->
 ``torch.utils.data.DataLoader`` with the BatchCollator and
 DATALOADER.NUM_WORKERS worker processes. The JAX package's own
@@ -33,7 +34,7 @@ from ..parallel.distributed import images_per_process
 from ..utils import comm
 from ..utils.miscellaneous import cfg_device
 from .collate import BatchCollator
-from .datasets import COCODataset
+from .datasets import CityScapesDataset, COCODataset, ConcatDataset, PascalVOCDataset
 from .samplers import (
     BatchSampler,
     DistributedSampler,
@@ -45,24 +46,32 @@ from .samplers import (
 from .transforms import build_transforms
 
 
+_FACTORIES = {
+    "COCODataset": COCODataset,
+    "CityScapesDataset": CityScapesDataset,
+    "PascalVOCDataset": PascalVOCDataset,
+}
+
+
 def build_dataset(dataset_list, transforms, dataset_catalog, is_train=True):
-    """The datasets of `dataset_list`: one for training (concatenation is
-    not ported), one per name for testing."""
+    """The datasets of `dataset_list`, as JAX data/build.py:40-60: for
+    training one dataset, the concatenation of all of them where there are
+    several; for testing one per name. COCO drops images without usable
+    annotations for training; VOC keeps difficult objects for testing."""
     if not isinstance(dataset_list, (list, tuple)):
         raise RuntimeError("dataset_list should be a list of strings, got {}".format(dataset_list))
-    if is_train and len(dataset_list) != 1:
-        raise NotImplementedError("{} datasets: concatenation (ConcatDataset) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4)".format(len(dataset_list)))
     datasets = []
     for name in dataset_list:
         data = dataset_catalog.get(name)
-        if data["factory"] != "COCODataset":
-            raise NotImplementedError("{} ({}) is not ported yet (ROADMAP.md Queue 1 item 4)"
-                                      .format(data["factory"], name))
         args = dict(data["args"])
-        args["remove_images_without_annotations"] = is_train
+        if data["factory"] == "COCODataset":
+            args["remove_images_without_annotations"] = is_train
+        if data["factory"] == "PascalVOCDataset":
+            args["use_difficult"] = not is_train
         args["transforms"] = transforms
-        datasets.append(COCODataset(**args))
+        datasets.append(_FACTORIES[data["factory"]](**args))
+    if is_train and len(datasets) > 1:
+        return [ConcatDataset(datasets)]
     return datasets
 
 
@@ -98,10 +107,13 @@ class TensorBatches:
 
 def _seed_worker(worker_id):
     """Give each worker's transforms their own random draws (the loader's
-    per-worker seed), as torch seeds each worker's torch and random."""
+    per-worker seed), as torch seeds each worker's torch and random. The
+    datasets of a concatenation share one pipeline."""
     info = torch.utils.data.get_worker_info()
-    if info.dataset.transforms is not None:
-        info.dataset.transforms.rng.seed(info.seed)
+    parts = info.dataset.datasets if isinstance(info.dataset, ConcatDataset) else [info.dataset]
+    for transforms in {id(d.transforms): d.transforms for d in parts}.values():
+        if transforms is not None:
+            transforms.rng.seed(info.seed)
 
 
 def _resolve_catalog(cfg):

@@ -9,9 +9,12 @@ within half a grey level of that exact value and the two agree to within
 one level (PyTorch's own uint8 path, which imitates PIL's two passes,
 differs by two at a few pixels). The boxes and polygons scale by the same
 ratios as in the JAX package. The random choices (the training scale, the
-flips) come from one ``random.Random`` that ``build_transforms`` creates
-and the loader seeds in each worker (``Compose.rng``). ColorJitter is not
-ported yet and raises when it is configured.
+flips, the jitter factors) come from one ``random.Random`` that
+``build_transforms`` creates and the loader seeds in each worker
+(``Compose.rng``). ColorJitter computes what the JAX package's Pillow calls
+compute, in numpy: ImageEnhance's Brightness, Contrast and Color as PIL's
+blend (float32, truncated, clipped), and the hue shift through PIL's uint8
+HSV conversions.
 """
 
 import random
@@ -109,6 +112,106 @@ class RandomVerticalFlip:
         return image, target
 
 
+def luminance(image):
+    """PIL's "L" conversion of an RGB uint8 image: (19595 R + 38470 G +
+    7471 B + 2^15) >> 16."""
+    rgb = image.astype(np.int32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def blend(degenerate, image, factor):
+    """PIL's Image.blend(degenerate, image, factor) on uint8 arrays:
+    degenerate + factor * (image - degenerate) in float32, truncated and
+    clipped to 0..255."""
+    a = np.float32(factor)
+    d = degenerate.astype(np.float32)
+    out = d + a * (image.astype(np.float32) - d)
+    return np.clip(np.trunc(out), 0, 255).astype(np.uint8)
+
+
+def rgb_to_hsv(image):
+    """PIL's RGB -> HSV conversion (uint8 H, S, V), its float and double
+    steps kept."""
+    rgb = image.astype(np.int32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = rgb.max(-1)
+    minc = rgb.min(-1)
+    gray = maxc == minc
+    cr = np.where(gray, 1, maxc - minc).astype(np.float32)
+    s = cr / np.where(gray, 1, maxc).astype(np.float32)
+    rc = (maxc - r).astype(np.float32) / cr
+    gc = (maxc - g).astype(np.float32) / cr
+    bc = (maxc - b).astype(np.float32) / cr
+    h = np.where(r == maxc, (bc - gc).astype(np.float64),
+                 np.where(g == maxc, 2.0 + rc.astype(np.float64) - bc,
+                          4.0 + gc.astype(np.float64) - rc)).astype(np.float32)
+    h = np.fmod(h.astype(np.float64) / 6.0 + 1.0, 1.0).astype(np.float32)
+    uh = np.clip((h.astype(np.float64) * 255.0).astype(np.int64), 0, 255)
+    us = np.clip((s.astype(np.float64) * 255.0).astype(np.int64), 0, 255)
+    out = np.stack([np.where(gray, 0, uh), np.where(gray, 0, us), maxc], -1)
+    return out.astype(np.uint8)
+
+
+def _round_half_away(x):
+    fl = np.floor(x)
+    return fl + (x - fl >= 0.5)
+
+
+def hsv_to_rgb(hsv):
+    """PIL's HSV -> RGB conversion of uint8 H, S, V."""
+    h = hsv[..., 0].astype(np.float32)
+    s = hsv[..., 1].astype(np.int32)
+    v = hsv[..., 2].astype(np.int32)
+    x = h.astype(np.float64) * 6.0 / 255.0
+    i = np.floor(x).astype(np.int64)
+    f = (x - i.astype(np.float32)).astype(np.float32).astype(np.float64)
+    fs = (s.astype(np.float32) / 255.0).astype(np.float32).astype(np.float64)
+    vf = v.astype(np.float32).astype(np.float64)
+    p = np.clip(_round_half_away(vf * (1.0 - fs)), 0, 255).astype(np.int32)
+    q = np.clip(_round_half_away(vf * (1.0 - fs * f)), 0, 255).astype(np.int32)
+    t = np.clip(_round_half_away(vf * (1.0 - fs * (1.0 - f))), 0, 255).astype(np.int32)
+    sector = i % 6
+    choose = lambda *c: np.select([sector == k for k in range(6)], c)  # noqa: E731
+    rgb = np.stack([choose(v, q, p, p, t, v), choose(t, v, v, q, p, p),
+                    choose(p, p, t, v, v, q)], -1)
+    gray = (s == 0)[..., None]
+    return np.where(gray, v[..., None], rgb).astype(np.uint8)
+
+
+class ColorJitter:
+    """The JAX package's ColorJitter (Pillow's ImageEnhance and HSV) on HWC
+    uint8 RGB arrays: each factor above 0 draws, in this order, a
+    brightness, contrast and saturation factor 1 + U(-x, x) and a hue shift
+    U(-x, x) of the 0..255 hue circle (taken modulo 255, as there)."""
+
+    def __init__(self, brightness=0.0, contrast=0.0, saturation=0.0, hue=0.0, rng=random):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.saturation = saturation
+        self.hue = hue
+        self.rng = rng
+
+    def __call__(self, image, target):
+        if self.brightness > 0:
+            f = 1 + self.rng.uniform(-self.brightness, self.brightness)
+            image = blend(np.zeros_like(image), image, f)
+        if self.contrast > 0:
+            f = 1 + self.rng.uniform(-self.contrast, self.contrast)
+            lum = luminance(image)
+            mean = int(float(lum.sum(dtype=np.int64)) / lum.size + 0.5)
+            image = blend(np.full_like(image, mean), image, f)
+        if self.saturation > 0:
+            f = 1 + self.rng.uniform(-self.saturation, self.saturation)
+            image = blend(np.repeat(luminance(image)[..., None], 3, -1), image, f)
+        if self.hue > 0:
+            h = self.rng.uniform(-self.hue, self.hue)
+            hsv = rgb_to_hsv(image)
+            hsv[..., 0] = (hsv[..., 0].astype(np.int16) + int(h * 255)) % 255
+            image = hsv_to_rgb(hsv)
+        return image, target
+
+
 class ToArray:
     """HWC RGB, contiguous: uint8 stays uint8 (Normalize maps it through a
     lookup table), anything else becomes float32."""
@@ -160,15 +263,14 @@ def build_transforms(cfg, is_train=True, seed=0):
         flip_h = cfg.INPUT.HORIZONTAL_FLIP_PROB_TRAIN
         flip_v = cfg.INPUT.VERTICAL_FLIP_PROB_TRAIN
         jitter = (cfg.INPUT.BRIGHTNESS, cfg.INPUT.CONTRAST, cfg.INPUT.SATURATION, cfg.INPUT.HUE)
-        if any(jitter):
-            raise NotImplementedError("INPUT.BRIGHTNESS/CONTRAST/SATURATION/HUE (ColorJitter) "
-                                      "are not ported yet (ROADMAP.md Queue 1 item 4)")
     else:
         min_size = cfg.INPUT.MIN_SIZE_TEST
         max_size = cfg.INPUT.MAX_SIZE_TEST
         flip_h = flip_v = 0.0
+        jitter = (0.0,) * 4
     rng = random.Random(seed)
-    ts = [Resize(min_size, max_size, rng)]
+    ts = [ColorJitter(*jitter, rng=rng)] if any(jitter) else []
+    ts.append(Resize(min_size, max_size, rng))
     if flip_h > 0:
         ts.append(RandomHorizontalFlip(flip_h, rng))
     if flip_v > 0:

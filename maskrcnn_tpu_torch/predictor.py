@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from .models.detector import build_detection_model
 from .models.masker import paste_masks_in_image
+from .utils.checkpoint import DetectronCheckpointer
 
 
 def resized_size(h, w, min_size, max_size):
@@ -35,8 +36,10 @@ def resized_size(h, w, min_size, max_size):
 
 
 class Predictor:
-    """Serves one model. ``model`` defaults to the seeded random-weight model
-    of ``cfg`` on ``device`` (the card unless the caller asks for "cpu").
+    """Serves one model. ``model`` defaults to the model of ``cfg`` on
+    ``device`` (the card unless the caller asks for "cpu"): seeded random
+    weights, then, as COCODemo, MODEL.WEIGHT when set (a catalog:// name, a
+    Detectron .pkl, a .pth; OUTPUT_DIR's last_checkpoint wins).
     ``min_image_size`` is the resized short side (COCODemo's argument of the
     same name; pass cfg.INPUT.MIN_SIZE_TEST to serve at the test size)."""
 
@@ -44,8 +47,11 @@ class Predictor:
         self.cfg = cfg.clone()
         self.min_image_size = min_image_size
         self.device = torch.device(device)
-        self.model = model if model is not None else build_detection_model(
-            self.cfg, device=device, seed=seed)
+        if model is None:
+            model = build_detection_model(self.cfg, device=device, seed=seed)
+            if cfg.MODEL.WEIGHT:
+                DetectronCheckpointer(cfg, model, save_dir=cfg.OUTPUT_DIR).load(cfg.MODEL.WEIGHT)
+        self.model = model
         self.pixel_mean = torch.tensor(cfg.INPUT.PIXEL_MEAN, dtype=torch.float32,
                                        device=self.device)
         self.pixel_std = torch.tensor(cfg.INPUT.PIXEL_STD, dtype=torch.float32,

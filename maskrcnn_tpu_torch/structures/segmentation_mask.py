@@ -1,12 +1,19 @@
-"""Instance masks of the data pipeline, polygon mode.
+"""Instance masks of the data pipeline: polygons and binary masks.
 
-Port copy of the polygon half of maskrcnn_tpu/structures/segmentation_mask.py
-(after the reference maskrcnn_benchmark/structures/segmentation_mask.py):
-per-instance COCO polygon lists whose crop, resize and flip stay in polygon
-space; rasterization (``get_mask_tensor``) happens on demand through the
-native scanline fill of ``utils/maskops.py``. The binary-mask mode of the
-JAX package resizes with OpenCV, which the card's machine lacks; it is not
-ported yet (ROADMAP.md Queue 1 item 4) and raises.
+Port copy of maskrcnn_tpu/structures/segmentation_mask.py (after the
+reference maskrcnn_benchmark/structures/segmentation_mask.py). Two
+backings, one API:
+  * PolygonList: per-instance COCO polygon lists whose crop, resize and
+    flip stay in polygon space; rasterization (``get_mask_tensor``) happens
+    on demand through the native scanline fill of ``utils/maskops.py``;
+  * BinaryMaskList: dense [N, H, W] masks (Cityscapes' instance-id images).
+    Its resize is OpenCV's INTER_NEAREST computed with numpy, bit for bit:
+    output pixel i takes source pixel floor(i * (1 / (dst / src))) in
+    float64, clamped to the last one, as cv2.resize does.
+
+``SegmentationMask.convert("mask")`` rasterizes polygons; the other way,
+contour tracing (OpenCV's findContours in the JAX package), is not ported
+(ROADMAP.md Queue 1 item 17) and raises.
 """
 
 import numpy as np
@@ -128,30 +135,97 @@ class PolygonList:
         )
 
 
+def nearest_indices(src, dst):
+    """The source index of each of `dst` outputs along an axis of `src`
+    pixels under cv2.resize's INTER_NEAREST."""
+    ifx = 1.0 / (dst / src)
+    return np.minimum(np.floor(np.arange(dst) * ifx).astype(np.int64), src - 1)
+
+
+class BinaryMaskList:
+    def __init__(self, masks, size):
+        """masks: [N, H, W] array (uint8/bool)."""
+        self.masks = np.asarray(masks)
+        if self.masks.ndim == 2:
+            self.masks = self.masks[None]
+        self.size = tuple(size)
+
+    def transpose(self, method):
+        axis = 2 if method == FLIP_LEFT_RIGHT else 1
+        return BinaryMaskList(np.flip(self.masks, axis=axis).copy(), self.size)
+
+    def crop(self, box):
+        x1, y1, x2, y2 = (int(round(b)) for b in box)
+        w = max(x2 - x1, 1)
+        h = max(y2 - y1, 1)
+        x1 = max(x1, 0)
+        y1 = max(y1, 0)
+        cropped = self.masks[:, y1:y1 + h, x1:x1 + w]
+        pad_h = h - cropped.shape[1]
+        pad_w = w - cropped.shape[2]
+        if pad_h > 0 or pad_w > 0:
+            cropped = np.pad(cropped, ((0, 0), (0, max(pad_h, 0)), (0, max(pad_w, 0))))
+        return BinaryMaskList(cropped, (w, h))
+
+    def resize(self, size):
+        w, h = int(size[0]), int(size[1])
+        if len(self.masks) == 0:
+            return BinaryMaskList(np.zeros((0, h, w), np.uint8), (w, h))
+        masks = self.masks.view(np.uint8) if self.masks.dtype == bool else self.masks
+        rows = masks.astype(np.uint8, copy=False)[:, nearest_indices(masks.shape[1], h)]
+        return BinaryMaskList(rows[:, :, nearest_indices(masks.shape[2], w)], (w, h))
+
+    def get_mask_tensor(self):
+        return self.masks
+
+    def __len__(self):
+        return self.masks.shape[0]
+
+    def __getitem__(self, item):
+        if isinstance(item, (int, np.integer)):
+            return BinaryMaskList(self.masks[int(item)][None], self.size)
+        return BinaryMaskList(self.masks[item], self.size)
+
+    def __repr__(self):
+        return "BinaryMaskList(num_instances={}, size={})".format(len(self), self.size)
+
 
 class SegmentationMask:
-    """The instances of one image, in polygon mode ("poly")."""
+    """The instances of one image: PolygonList ("poly") or BinaryMaskList
+    ("mask")."""
 
     def __init__(self, instances, size, mode="poly"):
-        if mode != "poly":
-            raise NotImplementedError(
-                "SegmentationMask mode {!r}: only polygons are ported (binary masks wait, "
-                "ROADMAP.md Queue 1 item 4)".format(mode))
-        self.instances = (
-            instances if isinstance(instances, PolygonList) else PolygonList(instances, size)
-        )
+        if mode == "poly":
+            self.instances = (
+                instances if isinstance(instances, PolygonList) else PolygonList(instances, size))
+        elif mode == "mask":
+            self.instances = (
+                instances if isinstance(instances, BinaryMaskList)
+                else BinaryMaskList(instances, size))
+        else:
+            raise ValueError("SegmentationMask mode {!r}".format(mode))
         self.mode = mode
         self.size = tuple(size)
 
     def transpose(self, method):
-        return SegmentationMask(self.instances.transpose(method), self.size)
+        return SegmentationMask(self.instances.transpose(method), self.size, self.mode)
 
     def crop(self, box):
         cropped = self.instances.crop(box)
-        return SegmentationMask(cropped, cropped.size)
+        return SegmentationMask(cropped, cropped.size, self.mode)
 
     def resize(self, size):
-        return SegmentationMask(self.instances.resize(size), size)
+        return SegmentationMask(self.instances.resize(size), size, self.mode)
+
+    def convert(self, mode):
+        if mode == self.mode:
+            return self
+        if mode == "mask":
+            return SegmentationMask(
+                BinaryMaskList(self.instances.get_mask_tensor(), self.size), self.size, "mask")
+        raise NotImplementedError(
+            "SegmentationMask.convert('poly'): tracing binary masks into polygons is not ported "
+            "(ROADMAP.md Queue 1 item 17)")
 
     def get_mask_tensor(self):
         t = self.instances.get_mask_tensor()
@@ -161,9 +235,8 @@ class SegmentationMask:
         return len(self.instances)
 
     def __getitem__(self, item):
-        return SegmentationMask(self.instances[item], self.size)
+        return SegmentationMask(self.instances[item], self.size, self.mode)
 
     def __repr__(self):
         return "SegmentationMask(num_instances={}, mode={}, size={})".format(
-            len(self), self.mode, self.size
-        )
+            len(self), self.mode, self.size)

@@ -29,6 +29,7 @@ block maxima, the second barrier, pass 2).
 """
 
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -73,6 +74,7 @@ _TIMELINE = (
 PHASES = ("staged", "barrier_1", "pass_1", "folded", "barrier_2", "pass_2")
 
 
+@functools.lru_cache(maxsize=None)
 def _timeline_lib(native):
     src = open(os.path.join(REPO, "maskrcnn_tpu_torch", "csrc", "matcher.cu")).read()
     for anchor, i in _TIMELINE:

@@ -9,9 +9,11 @@ resumes from the tag when save_dir has one, else reads the file it is given
 (MODEL.WEIGHT): a ``.pth`` of this package, or a ``.npz`` that the JAX
 package's Checkpointer wrote, whose model parameters ``params_from_jax``
 converts (its optimizer state, in optax's layout, and its iteration are not
-read: training starts afresh from those weights). Caffe2 ``.pkl`` files,
-URLs and catalog:// names wait for the weight loader (ROADMAP.md Queue 1
-item 5).
+read: training starts afresh from those weights). DetectronCheckpointer
+also resolves ``catalog://`` names (config/paths_catalog.py ModelCatalog)
+to URLs, URLs to files of the local cache (utils/model_zoo.py), and reads
+Detectron's Caffe2 ``.pkl`` files (utils/c2_loading.py), as the JAX
+package's does.
 
 In a process group rank 0 writes (``save_to_disk``) and every rank loads,
 onto its own device: ``load`` waits at a barrier first, so that the tag and
@@ -136,18 +138,31 @@ def load_jax_npz(f):
 
 
 class DetectronCheckpointer(Checkpointer):
-    """Checkpointer that also reads the JAX package's .npz checkpoints."""
+    """Checkpointer that also reads catalog:// names, URLs, Detectron .pkl
+    files and the JAX package's .npz checkpoints (JAX
+    utils/checkpoint.py:175-200)."""
 
     def __init__(self, cfg, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.cfg = cfg.clone()
 
     def _load_file(self, f):
-        if f.startswith(("catalog://", "http://", "https://")) or f.endswith(".pkl"):
-            raise NotImplementedError(
-                "{}: Caffe2 weights, URLs and catalog:// names are not ported yet (ROADMAP.md "
-                "Queue 1 item 5); give a .pth of this package or a .npz of the JAX package"
-                .format(f))
+        if f.startswith("catalog://"):
+            from ..config.paths_catalog import ModelCatalog
+
+            catalog_f = ModelCatalog.get(f[len("catalog://"):])
+            self._log("{} points to {}".format(f, catalog_f))
+            f = catalog_f
+        if f.startswith(("http://", "https://")):
+            from .model_zoo import cache_url
+
+            cached = cache_url(f)
+            self._log("url {} cached in {}".format(f, cached))
+            f = cached
+        if f.endswith(".pkl"):
+            from .c2_loading import load_c2_weights
+
+            return {"model": load_c2_weights(f, self.cfg, self.model.state_dict())}
         if f.endswith(".npz"):
             return {"model": load_jax_npz(f)}
         return super()._load_file(f)

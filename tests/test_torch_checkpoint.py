@@ -7,10 +7,13 @@
 * A ``.npz`` written by the JAX package's DetectronCheckpointer for the
   narrow test model, loaded by the port, gives ``infer_forward`` detections
   equal to the JAX model's at the tolerances of tests/test_torch_detector.py
-  (labels and validity exact, scores 1e-5, boxes 1e-3 px, masks 1e-4).
+  (labels and validity exact, scores 1e-5, boxes 1e-3 px, masks 1e-4);
+  a catalog:// name that is not in the cache and a missing .pkl raise.
 """
 
 import os
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -95,7 +98,7 @@ def test_save_load_resume_round_trip(tmp_path):
     assert torch.equal(model3.state_dict()["roi_heads.box.predictor.cls_score.weight"], own)
 
 
-def test_jax_npz_checkpoint_loads_into_the_port(tmp_path):
+def test_jax_npz_checkpoint_loads_into_the_port(tmp_path, monkeypatch):
     jcfg, tcfg = configs()
     jm = build_jax_model(jcfg)
     params = numpy_params(jm, seed=0)
@@ -124,6 +127,16 @@ def test_jax_npz_checkpoint_loads_into_the_port(tmp_path):
     np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["masks"], want["masks"], rtol=1e-4, atol=1e-4)
 
-    for unported in ("catalog://ImageNetPretrained/MSRA/R-50", "model.pkl"):
-        with pytest.raises(NotImplementedError):
-            ck.load(unported)
+    # catalog:// names and .pkl files load (tests/test_torch_weights.py); a
+    # catalog name missing from the cache, without a network, raises naming
+    # where to place the file, and a missing .pkl raises
+    monkeypatch.setenv("MASKRCNN_TPU_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setattr(urllib.request, "urlretrieve", _no_network)
+    with pytest.raises(RuntimeError, match="place it at"):
+        ck.load("catalog://ImageNetPretrained/MSRA/R-50")
+    with pytest.raises(FileNotFoundError):
+        ck.load(str(tmp_path / "model.pkl"))
+
+
+def _no_network(*args, **kwargs):
+    raise urllib.error.URLError("no network in the tests")

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no JAX, nothing of maskrcnn_tpu, no PyYAML
-until a YAML file is read; and chip_smoke.py refuses to report without a
+"""The PyTorch port stands alone: no JAX, nothing of maskrcnn_tpu, no PyYAML,
+OpenCV or Pillow once every module is imported (Pillow only inside the
+dataset loaders the card overrides); it reads the config files without
+PyYAML, as PyYAML reads them; and chip_smoke.py refuses to report without a
 card or without the repository around it."""
 
 import json
@@ -28,14 +30,21 @@ def _run(code, cwd=REPO):
 def test_port_imports_neither_jax_nor_the_jax_package():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         maskrcnn_tpu_torch.__path__, "maskrcnn_tpu_torch."))
-    assert "maskrcnn_tpu_torch.ops.nms" in modules
-    assert "maskrcnn_tpu_torch.parallel.distributed" in modules
+    for name in ("ops.nms", "parallel.distributed", "utils.c2_loading", "utils.model_zoo",
+                 "utils.model_serialization", "data.datasets.voc", "data.datasets.cityscapes",
+                 "data.datasets.concat", "data.evaluation.voc_eval",
+                 "data.evaluation.cityscapes_eval"):
+        assert "maskrcnn_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
         "for m in {!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "from maskrcnn_tpu_torch.config import cfg\n"
+        "sys.modules['yaml'] = None  # a config file reads without PyYAML\n"
+        "cfg.clone().merge_from_file('configs/cityscapes/e2e_mask_rcnn_R_50_FPN_1x_poly.yaml')\n"
+        "del sys.modules['yaml']\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'maskrcnn_tpu', 'yaml', 'cv2')]\n"
+        "('jax', 'jaxlib', 'maskrcnn_tpu', 'yaml', 'cv2', 'PIL')]\n"
         "print(bad)\n"
     ).format(modules)
     proc = _run(code)
@@ -65,6 +74,28 @@ def test_config_reads_yaml_on_demand(tmp_path):
     c = flagship_cfg()
     c.merge_from_file(str(path))
     assert not c.MODEL.MASK_ON and c.INPUT.MIN_SIZE_TEST == 600
+
+
+def test_config_files_read_as_pyyaml_reads_them():
+    """Every YAML file under configs/ gives the port's loader the tree that
+    yaml.safe_load gives, once both go through the values' decoding."""
+    import glob
+
+    import yaml
+
+    from maskrcnn_tpu_torch.config.cfgnode import _decode_value, load_yaml
+
+    def decoded(tree):
+        if isinstance(tree, dict):
+            return {k: decoded(v) for k, v in tree.items()}
+        return _decode_value(tree)
+
+    files = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True))
+    assert len(files) >= 60
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        assert decoded(load_yaml(text)) == decoded(yaml.safe_load(text) or {}), path
 
 
 def _last_line_ok(stdout):

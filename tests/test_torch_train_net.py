@@ -5,9 +5,9 @@ runs the JAX one: a narrow Mask R-CNN R-50-FPN from the reference YAML on a
 synthetic COCO tree, 2 loader workers, 4 iterations with a checkpoint every
 2, then a resumed run to 6 that must load model_final and continue at
 iteration 5; a unit test of the trainer's draws across such a resume. Then
-what the CLI refuses: MODEL.DEVICE "tpu", and a VOC dataset to validate on
-(the VOC dataset and evaluator are not ported). Evaluation through
-train_net is tested in test_torch_test_net.py.
+what the CLI refuses: MODEL.DEVICE "tpu", and validation with test-time
+augmentation (TEST.BBOX_AUG, not ported). Evaluation through train_net is
+tested in test_torch_test_net.py.
 """
 
 import os
@@ -146,7 +146,7 @@ def test_resumed_training_draws_what_a_straight_run_draws(monkeypatch):
 @pytest.mark.parametrize("opts,error", [
     (["MODEL.DEVICE", "tpu"], ValueError),
     (["MODEL.DEVICE", "cpu", "SOLVER.TEST_PERIOD", "100", "DATASETS.TEST",
-      "('voc_2007_test',)"], NotImplementedError),
+      "('coco_2017_train',)", "TEST.BBOX_AUG.ENABLED", "True"], NotImplementedError),
 ])
 def test_train_net_rejects_what_the_port_lacks(tmp_path, monkeypatch, opts, error):
     data_root = _data_tree(tmp_path)
