@@ -162,6 +162,27 @@ MASKRCNN_TPU_CACHE of the phase; data handed over in memory):
      on a synthetic VOC2007 test split of 16 images through the VOC
      evaluator, then its known answer (the first pass's detections as the
      gt: mAP >= 0.99).
+The other model families as written (after 27, on its trees and cache):
+ 28. RetinaNet serving: configs/retinanet/retinanet_R-50-FPN_1x.yaml (bf16,
+     INFERENCE_TH 0: random heads score near the prior's 0.01) through
+     Predictor from the cache's R-50.pkl: four requests after a warm-up,
+     each with its latency, one NMS launch a request and nothing else, NMS
+     exact on the captured [1, 1000] class-offset lane (coordinates to
+     ~8e5), and a float32 request card against CPU (the head redrawn so that
+     its scores spread) at phase 6's tolerances;
+ 29. train_net with the RetinaNet YAML, only SOLVER.MAX_ITER 3, OUTPUT_DIR
+     and --skip-test given: batch 16 on phase 24's trees, the matcher once a
+     step and nothing else, losses and solver as in 24, the matcher exact on
+     the first step's [16 x 201,600] anchors at 0.5 / 0.4, the step's time
+     and peak memory and its device time split by torch.profiler (the head,
+     the focal loss, the matcher, the rest); then test_net on the YAML's
+     coco_2014_minival (16 images, TEST.IMS_PER_BATCH 8, bbox only), NMS
+     exact on its two [8, 1000] lanes, and a known answer (the first pass's
+     detections as gt: bbox AP50 >= 0.99);
+ 30. configs/e2e_faster_rcnn_R_101_FPN_1x.yaml through train_net for 3
+     iterations at batch 16 from a synthetic R-101.pkl: matcher, NMS, the
+     forward and the "roi" backward once a step, no mask head; losses,
+     solver and kernels as in 24; then test_net on 8 images.
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
@@ -181,6 +202,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 REQUEST_SIZES = ((480, 640), (427, 640), (640, 480), (375, 500))
@@ -705,16 +727,17 @@ def write_pkl(path, blobs, wrap):
 def match_detections(a, b, score_tol=1e-4, box_tol=1e-2, mask_tol=1e-3):
     """Fraction of a's detections (BoxLists) with a partner in b: same
     label, score within score_tol, box within box_tol px, mask
-    probabilities within mask_tol."""
+    probabilities (of mask models) within mask_tol."""
     matched = 0
     la, lb = a.get_field("labels"), b.get_field("labels")
     sa, sb = a.get_field("scores"), b.get_field("scores")
-    ma, mb = a.get_field("mask"), b.get_field("mask")
+    masks = a.has_field("mask")
+    ma, mb = (a.get_field("mask"), b.get_field("mask")) if masks else (None, None)
     for i in range(len(a)):
         for j in range(len(b)):
             if (la[i] == lb[j] and abs(sa[i] - sb[j]) <= score_tol
                     and abs(a.bbox[i] - b.bbox[j]).max() <= box_tol
-                    and abs(ma[i] - mb[j]).max() <= mask_tol):
+                    and (not masks or abs(ma[i] - mb[j]).max() <= mask_tol)):
                 matched += 1
                 break
     return matched / max(len(a), 1)
@@ -1801,7 +1824,10 @@ def data_layer_phase(torch, np, card):
     def recording_step(model, optimizer, *args, **kwargs):
         step = saved[6](model, optimizer, *args, **kwargs)
 
+        record["step"] = step
+
         def run(batch, draws=None):
+            record.setdefault("batch", batch)
             record.setdefault("solver", []).append(
                 [(g["lr"], g["weight_decay"], g["momentum"]) for g in optimizer.param_groups])
             metrics = step(batch, draws)
@@ -1833,16 +1859,16 @@ def data_layer_phase(torch, np, card):
         check(len(counts) == 1, "loader count lines: {}".format(counts))
         return counts[0]
 
-    def train_summary(meters, config, opts=()):
-        """Each iteration's losses, every one finite, and the solver each
+    def train_summary(meters, config, opts=(), n_losses=5):
+        """Each iteration's n_losses losses and their sum, every one finite, and the solver each
         iteration ran: both parameter groups at the rate of the config's
         schedule (linear warm-up from WARMUP_FACTOR, GAMMA at each of STEPS;
         biases at BIAS_LR_FACTOR x with WEIGHT_DECAY_BIAS), computed here
         from the config file, and only the stem and layer1 frozen
         (FREEZE_CONV_BODY_AT 2)."""
         losses = [{k: v.item() for k, v in m.items()} for m in record.pop("losses")]
-        check(all(len(it) == 6 and all(math.isfinite(v) for v in it.values()) for it in losses),
-              "losses {}".format(losses))
+        check(all(len(it) == n_losses + 1 and all(math.isfinite(v) for v in it.values())
+                  for it in losses), "losses {}".format(losses))
         c = defaults.clone()
         c.merge_from_file(config)
         c.merge_from_list(list(opts))
@@ -1872,23 +1898,25 @@ def data_layer_phase(torch, np, card):
                 "data_wait_s_each": waits, "data_wait_share": sum(waits) / sum(times)}
 
     @contextlib.contextmanager
-    def first_step():
+    def first_step(pooled=2):
         """The kernels' inputs in the first training step of a run (and the
-        gradients that reach the pooled outputs)."""
+        gradients that reach the pooled outputs): `pooled` ROIAlign calls a
+        step (box and mask heads, or the box head alone)."""
         caps = {"matcher": Capture([rpn], "match_anchors_batched", limit=1),
                 "nms": Capture([rpn], "batched_nms", limit=1),
-                "roi_align": Capture([detector], "multilevel_roi_align", grads=True, limit=2)}
+                "roi_align": Capture([detector], "multilevel_roi_align", grads=True,
+                                     limit=pooled)}
         with contextlib.ExitStack() as stack:
             for c in caps.values():
                 stack.enter_context(c)
             yield caps
 
-    def step_sites(path, caps, images, lanes):
+    def step_sites(path, caps, images, lanes, pooled=2):
         """Each kernel of a run's first step against its plain version on
         that step's inputs, timed beside its bound; the inputs are let go."""
         m, n, r = caps["matcher"], caps["nms"], caps["roi_align"]
-        check(len(m.calls) == 1 and len(n.calls) == 1 and len(r.calls) == 2
-              and len(r.out_grads) == 2, "{}: captured {} matcher, {} NMS, {} ROIAlign calls"
+        check(len(m.calls) == 1 and len(n.calls) == 1 and len(r.calls) == pooled
+              and len(r.out_grads) == pooled, "{}: captured {} matcher, {} NMS, {} ROIAlign calls"
               .format(path, len(m.calls), len(n.calls), len(r.calls)))
         host = {"loadavg_1min": os.getloadavg()[0], "threads": threading.active_count(),
                 "child_processes": len(multiprocessing.active_children())}
@@ -2177,6 +2205,14 @@ def data_layer_phase(torch, np, card):
                 card, json.dumps(known)), flush=True)
             check(second["map"] >= 0.99, "VOC known-answer mAP {} < 0.99".format(second["map"]))
             phase_s["voc"] = time.perf_counter() - t0
+
+            # 28-30. RetinaNet and Faster R-CNN R-101-FPN on this phase's trees and cache
+            t0 = time.perf_counter()
+            sites.update(families_phase(torch, np, card, types.SimpleNamespace(
+                work=work, cache=cache, coco=coco, record=record, reset=reset, done=done,
+                loaded_count=loaded_count, train_summary=train_summary, first_step=first_step,
+                step_sites=step_sites)))
+            phase_s["families"] = time.perf_counter() - t0
         return {"launches": launches, "phase_s": phase_s, "sites": sites}
     finally:
         for (obj, name), value in zip(patched, saved):
@@ -2184,6 +2220,292 @@ def data_layer_phase(torch, np, card):
         for lg in loggers:
             lg.removeHandler(logs)
         shutil.rmtree(work, ignore_errors=True)
+
+
+def device_busy_ms(torch, fn, iters=3):
+    """The summed time of the device's kernels and copies per call of fn,
+    from torch.profiler over `iters` calls; "not measured" where the
+    profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else "not measured"
+
+
+def detections_as_gt(preds, infos):
+    """COCO annotations of a test pass's detections (BoxLists on the
+    original images, in the order of `infos`), boxes with the +1 convention;
+    the synthetic trees' JSON category ids are the contiguous labels."""
+    anns = []
+    for info, p in zip(infos, preds):
+        for box, label in zip(p.bbox, p.get_field("labels")):
+            x0, y0, x1, y1 = (float(v) for v in box)
+            anns.append({"id": len(anns) + 1, "image_id": info["id"], "iscrowd": 0,
+                         "category_id": int(label), "bbox": [x0, y0, x1 - x0 + 1, y1 - y0 + 1],
+                         "area": (x1 - x0 + 1) * (y1 - y0 + 1),
+                         "segmentation": [[x0, y0, x1, y0, x1, y1, x0, y1]]})
+    return anns
+
+
+def families_phase(torch, np, card, dl):
+    """28-30. RetinaNet (serving, train_net, test_net with a known answer) and
+    Faster R-CNN R-101-FPN (train_net, test_net), each from its published
+    config as written, on phase 24's COCO trees and weight cache (dl: the
+    data-layer phases' work tree, cache, trees and helpers). Returns the
+    kernel sites by path."""
+    import pickle
+
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.config.paths_catalog import ModelCatalog
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, retinanet
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.predictor import Predictor
+    from maskrcnn_tpu_torch.tools import test_net, train_net
+    from maskrcnn_tpu_torch.utils.model_zoo import cached_name
+
+    def path_sites(**found):
+        return {k: found.get(k, []) for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
+
+    retina_yaml = os.path.join(REPO, "configs", "retinanet", "retinanet_R-50-FPN_1x.yaml")
+    faster_yaml = os.path.join(REPO, "configs", "e2e_faster_rcnn_R_101_FPN_1x.yaml")
+    ann_dir = os.path.join(dl.work, "coco", "annotations")
+    with open(os.path.join(ann_dir, "instances_valminusminival2014.json")) as f:
+        val = json.load(f)
+    minival = os.path.join(ann_dir, "instances_minival2014.json")
+    sites = {}
+
+    # 28. serving RetinaNet from the cache's R-50.pkl
+    dl.reset()
+    cfg = defaults.clone()
+    cfg.merge_from_file(retina_yaml)
+    check(cfg.MODEL.RETINANET_ON and cfg.MODEL.WEIGHT == "catalog://ImageNetPretrained/MSRA/R-50"
+          and cfg.TPU.COMPUTE_DTYPE == "bfloat16", "the RetinaNet YAML reads {}".format(
+              cfg.MODEL.WEIGHT))
+    # random heads: the prior puts every score near 0.01, below INFERENCE_TH
+    cfg.MODEL.RETINANET.INFERENCE_TH = 0.0
+    rs = np.random.RandomState(SEED + 8)
+    warm = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    images = [rs.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in REQUEST_SIZES]
+    pred = Predictor(cfg, device="cuda", seed=SEED + 7, min_image_size=cfg.INPUT.MIN_SIZE_TEST)
+    n_loaded, n_total = dl.loaded_count()
+    pred.compute_prediction(warm)
+    t0 = dl.reset()
+    outs, latencies = [], []
+    with Capture([retinanet], "batched_nms", limit=1) as nms_cap:
+        for img in images:
+            t1 = time.perf_counter()
+            outs.append(pred.compute_prediction(img))
+            latencies.append((time.perf_counter() - t1) * 1e3)
+        dl.done("retinanet_serving", t0, {"nms": 1}, len(images))
+    for img, out in zip(images, outs):
+        n = len(out["scores"])
+        h, w = img.shape[:2]
+        check(set(out) == {"boxes", "scores", "labels"}
+              and 0 < n <= cfg.TEST.DETECTIONS_PER_IMG and out["boxes"].shape == (n, 4)
+              and np.isfinite(out["boxes"]).all() and np.isfinite(out["scores"]).all()
+              and ((out["labels"] >= 1) & (out["labels"] <= 80)).all()
+              and (out["boxes"][:, [0, 2]] <= w * 1.001).all()
+              and (out["boxes"][:, [1, 3]] <= h * 1.001).all(),
+              "RetinaNet request {}x{}: {}".format(h, w, {k: v.shape for k, v in out.items()}))
+    lane = nms_cap.calls[0]
+    with torch.inference_mode():
+        site = nms_site(torch, nms, *lane, plain_iters=3)
+    site["max_coordinate"] = float(lane[0].max())
+    check(site["shape"] == [1, 1000] and lane[3] == cfg.MODEL.RETINANET.NMS_TH,
+          "RetinaNet NMS lane {} at {}".format(site["shape"], lane[3]))
+    sites["retinanet_serving"] = path_sites(nms=[site])
+    print("retinanet serving kernel site (one class-offset lane a request) [{}]: {}".format(
+        card, json.dumps(site)), flush=True)
+    # float32 card against CPU on a small image, the head redrawn so that the
+    # scores spread: towers at He scale, the cls logits at 10 / sqrt(fan in)
+    state = {k: v.detach().cpu().clone() for k, v in pred.model.state_dict().items()}
+    gen = torch.Generator().manual_seed(SEED + 9)
+    for k, v in state.items():
+        if k.startswith("rpn.") and k.endswith(".weight"):
+            gain = 10.0 if "cls_logits" in k else 2 ** 0.5 if "tower" in k else 1.0
+            v.copy_(torch.randn(v.shape, generator=gen) * gain / v[0].numel() ** 0.5)
+    ref = reference_check(torch, np, detector, cfg, state)
+    print("retinanet float32 card vs CPU on a 256x320 image: " + json.dumps(ref), flush=True)
+    check(ref["agree"] >= 0.9, "RetinaNet: card and CPU disagree on {:.1%} of detections"
+          .format(1 - ref["agree"]))
+    print("retinanet serving: configs/retinanet/retinanet_R-50-FPN_1x.yaml (bf16, "
+          "INFERENCE_TH 0 for random heads) from the cache's R-50.pkl (loaded {}/{} tensors); "
+          "latency ms per request {} {} [{}]".format(
+              n_loaded, n_total, json.dumps(REQUEST_SIZES), json.dumps(latencies), card),
+          flush=True)
+    del pred, outs, nms_cap, lane
+    torch.cuda.empty_cache()
+
+    # 29. RetinaNet trained and tested as written
+    t0 = dl.reset()
+    out = os.path.join(dl.work, "retinanet")
+    print("retinanet recipe: train_net --config-file configs/retinanet/retinanet_R-50-FPN_1x.yaml "
+          "--skip-test SOLVER.MAX_ITER 3 OUTPUT_DIR <dir> (batch 16 on phase 24's trees, its "
+          "catalog:// R-50 from the cache)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    caps = {"matcher": Capture([retinanet], "match_anchors_batched", limit=1),
+            "focal": Capture([retinanet], "sigmoid_focal_loss", limit=1),
+            "head": Capture([retinanet.RetinaNetHead], "forward", limit=1)}
+    with contextlib.ExitStack() as stack:
+        for c in caps.values():
+            stack.enter_context(c)
+        _, meters = train_net.main(["--config-file", retina_yaml, "--skip-test",
+                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
+        dl.done("retinanet_recipe", t0, {"matcher": 1}, 3)
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_loaded, n_total = dl.loaded_count()
+    summary = dl.train_summary(meters, retina_yaml, n_losses=2)
+    check(len(dl.record["dataset"]) == len(dl.coco["train2014"]) + len(dl.coco["val2014"]),
+          "the RetinaNet training dataset has {} images".format(len(dl.record["dataset"])))
+    m = caps["matcher"].calls[0]
+    check(tuple(m[1].shape[:2]) == (16, cfg.TPU.MAX_GT_BOXES) and m[0].shape[0] == 201600
+          and (m[3], m[4]) == (0.5, 0.4), "RetinaNet matcher on {} anchors, gt {}, at {}".format(
+              m[0].shape[0], tuple(m[1].shape), m[3:]))
+    msite = matcher_site(torch, matcher, *m)
+    # where the step's device time goes: the head (towers and predictors)
+    # forward and backward on the first step's pyramid, the focal loss
+    # forward and backward on its logits, the matcher
+    head, feats = caps["head"].calls[0][0], [f.detach() for f in caps["head"].calls[0][1]]
+    logits, labels, gamma, alpha = caps["focal"].calls[0]
+    logits = logits.detach()
+    leaves = [f.requires_grad_() for f in feats]
+    ones = None
+
+    def head_step():
+        nonlocal ones
+        outputs = [o for level in head(leaves) for o in level]
+        ones = ones or [torch.ones_like(o) for o in outputs]
+        torch.autograd.backward(outputs, ones)
+
+    x = logits.requires_grad_()
+
+    def focal_step():
+        retinanet.sigmoid_focal_loss(x, labels, gamma, alpha).sum().backward()
+
+    split = {"head_ms": device_busy_ms(torch, head_step),
+             "head_events_ms": cuda_ms(torch, head_step, 3, warmup=1),
+             "focal_loss_ms": device_busy_ms(torch, focal_step),
+             "focal_loss_events_ms": cuda_ms(torch, focal_step, 3, warmup=1),
+             "matcher_ms": msite["kernel_ms"], "focal_elements": logits.numel(),
+             "pyramid": [list(f.shape) for f in feats]}
+    del caps, m, head, feats, leaves, ones, logits, labels, x
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
+    peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
+    if isinstance(prof.get("device_busy_ms"), float):
+        known = [split[k] for k in ("head_ms", "focal_loss_ms", "matcher_ms")]
+        if all(isinstance(v, float) for v in known):
+            split["rest_ms"] = prof["device_busy_ms"] - sum(known)
+    split.update(step_wall_ms=prof["wall_ms"], step_device_busy_ms=prof.get("device_busy_ms"),
+                 idle_share=prof.get("idle_share"), top_kernels_ms=prof.get("top_kernels_ms"))
+    print("retinanet recipe: loaded {}/{} tensors from R-50.pkl; 3 iterations at batch 16: {}; "
+          "peak memory {:.3f} GB a step ({:.3f} GB over the run, the first step's inputs "
+          "kept) [{}]".format(n_loaded, n_total, json.dumps(summary), peak_step_gb, peak_run_gb,
+                              card), flush=True)
+    print("retinanet step's device time, torch.profiler [{}]: {}".format(card, json.dumps(split)),
+          flush=True)
+    print("retinanet recipe matcher site (201,600 anchors an image, 0.5 / 0.4) [{}]: {}".format(
+        card, json.dumps(msite)), flush=True)
+    dl.record.clear()
+
+    # test_net on coco_2014_minival (the YAML's: the 16 val2014 images), bbox
+    # only, then the known answer: the first pass's detections as its gt
+    with open(minival, "w") as f:
+        json.dump(val, f)
+    test_opts = ["--config-file", retina_yaml, "--ckpt", os.path.join(out, "model_final.pth"),
+                 "MODEL.RETINANET.INFERENCE_TH", "0.0"]
+    t0 = dl.reset()
+    with Capture([retinanet], "batched_nms") as nms_cap:
+        ((res, _),) = test_net.main(test_opts + ["OUTPUT_DIR", os.path.join(out, "test")])
+        dl.done("retinanet_test", t0, {"nms": 1}, 2)
+    check(set(res.results) == {"bbox"}, "RetinaNet evaluated {}".format(set(res.results)))
+    with torch.inference_mode():
+        lanes = [nms_site(torch, nms, *call, plain_iters=3) for call in nms_cap.calls]
+    check([s_["shape"] for s_ in lanes] == [[8, 1000]] * 2, "RetinaNet test NMS lanes {}".format(
+        [s_["shape"] for s_ in lanes]))
+    for call, s_ in zip(nms_cap.calls, lanes):
+        s_["max_coordinate"] = float(call[0].max())
+        print("retinanet test kernel site [{}]: {}".format(card, json.dumps(s_)), flush=True)
+    sites["retinanet_recipe"] = path_sites(matcher=[msite], nms=lanes)
+    del nms_cap
+    with open(os.path.join(out, "test", "inference", "coco_2014_minival", "predictions.pkl"),
+              "rb") as f:
+        preds = pickle.load(f)
+    gts = detections_as_gt(preds, val["images"])
+    write_coco_json(minival, val["images"], gts, range(1, 81))
+    ((known, _),) = test_net.main(test_opts + ["OUTPUT_DIR", os.path.join(out, "test2")])
+    known = {"bbox_first_pass": dict(res.results["bbox"]), "gt_from_detections": len(gts),
+             "bbox_known_answer": dict(known.results["bbox"])}
+    print("retinanet test_net on 16 images at TEST.IMS_PER_BATCH 8, then its known answer "
+          "[{}]: {}".format(card, json.dumps(known)), flush=True)
+    check(known["bbox_known_answer"]["AP50"] >= 0.99, "RetinaNet known-answer AP50 {}".format(
+        known["bbox_known_answer"]["AP50"]))
+
+    # 30. Faster R-CNN R-101-FPN as written, from a synthetic R-101.pkl
+    t0 = dl.reset()
+    cfg = defaults.clone()
+    cfg.merge_from_file(faster_yaml)
+    check(cfg.MODEL.WEIGHT == "catalog://ImageNetPretrained/MSRA/R-101" and not cfg.MODEL.MASK_ON
+          and cfg.MODEL.BACKBONE.CONV_BODY == "R-101-FPN", "the R-101 YAML reads {}".format(
+              cfg.MODEL.WEIGHT))
+    first = torch.from_numpy(np.stack([dl.coco["train2014"][i] for i in range(1, 9)])).cuda()
+    sizes = torch.tensor([[480, 640]] * 8, dtype=torch.int32, device="cuda")
+    model = build_detection_model(cfg, device="cuda", seed=SEED + 12)
+    calibrate_frozen_bn(torch, model, model._prepare_images(first, sizes),
+                        residual_scale=R50_RESIDUAL_SCALE)
+    body = {k: v.cpu().numpy() for k, v in model.state_dict().items()
+            if k.startswith("backbone.body.")}
+    del model, first
+    r101 = os.path.join(dl.cache, cached_name(ModelCatalog.get("ImageNetPretrained/MSRA/R-101")))
+    write_pkl(r101, detectron_blobs(np, body, imagenet=True, seed=SEED), wrap=False)
+    out = os.path.join(dl.work, "faster_r101")
+    print("faster R-101: train_net --config-file configs/e2e_faster_rcnn_R_101_FPN_1x.yaml "
+          "--skip-test SOLVER.MAX_ITER 3 OUTPUT_DIR <dir> (batch 16; a synthetic R-101.pkl of "
+          "{:.1f} MB in the cache, built as phase 24's R-50.pkl)".format(
+              os.path.getsize(r101) / 1e6), flush=True)
+    step = {"matcher": 1, "nms": 1, "roi_align": 1, "roi_align_backward": 1}
+    with dl.first_step(pooled=1) as caps:
+        _, meters = train_net.main(["--config-file", faster_yaml, "--skip-test",
+                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
+        dl.done("faster_r101_recipe", t0, step, 3)
+    expected = imagenet_expected(np, body)
+    start = dl.record["start"]
+    check(all(torch.equal(start[k].cpu(), torch.from_numpy(v)) for k, v in expected.items()),
+          "the R-101 body's tensors differ from the R-101.pkl blobs")
+    n_loaded, n_total = dl.loaded_count()
+    n_stats = sum(k.endswith(("running_mean", "running_var")) for k in body)
+    check(n_loaded == len(body) - n_stats, "R-101.pkl loaded {} tensors".format(n_loaded))
+    summary = dl.train_summary(meters, faster_yaml, n_losses=4)
+    print("faster R-101: loaded {}/{} tensors from R-101.pkl, the body's equal to its blobs; 3 "
+          "iterations at batch 16: {} [{}]".format(n_loaded, n_total, json.dumps(summary), card),
+          flush=True)
+    dl.record.clear()
+    sites["faster_r101_recipe"], _ = dl.step_sites("faster R-101", caps, 16, (80, 2000), pooled=1)
+    del caps, start
+    torch.cuda.empty_cache()
+    # test_net on 8 of the val2014 images
+    eight = {"images": val["images"][:8],
+             "annotations": [a for a in val["annotations"] if a["image_id"] <= 8]}
+    check([i["id"] for i in eight["images"]] == list(range(1, 9)), "val image ids")
+    write_coco_json(minival, eight["images"], eight["annotations"], range(1, 81))
+    t0 = dl.reset()
+    ((res, _),) = test_net.main(["--config-file", faster_yaml, "--ckpt",
+                                 os.path.join(out, "model_final.pth"),
+                                 "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
+                                 "OUTPUT_DIR", os.path.join(out, "test")])
+    dl.done("faster_r101_test", t0, {"nms": 2, "roi_align": 1}, 1)
+    print("faster R-101 test_net on 8 images (SCORE_THRESH 0 for random heads) [{}]: {}".format(
+        card, json.dumps(dict(res.results["bbox"]))), flush=True)
+    return sites
 
 
 def profile_steps(torch, step, batch, steps=2):

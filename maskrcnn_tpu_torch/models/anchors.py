@@ -55,14 +55,17 @@ def generate_cell_anchors(stride=16, sizes=(32, 64, 128, 256, 512),
 
 
 class AnchorGenerator:
-    """One cell-anchor set per FPN level."""
+    """One cell-anchor set per FPN level. A level's size may be a tuple of
+    sizes (RetinaNet's octave scales): its cells then hold every size at
+    every ratio, ratio-major, as the JAX AnchorGeneratorConfig."""
 
     def __init__(self, sizes, aspect_ratios, strides, straddle_thresh=0):
         if len(strides) != len(sizes):
             raise ValueError("FPN needs one anchor size per stride")
         self.straddle_thresh = straddle_thresh
         self.cell_anchors = [
-            generate_cell_anchors(stride, (size,), aspect_ratios)
+            generate_cell_anchors(stride, size if isinstance(size, (tuple, list)) else (size,),
+                                  aspect_ratios)
             for stride, size in zip(strides, sizes)
         ]
         self.strides = list(strides)
@@ -100,3 +103,13 @@ def make_anchor_generator(cfg):
         raise NotImplementedError("single-level RPN anchors are not ported yet")
     return AnchorGenerator(r.ANCHOR_SIZES, r.ASPECT_RATIOS, r.ANCHOR_STRIDE,
                            r.STRADDLE_THRESH)
+
+
+def make_anchor_generator_retinanet(cfg):
+    """RetinaNet's anchors: at each stride SCALES_PER_OCTAVE sizes
+    OCTAVE ** (i / SCALES_PER_OCTAVE) * size by each ratio. RetinaNet takes
+    no straddle visibility (every anchor is matched)."""
+    c = cfg.MODEL.RETINANET
+    sizes = [tuple(c.OCTAVE ** (i / float(c.SCALES_PER_OCTAVE)) * size
+                   for i in range(c.SCALES_PER_OCTAVE)) for size in c.ANCHOR_SIZES]
+    return AnchorGenerator(sizes, c.ASPECT_RATIOS, c.ANCHOR_STRIDES, c.STRADDLE_THRESH)

@@ -30,7 +30,12 @@ counts (rpn.py, box_head.py, mask_head.py, ops/losses.py), and the mask
 head keeps the positives that the batch-wide cap keeps over the global
 batch (``_cut_positives_globally``).
 
-RetinaNet, keypoint, RPN-only and C4 models wait for later slices.
+RetinaNet (MODEL.RETINANET_ON, models/retinanet.py) has no ROI heads:
+``train_forward`` returns loss_retina_cls and loss_retina_reg (the anchor
+matcher kernel, no sampler draws), ``infer_forward`` the padded detection
+dict without masks (the NMS kernel); MASK_ON and KEYPOINT_ON are off under
+it, as in the JAX package. Keypoint (ROADMAP.md Queue 1 item 8), RPN-only
+(item 15) and C4 models wait for later slices.
 """
 
 import torch
@@ -38,7 +43,7 @@ import torch.nn as nn
 
 from ..ops.sampler import top_k_fast, uniform_draws
 from ..utils import comm
-from .anchors import make_anchor_generator
+from .anchors import make_anchor_generator, make_anchor_generator_retinanet
 from .backbone import build_backbone
 from .poolers import PoolerConfig, multilevel_roi_align
 from .roi_heads.box_head import BoxHead, box_head_inference, box_head_loss, prepare_box_targets
@@ -48,6 +53,7 @@ from .roi_heads.mask_head import (
     project_gt_masks,
     select_positive_rois,
 )
+from .retinanet import RetinaNetHead, retinanet_inference, retinanet_loss
 from .rpn import RPNHead, rpn_loss, select_proposals
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,11 +112,16 @@ class GeneralizedRCNN(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         m = cfg.MODEL
-        if m.RETINANET_ON or m.KEYPOINT_ON or m.RPN_ONLY:
-            raise NotImplementedError(
-                "RetinaNet, keypoint and RPN-only models are not ported yet")
-        if m.RPN.RPN_HEAD != "SingleConvRPNHead":
-            raise NotImplementedError("RPN head {} is not ported yet".format(m.RPN.RPN_HEAD))
+        self.retinanet_on = m.RETINANET_ON
+        if not self.retinanet_on:
+            if m.KEYPOINT_ON:
+                raise NotImplementedError(
+                    "keypoint models are not ported yet (ROADMAP.md Queue 1 item 8)")
+            if m.RPN_ONLY:
+                raise NotImplementedError(
+                    "RPN-only models are not ported yet (ROADMAP.md Queue 1 item 15)")
+            if m.RPN.RPN_HEAD != "SingleConvRPNHead":
+                raise NotImplementedError("RPN head {} is not ported yet".format(m.RPN.RPN_HEAD))
         self.cfg = cfg.clone()
         self.compute_dtype = _DTYPES[cfg.TPU.COMPUTE_DTYPE]
         self.register_buffer("pixel_mean", torch.tensor(cfg.INPUT.PIXEL_MEAN, dtype=torch.float32),
@@ -118,13 +129,17 @@ class GeneralizedRCNN(nn.Module):
         self.register_buffer("pixel_std", torch.tensor(cfg.INPUT.PIXEL_STD, dtype=torch.float32),
                              persistent=False)
         self.to_bgr255 = cfg.INPUT.TO_BGR255
-        self.mask_on = m.MASK_ON
+        self.mask_on = m.MASK_ON and not self.retinanet_on
         # fixed positive-ROI batch of the mask head: the box sampler's quota
         self.num_pos_rois = int(m.ROI_HEADS.BATCH_SIZE_PER_IMAGE * m.ROI_HEADS.POSITIVE_FRACTION)
 
         self.backbone = build_backbone(cfg)
-        self.anchor_gen = make_anchor_generator(cfg)
         c = self.backbone.out_channels
+        if self.retinanet_on:
+            self.anchor_gen = make_anchor_generator_retinanet(cfg)
+            self.rpn = RetinaNetHead(cfg, c)
+            return
+        self.anchor_gen = make_anchor_generator(cfg)
         self.rpn = RPNHead(c, self.anchor_gen.num_anchors_per_location()[0])
         self.roi_heads = nn.Module()
         self.roi_heads.box = BoxHead(cfg, c)
@@ -143,6 +158,8 @@ class GeneralizedRCNN(nn.Module):
         """Seeded init with the distributions of the JAX model.init."""
         self.backbone.reset_parameters(gen)
         self.rpn.reset_parameters(gen)
+        if self.retinanet_on:
+            return
         self.roi_heads.box.reset_parameters(gen)
         if self.mask_on:
             self.roi_heads.mask.reset_parameters(gen)
@@ -195,6 +212,8 @@ class GeneralizedRCNN(nn.Module):
         gt_boxes = batch["gt_boxes"].float()
         gt_labels = batch["gt_labels"]
         gt_valid = gt_labels > 0
+        if self.retinanet_on:
+            return self._retinanet_train_forward(batch, gt_boxes, gt_labels)
 
         rank, world = comm.get_rank(), comm.get_world_size()
 
@@ -269,6 +288,15 @@ class GeneralizedRCNN(nn.Module):
             losses["loss_mask"] = mask_head_loss_picked(mask_logits, tgt, m_valid)
         return losses
 
+    def _retinanet_train_forward(self, batch, gt_boxes, gt_labels):
+        features, anchors = self._backbone(batch)
+        cls, reg = self.rpn(features)
+        b = gt_boxes.shape[0]
+        cls_loss, reg_loss = retinanet_loss(
+            torch.cat(anchors), _level_major(cls, b, self.rpn.num_classes),
+            _level_major(reg, b, 4), gt_boxes, gt_labels, self.cfg.MODEL.RETINANET)
+        return {"loss_retina_cls": cls_loss, "loss_retina_reg": reg_loss}
+
     @torch.inference_mode()
     def infer_forward(self, batch):
         """batch: images [B, H, W, 3] (uint8 RGB or normalized float32),
@@ -276,6 +304,10 @@ class GeneralizedRCNN(nn.Module):
         cfg = self.cfg
         image_sizes = batch["image_sizes"]
         features, anchors = self._backbone(batch)
+        if self.retinanet_on:
+            cls, reg = self.rpn(features)
+            return retinanet_inference(anchors, cls, reg, image_sizes, cfg.MODEL.RETINANET,
+                                       cfg.TEST.DETECTIONS_PER_IMG)
         objectness, bbox_reg = self.rpn(features)
         prop_boxes, prop_scores, prop_valid = select_proposals(
             anchors, objectness, bbox_reg, image_sizes, cfg.MODEL.RPN

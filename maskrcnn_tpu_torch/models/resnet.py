@@ -34,7 +34,9 @@ def _spec(counts, returns):
 
 STAGE_SPECS = {
     "R-50-FPN": _spec((3, 4, 6, 3), (True, True, True, True)),
+    "R-50-FPN-RETINANET": _spec((3, 4, 6, 3), (True, True, True, True)),
     "R-101-FPN": _spec((3, 4, 23, 3), (True, True, True, True)),
+    "R-101-FPN-RETINANET": _spec((3, 4, 23, 3), (True, True, True, True)),
     "R-152-FPN": _spec((3, 8, 36, 3), (True, True, True, True)),
 }
 

@@ -34,6 +34,13 @@ from ..utils.logger import setup_logger
 from ..utils.miscellaneous import mkdir
 
 
+def box_only(cfg):
+    """Whether the evaluation is of proposals (box recall) rather than of
+    detections: RPN-only models, but not RetinaNet, whose P5 configs set
+    RPN_ONLY too (the reference's test_net)."""
+    return cfg.MODEL.RPN_ONLY and not cfg.MODEL.RETINANET_ON
+
+
 def run_test(cfg, model):
     """Evaluate `model` on every dataset of DATASETS.TEST, each process of a
     group on its shard; returns the list of inference's results, one per
@@ -54,7 +61,7 @@ def run_test(cfg, model):
             make_data_loader(cfg, is_train=False, is_distributed=comm.get_world_size() > 1)):
         results.append(inference(
             model, data_loader, dataset_name=dataset_name, iou_types=iou_types,
-            box_only=cfg.MODEL.RPN_ONLY, output_folder=output_folder,
+            box_only=box_only(cfg), output_folder=output_folder,
             expected_results=cfg.TEST.EXPECTED_RESULTS,
             expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL))
         comm.synchronize()

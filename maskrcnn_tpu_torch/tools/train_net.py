@@ -40,7 +40,7 @@ from ..utils import comm
 from ..utils.checkpoint import DetectronCheckpointer
 from ..utils.logger import setup_logger
 from ..utils.miscellaneous import mkdir, save_config, save_labels
-from .test_net import run_test
+from .test_net import box_only, run_test
 
 
 def train(cfg, output_dir, device):
@@ -69,7 +69,7 @@ def train(cfg, output_dir, device):
         def run_validation(val_model, iteration):
             for name, loader in zip(cfg.DATASETS.TEST, val_loaders):
                 inference(val_model, loader, dataset_name=name, iou_types=("bbox",),
-                          box_only=cfg.MODEL.RPN_ONLY, output_folder=None)
+                          box_only=box_only(cfg), output_folder=None)
                 comm.synchronize()
 
     meters = do_train(model, optimizer, scheduler, data_loader, checkpointer, device,

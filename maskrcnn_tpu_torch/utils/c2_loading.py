@@ -11,7 +11,9 @@ maskrcnn_benchmark/utils/c2_model_loading.py:12-206). Two stages:
      first given the reference's key by one rename table
      (``torchstyle_key``: downsample.conv/bn -> downsample.0/1,
      fpn.inner.i.conv -> fpn.fpn_inner{i+1}, rpn -> rpn.head, the mask
-     head's convs.k.conv -> mask_fcn{k+1}).
+     head's convs.k.conv -> mask_fcn{k+1}; RetinaNet's towers
+     {cls,bbox}_tower.i -> {cls,bbox}_tower.{2i} and P6/P7 top.p6/p7 ->
+     fpn.top_blocks.p6/p7).
 
 The layouts are the reference's and mostly the port's own: conv OIHW,
 linear [out, in] and the mask head's transposed conv [in, out, kh, kw]
@@ -131,6 +133,10 @@ _RENAMES = (
     (r"\.fpn\.(inner|layer)\.(\d+)\.conv\.",
      lambda m: ".fpn.fpn_{}{}.".format(m[1], int(m[2]) + 1)),
     (r"^rpn\.", "rpn.head."),
+    # RetinaNet: the reference's towers are Sequentials of (conv, relu)
+    (r"^rpn\.head\.(cls|bbox)_tower\.(\d+)\.",
+     lambda m: "rpn.head.{}_tower.{}.".format(m[1], 2 * int(m[2]))),
+    (r"^backbone\.top\.", "backbone.fpn.top_blocks."),
     (r"\.mask\.feature_extractor\.convs\.(\d+)\.conv\.",
      lambda m: ".mask.feature_extractor.mask_fcn{}.".format(int(m[1]) + 1)),
 )

@@ -144,9 +144,11 @@ def test_masker_matches_cv2_paste():
 
 
 def test_unported_model_families_raise():
+    """Keypoint and RPN-only models (RetinaNet is ported:
+    tests/test_torch_retinanet.py)."""
     from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
 
-    for key in ("RETINANET_ON", "KEYPOINT_ON", "RPN_ONLY"):
+    for key in ("KEYPOINT_ON", "RPN_ONLY"):
         _, c = configs()
         setattr(c.MODEL, key, True)
         with pytest.raises(NotImplementedError):

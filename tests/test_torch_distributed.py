@@ -16,6 +16,10 @@ package and against one process.
   the test asserts both, and that a plain DDP port (per-rank k-th score,
   denominators and mask cap, losses averaged) is off by far more than the
   tolerance.
+* A RetinaNet's 2-rank step (float32) against one process's step on the
+  global batch: losses rtol 1e-5, gradients within 2e-4 of each
+  parameter's max, the focal loss's and smooth-L1's denominators (the
+  positives and the images) the global batch's.
 * do_train's global decision to skip a batch without gt.
 * train_net under 2 ranks from a torchrun-style environment: rank 0 alone
   writes the checkpoints, both resume from model_final.
@@ -249,6 +253,49 @@ def test_two_rank_step_equals_the_jax_two_device_mesh_step(tmp_path):
     ddp = res[0]["ddp_losses"]
     errs = {k: abs(ddp[k] - float(jmetrics[k])) / abs(float(jmetrics[k])) for k in LOSSES}
     assert errs["loss_box_reg"] > 1e-2 and errs["loss_classifier"] > 1e-3, errs
+
+
+@pytest.mark.timeout(300)
+def test_two_rank_retinanet_step_equals_one_process(tmp_path):
+    from maskrcnn_tpu.config import cfg as jax_defaults
+    from maskrcnn_tpu_torch.config import cfg as torch_defaults
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from test_models import tiny
+    from torch_port_fixtures import narrow, numpy_tree
+
+    yaml = os.path.join(REPO, "configs", "retinanet", "retinanet_R-50-FPN_1x.yaml")
+    jcfg, tcfg = jax_defaults.clone(), torch_defaults.clone()
+    for c in (jcfg, tcfg):
+        c.merge_from_file(yaml)
+        narrow(tiny(c))
+        c.MODEL.WEIGHT = ""
+    state = params_from_jax(numpy_tree(build_jax_model(jcfg)))
+    nb = train_batch()
+    del nb["gt_masks"]
+    res = _spawn("step", 2, str(tmp_path), job={
+        "cfg": tcfg._to_plain(), "state": state, "batch": nb, "draws": {}})
+
+    model = GeneralizedRCNN(tcfg)
+    model.load_state_dict(state, strict=True)
+    opt = make_optimizer(tcfg, model)
+    metrics = make_train_step(model, opt, make_lr_scheduler(tcfg, opt))(
+        {k: torch.from_numpy(v) for k, v in nb.items()})
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    assert len(grads) == 78
+    for r in res:
+        assert set(r["metrics"]) == {"loss_retina_cls", "loss_retina_reg", "loss"}
+        for k, v in metrics.items():
+            np.testing.assert_allclose(r["metrics"][k], v.item(), rtol=1e-5, err_msg=k)
+        assert set(r["grads"]) == set(grads)
+        for name, g in r["grads"].items():
+            scale = grads[name].abs().max().item()
+            assert (g - grads[name]).abs().max().item() <= 2e-4 * scale, name
+        # the denominators: positives and images over both ranks
+        (_, pos), (_, images) = r["record"]["global_sum"]
+        assert int(images) == 2 and int(pos) > 0
+    assert all(torch.equal(res[0]["params"][k], v) for k, v in res[1]["params"].items())
 
 
 @pytest.mark.timeout(300)

@@ -13,6 +13,11 @@ files, catalog:// names and the local cache, against the JAX package.
   scores 1e-5, boxes 1e-3 px, masks 1e-4).
 * ``load_pth_weights`` on a "module."-prefixed maskrcnn-benchmark state dict
   equals the JAX loader's.
+* RetinaNet: a maskrcnn-benchmark RetinaNet .pth (its towers'
+  interleaved Sequential indices, ``fpn.top_blocks.p6/p7``, the FPN's
+  ``fpn_inner2..4``) equals the JAX loader's bit for bit, every port name
+  has JAX's reference key, and the synthetic R-50.pkl fills a RetinaNet's
+  body through ``catalog://`` with the Mask R-CNN body's tensors.
 * ``ModelCatalog`` gives JAX's URL for every name; ``cache_url`` reads a
   pre-populated cache and never reaches the network (urllib raises here),
   raises naming where to place a missing file, and gives two Detectron
@@ -33,6 +38,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from maskrcnn_tpu.config import cfg as jax_defaults
+from maskrcnn_tpu_torch.config import cfg as torch_defaults
+from test_models import tiny
+from torch_port_fixtures import narrow
 from chip_smoke import detectron_blobs, write_pkl
 from maskrcnn_tpu.config.paths_catalog import ModelCatalog as JaxModelCatalog
 from maskrcnn_tpu.models import build_detection_model as build_jax_model
@@ -74,6 +83,8 @@ def _seeded_tree(shapes, rs, bn):
         return {k: _seeded_tree(v, rs, bn) for k, v in shapes.items()}
     if isinstance(shapes, (list, tuple)):
         return [_seeded_tree(v, rs, bn) for v in shapes]
+    if shapes is None:  # an empty FPN slot
+        return None
     return rs.normal(0, 0.05, shapes.shape).astype(np.float32)
 
 
@@ -310,3 +321,87 @@ def test_detectron_checkpointer_catalog_and_pkl(offline, tmp_path):
     with pytest.raises(RuntimeError, match="place it at"):
         DetectronCheckpointer(tcfg, model, save_dir="").load(BASELINE)
     assert os.listdir(offline) == ["R-50.pkl"]
+
+
+def _retina_pair(body="R-50-FPN-RETINANET"):
+    """_pair for the RetinaNet config at the test widths."""
+    out = []
+    for defaults in (jax_defaults, torch_defaults):
+        c = defaults.clone()
+        c.merge_from_file(os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs",
+                                       "retinanet", "retinanet_R-50-FPN_1x.yaml"))
+        narrow(tiny(c))
+        c.MODEL.WEIGHT = ""
+        c.MODEL.BACKBONE.CONV_BODY = body
+        out.append(c)
+    jcfg, tcfg = out
+    jm = build_jax_model(jcfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jm, _seeded_tree(shapes, np.random.RandomState(100), _identity_bn)
+
+
+@pytest.mark.parametrize("body", ["R-50-FPN-RETINANET", "R-101-FPN-RETINANET"])
+def test_retinanet_reference_keys_equal_jax(body):
+    _, _, jm, _ = _retina_pair(body)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    flat = {k: v for k, v in _flatten_params(shapes).items() if v is not None}
+    keys = set()
+    for path in flat:
+        want = jax_c2._resolve_convk(jax_c2.torchstyle_key_for_path(path), "/" + path + "/")
+        assert c2_loading.torchstyle_key(_port_name(path, flat)) == want, path
+        keys.add(want)
+    # the reference's module names
+    assert {"rpn.head.cls_tower.0.weight", "rpn.head.cls_tower.6.weight",
+            "rpn.head.bbox_tower.6.bias", "rpn.head.cls_logits.weight", "rpn.head.bbox_pred.bias",
+            "backbone.fpn.top_blocks.p6.weight", "backbone.fpn.top_blocks.p7.bias",
+            "backbone.fpn.fpn_inner2.weight", "backbone.fpn.fpn_layer4.bias"} <= keys
+    assert not any("fpn_inner1" in k or "fpn_layer1" in k for k in keys)
+
+
+def test_retinanet_pth_equals_jax(tmp_path, caplog):
+    jcfg, tcfg, jm, template = _retina_pair()
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    params = _seeded_tree(shapes, np.random.RandomState(5), _random_bn)
+    reference = params_from_jax(params)
+    flat = {k: v for k, v in _flatten_params(params).items() if v is not None}
+    state = {}
+    for path in flat:
+        key = jax_c2._resolve_convk(jax_c2.torchstyle_key_for_path(path), "/" + path + "/")
+        state[key] = reference[_port_name(path, flat)].clone()
+    assert len(state) == len(flat) == len(reference)
+    path = str(tmp_path / "retinanet.pth")
+    torch.save({"model": state}, path)
+    with caplog.at_level(logging.INFO):
+        want = jax_c2.load_pth_weights(path, jcfg, template)
+    model = _port_model(tcfg, template)
+    loaded = c2_loading.load_pth_weights(path, tcfg, model.state_dict())
+    model.load_state_dict(loaded, strict=True)
+    want = params_from_jax(want)
+    assert set(want) == set(loaded) == set(reference)
+    for name, value in reference.items():
+        assert torch.equal(loaded[name], value) and torch.equal(want[name], value), name
+    # JAX's count of the tree's leaves takes in the FPN's two empty slots
+    assert _jax_count(caplog) == (len(loaded), len(loaded) + 2)
+
+
+def test_imagenet_pkl_fills_a_retinanet_body(offline, caplog):
+    """The synthetic R-50.pkl through catalog:// in DetectronCheckpointer:
+    a RetinaNet's body takes the tensors a Mask R-CNN's takes, and equals
+    JAX's loader; its FPN, P6/P7 and head keep their init."""
+    _, mcfg, mjm, mtemplate = _pair()
+    jcfg, tcfg, jm, template = _retina_pair()
+    state = _random_state(mjm, seed=6)
+    write_pkl(str(offline / "R-50.pkl"), detectron_blobs(np, state, imagenet=True), wrap=False)
+    mask_rcnn = _port_model(mcfg, mtemplate)
+    DetectronCheckpointer(mcfg, mask_rcnn, save_dir="").load(R50)
+    model = _port_model(tcfg, template)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    DetectronCheckpointer(tcfg, model, save_dir="").load(R50)
+    got, body = model.state_dict(), mask_rcnn.state_dict()
+    assert all(torch.equal(got[k], body[k]) for k in got if k.startswith("backbone.body."))
+    moved = {k for k in got if not torch.equal(got[k], init[k])}
+    assert moved and all(k.startswith("backbone.body.") for k in moved)
+    with caplog.at_level(logging.INFO):
+        want = jax_c2.load_c2_weights(str(offline / "R-50.pkl"), jcfg, template)
+    want = params_from_jax(want)
+    assert all(torch.equal(got[k], v) for k, v in want.items())

@@ -51,7 +51,7 @@ def _redraw(node, rs):
         return {k: _redraw(v, rs) for k, v in node.items()}
     if isinstance(node, list):
         return [_redraw(v, rs) for v in node]
-    return np.asarray(node)
+    return None if node is None else np.asarray(node)
 
 
 def numpy_params(jax_model, seed=0):
@@ -61,6 +61,30 @@ def numpy_params(jax_model, seed=0):
     pred["cls_score"]["w"] = rs.normal(0, 0.3, pred["cls_score"]["w"].shape).astype(np.float32)
     pred["bbox_pred"]["w"] = rs.normal(0, 0.02, pred["bbox_pred"]["w"].shape).astype(np.float32)
     return params
+
+
+def numpy_tree(jax_model, seed=0):
+    """The JAX model's parameter tree drawn in numpy from its shapes
+    (jax.eval_shape: nothing is compiled): conv and linear weights normal at
+    1 / fan_in, biases N(0, 0.01), frozen BN as numpy_params draws it, the
+    FPN's empty slots None."""
+    rs = np.random.RandomState(seed)
+
+    def fill(node):
+        if isinstance(node, dict):
+            if set(node) == {"scale", "bias", "mean", "var"}:
+                return _redraw({k: np.zeros(v.shape, np.float32) for k, v in node.items()}, rs)
+            return {k: fill(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [fill(v) for v in node]
+        if node is None:
+            return None
+        if len(node.shape) >= 2:
+            fan_in = int(np.prod(node.shape[:-1]))
+            return rs.normal(0, fan_in ** -0.5, node.shape).astype(np.float32)
+        return rs.normal(0, 0.01, node.shape).astype(np.float32)
+
+    return fill(jax.eval_shape(jax_model.init, jax.random.PRNGKey(seed)))
 
 
 def model_pair(seed=0):
