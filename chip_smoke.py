@@ -183,6 +183,25 @@ The other model families as written (after 27, on its trees and cache):
      iterations at batch 16 from a synthetic R-101.pkl: matcher, NMS, the
      forward and the "roi" backward once a step, no mask head; losses,
      solver and kernels as in 24; then test_net on 8 images.
+Keypoint R-CNN as written (after 30, on phase 24's images and cache):
+ 31. configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml through train_net, only
+     SOLVER.MAX_ITER 3, OUTPUT_DIR and --skip-test given: batch 16 on its
+     two keypoint trees (phase 24's images, 1-4 persons an image with 17
+     joints, at least 10 visible), 8 x 512 keypoint convs, 56x56
+     heatmaps; matcher 1, NMS 1, ROIAlign forward 2 (box, keypoint) and
+     "roi" backward 2 a step; losses (loss_kp among them) and solver as
+     in 24; the kernels of the first step against their plain versions,
+     the keypoint site's forward (512 ROIs, P=14) and backward among them;
+     the step's time and peak memory; then test_net on
+     keypoints_coco_2014_minival (16 images, TEST.IMS_PER_BATCH 8,
+     SCORE_THRESH 0, bbox and keypoints) through the exact host decode,
+     its seconds an image, and a known answer (each image's first 20
+     detections and their decoded joints as gt: keypoint AP50 >= 0.99);
+     then Predictor from the YAML: four requests with keypoints on the
+     original image, and a float32 request card against CPU with the
+     heads redrawn so that scores and heatmaps spread (90% of the
+     detections paired at label, score 1e-5 and box 1e-3 px; 99% of their
+     joints within 1 px).
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
@@ -648,8 +667,8 @@ def detectron_blobs(np, state, imagenet=False, seed=0):
     """The port's state_dict (numpy arrays by name) under Detectron's Caffe2
     blob names, written from Detectron's own naming: an ImageNet backbone file
     (imagenet=True: the ResNet body, a seeded fc1000 and a _momentum blob of
-    each) or a whole Mask R-CNN FPN model_final (body, FPN, RPN, box and mask
-    heads). Frozen BN becomes Detectron's affine pair (_bn_s, _bn_b), which
+    each) or a whole Faster / Mask / Keypoint R-CNN FPN model_final (body,
+    FPN, RPN, box head and the mask or keypoint head it has). Frozen BN becomes Detectron's affine pair (_bn_s, _bn_b), which
     holds no running statistics; fc6's input columns go back from the port's
     (P, P, C) flatten to Caffe2's (C, P, P)."""
     blobs = {}
@@ -704,8 +723,12 @@ def detectron_blobs(np, state, imagenet=False, seed=0):
              "roi_heads.mask.predictor.mask_fcn_logits": "mask_fcn_logits"}
     heads.update({"roi_heads.mask.feature_extractor.convs.{}.conv".format(k):
                   "_[mask]_fcn{}".format(k + 1) for k in range(4)})
+    heads.update({"roi_heads.keypoint.feature_extractor.conv_fcn{}".format(k):
+                  "conv_fcn{}".format(k) for k in range(1, 9)})
+    heads["roi_heads.keypoint.predictor.kps_score_lowres"] = "kps_score_lowres"
     for prefix, name in heads.items():
-        layer(prefix, name)
+        if prefix + ".weight" in state:
+            layer(prefix, name)
     w = blobs["fc6_w"]
     c = state["backbone.fpn.layer.0.conv.weight"].shape[0]
     p = int(round((w.shape[1] // c) ** 0.5))
@@ -2213,6 +2236,14 @@ def data_layer_phase(torch, np, card):
                 loaded_count=loaded_count, train_summary=train_summary, first_step=first_step,
                 step_sites=step_sites)))
             phase_s["families"] = time.perf_counter() - t0
+
+            # 31. Keypoint R-CNN on this phase's images and cache
+            t0 = time.perf_counter()
+            sites.update(keypoint_phase(torch, np, card, types.SimpleNamespace(
+                work=work, coco=coco, record=record, reset=reset, done=done,
+                loaded_count=loaded_count, train_summary=train_summary, first_step=first_step,
+                step_sites=step_sites)))
+            phase_s["keypoints"] = time.perf_counter() - t0
         return {"launches": launches, "phase_s": phase_s, "sites": sites}
     finally:
         for (obj, name), value in zip(patched, saved):
@@ -2505,6 +2536,287 @@ def families_phase(torch, np, card, dl):
     dl.done("faster_r101_test", t0, {"nms": 2, "roi_align": 1}, 1)
     print("faster R-101 test_net on 8 images (SCORE_THRESH 0 for random heads) [{}]: {}".format(
         card, json.dumps(dict(res.results["bbox"]))), flush=True)
+    return sites
+
+
+def synthetic_person_keypoints(np, path, n_images, seed, hw=(480, 640)):
+    """A COCO person-keypoint annotation file for images 1..n_images of hw:
+    1-4 persons an image (boxes of 80-300 x 150-450 px), 17 joints each,
+    nine in ten inside the box and the rest up to 15 px outside it, each
+    visible (2) with probability 0.7, labelled but hidden (1) with 0.15,
+    else absent ((0, 0, 0)), and at least 10 visible joints an image."""
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    infos, anns = [], []
+    for img_id in range(1, n_images + 1):
+        infos.append({"id": img_id, "file_name": "{:06d}.jpg".format(img_id), "height": h,
+                      "width": w})
+        persons = []
+        for _ in range(rs.randint(1, 5)):
+            bw, bh = rs.uniform(80, 300), rs.uniform(150, 450)
+            x0, y0 = rs.uniform(0, w - 1 - bw), rs.uniform(0, h - 1 - bh)
+            xy = rs.uniform([x0, y0], [x0 + bw, y0 + bh], (17, 2))
+            out = rs.rand(17) < 0.1
+            xy[out] += rs.uniform(-15, 15, (int(out.sum()), 2))
+            xy = np.clip(xy, 0, [w - 1, h - 1])
+            v = rs.choice([2, 1, 0], 17, p=[0.7, 0.15, 0.15])
+            persons.append((x0, y0, bw, bh, xy, v))
+        if sum(int((p[5] > 0).sum()) for p in persons) < 10:
+            persons[0][5][:10] = 2
+        for x0, y0, bw, bh, xy, v in persons:
+            kps = np.concatenate([np.round(xy, 2), v[:, None]], 1)
+            kps[v == 0] = 0
+            anns.append({"id": len(anns) + 1, "image_id": img_id, "iscrowd": 0,
+                         "category_id": 1, "bbox": [float(x0), float(y0), float(bw), float(bh)],
+                         "area": float(bw * bh), "keypoints": kps.ravel().tolist(),
+                         "num_keypoints": int((v > 0).sum())})
+    with open(path, "w") as f:
+        json.dump({"images": infos, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return anns
+
+
+def keypoints_as_gt(np, preds, infos, top):
+    """COCO person-keypoint annotations of a test pass's detections
+    (BoxLists on the original images, in the order of `infos`): each
+    image's first `top` by score (the detections the keypoint evaluator
+    reads), boxes with the +1 convention, every decoded joint visible."""
+    anns = []
+    for info, p in zip(infos, preds):
+        kps = np.asarray(p.get_field("keypoints"))
+        for i in np.argsort(-np.asarray(p.get_field("scores")), kind="stable")[:top]:
+            x0, y0, x1, y1 = (float(v) for v in p.bbox[i])
+            triplets = np.concatenate([kps[i, :, :2], np.full((kps.shape[1], 1), 2.0)], 1)
+            anns.append({"id": len(anns) + 1, "image_id": info["id"], "iscrowd": 0,
+                         "category_id": 1, "bbox": [x0, y0, x1 - x0 + 1, y1 - y0 + 1],
+                         "area": (x1 - x0 + 1) * (y1 - y0 + 1),
+                         "keypoints": triplets.ravel().tolist(), "num_keypoints": kps.shape[1]})
+    return anns
+
+
+def keypoint_serving_check(torch, np, cfg, state, image, min_size):
+    """One request in float32 through Predictor on the card (kernels) and on
+    the CPU (plain versions), the same weights: each card detection's
+    partner on the CPU (label exact, score within 1e-5, box within 1e-3
+    px), and of the partners' joints the share within 1 px, the others
+    listed."""
+    from maskrcnn_tpu_torch.models import detector
+    from maskrcnn_tpu_torch.predictor import Predictor
+
+    c = cfg.clone()
+    c.TPU.COMPUTE_DTYPE = "float32"
+    c.MODEL.WEIGHT = ""
+    torch.backends.cudnn.allow_tf32 = False
+    outs = []
+    for dev in ("cuda", "cpu"):
+        m = detector.GeneralizedRCNN(c)
+        m.load_state_dict(state)
+        outs.append(Predictor(c, model=m.to(dev).eval(), device=dev,
+                              min_image_size=min_size).compute_prediction(image))
+    a, b = outs
+    check(len(a["scores"]) == len(b["scores"]) > 0, "card kept {} detections, CPU {}".format(
+        len(a["scores"]), len(b["scores"])))
+    used, pairs = set(), []
+    for i in range(len(a["scores"])):
+        for j in range(len(b["scores"])):
+            if (j not in used and a["labels"][i] == b["labels"][j]
+                    and abs(a["scores"][i] - b["scores"][j]) <= 1e-5
+                    and np.abs(a["boxes"][i] - b["boxes"][j]).max() <= 1e-3):
+                used.add(j)
+                pairs.append((i, j))
+                break
+    off = [np.abs(a["keypoints"][i, :, :2] - b["keypoints"][j, :, :2]).max(-1)
+           for i, j in pairs]
+    off = np.stack(off) if off else np.zeros((0, 17))
+    far = [{"detection": int(pairs[d][0]), "joint": int(k), "px": float(off[d, k])}
+           for d, k in zip(*np.nonzero(off > 1.0))]
+    return {"detections": len(a["scores"]), "agree": len(pairs) / len(a["scores"]),
+            "joints_within_1px": float((off <= 1.0).mean()) if off.size else 0.0,
+            "joints_farther": far, "max_joint_px": float(off.max()) if off.size else None,
+            "max_score_err": float(max(abs(a["scores"][i] - b["scores"][j]) for i, j in pairs))
+            if pairs else None}
+
+
+def keypoint_phase(torch, np, card, dl):
+    """31. Keypoint R-CNN from configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml as
+    written, on phase 24's images with person-keypoint annotations and its
+    weight cache (dl: the data-layer phases' work tree and helpers):
+    train_net for 3 iterations at batch 16, test_net with bbox and
+    keypoints through the exact host decode and its known answer, and
+    Predictor's requests with a float32 card-vs-CPU check. Returns the
+    kernel sites by path."""
+    import pickle
+
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.data.datasets import COCODataset
+    from maskrcnn_tpu_torch.data.evaluation.coco_eval import do_coco_evaluation
+    from maskrcnn_tpu_torch.engine import inference
+    from maskrcnn_tpu_torch.models import detector
+    from maskrcnn_tpu_torch.predictor import Predictor
+    from maskrcnn_tpu_torch.tools import test_net, train_net
+
+    yaml = os.path.join(REPO, "configs", "e2e_keypoint_rcnn_R_50_FPN_1x.yaml")
+    ann_dir = os.path.join(dl.work, "coco", "annotations")
+    cfg = defaults.clone()
+    cfg.merge_from_file(yaml)
+    check(cfg.MODEL.KEYPOINT_ON and not cfg.MODEL.MASK_ON and cfg.SOLVER.IMS_PER_BATCH == 16
+          and cfg.TPU.COMPUTE_DTYPE == "bfloat16" and cfg.INPUT.MAX_SIZE_TRAIN == 1333
+          and cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS == (512,) * 8
+          and cfg.MODEL.WEIGHT == "catalog://ImageNetPretrained/MSRA/R-50"
+          and cfg.DATASETS.TRAIN == ("keypoints_coco_2014_train",
+                                     "keypoints_coco_2014_valminusminival"),
+          "the keypoint YAML reads {} on {}".format(cfg.MODEL.WEIGHT, cfg.DATASETS.TRAIN))
+    n_train, n_val = len(dl.coco["train2014"]), len(dl.coco["val2014"])
+    counts = [len(synthetic_person_keypoints(np, os.path.join(ann_dir, name), n, seed))
+              for name, n, seed in (("person_keypoints_train2014.json", n_train, SEED + 13),
+                                    ("person_keypoints_valminusminival2014.json", n_val,
+                                     SEED + 14))]
+    shutil.copy(os.path.join(ann_dir, "person_keypoints_valminusminival2014.json"),
+                os.path.join(ann_dir, "person_keypoints_minival2014.json"))
+    sites = {}
+
+    # training as written: batch 16, 800x1333, bf16, 8 x 512 convs, 56x56 heatmaps
+    t0 = dl.reset()
+    out = os.path.join(dl.work, "keypoint")
+    print("keypoint recipe: synthetic person-keypoint trees keypoints_coco_2014_train ({} "
+          "images of 480x640, {} persons) and _valminusminival ({}, {}); train_net "
+          "--config-file configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml --skip-test "
+          "SOLVER.MAX_ITER 3 OUTPUT_DIR <dir> (its catalog:// R-50 from the cache)".format(
+              n_train, counts[0], n_val, counts[1]), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    step = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2}
+    with dl.first_step(pooled=2) as caps:
+        _, meters = train_net.main(["--config-file", yaml, "--skip-test",
+                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
+        dl.done("keypoint_recipe", t0, step, 3)
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(dl.record["dataset"]) == n_train + n_val,
+          "the keypoint training dataset has {} images".format(len(dl.record["dataset"])))
+    n_loaded, n_total = dl.loaded_count()
+    summary = dl.train_summary(meters, yaml, n_losses=5)
+    check(all("loss_kp" in it for it in summary["losses_each"]), "no keypoint loss")
+    kp_call = caps["roi_align"].calls[1]
+    check(tuple(kp_call[1].shape) == (16 * cfg.TPU.KEYPOINT_ROI_CAP, 4)
+          and kp_call[3].output_size == 14 and len(kp_call[0]) == 4,
+          "the keypoint pooler took {} ROIs at P={}".format(tuple(kp_call[1].shape),
+                                                            kp_call[3].output_size))
+    del kp_call
+    sites["keypoint_recipe"], _ = dl.step_sites("keypoint recipe", caps, 16, (80, 2000),
+                                                pooled=2)
+    del caps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
+    peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("keypoint recipe: loaded {}/{} tensors from R-50.pkl; 3 iterations at batch 16: {}; "
+          "peak memory {:.3f} GB a step ({:.3f} GB over the run, the first step's inputs "
+          "kept) [{}]".format(n_loaded, n_total, json.dumps(summary), peak_step_gb, peak_run_gb,
+                              card), flush=True)
+    print("keypoint step, torch.profiler [{}]: {}".format(card, json.dumps(
+        {k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "idle_share", "top_kernels_ms")})),
+        flush=True)
+    dl.record.clear()
+
+    # test_net on keypoints_coco_2014_minival: 16 images, bbox and keypoints,
+    # the exact host decode timed; then the known answer
+    decode = {"s": 0.0, "rois": 0, "calls": 0}
+    exact = inference.heatmaps_to_keypoints_exact
+
+    def timed_decode(maps, rois):
+        t1 = time.perf_counter()
+        got = exact(maps, rois)
+        decode["s"] += time.perf_counter() - t1
+        decode["rois"] += len(rois)
+        decode["calls"] += 1
+        return got
+
+    test_out = os.path.join(out, "test")
+    t0 = dl.reset()
+    inference.heatmaps_to_keypoints_exact = timed_decode
+    try:
+        ((res, _),) = test_net.main(["--config-file", yaml, "--ckpt",
+                                     os.path.join(out, "model_final.pth"),
+                                     "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
+                                     "OUTPUT_DIR", test_out])
+        dl.done("keypoint_test", t0, {"nms": 2, "roi_align": 2}, n_val // 8)
+    finally:
+        inference.heatmaps_to_keypoints_exact = exact
+    check(set(res.results) == {"bbox", "keypoints"} and decode["calls"] == n_val,
+          "keypoint test evaluated {} and decoded {} images".format(set(res.results),
+                                                                    decode["calls"]))
+    print("keypoint test_net on {} images at TEST.IMS_PER_BATCH 8 (SCORE_THRESH 0 for random "
+          "heads): the exact host decode {:.4f} s an image ({} ROIs, {:.2f} ms a ROI) [{}]; "
+          "{}".format(n_val, decode["s"] / n_val, decode["rois"],
+                      decode["s"] * 1e3 / max(decode["rois"], 1), card,
+                      json.dumps({k: dict(v) for k, v in res.results.items()})), flush=True)
+    with open(os.path.join(test_out, "inference", "keypoints_coco_2014_minival",
+                           "predictions.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    with open(os.path.join(ann_dir, "person_keypoints_minival2014.json")) as f:
+        infos = json.load(f)["images"]
+    gts = keypoints_as_gt(np, preds, infos, top=20)
+    write_coco_json(os.path.join(ann_dir, "person_keypoints_minival2014.json"), infos, gts, [1])
+    known_ds = COCODataset(os.path.join(ann_dir, "person_keypoints_minival2014.json"),
+                           os.path.join(dl.work, "coco", "val2014"))
+    known, _ = do_coco_evaluation(known_ds, preds, False, None, ["bbox", "keypoints"], (), 4)
+    known = {"keypoints_first_pass": dict(res.results["keypoints"]), "gt_from_detections":
+             len(gts), "keypoints_known_answer": dict(known.results["keypoints"])}
+    print("keypoint known answer (each image's first 20 detections and their decoded joints "
+          "as gt) [{}]: {}".format(card, json.dumps(known)), flush=True)
+    check(known["keypoints_known_answer"]["AP50"] >= 0.99, "keypoint known-answer AP50 {}".format(
+        known["keypoints_known_answer"]["AP50"]))
+
+    # serving: Predictor from the YAML (the cache's R-50.pkl), then float32
+    # card against CPU with the heads redrawn so that scores and heatmaps spread
+    dl.reset()
+    scfg = cfg.clone()
+    scfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
+    pred = Predictor(scfg, device="cuda", seed=SEED + 15, min_image_size=scfg.INPUT.MIN_SIZE_TEST)
+    n_loaded, n_total = dl.loaded_count()
+    rs = np.random.RandomState(SEED + 16)
+    warm = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    images = [rs.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in REQUEST_SIZES]
+    pred.compute_prediction(warm)
+    t0 = dl.reset()
+    latencies, outs = [], []
+    for img in images:
+        t1 = time.perf_counter()
+        outs.append(pred.compute_prediction(img))
+        latencies.append((time.perf_counter() - t1) * 1e3)
+    dl.done("keypoint_serving", t0, {"nms": 2, "roi_align": 2}, len(images))
+    for img, o in zip(images, outs):
+        n, (h, w) = len(o["scores"]), img.shape[:2]
+        check(set(o) == {"boxes", "scores", "labels", "keypoints"}
+              and 0 < n <= scfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
+              and o["keypoints"].shape == (n, 17, 4) and np.isfinite(o["keypoints"]).all()
+              and (o["keypoints"][..., 0] <= w * 1.001).all()
+              and (o["keypoints"][..., 1] <= h * 1.001).all() and (o["keypoints"] >= -1e-3)[
+                  ..., :2].all() and (o["labels"] == 1).all(),
+              "keypoint request {}x{}: {}".format(h, w, {k: v.shape for k, v in o.items()}))
+    print("keypoint serving: configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml (bf16, SCORE_THRESH 0) "
+          "from the cache's R-50.pkl (loaded {}/{} tensors), keypoints [N, 17, 4] on the "
+          "original image; latency ms per request {} {} [{}]".format(
+              n_loaded, n_total, json.dumps(REQUEST_SIZES), json.dumps(latencies), card),
+          flush=True)
+    state = {k: v.detach().cpu().clone() for k, v in pred.model.state_dict().items()}
+    del pred, outs
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(SEED + 17)
+    for k, v in state.items():
+        if k.endswith(".weight") and k.startswith(("roi_heads.keypoint.",
+                                                   "roi_heads.box.predictor.cls_score")):
+            if "kps_score_lowres" in k:  # each output sees in x 2 x 2 taps
+                gain, fan_in = 10.0, v.shape[0] * 4
+            else:
+                gain, fan_in = (10.0 if "cls_score" in k else 2 ** 0.5), v[0].numel()
+            v.copy_(torch.randn(v.shape, generator=gen) * gain / fan_in ** 0.5)
+    ref = keypoint_serving_check(torch, np, scfg, state, images[0], min_size=480)
+    print("keypoint float32 card vs CPU on a 480x640 request [{}]: {}".format(
+        card, json.dumps(ref)), flush=True)
+    check(ref["agree"] >= 0.9, "keypoints: card and CPU disagree on {:.1%} of detections".format(
+        1 - ref["agree"]))
+    check(ref["joints_within_1px"] >= 0.99, "keypoints: {:.2%} of the joints within 1 px".format(
+        ref["joints_within_1px"]))
     return sites
 
 

@@ -4,13 +4,14 @@ Port copy of maskrcnn_tpu/data/collate.py. The batch is a dict of numpy
 arrays in the layouts ``GeneralizedRCNN.train_forward`` takes:
 
   images [B, Hb, Wb, 3], image_sizes [B, 2], indices [B],
-  gt_boxes [B, G, 4], gt_labels [B, G], gt_masks [B, G, S, S] (mask models).
+  gt_boxes [B, G, 4], gt_labels [B, G], gt_masks [B, G, S, S] (mask models),
+  gt_keypoints [B, G, 17, 3] float32 (keypoint models; the same gt order and
+  cut as the boxes, all zero where an image has no keypoint field).
 
 Image shapes snap to a small bucket set (portrait / landscape of the
 configured sizes), so the card sees few shapes. Each instance's polygons
 are rasterized here once, cropped to its gt box at GT_MASK_SIZE; the model
 crops them to the proposals on the device (mask_head.project_gt_masks).
-Keypoint targets wait for the keypoint family.
 """
 
 import math
@@ -63,8 +64,7 @@ class BatchCollator:
         self.max_gt = cfg.TPU.MAX_GT_BOXES
         self.mask_size = cfg.TPU.GT_MASK_SIZE
         self.mask_on = cfg.MODEL.MASK_ON
-        if cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError("keypoint targets wait for the keypoint family")
+        self.keypoint_on = cfg.MODEL.KEYPOINT_ON
         # Polygon mask-patch cache. A polygon instance cropped to its own gt
         # box and resized to a fixed SxS patch is EXACTLY invariant to the
         # (random multi-scale) Resize transform — both polygon and box scale
@@ -106,6 +106,8 @@ class BatchCollator:
         if self.mask_on:
             s = self.mask_size
             gt_masks = np.zeros((n, g, s, s), np.uint8)
+        if self.keypoint_on:
+            gt_kps = np.zeros((n, g, 17, 3), np.float32)
 
         for i, t in enumerate(targets):
             t = t.convert("xyxy")
@@ -135,9 +137,13 @@ class BatchCollator:
                     gt_masks[i, j] = m
                     if cacheable and len(self._patch_cache) < self._patch_cache_cap:
                         self._patch_cache[key] = m
+            if self.keypoint_on and t.has_field("keypoints"):
+                gt_kps[i, :k] = t.get_field("keypoints").to_array()[:k]
 
         out["gt_boxes"] = gt_boxes
         out["gt_labels"] = gt_labels
         if self.mask_on:
             out["gt_masks"] = gt_masks
+        if self.keypoint_on:
+            out["gt_keypoints"] = gt_kps
         return out

@@ -6,10 +6,11 @@ annotation JSON read with ``json``; images without usable annotations
 dropped for training; crowd annotations left out of the targets;
 contiguous category ids and, for the evaluator, their map back to the
 JSON's and the map of dataset index to image id (``id_to_img_map``);
-targets are BoxLists with "labels" and, for polygon segmentations,
-"masks". Images are HWC uint8 RGB numpy arrays,
-decoded with Pillow (imported in ``_load_image`` only). Keypoint targets
-wait for the keypoint family.
+targets are BoxLists with "labels", for polygon segmentations "masks",
+and for person-keypoint annotations "keypoints" (PersonKeypoints; the
+training filter then keeps images with at least 10 visible joints). Images
+are HWC uint8 RGB numpy arrays, decoded with Pillow (imported in
+``_load_image`` only).
 """
 
 import json
@@ -17,7 +18,7 @@ import os
 
 import numpy as np
 
-from ...structures import BoxList, SegmentationMask
+from ...structures import BoxList, PersonKeypoints, SegmentationMask
 
 
 def _has_valid_annotation(anno):
@@ -102,7 +103,8 @@ class COCODataset:
             masks = [a["segmentation"] for a in anno]
             target.add_field("masks", SegmentationMask(masks, (w, h), mode="poly"))
         if anno and "keypoints" in anno[0]:
-            raise NotImplementedError("keypoint targets wait for the keypoint family")
+            kps = np.asarray([a["keypoints"] for a in anno], np.float32)
+            target.add_field("keypoints", PersonKeypoints(kps, (w, h)))
 
         return target.clip_to_image(remove_empty=True)
 

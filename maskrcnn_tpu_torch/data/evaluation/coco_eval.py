@@ -2,11 +2,12 @@
 
 Port of maskrcnn_tpu/data/evaluation/coco_eval.py (after the reference
 maskrcnn_benchmark/data/datasets/evaluation/coco/coco_eval.py:
-prepare_for_coco_{detection:70, segmentation:104}, evaluate_box_proposals:189,
+prepare_for_coco_{detection:70, segmentation:104, keypoint:143},
+evaluate_box_proposals:189,
 COCOResults:326, check_expected_results:377). The COCOeval engine is
 data/evaluation/cocoeval.py; segmentation results are pasted and encoded by
-the native ``maskops.paste_encode_mask``, bit-equal to the JAX package's.
-Keypoint results wait for the keypoint family (ROADMAP.md Queue 1 item 8).
+the native ``maskops.paste_encode_mask``, bit-equal to the JAX package's;
+keypoint results are COCO triplets (x, y, 1) of the detections' joints.
 """
 
 import logging
@@ -65,8 +66,27 @@ def prepare_for_coco_segmentation(predictions, dataset):
 
 
 def prepare_for_coco_keypoint(predictions, dataset):
-    raise NotImplementedError("keypoint evaluation waits for the keypoint family "
-                              "(ROADMAP.md Queue 1 item 8)")
+    results = {}
+    for image_id, prediction in enumerate(predictions):
+        original_id = dataset.id_to_img_map[image_id]
+        if len(prediction) == 0:
+            results[original_id] = []
+            continue
+        prediction = prediction.convert("xywh")
+        boxes = prediction.bbox.tolist()
+        scores = prediction.get_field("scores").tolist()
+        labels = prediction.get_field("labels").tolist()
+        kps = np.asarray(prediction.get_field("keypoints"))
+        # [N, K, 4] (x, y, 1, logit) -> COCO triplets (x, y, 1)
+        triplets = np.concatenate([kps[..., :2], np.ones((*kps.shape[:2], 1))],
+                                  axis=-1).reshape(len(boxes), -1)
+        mapped = [dataset.contiguous_category_id_to_json_id[int(i)] for i in labels]
+        results[original_id] = [
+            {"image_id": original_id, "category_id": mapped[k], "keypoints": triplets[k].tolist(),
+             "bbox": boxes[k], "score": scores[k]}
+            for k in range(len(boxes))
+        ]
+    return results
 
 
 def evaluate_box_proposals(predictions, dataset, thresholds=None, area="all", limit=None):

@@ -5,9 +5,11 @@ maskrcnn_benchmark/engine/inference.py:17-120). The model's outputs are
 padded fixed-shape dicts on the card; each batch is copied there with
 ``non_blocking=True`` (the loader pins it) and its detections come back to
 the host in one wait, then become BoxLists resized to the original images.
-Keypoint fields (ROADMAP.md Queue 1 item 8) are not ported yet and raise;
-so does a test loader with test-time augmentation (item 14,
-data/build.py).
+Keypoint models' joints are a "keypoints" field (DetectionKeypoints, resized
+with the boxes): decoded on the device when the model returns keypoints,
+else decoded here from its heatmaps by the exact host decode
+(keypoint_head.heatmaps_to_keypoints_exact). A test loader with test-time
+augmentation raises (ROADMAP.md Queue 1 item 14, data/build.py).
 
 In a process group each rank runs its shard of the dataset (the
 distributed test loader's), ``comm.all_gather`` merges the shards and rank
@@ -24,25 +26,59 @@ import numpy as np
 import torch
 
 from ..data.evaluation import evaluate
+from ..models.roi_heads.keypoint_head import heatmaps_to_keypoints_exact
 from ..structures import BoxList
 from ..utils import comm
 from ..utils.timer import Timer
 from .train_step import make_eval_step
 
 
+class DetectionKeypoints:
+    """The [N, K, 4] (x, y, 1, logit) joints of a BoxList's detections,
+    scaled with the boxes when the BoxList is resized (a plain array field
+    would keep the network input's coordinates)."""
+
+    def __init__(self, data, size):
+        self.data = np.asarray(data)
+        self.size = tuple(size)
+
+    def resize(self, size, *args, **kwargs):
+        out = self.data.copy()
+        out[..., 0] *= float(size[0]) / self.size[0]
+        out[..., 1] *= float(size[1]) / self.size[1]
+        return DetectionKeypoints(out, size)
+
+    def transpose(self, method):
+        out = self.data.copy()
+        out[..., 0] = self.size[0] - out[..., 0] - 1
+        return DetectionKeypoints(out, self.size)
+
+    def __getitem__(self, item):
+        return DetectionKeypoints(self.data[item], self.size)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __array__(self, dtype=None, copy=None):
+        return self.data.astype(dtype) if dtype else self.data
+
+    def to_array(self):
+        return self.data
+
+
 def detections_to_boxlists(det, image_sizes):
     """Padded detection dict (host arrays or CPU tensors: boxes [B, D, 4],
-    scores, labels and valid [B, D], masks [B, D, M, M]) -> one BoxList per
-    image of its valid detections, on the resized image (w, h) of
-    image_sizes [B, 2] (h, w)."""
-    if "keypoints" in det or "kp_heatmaps" in det:
-        raise NotImplementedError("keypoint detections wait for the keypoint family "
-                                  "(ROADMAP.md Queue 1 item 8)")
+    scores, labels and valid [B, D], masks [B, D, M, M], keypoints
+    [B, D, K, 4] or kp_heatmaps [B, D, H, H, K]) -> one BoxList per image of
+    its valid detections, on the resized image (w, h) of image_sizes [B, 2]
+    (h, w). Heatmaps are decoded here by the exact host decode."""
     boxes = np.asarray(det["boxes"])
     scores = np.asarray(det["scores"])
     labels = np.asarray(det["labels"])
     valid = np.asarray(det["valid"])
     masks = np.asarray(det["masks"]) if "masks" in det else None
+    kps = np.asarray(det["keypoints"]) if "keypoints" in det else None
+    heatmaps = np.asarray(det["kp_heatmaps"]) if "kp_heatmaps" in det else None
     image_sizes = np.asarray(image_sizes)
     out = []
     for i in range(boxes.shape[0]):
@@ -53,6 +89,11 @@ def detections_to_boxlists(det, image_sizes):
         bl.add_field("labels", labels[i][v])
         if masks is not None:
             bl.add_field("mask", masks[i][v])
+        if kps is not None:
+            bl.add_field("keypoints", DetectionKeypoints(kps[i][v], (w, h)))
+        elif heatmaps is not None:
+            decoded = heatmaps_to_keypoints_exact(heatmaps[i][v], boxes[i][v])
+            bl.add_field("keypoints", DetectionKeypoints(decoded, (w, h)))
         out.append(bl)
     return out
 

@@ -5,15 +5,19 @@ PyTorch counterpart of maskrcnn_tpu/models/detector.py for Mask R-CNN FPN:
 * ``train_forward``: backbone, RPN head, RPN loss (matcher kernel), training
   proposals (NMS kernel), box targets and loss (ROIAlign kernel, P=7), the
   positives compacted across images, mask targets and loss (ROIAlign
-  kernel, P=14); the ROIAlign backward kernel carries the heads' gradient
-  into the pyramid.
+  kernel, P=14), keypoint targets and loss (ROIAlign kernel, P=14); the
+  ROIAlign backward kernel carries the heads' gradient into the pyramid.
 * ``infer_forward``: device-side uint8 normalisation, backbone, RPN head,
-  proposals, box head, per-class post-processing (NMS kernel), mask head.
+  proposals, box head, per-class post-processing (NMS kernel), mask head,
+  keypoint head.
 
 The public layouts are the JAX package's: images [B, H, W, 3], image_sizes
 [B, 2] (h, w), gt_boxes [B, G, 4], gt_labels [B, G] (0 = padding), gt_masks
-[B, G, S, S], and a padded detection dict with boxes [B, D, 4] xyxy,
-scores, labels and valid [B, D], masks [B, D, M, M]. Inside, activations are
+[B, G, S, S], gt_keypoints [B, G, K, 3], and a padded detection dict with
+boxes [B, D, 4] xyxy, scores, labels and valid [B, D], masks [B, D, M, M],
+and either kp_heatmaps [B, D, H, H, K] float32 (the logits, for the exact
+host decode) or, under TPU.KEYPOINT_DECODE_ON_DEVICE, keypoints
+[B, D, K, 4] (x, y, 1, logit). Inside, activations are
 NCHW in channels_last memory format, so each pyramid level handed to the
 pooler is a free NHWC view.
 
@@ -26,16 +30,26 @@ global batch (ranks hold equal shares, in rank order) and computes its
 share of the global batch's losses, as the JAX mesh step: the draws are its
 rows of the global batch's draws (those passed in are the global batch's;
 those drawn come from B * world rows), the losses divide by the global
-counts (rpn.py, box_head.py, mask_head.py, ops/losses.py), and the mask
-head keeps the positives that the batch-wide cap keeps over the global
-batch (``_cut_positives_globally``).
+counts (rpn.py, box_head.py, mask_head.py, keypoint_head.py,
+ops/losses.py), and the mask and keypoint heads keep the positives that
+their batch-wide caps keep over the global batch
+(``_cut_positives_globally``).
+
+Keypoint R-CNN (MODEL.KEYPOINT_ON): a proposal matched to a gt without a
+visible joint inside its box is ignored by the box sampler; the keypoint
+head takes the box head's positives (with or without a mask head), cut to
+TPU.KEYPOINT_ROI_CAP per image over the batch, and pools them at P=14
+through the ROIAlign kernel and its backward (the one
+MASKRCNN_POOLER_BWD_P14 names, as the mask head's). At inference it pools
+every detection slot (a fixed shape) and returns kp_heatmaps, or keypoints
+decoded on the device.
 
 RetinaNet (MODEL.RETINANET_ON, models/retinanet.py) has no ROI heads:
 ``train_forward`` returns loss_retina_cls and loss_retina_reg (the anchor
 matcher kernel, no sampler draws), ``infer_forward`` the padded detection
 dict without masks (the NMS kernel); MASK_ON and KEYPOINT_ON are off under
-it, as in the JAX package. Keypoint (ROADMAP.md Queue 1 item 8), RPN-only
-(item 15) and C4 models wait for later slices.
+it, as in the JAX package. RPN-only (ROADMAP.md Queue 1 item 15) and C4
+models wait for later slices.
 """
 
 import torch
@@ -47,6 +61,12 @@ from .anchors import make_anchor_generator, make_anchor_generator_retinanet
 from .backbone import build_backbone
 from .poolers import PoolerConfig, multilevel_roi_align
 from .roi_heads.box_head import BoxHead, box_head_inference, box_head_loss, prepare_box_targets
+from .roi_heads.keypoint_head import (
+    KeypointHead,
+    heatmaps_to_keypoints,
+    keypoint_head_loss,
+    keypoints_within_box_filter,
+)
 from .roi_heads.mask_head import (
     MaskHead,
     mask_head_loss_picked,
@@ -74,7 +94,8 @@ def _nhwc(features):
 
 def _compact_positives(pos_state, cap):
     """Pack the valid positive ROIs of the whole batch into `cap` rows
-    (TPU.MASK_ROI_CAP per image, batch-wide), in their original order.
+    (TPU.MASK_ROI_CAP or KEYPOINT_ROI_CAP per image, batch-wide), in their
+    original order.
     pos_state = (rois [R, 4], batch_idx [R], valid [R], labels [R],
     matched_gt [R]); cap <= 0 or cap >= R keeps all rows."""
     valid = pos_state[2]
@@ -114,9 +135,6 @@ class GeneralizedRCNN(nn.Module):
         m = cfg.MODEL
         self.retinanet_on = m.RETINANET_ON
         if not self.retinanet_on:
-            if m.KEYPOINT_ON:
-                raise NotImplementedError(
-                    "keypoint models are not ported yet (ROADMAP.md Queue 1 item 8)")
             if m.RPN_ONLY:
                 raise NotImplementedError(
                     "RPN-only models are not ported yet (ROADMAP.md Queue 1 item 15)")
@@ -130,7 +148,9 @@ class GeneralizedRCNN(nn.Module):
                              persistent=False)
         self.to_bgr255 = cfg.INPUT.TO_BGR255
         self.mask_on = m.MASK_ON and not self.retinanet_on
-        # fixed positive-ROI batch of the mask head: the box sampler's quota
+        self.keypoint_on = m.KEYPOINT_ON and not self.retinanet_on
+        # fixed positive-ROI batch of the mask and keypoint heads: the box
+        # sampler's quota
         self.num_pos_rois = int(m.ROI_HEADS.BATCH_SIZE_PER_IMAGE * m.ROI_HEADS.POSITIVE_FRACTION)
 
         self.backbone = build_backbone(cfg)
@@ -153,6 +173,12 @@ class GeneralizedRCNN(nn.Module):
                 m.ROI_MASK_HEAD.POOLER_RESOLUTION, m.ROI_MASK_HEAD.POOLER_SCALES,
                 m.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO,
             )
+        if self.keypoint_on:
+            self.roi_heads.keypoint = KeypointHead(cfg, c)
+            self.kp_pooler = PoolerConfig(
+                m.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION, m.ROI_KEYPOINT_HEAD.POOLER_SCALES,
+                m.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO,
+            )
 
     def reset_parameters(self, gen):
         """Seeded init with the distributions of the JAX model.init."""
@@ -163,6 +189,8 @@ class GeneralizedRCNN(nn.Module):
         self.roi_heads.box.reset_parameters(gen)
         if self.mask_on:
             self.roi_heads.mask.reset_parameters(gen)
+        if self.keypoint_on:
+            self.roi_heads.keypoint.reset_parameters(gen)
 
     def _normalize_uint8(self, images, image_sizes):
         """RGB uint8 [B, H, W, 3] -> normalized float32, padded region
@@ -201,9 +229,11 @@ class GeneralizedRCNN(nn.Module):
     def train_forward(self, batch, draws=None, generator=None):
         """batch: images [B, H, W, 3] (uint8 RGB or normalized float32),
         image_sizes [B, 2], gt_boxes [B, G, 4], gt_labels [B, G], gt_masks
-        [B, G, S, S]. draws: optional dict of the samplers' uniform draws
+        [B, G, S, S] (mask models), gt_keypoints [B, G, K, 3] (keypoint
+        models). draws: optional dict of the samplers' uniform draws
         (rpn_pos, rpn_neg [B, N]; box_pos, box_neg [B, P]); the missing
-        ones are drawn with `generator`. Returns the five losses."""
+        ones are drawn with `generator`. Returns the losses: the RPN's and box
+        head's, loss_mask and loss_kp of the heads the model has."""
         cfg = self.cfg
         hcfg = cfg.MODEL.ROI_HEADS
         rcfg = cfg.MODEL.RPN
@@ -248,10 +278,13 @@ class GeneralizedRCNN(nn.Module):
                 image_sizes, rcfg, is_train=True, gt_boxes=gt_boxes, gt_valid=gt_valid,
             )
             box_pos, box_neg = draw("box", prop_boxes.shape[1])
+            gt_usable = None
+            if self.keypoint_on:
+                gt_usable = keypoints_within_box_filter(batch["gt_keypoints"].float(), gt_boxes)
             targets = prepare_box_targets(
                 prop_boxes, prop_valid, gt_boxes, gt_labels, box_pos, box_neg,
                 hcfg.FG_IOU_THRESHOLD, hcfg.BG_IOU_THRESHOLD, hcfg.BATCH_SIZE_PER_IMAGE,
-                hcfg.POSITIVE_FRACTION, tuple(hcfg.BBOX_REG_WEIGHTS),
+                hcfg.POSITIVE_FRACTION, tuple(hcfg.BBOX_REG_WEIGHTS), gt_usable=gt_usable,
             )
 
         nhwc = _nhwc(features)
@@ -262,7 +295,7 @@ class GeneralizedRCNN(nn.Module):
         losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
             class_logits, box_regression, targets, cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)
 
-        if self.mask_on:
+        if self.mask_on or self.keypoint_on:
             with torch.no_grad():
                 pos_idx, pos_valid = select_positive_rois(targets, self.num_pos_rois)
                 rows = torch.arange(b, device=pos_idx.device)[:, None]
@@ -270,11 +303,16 @@ class GeneralizedRCNN(nn.Module):
                 pos_state = (pos_rois, pos_batch, pos_valid.reshape(-1),
                              targets["labels"][rows, pos_idx].reshape(-1),
                              targets["matched_gt_idx"][rows, pos_idx].reshape(-1))
+
+        def capped(cap):
+            """The positives the batch-wide cap of `cap` per image keeps."""
+            with torch.no_grad():
                 if world > 1:
-                    pos_state = _cut_positives_globally(pos_state, cfg.TPU.MASK_ROI_CAP, b)
-                else:
-                    pos_state = _compact_positives(pos_state, cfg.TPU.MASK_ROI_CAP * b)
-                m_rois, m_batch, m_valid, m_labels, m_mg = pos_state
+                    return _cut_positives_globally(pos_state, cap, b)
+                return _compact_positives(pos_state, cap * b)
+
+        if self.mask_on:
+            m_rois, m_batch, m_valid, m_labels, m_mg = capped(cfg.TPU.MASK_ROI_CAP)
             pooled = multilevel_roi_align(nhwc[: len(self.mask_pooler.scales)], m_rois,
                                           m_batch, self.mask_pooler)
             mask_logits = self.roi_heads.mask.logits_at_class(pooled, m_labels)
@@ -286,6 +324,17 @@ class GeneralizedRCNN(nn.Module):
                                        gt_boxes.reshape(-1, 4)[flat_ix], m_rois,
                                        mask_logits.shape[1])
             losses["loss_mask"] = mask_head_loss_picked(mask_logits, tgt, m_valid)
+
+        if self.keypoint_on:
+            k_rois, k_batch, k_valid, _, k_mg = capped(cfg.TPU.KEYPOINT_ROI_CAP)
+            pooled = multilevel_roi_align(nhwc[: len(self.kp_pooler.scales)], k_rois, k_batch,
+                                          self.kp_pooler)
+            kp_logits = self.roi_heads.keypoint(pooled)
+            with torch.no_grad():
+                gt_kps = batch["gt_keypoints"].float()
+                g, kk = gt_kps.shape[1], gt_kps.shape[2]
+                kp_targets = gt_kps.reshape(-1, kk, 3)[k_batch.long() * g + k_mg]
+            losses["loss_kp"] = keypoint_head_loss(kp_logits, kp_targets, k_rois, k_valid)
         return losses
 
     def _retinanet_train_forward(self, batch, gt_boxes, gt_labels):
@@ -336,6 +385,19 @@ class GeneralizedRCNN(nn.Module):
             probs = self.roi_heads.mask(pooled, detections["labels"].reshape(-1))
             d = detections["boxes"].shape[1]
             detections["masks"] = probs.reshape(b, d, probs.shape[-2], probs.shape[-1])
+        if self.keypoint_on:
+            det_rois, det_batch = _flatten_rois(detections["boxes"])
+            pooled = multilevel_roi_align(nhwc[: len(self.kp_pooler.scales)], det_rois,
+                                          det_batch, self.kp_pooler)
+            kp_logits = self.roi_heads.keypoint(pooled).float()  # [B*D, K, H, H]
+            d = detections["boxes"].shape[1]
+            if cfg.TPU.KEYPOINT_DECODE_ON_DEVICE:
+                kps = heatmaps_to_keypoints(kp_logits, det_rois)
+                detections["keypoints"] = kps.reshape(b, d, -1, 4)
+            else:
+                hh = kp_logits.shape[-1]
+                detections["kp_heatmaps"] = kp_logits.permute(0, 2, 3, 1).reshape(
+                    b, d, hh, hh, -1)
         return detections
 
 

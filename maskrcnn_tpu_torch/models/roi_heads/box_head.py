@@ -87,10 +87,14 @@ def _take(x, idx):
 
 
 def prepare_box_targets(proposals, prop_valid, gt_boxes, gt_labels, pos_draw, neg_draw,
-                        fg_iou, bg_iou, batch_per_image, positive_fraction, reg_weights):
+                        fg_iou, bg_iou, batch_per_image, positive_fraction, reg_weights,
+                        gt_usable=None):
     """Match the proposals [B, P, 4] (valid [B, P]) to the gt (boxes
     [B, G, 4], labels [B, G], 0 = padding) and sample a fixed batch of
     K ROIs per image with the uniform draws pos_draw, neg_draw [B, P].
+    gt_usable [B, G] (keypoint models: a gt with a visible joint inside its
+    box): a proposal matched to a gt that is not usable is ignored (-1)
+    before sampling.
 
     Returns a dict of rois [B, K, 4], labels [B, K] (0 background, -1
     unsampled), reg_targets [B, K, 4], valid, is_pos [B, K] and
@@ -102,6 +106,9 @@ def prepare_box_targets(proposals, prop_valid, gt_boxes, gt_labels, pos_draw, ne
     cls_labels = torch.where(matched >= 0, torch.gather(gt_labels, 1, safe).long(),
                              torch.where(matched == -1, 0, -1))
     cls_labels = torch.where(prop_valid, cls_labels, -1)
+    if gt_usable is not None:
+        usable = torch.gather(gt_usable, 1, safe)
+        cls_labels = torch.where((matched >= 0) & ~usable, -1, cls_labels)
     idx, valid, is_pos = sample_topk_indices(cls_labels, pos_draw, neg_draw,
                                              batch_per_image, positive_fraction)
     rois = _take(proposals, idx)

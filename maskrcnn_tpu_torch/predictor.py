@@ -13,16 +13,22 @@ step runs on the model's device:
      DATALOADER.SIZE_DIVISIBILITY;
   3. ``GeneralizedRCNN.infer_forward``;
   4. the valid detections' boxes are rescaled to the original image and their
-     masks pasted into it (models/masker.py).
+     masks pasted into it (models/masker.py); keypoint models' joints are
+     decoded from their heatmaps on the host (the exact decode, as
+     test_net's; or on the device under TPU.KEYPOINT_DECODE_ON_DEVICE) and
+     rescaled with the boxes, as engine/inference.py's BoxLists are.
 
 ``compute_prediction`` returns numpy arrays: boxes [N, 4] xyxy, scores [N],
-labels [N] and, for mask models, masks [N, H, W] uint8.
+labels [N], for mask models masks [N, H, W] uint8, and for keypoint models
+keypoints [N, K, 4] (x, y, 1, logit at the maximum) on the original image.
 """
 
 import torch
 import torch.nn.functional as F
 
+from .engine.inference import DetectionKeypoints
 from .models.detector import build_detection_model
+from .models.roi_heads.keypoint_head import heatmaps_to_keypoints_exact
 from .models.masker import paste_masks_in_image
 from .utils.checkpoint import DetectronCheckpointer
 
@@ -93,4 +99,13 @@ class Predictor:
         }
         if "masks" in det:
             out["masks"] = paste_masks_in_image(det["masks"][0][valid], boxes, h, w)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        if "keypoints" in det:
+            kps = det["keypoints"][0][valid].cpu().numpy()
+        elif "kp_heatmaps" in det:
+            kps = heatmaps_to_keypoints_exact(det["kp_heatmaps"][0][valid].cpu().numpy(),
+                                              det["boxes"][0][valid].cpu().numpy())
+        else:
+            return out
+        out["keypoints"] = DetectionKeypoints(kps, (nw, nh)).resize((w, h)).data
+        return out

@@ -13,12 +13,13 @@ maskrcnn_benchmark/utils/c2_model_loading.py:12-206). Two stages:
      fpn.inner.i.conv -> fpn.fpn_inner{i+1}, rpn -> rpn.head, the mask
      head's convs.k.conv -> mask_fcn{k+1}; RetinaNet's towers
      {cls,bbox}_tower.i -> {cls,bbox}_tower.{2i} and P6/P7 top.p6/p7 ->
-     fpn.top_blocks.p6/p7).
+     fpn.top_blocks.p6/p7). The keypoint head's modules carry the
+     reference's names (conv_fcn1..8, kps_score_lowres) and need none.
 
 The layouts are the reference's and mostly the port's own: conv OIHW,
-linear [out, in] and the mask head's transposed conv [in, out, kh, kw]
-load as they are (the JAX package flips the last on the way in and
-utils/convert.py flips it back). The one change is fc6 after the box
+linear [out, in] and the mask and keypoint heads' transposed convs
+[in, out, kh, kw] load as they are (the JAX package flips the last on the
+way in and utils/convert.py flips it back). The one change is fc6 after the box
 pooler: the reference flattens the pooled [C, P, P] features channel
 first, the port (as the JAX package) flattens [P, P, C], so fc6's input
 columns are permuted from (C, P, P) to (P, P, C) where C is one of the

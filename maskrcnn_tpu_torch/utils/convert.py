@@ -13,22 +13,28 @@ this module needs no JAX) and returns a flat ``{name: torch.Tensor}`` that
   * leaf ``w``/``b`` become ``weight``/``bias``; BN ``scale``/``mean``/``var``
     become ``weight``/``running_mean``/``running_var``;
   * conv kernels HWIO -> OIHW;
-  * the mask head's transposed conv (``conv5_mask``), HWIO with I = input
-    channels, -> torch's [in, out, kh, kw] with a spatial flip: the JAX head
-    correlates the dilated input with the kernel as stored, torch's
-    transposed conv with the kernel flipped (the inverse of the flip in
+  * the keypoint head's extractor convs ``convs[k]`` become the
+    reference's ``conv_fcn{k+1}``;
+  * the mask and keypoint heads' transposed convs (``conv5_mask``,
+    ``kps_score_lowres``), HWIO with I = input channels, -> torch's [in,
+    out, kh, kw] with a spatial flip: the JAX heads correlate the dilated
+    input with the kernel as stored, torch's transposed conv with the
+    kernel flipped (the inverse of the flip in
     maskrcnn_tpu/utils/c2_loading.py);
   * linear weights [in, out] -> [out, in]. The port flattens the pooled
     [R, P, P, C] box features in the same (P, P, C) order as the JAX head,
     so fc6 needs no permutation beyond that transpose.
 """
 
+import re
+
 import numpy as np
 import torch
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
-_DECONVS = ("conv5_mask",)
+_DECONVS = ("conv5_mask", "kps_score_lowres")
+_KEYPOINT_CONV = re.compile(r"keypoint\.feature_extractor\.convs\.(\d+)\.conv\.")
 
 
 def _walk(node, prefix):
@@ -67,6 +73,8 @@ def params_from_jax(tree):
     out = {}
     for path, value, is_bn in _walk(tree, ()):
         name = ".".join(path) if is_bn else _leaf_name(path)
+        name = _KEYPOINT_CONV.sub(
+            lambda m: "keypoint.feature_extractor.conv_fcn{}.".format(int(m[1]) + 1), name)
         arr = np.asarray(value, np.float32) if is_bn else _convert(path, value)
         out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out

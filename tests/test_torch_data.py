@@ -187,9 +187,10 @@ def test_make_data_loader_matches_jax(tree, monkeypatch, workers):
 
 def test_unported_data_options_raise(tree):
     """What the data layer still lacks raises, naming its ROADMAP item:
-    tracing binary masks into polygons (item 17), keypoint targets (item 8)
-    and test-time augmentation (item 14). ColorJitter, binary masks, VOC,
-    Cityscapes and concatenation are ported (tests/test_torch_datasets.py)."""
+    tracing binary masks into polygons (item 17) and test-time augmentation
+    (item 14). ColorJitter, binary masks, VOC, Cityscapes and concatenation
+    (tests/test_torch_datasets.py) and keypoint targets
+    (tests/test_torch_keypoint.py) are ported."""
     _, tcfg = _configs()
     tcfg.INPUT.BRIGHTNESS = 0.2
     assert type(build_transforms(tcfg, True).transforms[0]).__name__ == "ColorJitter"
@@ -198,8 +199,7 @@ def test_unported_data_options_raise(tree):
         masks.convert("poly")
     _, tcfg = _configs()
     tcfg.MODEL.KEYPOINT_ON = True
-    with pytest.raises(NotImplementedError):
-        BatchCollator(tcfg)
+    assert BatchCollator(tcfg).keypoint_on
     _, tcfg = _configs()
     tcfg.TEST.BBOX_AUG.ENABLED = True
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -144,15 +144,19 @@ def test_masker_matches_cv2_paste():
 
 
 def test_unported_model_families_raise():
-    """Keypoint and RPN-only models (RetinaNet is ported:
-    tests/test_torch_retinanet.py)."""
+    """RPN-only models (RetinaNet and Keypoint R-CNN are ported:
+    tests/test_torch_retinanet.py, tests/test_torch_keypoint.py)."""
     from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
 
-    for key in ("KEYPOINT_ON", "RPN_ONLY"):
-        _, c = configs()
-        setattr(c.MODEL, key, True)
-        with pytest.raises(NotImplementedError):
-            GeneralizedRCNN(c)
+    _, c = configs()
+    c.MODEL.RPN_ONLY = True
+    with pytest.raises(NotImplementedError):
+        GeneralizedRCNN(c)
+    _, c = configs()
+    c.MODEL.KEYPOINT_ON = True
+    c.MODEL.ROI_KEYPOINT_HEAD.POOLER_SCALES = c.MODEL.ROI_BOX_HEAD.POOLER_SCALES
+    c.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 2
+    assert GeneralizedRCNN(c).keypoint_on
 
 
 def test_entry_points_default_to_the_card():

@@ -15,7 +15,8 @@ package and against one process.
   positives differ and the global FPN k-th score differs from each rank's;
   the test asserts both, and that a plain DDP port (per-rank k-th score,
   denominators and mask cap, losses averaged) is off by far more than the
-  tolerance.
+  tolerance. Its model has a keypoint head too, whose batch-wide cap cuts
+  the positives by their place in the global batch as the mask head's.
 * A RetinaNet's 2-rank step (float32) against one process's step on the
   global batch: losses rtol 1e-5, gradients within 2e-4 of each
   parameter's max, the focal loss's and smooth-L1's denominators (the
@@ -169,19 +170,37 @@ def test_distributed_sampler_gives_the_jax_index_lists():
 
 
 MASK_ROI_CAP = 3
+KEYPOINT_ROI_CAP = 2
 
 
-def _step_setup():
+def _step_setup(keypoints=False):
     """test_torch_train.py's batch of two images and JAX's draws, on the
     narrow flagship with the mask ROI cap lowered to 3 per image: the box
     sampler gives the images 4 and 3 positives, so the batch-wide cap of 6
-    binds and keeps 4 on rank 0 and 2 on rank 1 (a per-rank cap: 3 and 3)."""
+    binds and keeps 4 on rank 0 and 2 on rank 1 (a per-rank cap: 3 and 3).
+    With keypoints=True the model has a keypoint head too (8 convs of 32),
+    its ROI cap at 2 per image: the batch-wide 4 keeps rank 0's 4 positives
+    and none of rank 1's; every gt has visible joints inside its box, so
+    the box sampler keeps the same positives."""
     jcfg, tcfg = configs()
     for c in (jcfg, tcfg):
         c.TPU.MASK_ROI_CAP = MASK_ROI_CAP
+        if keypoints:
+            c.MODEL.KEYPOINT_ON = True
+            c.TPU.KEYPOINT_ROI_CAP = KEYPOINT_ROI_CAP
+            c.MODEL.ROI_KEYPOINT_HEAD.POOLER_SCALES = (0.25, 0.125, 0.0625, 0.03125)
+            c.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 2
+            c.MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS = (32,) * 8
     jm = build_jax_model(jcfg)
     params = numpy_params(jm)
     nb = train_batch()
+    if keypoints:
+        rs = np.random.RandomState(5)
+        gt = nb["gt_boxes"]
+        xy = rs.uniform(gt[..., None, :2], gt[..., None, 2:], gt.shape[:2] + (17, 2))
+        nb["gt_keypoints"] = np.concatenate(
+            [xy, np.full(gt.shape[:2] + (17, 1), 2.0)], -1).astype(np.float32)
+        nb["gt_keypoints"][nb["gt_labels"] == 0] = 0
     n_props = tcfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN + nb["gt_boxes"].shape[1]
     draws = jax_sampler_draws(RNG, 2, 5118, n_props)
     return jcfg, tcfg, jm, params, nb, draws
@@ -193,7 +212,8 @@ def _kept(scores, kth):
 
 @pytest.mark.timeout(600)
 def test_two_rank_step_equals_the_jax_two_device_mesh_step(tmp_path):
-    jcfg, tcfg, jm, params, nb, draws = _step_setup()
+    jcfg, tcfg, jm, params, nb, draws = _step_setup(keypoints=True)
+    losses = LOSSES + ("loss_kp",)
     mesh = create_mesh(devices=jax.devices()[:2])
     jparams = jax.tree.map(jnp.asarray, params)
     batch = shard_batch({k: jnp.asarray(v) for k, v in nb.items()}, mesh)
@@ -216,14 +236,22 @@ def test_two_rank_step_equals_the_jax_two_device_mesh_step(tmp_path):
     want_grads = params_from_jax(jax.tree.map(np.asarray, jgrads))
     want_params = params_from_jax(jax.tree.map(np.asarray, new_params))
     for r in res:
-        for k in LOSSES + ("loss",):
+        for k in losses + ("loss",):
             np.testing.assert_allclose(r["metrics"][k], float(jmetrics[k]), rtol=1e-5, err_msg=k)
-        for k in LOSSES:
+        for k in losses:
             np.testing.assert_allclose(r["metrics"][k], float(jlosses[k]), rtol=1e-5, err_msg=k)
-        assert len(r["grads"]) == 84
+        # the mask model's 84, and the keypoint head's 8 convs and deconv
+        assert len(r["grads"]) == 84 + 18
         for name, g in r["grads"].items():
             scale = want_grads[name].abs().max().item()
             err = (g - want_grads[name]).abs().max().item()
+            if name.endswith("kps_score_lowres.bias"):
+                # zero but for rounding (a spatial softmax's gradient sums to
+                # zero over its bins): held to the deconv weight's, as in
+                # tests/test_torch_keypoint.py
+                wscale = want_grads[name.replace("bias", "weight")].abs().max().item()
+                assert max(scale, g.abs().max().item()) <= 1e-4 * wscale, name
+                continue
             assert err <= 2e-4 * scale, (name, err, scale)
         for name, value in r["params"].items():
             torch.testing.assert_close(value, want_params[name], rtol=1e-5, atol=1e-7, msg=name)
@@ -244,14 +272,20 @@ def test_two_rank_step_equals_the_jax_two_device_mesh_step(tmp_path):
     # the mask head's positives differ by rank, and so does its denominator;
     # the batch-wide cap cuts them
     (valid_r0, _), (valid_r1, _) = (r["record"]["gather_rows"][1] for r in res)
-    mask_counts = [int(r["record"]["global_sum"][-1][0]) for r in res]
+    mask_counts = [int(r["record"]["global_sum"][-2][0]) for r in res]
     assert [int(valid_r0[0]), int(valid_r1[0])] == [4, 3]
     assert mask_counts == [4, 2] and sum(mask_counts) == 2 * MASK_ROI_CAP, mask_counts
+    # the keypoint head's cap over the same positives: rank 0 keeps its 4,
+    # rank 1 none, and the loss divides by the joints of both ranks' rows
+    (kp_r0, _), (kp_r1, _) = (r["record"]["gather_rows"][2] for r in res)
+    assert [int(kp_r0[0]), int(kp_r1[0])] == [4, 3]
+    joints = [int(r["record"]["global_sum"][-1][0]) for r in res]
+    assert joints[0] > 0 and joints[1] == 0, joints
     # a plain DDP port would have failed: its box losses are off by far more
     # than the tolerance (its mask loss only by ~1e-5 here: at this init
     # every pixel's BCE is near log 2, whichever positives are kept)
     ddp = res[0]["ddp_losses"]
-    errs = {k: abs(ddp[k] - float(jmetrics[k])) / abs(float(jmetrics[k])) for k in LOSSES}
+    errs = {k: abs(ddp[k] - float(jmetrics[k])) / abs(float(jmetrics[k])) for k in losses}
     assert errs["loss_box_reg"] > 1e-2 and errs["loss_classifier"] > 1e-3, errs
 
 

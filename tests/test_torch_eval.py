@@ -249,8 +249,12 @@ def test_do_coco_evaluation_matches_jax(coco_tree):
         jax_coco_eval.prepare_for_coco_detection(theirs, jds)
     assert coco_eval.prepare_for_coco_segmentation(ours, ds) == \
         jax_coco_eval.prepare_for_coco_segmentation(theirs, jds)
-    with pytest.raises(NotImplementedError):
+    # keypoint records need the detections' keypoints, in both packages
+    # (tests/test_torch_keypoint.py holds them to JAX's)
+    with pytest.raises(KeyError):
         coco_eval.prepare_for_coco_keypoint(ours, ds)
+    with pytest.raises(KeyError):
+        jax_coco_eval.prepare_for_coco_keypoint(theirs, jds)
     with pytest.raises(NotImplementedError):
         evaluate(object(), ours, None)
 
@@ -313,8 +317,17 @@ def test_detections_to_boxlists_match_jax():
         g2, w2 = g.resize((300, 200)), w.resize((300, 200))
         np.testing.assert_array_equal(g2.bbox, w2.bbox)
         np.testing.assert_array_equal(g2.get_field("mask"), g.get_field("mask"))
-    with pytest.raises(NotImplementedError):
-        detections_to_boxlists(dict(det, keypoints=det["boxes"]), sizes)
+    # decoded keypoints [B, D, K, 4] ride along and resize with the boxes
+    det["keypoints"] = rs.uniform(0, 90, (b, d, 17, 4)).astype(np.float32)
+    want = jax_detections_to_boxlists(det, sizes)
+    got = detections_to_boxlists({k: torch.from_numpy(v) for k, v in det.items()},
+                                 torch.from_numpy(sizes))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g.get_field("keypoints")),
+                                      np.asarray(w.get_field("keypoints")))
+        np.testing.assert_array_equal(
+            np.asarray(g.resize((300, 200)).get_field("keypoints")),
+            np.asarray(w.resize((300, 200)).get_field("keypoints")))
 
 
 def test_boxlist_iou_and_cat():

@@ -1,6 +1,7 @@
 """The port's Faster R-CNN (MASK_ON False) against the JAX package's, on the
-CPU in float32: R-50-FPN and R-101-FPN from their published configs
-(configs/e2e_faster_rcnn_R_{50,101}_FPN_1x.yaml) at the narrow widths of
+CPU in float32: R-50-FPN, R-101-FPN and X-101-32x8d-FPN from their published
+configs (configs/e2e_faster_rcnn_{R_50,R_101,X_101_32x8d}_FPN_1x.yaml; the
+X-101's grouped convs at 4 groups of 4 channels) at the narrow widths of
 torch_port_fixtures, the JAX parameter tree drawn in numpy
 (torch_port_fixtures.numpy_tree, the box predictor spread as numpy_params
 spreads it) and handed over through params_from_jax.
@@ -33,10 +34,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
 RNG = jax.random.PRNGKey(3)
 # the stages' blocks of each depth: layer2-4 trainable
-BLOCKS = {"R-50": (4, 6, 3), "R-101": (4, 23, 3)}
+BLOCKS = {"R-50": (4, 6, 3), "R-101": (4, 23, 3), "X-101-32x8d": (4, 23, 3)}
 
 
-@pytest.fixture(scope="module", params=["R-50", "R-101"])
+@pytest.fixture(scope="module", params=["R-50", "R-101", "X-101-32x8d"])
 def setup(request):
     yaml = os.path.join(REPO, "configs", "e2e_faster_rcnn_{}_FPN_1x.yaml".format(
         request.param.replace("-", "_")))
@@ -45,7 +46,13 @@ def setup(request):
         c.merge_from_file(yaml)
         narrow(tiny(c))
         c.MODEL.WEIGHT = ""
-    assert not tcfg.MODEL.MASK_ON and tcfg.MODEL.BACKBONE.CONV_BODY == request.param + "-FPN"
+        if c.MODEL.RESNETS.NUM_GROUPS > 1:
+            c.MODEL.RESNETS.NUM_GROUPS = 4
+            c.MODEL.RESNETS.WIDTH_PER_GROUP = 4
+    body = "R-101" if request.param.startswith("X") else request.param
+    assert not tcfg.MODEL.MASK_ON and tcfg.MODEL.BACKBONE.CONV_BODY == body + "-FPN"
+    assert (tcfg.MODEL.RESNETS.NUM_GROUPS > 1) == (not tcfg.MODEL.RESNETS.STRIDE_IN_1X1) == (
+        request.param.startswith("X"))
     jm = build_jax_model(jcfg)
     tree = numpy_tree(jm)
     pred = tree["roi_heads"]["box"]["predictor"]

@@ -33,7 +33,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in ("ops.nms", "parallel.distributed", "utils.c2_loading", "utils.model_zoo",
                  "utils.model_serialization", "data.datasets.voc", "data.datasets.cityscapes",
                  "data.datasets.concat", "data.evaluation.voc_eval",
-                 "data.evaluation.cityscapes_eval"):
+                 "data.evaluation.cityscapes_eval", "models.roi_heads.keypoint_head",
+                 "structures.keypoints"):
         assert "maskrcnn_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"

@@ -283,10 +283,10 @@ def test_retinanet_inference_equals_jax(pair):
     np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("yaml", sorted(y for y in os.listdir(RETINA) if "X_101" not in y))
+@pytest.mark.parametrize("yaml", sorted(os.listdir(RETINA)))
 def test_every_retinanet_config_builds_and_loads_the_jax_tree(yaml):
-    """Each published RetinaNet config but the X-101 one (ROADMAP.md Queue 1
-    item 10) builds, and takes the JAX tree with strict=True."""
+    """Each published RetinaNet config (the X-101 one with its grouped
+    convs among them) builds, and takes the JAX tree with strict=True."""
     jcfg, tcfg = _configs(os.path.join(RETINA, yaml))
     jm = build_jax_model(jcfg)
     tm = GeneralizedRCNN(tcfg)
@@ -347,3 +347,30 @@ def test_train_net_and_test_net_run_a_retinanet(tmp_path, monkeypatch):
     assert marks == ["Evaluating predictions: bbox"] * 2, marks
     assert (out / "inference" / "coco_2017_val" / "predictions.pkl").exists()
     assert set(result[0].results) == {"bbox"}
+
+
+def test_class_offset_nms_differs_from_per_class_nms_in_float32():
+    """A witness of ROADMAP.md Queue 3: RetinaNet's one NMS lane an image
+    shifts label l's boxes by l * (MAX_COORD + 1), where float32's spacing
+    is 0.0625 px at label 80. Two boxes of label 80 whose IoU (the +1
+    convention) sits just under the threshold 0.4 unshifted, 0.3998: per
+    class both are kept; shifted, the second box's x rounds from 27.58 to
+    27.5625, its IoU becomes 0.4002 and it is suppressed. The port's offset
+    lane keeps what JAX's keeps (the behaviour both packages share)."""
+    from maskrcnn_tpu.ops.nms import batched_nms as jax_batched_nms
+    from maskrcnn_tpu_torch.models.retinanet import MAX_COORD
+    from maskrcnn_tpu_torch.ops.nms import batched_nms
+
+    boxes = np.array([[[10.0, 10.0, 50.0, 50.0], [27.58, 10.0, 67.58, 50.0]]], np.float32)
+    scores = np.array([[0.9, 0.8]], np.float32)
+    valid = np.ones((1, 2), bool)
+    label = 80
+    shifted = boxes + np.float32(label * (MAX_COORD + 1.0))
+    assert np.spacing(shifted[0, 1, 0]) == 0.0625 and shifted[0, 1, 0] - shifted[0, 0, 0] == 17.5625
+    per_class = batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                            torch.from_numpy(valid), 0.4)
+    offset = batched_nms(torch.from_numpy(shifted), torch.from_numpy(scores),
+                         torch.from_numpy(valid), 0.4)
+    assert per_class.tolist() == [[True, True]] and offset.tolist() == [[True, False]]
+    want = jax_batched_nms(jnp.asarray(shifted), jnp.asarray(scores), jnp.asarray(valid), 0.4)
+    np.testing.assert_array_equal(offset.numpy(), np.asarray(want))

@@ -166,6 +166,32 @@ def test_imagenet_pkl_equals_jax(tmp_path, caplog, body, layer3):
     assert torch.equal(loaded[conv], torch.from_numpy(state[conv]))
 
 
+def test_x101_imagenet_pkl_equals_jax(tmp_path, caplog):
+    """An ImageNet X-101-32x8d file (grouped res convs, here 4 groups of 4
+    channels, the stride in the 3x3) loads as JAX's loader loads it."""
+    jcfg, tcfg = configs()
+    for c in (jcfg, tcfg):
+        c.merge_from_file(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", "e2e_faster_rcnn_X_101_32x8d_FPN_1x.yaml"))
+        narrow(tiny(c))
+        c.MODEL.RESNETS.NUM_GROUPS, c.MODEL.RESNETS.WIDTH_PER_GROUP = 4, 4
+        c.MODEL.WEIGHT = ""
+    jm = build_jax_model(jcfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    template = _seeded_tree(shapes, np.random.RandomState(100), _identity_bn)
+    state = _random_state(jm, seed=4)
+    conv2 = "backbone.body.layer3.22.conv2.weight"
+    assert state[conv2].shape == (64, 16, 3, 3)  # 4 groups: 16 of the 64 inputs each
+    path = str(tmp_path / "X-101-32x8d.pkl")
+    write_pkl(path, detectron_blobs(np, state, imagenet=True), wrap=False)
+    with caplog.at_level(logging.INFO):
+        want = jax_c2.load_c2_weights(path, jcfg, template)
+    model = _port_model(tcfg, template)
+    loaded = c2_loading.load_c2_weights(path, tcfg, model.state_dict())
+    _assert_equal_to_jax(model, loaded, want, caplog)
+    assert torch.equal(loaded[conv2], torch.from_numpy(state[conv2]))
+
+
 def _detections_equal(got, want):
     np.testing.assert_array_equal(got["valid"], want["valid"])
     np.testing.assert_array_equal(got["labels"], want["labels"])
