@@ -202,6 +202,30 @@ Keypoint R-CNN as written (after 30, on phase 24's images and cache):
      heads redrawn so that scores and heatmaps spread (90% of the
      detections paired at label, score 1e-5 and box 1e-3 px; 99% of their
      joints within 1 px).
+The GN and C4 families as written (after 31, on phase 24's trees and cache):
+ 32. configs/gn_baselines/e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml through
+     train_net for 3 iterations at batch 16 from a synthetic
+     catalog:// R-50-GN.pkl (the seeded GN body, Detectron's _gn_s / _gn_b
+     blobs; its tensors equal the blobs): matcher 1, NMS 1, ROIAlign
+     forward 2 and "roi" backward 2 a step, held to their plain versions on
+     the first step; the step's time, device busy, idle share and peak
+     memory, and the group norms' device time (one step's group-norm calls
+     by shape, each timed forward and backward alone); test_net on 16
+     images and its known answer (the detections' boxes and pasted masks as
+     gt: bbox and segm AP50 >= 0.99); one Predictor request; float32 card
+     vs CPU (phase 6's gate);
+ 33. configs/e2e_mask_rcnn_R_50_C4_1x.yaml through train_net for 3
+     iterations at batch 8 from the cache's R-50.pkl (res5 into the box
+     head): matcher 1 and NMS 1 a step and no ROIAlign kernel (the adaptive
+     pooler is plain tensor code, as in the JAX package); NMS exact on the
+     first step's [8 x 12000] lanes with its kernel-alone time, the matcher
+     exact; the box pooler's matmul path against its gather path on the
+     step's inputs (float32 1e-4, bf16 2e-2 of the largest value) with both
+     module times; the step's time, device busy, idle share, peak memory
+     and the res5 head's share (forward and backward on the step's 4096
+     box ROIs); test_net with the known answer and one Predictor request;
+     then configs/quick_schedules/e2e_faster_rcnn_R_50_C4_quick.yaml
+     through test_net alone at a short side of 480.
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
@@ -357,11 +381,11 @@ class Capture:
         return self
 
     def _recording(self, fn):
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             if self.limit is not None and len(self.calls) >= self.limit:
-                return fn(*args)
+                return fn(*args, **kwargs)
             self.calls.append(args)
-            out = fn(*args)
+            out = fn(*args, **kwargs)
             if self.grads and out.requires_grad:
                 i = len(self.calls) - 1
                 out.register_hook(lambda g: self.out_grads.__setitem__(i, g))
@@ -667,17 +691,23 @@ def detectron_blobs(np, state, imagenet=False, seed=0):
     """The port's state_dict (numpy arrays by name) under Detectron's Caffe2
     blob names, written from Detectron's own naming: an ImageNet backbone file
     (imagenet=True: the ResNet body, a seeded fc1000 and a _momentum blob of
-    each) or a whole Faster / Mask / Keypoint R-CNN FPN model_final (body,
-    FPN, RPN, box head and the mask or keypoint head it has). Frozen BN becomes Detectron's affine pair (_bn_s, _bn_b), which
-    holds no running statistics; fc6's input columns go back from the port's
-    (P, P, C) flatten to Caffe2's (C, P, P)."""
+    each) or a whole Faster / Mask / Keypoint R-CNN model_final (body, FPN
+    and RPN, or the C4 body and RPN with res5 in the box head; box head and
+    the mask or keypoint head it has). Frozen BN becomes Detectron's affine
+    pair (_bn_s, _bn_b), which holds no running statistics, group norm its
+    _gn_s / _gn_b pair; fc6's input columns go back from the port's (P, P, C)
+    flatten to Caffe2's (C, P, P)."""
     blobs = {}
 
-    def affine(prefix, name):
+    def norm(prefix, name):
+        if prefix + ".scale" in state:  # group norm
+            blobs[name + "_gn_s"], blobs[name + "_gn_b"] = (state[prefix + ".scale"],
+                                                            state[prefix + ".bias"])
+            return
         w, b, m, v = (state[prefix + k] for k in (".weight", ".bias", ".running_mean",
                                                   ".running_var"))
         s = w / np.sqrt(v)
-        blobs[name + "_s"], blobs[name + "_b"] = s, b - m * s
+        blobs[name + "_bn_s"], blobs[name + "_bn_b"] = s, b - m * s
 
     def layer(prefix, name):
         blobs[name + "_w"] = state[prefix + ".weight"]
@@ -686,35 +716,40 @@ def detectron_blobs(np, state, imagenet=False, seed=0):
 
     body = "backbone.body."
     layer(body + "stem.conv1", "conv1")
-    affine(body + "stem.bn1", "res_conv1_bn")
-    blocks = {}
+    norm(body + "stem.bn1", "conv1" if body + "stem.bn1.scale" in state else "res_conv1")
+    blocks = {}  # stage -> (prefix of its blocks, count): the C4 res5 lives in the box head
     for k in state:
-        m = re.match(r"backbone\.body\.layer(\d)\.(\d+)\.", k)
+        m = re.match(r"(backbone\.body\.|roi_heads\.box\.feature_extractor\.head\.)"
+                     r"layer(\d)\.(\d+)\.", k)
         if m:
-            blocks[int(m[1])] = max(blocks.get(int(m[1]), 0), int(m[2]) + 1)
-    for stage, n in sorted(blocks.items()):
+            n = blocks.get(int(m[2]), (None, 0))[1]
+            blocks[int(m[2])] = (m[1], max(n, int(m[3]) + 1))
+    for stage, (base, n) in sorted(blocks.items()):
         for i in range(n):
-            p, r = "{}layer{}.{}.".format(body, stage, i), "res{}_{}_".format(stage + 1, i)
+            p, r = "{}layer{}.{}.".format(base, stage, i), "res{}_{}_".format(stage + 1, i)
             for k, branch in enumerate(("branch2a", "branch2b", "branch2c"), 1):
                 layer(p + "conv{}".format(k), r + branch)
-                affine(p + "bn{}".format(k), r + branch + "_bn")
+                norm(p + "bn{}".format(k), r + branch)
             if p + "downsample.conv.weight" in state:
                 layer(p + "downsample.conv", r + "branch1")
-                affine(p + "downsample.bn", r + "branch1_bn")
+                norm(p + "downsample.bn", r + "branch1")
     if imagenet:
         rs = np.random.RandomState(seed)
-        c = blobs["res5_{}_branch2c_w".format(blocks[4] - 1)].shape[0]
+        c = blobs["res5_{}_branch2c_w".format(blocks[4][1] - 1)].shape[0]
         blobs["fc1000_w"] = rs.normal(0, 0.01, (1000, c)).astype(np.float32)
         blobs["fc1000_b"] = np.zeros(1000, np.float32)
         blobs.update({k + "_momentum": np.zeros_like(v) for k, v in list(blobs.items())})
         return blobs
-    for i in range(4):
-        stage = "res{}_{}_sum".format(i + 2, blocks[i + 1] - 1)
-        layer("backbone.fpn.inner.{}.conv".format(i),
-              "fpn_inner_" + stage + ("_lateral" if i < 3 else ""))
-        layer("backbone.fpn.layer.{}.conv".format(i), "fpn_" + stage)
-    heads = {"rpn.conv": "conv_rpn_fpn2", "rpn.cls_logits": "rpn_cls_logits_fpn2",
-             "rpn.bbox_pred": "rpn_bbox_pred_fpn2",
+    fpn = "backbone.fpn.layer.0.conv.weight" in state
+    if fpn:
+        for i in range(4):
+            stage = "res{}_{}_sum".format(i + 2, blocks[i + 1][1] - 1)
+            layer("backbone.fpn.inner.{}.conv".format(i),
+                  "fpn_inner_" + stage + ("_lateral" if i < 3 else ""))
+            layer("backbone.fpn.layer.{}.conv".format(i), "fpn_" + stage)
+    rpn = "_fpn2" if fpn else ""
+    heads = {"rpn.conv": "conv_rpn" + rpn, "rpn.cls_logits": "rpn_cls_logits" + rpn,
+             "rpn.bbox_pred": "rpn_bbox_pred" + rpn,
              "roi_heads.box.feature_extractor.fc6": "fc6",
              "roi_heads.box.feature_extractor.fc7": "fc7",
              "roi_heads.box.predictor.cls_score": "cls_score",
@@ -729,11 +764,12 @@ def detectron_blobs(np, state, imagenet=False, seed=0):
     for prefix, name in heads.items():
         if prefix + ".weight" in state:
             layer(prefix, name)
-    w = blobs["fc6_w"]
-    c = state["backbone.fpn.layer.0.conv.weight"].shape[0]
-    p = int(round((w.shape[1] // c) ** 0.5))
-    blobs["fc6_w"] = np.ascontiguousarray(
-        w.reshape(w.shape[0], p, p, c).transpose(0, 3, 1, 2).reshape(w.shape[0], -1))
+    if "fc6_w" in blobs:
+        w = blobs["fc6_w"]
+        c = state["backbone.fpn.layer.0.conv.weight"].shape[0]
+        p = int(round((w.shape[1] // c) ** 0.5))
+        blobs["fc6_w"] = np.ascontiguousarray(
+            w.reshape(w.shape[0], p, p, c).transpose(0, 3, 1, 2).reshape(w.shape[0], -1))
     return blobs
 
 
@@ -2244,6 +2280,14 @@ def data_layer_phase(torch, np, card):
                 loaded_count=loaded_count, train_summary=train_summary, first_step=first_step,
                 step_sites=step_sites)))
             phase_s["keypoints"] = time.perf_counter() - t0
+
+            # 32-33. The GN and C4 families on this phase's trees and cache
+            gc_sites, gc_s = gn_c4_phase(torch, np, card, types.SimpleNamespace(
+                work=work, cache=cache, coco=coco, record=record, reset=reset, done=done,
+                loaded_count=loaded_count, train_summary=train_summary, first_step=first_step,
+                step_sites=step_sites))
+            sites.update(gc_sites)
+            phase_s.update(gc_s)
         return {"launches": launches, "phase_s": phase_s, "sites": sites}
     finally:
         for (obj, name), value in zip(patched, saved):
@@ -2251,6 +2295,70 @@ def data_layer_phase(torch, np, card):
         for lg in loggers:
             lg.removeHandler(logs)
         shutil.rmtree(work, ignore_errors=True)
+
+
+def function_shares(torch, targets, step, batch, steps=2):
+    """What each function of `targets` ({label: (owner, attribute)}, a
+    module's function or a class's method) takes of a training step's
+    device time, read off one torch.profiler trace of `steps` steps: the
+    kernels under each of its calls (a record_function range named by its
+    label) and under the backward nodes that its operators recorded (the
+    autograd engine's evaluate_function events, joined to them by sequence
+    number and forward thread), beside the step's device busy in the same
+    trace (the ranges' own device spans left out). Per step; "not measured"
+    where the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(label, plain):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return plain(*args, **kwargs)
+        return call
+
+    def device_us(e, kind="device_time_total"):
+        us = getattr(e, kind, None)  # cuda_time_total before torch 2.4
+        return getattr(e, kind.replace("device", "cuda")) if us is None else us
+
+    def below(e):
+        for c in e.cpu_children:
+            yield c
+            yield from below(c)
+
+    plain = {label: getattr(owner, attr) for label, (owner, attr) in targets.items()}
+    for label, (owner, attr) in targets.items():
+        setattr(owner, attr, ranged(label, plain[label]))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        for label, (owner, attr) in targets.items():
+            setattr(owner, attr, plain[label])
+    events = prof.events()
+    busy_ms = sum(device_us(e, "self_device_time_total") for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.key not in targets) / 1e3 / steps
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_ms > 0 else "not measured"}
+    engine = [e for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("autograd::engine::evaluate_function:")]
+    for label in targets:
+        ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name == label]
+        forward = {(c.sequence_nr, c.thread) for r in ranges for c in below(r)
+                   if c.sequence_nr >= 0}
+        backward = [e for e in engine
+                    if (e.sequence_nr, getattr(e, "fwd_thread", e.thread)) in forward]
+        got = {"calls": len(ranges) / steps, "backward_nodes": len(backward) / steps}
+        if busy_ms > 0:
+            fwd_ms = sum(device_us(r) for r in ranges) / 1e3 / steps
+            bwd_ms = sum(device_us(e) for e in backward) / 1e3 / steps
+            got.update(forward_ms=fwd_ms, backward_ms=bwd_ms, ms=fwd_ms + bwd_ms,
+                       share=(fwd_ms + bwd_ms) / busy_ms)
+        res[label] = got
+    return res
 
 
 def device_busy_ms(torch, fn, iters=3):
@@ -2537,6 +2645,288 @@ def families_phase(torch, np, card, dl):
     print("faster R-101 test_net on 8 images (SCORE_THRESH 0 for random heads) [{}]: {}".format(
         card, json.dumps(dict(res.results["bbox"]))), flush=True)
     return sites
+
+
+def gn_c4_phase(torch, np, card, dl):
+    """32-33. The GN and C4 families as written, on phase 24's COCO trees and
+    weight cache (dl: the data-layer phases' work tree, cache and helpers):
+    GN Mask R-CNN (Xconv1fc head) from a synthetic R-50-GN.pkl and Mask
+    R-CNN R-50-C4 from the cache's R-50.pkl, each through train_net for 3
+    iterations, test_net with a known answer and a Predictor request; the
+    C4 quick file through test_net alone. Returns the kernel sites and the
+    wall seconds by path."""
+    import pickle
+
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.config.paths_catalog import ModelCatalog
+    from maskrcnn_tpu_torch.data.datasets import COCODataset
+    from maskrcnn_tpu_torch.data.evaluation.coco_eval import (
+        do_coco_evaluation,
+        prepare_for_coco_segmentation,
+    )
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, layers, poolers, rpn
+    from maskrcnn_tpu_torch.models.roi_heads import box_head
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.predictor import Predictor
+    from maskrcnn_tpu_torch.tools import test_net, train_net
+    from maskrcnn_tpu_torch.utils import maskops
+    from maskrcnn_tpu_torch.utils.model_zoo import cached_name
+
+    ann_dir = os.path.join(dl.work, "coco", "annotations")
+    with open(os.path.join(ann_dir, "instances_valminusminival2014.json")) as f:
+        val = json.load(f)
+    minival = os.path.join(ann_dir, "instances_minival2014.json")
+    sites, phase_s = {}, {}
+
+    def path_sites(**found):
+        return {k: found.get(k, []) for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
+
+    def known_answer(path, yaml, ckpt, out, per_batch, opts=()):
+        """test_net on coco_2014_minival (the 16 val2014 images, SCORE_THRESH 0
+        for random heads, bbox and segm), then its predictions evaluated
+        against themselves as the gt, boxes and pasted masks (RLE, which the
+        evaluator reads and the dataset's poly targets do not):
+        AP50 >= 0.99. A detection whose pasted mask holds no pixel is no
+        segm answer: it leaves the segm gt and predictions (counted)."""
+        write_coco_json(minival, val["images"], val["annotations"], range(1, 81))
+        test_opts = ["--config-file", yaml, "--ckpt", ckpt, "MODEL.ROI_HEADS.SCORE_THRESH",
+                     "0.0"] + list(opts)
+        t0 = dl.reset()
+        ((res, _),) = test_net.main(test_opts + ["OUTPUT_DIR", out])
+        dl.done(path, t0, per_batch, 2)
+        check(set(res.results) == {"bbox", "segm"}, "{} evaluated {}".format(path, set(res.results)))
+        with open(os.path.join(out, "inference", "coco_2014_minival", "predictions.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        gts = detections_as_gt(preds, val["images"])
+        root = os.path.join(dl.work, "coco", "val2014")
+        rles = prepare_for_coco_segmentation(preds, COCODataset(minival, root))
+        masks = [r["segmentation"] for info in val["images"] for r in rles[info["id"]]]
+        check(len(masks) == len(gts), "{} masks for {} detections".format(len(masks), len(gts)))
+        for a, m in zip(gts, masks):
+            a["segmentation"] = m
+        filled = [[maskops.rle_area(r["segmentation"]) > 0 for r in rles[info["id"]]]
+                  for info in val["images"]]
+        known = {}
+        for iou_type, anns, dets in (
+                ("bbox", gts, preds),
+                ("segm", [a for a, f in zip(gts, sum(filled, [])) if f],
+                 [p[np.asarray(f, bool)] for p, f in zip(preds, filled)])):
+            known_json = os.path.join(out, "known_answer_{}.json".format(iou_type))
+            write_coco_json(known_json, val["images"], anns, range(1, 81))
+            r, _ = do_coco_evaluation(COCODataset(known_json, root), dets, False, None,
+                                      [iou_type], (), 4)
+            known[iou_type] = dict(r.results[iou_type])
+        known = {"first_pass": {k: dict(v) for k, v in res.results.items()},
+                 "gt_from_detections": len(gts), "empty_masks": len(gts) - sum(map(sum, filled)),
+                 "known_answer": known}
+        print("{} test_net on 16 images at TEST.IMS_PER_BATCH 8, then its known answer "
+              "(the detections' boxes and masks as gt) [{}]: {}".format(path, card, json.dumps(known)),
+              flush=True)
+        check(min(known["known_answer"][k]["AP50"] for k in ("bbox", "segm")) >= 0.99,
+              "{} known-answer AP50 {}".format(path, known["known_answer"]))
+        return known
+
+    def serve(path, cfg, seed, per_request):
+        """One request of 480x640 through Predictor from the config (its
+        catalog:// weights from the cache), after a warm-up."""
+        scfg = cfg.clone()
+        scfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
+        pred = Predictor(scfg, device="cuda", seed=seed, min_image_size=scfg.INPUT.MIN_SIZE_TEST)
+        rs = np.random.RandomState(seed)
+        warm, img = (rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(2))
+        pred.compute_prediction(warm)
+        t0 = dl.reset()
+        t1 = time.perf_counter()
+        o = pred.compute_prediction(img)
+        ms = (time.perf_counter() - t1) * 1e3
+        dl.done(path, t0, per_request, 1)
+        n = len(o["scores"])
+        check(0 < n <= scfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG and o["masks"].shape == (n, 480, 640)
+              and np.isfinite(o["boxes"]).all() and ((o["labels"] >= 1) & (o["labels"] <= 80)).all(),
+              "{} request: {}".format(path, {k: v.shape for k, v in o.items()}))
+        state = {k: v.detach().cpu().clone() for k, v in pred.model.state_dict().items()}
+        del pred
+        torch.cuda.empty_cache()
+        print("{}: one 480x640 request in {:.2f} ms, {} detections [{}]".format(path, ms, n, card),
+              flush=True)
+        return scfg, state
+
+    def step_profile(path, targets):
+        """The step's profile (profile_steps), then what each function of
+        `targets` takes of a step's device time (function_shares, a trace
+        of its own)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
+        prof["peak_step_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        shares = function_shares(torch, targets, dl.record["step"], dl.record["batch"])
+        for label in targets:
+            got = shares[label]
+            check(got["calls"] > 0, "{}: no call of {} in the profiled step".format(path, label))
+            check(not isinstance(got.get("ms"), float) or got["ms"] <= shares["device_busy_ms"],
+                  "{}: {} takes more than the step: {}".format(path, label, shares))
+        prof["shares"] = shares
+        print("{} step, torch.profiler [{}]: {}".format(path, card, json.dumps(
+            {k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "idle_share", "peak_step_gb",
+                                      "top_kernels_ms", "shares")})), flush=True)
+        return prof
+
+    # 32. GN Mask R-CNN R-50-FPN, Xconv1fc head, from a synthetic R-50-GN.pkl
+    t0 = dl.reset()
+    gn_yaml = os.path.join(REPO, "configs", "gn_baselines",
+                           "e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml")
+    cfg = defaults.clone()
+    cfg.merge_from_file(gn_yaml)
+    check(cfg.MODEL.WEIGHT == "catalog://ImageNetPretrained/MSRA/R-50-GN"
+          and cfg.MODEL.RESNETS.TRANS_FUNC == "BottleneckWithGN" and cfg.MODEL.FPN.USE_GN
+          and cfg.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR == "FPNXconv1fcFeatureExtractor"
+          and cfg.SOLVER.IMS_PER_BATCH == 16 and cfg.TPU.COMPUTE_DTYPE == "bfloat16",
+          "the GN YAML reads {}".format(cfg.MODEL.WEIGHT))
+    model = build_detection_model(cfg, device="cuda", seed=SEED + 20)
+    # each block's last group norm and its shortcut's at R50_RESIDUAL_SCALE,
+    # as the synthetic R-50.pkl's frozen BN
+    body = {k: v.cpu().numpy() * (R50_RESIDUAL_SCALE if k.endswith(("bn3.scale",
+                                                                    "downsample.bn.scale")) else 1)
+            for k, v in model.state_dict().items() if k.startswith("backbone.body.")}
+    del model
+    gn_pkl = os.path.join(dl.cache, cached_name(ModelCatalog.get("ImageNetPretrained/MSRA/R-50-GN")))
+    write_pkl(gn_pkl, detectron_blobs(np, body, imagenet=True, seed=SEED), wrap=False)
+    out = os.path.join(dl.work, "gn")
+    print("gn recipe: train_net --config-file configs/gn_baselines/"
+          "e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml --skip-test SOLVER.MAX_ITER 3 OUTPUT_DIR "
+          "<dir> (batch 16 on phase 24's trees; a synthetic R-50-GN.pkl of {:.1f} MB in the "
+          "cache: the seeded GN body, each block's last group norm and its shortcut's at scale "
+          "{})".format(os.path.getsize(gn_pkl) / 1e6, R50_RESIDUAL_SCALE), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with dl.first_step(pooled=2) as caps:
+        _, meters = train_net.main(["--config-file", gn_yaml, "--skip-test",
+                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
+        dl.done("gn_recipe", t0, {"matcher": 1, "nms": 1, "roi_align": 2,
+                                  "roi_align_backward": 2}, 3)
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_loaded, n_total = dl.loaded_count()
+    check(n_loaded == len(body), "R-50-GN.pkl loaded {} of the body's {} tensors".format(
+        n_loaded, len(body)))
+    check(all(torch.equal(dl.record["start"][k].cpu(), torch.from_numpy(v).float())
+              for k, v in body.items()), "the GN body's tensors differ from the R-50-GN.pkl blobs")
+    summary = dl.train_summary(meters, gn_yaml, n_losses=5)
+    sites["gn_recipe"], _ = dl.step_sites("gn recipe", caps, 16, (80, 2000), pooled=2)
+    del caps
+    step_profile("gn recipe", {"group_norm": (layers, "group_norm")})
+    print("gn recipe: loaded {}/{} tensors from R-50-GN.pkl, the body's equal to its blobs; 3 "
+          "iterations at batch 16: {}; peak memory {:.3f} GB over the run [{}]".format(
+              n_loaded, n_total, json.dumps(summary), peak_run_gb, card), flush=True)
+    dl.record.clear()
+    sites["gn_known"] = path_sites()
+    known_answer("gn_test", gn_yaml, os.path.join(out, "model_final.pth"), os.path.join(out, "test"),
+                 {"nms": 2, "roi_align": 2})
+    scfg, state = serve("gn_serving", cfg, SEED + 21, {"nms": 2, "roi_align": 2})
+    ref = reference_check(torch, np, detector, scfg, state)
+    print("gn float32 card vs CPU on a 256x320 image [{}]: {}".format(card, json.dumps(ref)),
+          flush=True)
+    check(ref["agree"] >= 0.9, "GN: card and CPU disagree on {:.1%} of detections".format(
+        1 - ref["agree"]))
+    phase_s["gn"] = time.perf_counter() - t0
+
+    # 33. Mask R-CNN R-50-C4 from the cache's R-50.pkl
+    t0 = dl.reset()
+    c4_yaml = os.path.join(REPO, "configs", "e2e_mask_rcnn_R_50_C4_1x.yaml")
+    cfg = defaults.clone()
+    cfg.merge_from_file(c4_yaml)
+    check(cfg.MODEL.WEIGHT == "catalog://ImageNetPretrained/MSRA/R-50"
+          and cfg.MODEL.BACKBONE.CONV_BODY == "R-50-C4" and cfg.SOLVER.IMS_PER_BATCH == 8
+          and cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO == 0
+          and cfg.MODEL.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR
+          and cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN == 12000, "the C4 YAML reads {}".format(
+              cfg.MODEL.BACKBONE.CONV_BODY))
+    out = os.path.join(dl.work, "c4")
+    print("c4 recipe: train_net --config-file configs/e2e_mask_rcnn_R_50_C4_1x.yaml --skip-test "
+          "SOLVER.MAX_ITER 3 OUTPUT_DIR <dir> (batch 8 on phase 24's trees, its catalog:// R-50 "
+          "from the cache: res2-res4 into the body, res5 into the box head)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    caps = {"nms": Capture([rpn], "batched_nms", limit=1),
+            "matcher": Capture([rpn], "match_anchors_batched", limit=1),
+            "pool": Capture([detector], "multilevel_roi_align", limit=1)}
+    with contextlib.ExitStack() as stack:
+        for c in caps.values():
+            stack.enter_context(c)
+        _, meters = train_net.main(["--config-file", c4_yaml, "--skip-test",
+                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
+        dl.done("c4_recipe", t0, {"matcher": 1, "nms": 1}, 3)
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_loaded, n_total = dl.loaded_count()
+    head = [k for k in dl.record["start"] if k.startswith("roi_heads.box.feature_extractor.head.")
+            and not k.endswith(("running_mean", "running_var"))]
+    check(n_loaded > len(head) > 0, "R-50.pkl loaded {} tensors into the C4 model".format(n_loaded))
+    summary = dl.train_summary(meters, c4_yaml, n_losses=5)
+    lane = caps["nms"].calls[0]
+    with torch.no_grad():
+        nms_c4 = nms_site(torch, nms, *lane, plain_iters=1)
+    check(nms_c4["shape"] == [8, 12000], "C4 training NMS lanes {}".format(nms_c4["shape"]))
+    msite = matcher_site(torch, matcher, *caps["matcher"].calls[0])
+    check(msite["images"] == 8, "C4 matcher on {} images".format(msite["images"]))
+    # the box pooler: the matmul path against the gather path, module times
+    feats, boxes, bidx, pcfg = caps["pool"].calls[0]
+    feats = [f.detach() for f in feats]
+    k = boxes.shape[0] // feats[0].shape[0]
+    h, w = feats[0].shape[1:3]
+    s_ = min(pcfg.adaptive_max, max(-(-h // pcfg.output_size), -(-w // pcfg.output_size), 1))
+    with torch.no_grad():
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            fd = [feats[0].to(dt)]
+            mm = poolers.c4_matmul_pool(fd[0], boxes, pcfg, k, s_)
+            ga = poolers.adaptive_roi_align(fd, boxes, bidx, pcfg)
+            errs[str(dt).replace("torch.", "")] = ((mm.float() - ga.float()).abs().max()
+                                                   / ga.float().abs().max()).item()
+            del mm, ga
+        pool = {"rois": boxes.shape[0], "P": pcfg.output_size, "samples_an_axis": s_,
+                "map": [h, w, feats[0].shape[3]], "rel_err": errs,
+                "matmul_ms": cuda_ms(torch, lambda: poolers.c4_matmul_pool(
+                    feats[0], boxes, pcfg, k, s_), 3, warmup=1),
+                "gather_ms": cuda_ms(torch, lambda: poolers.adaptive_roi_align(
+                    feats, boxes, bidx, pcfg), 3, warmup=1)}
+    check(errs["float32"] <= 1e-4 and errs["bfloat16"] <= 2e-2,
+          "C4 matmul pooler against the gather pooler: {}".format(errs))
+    print("c4 box pooler, matmul path against the gather path on the first step's inputs "
+          "(module times, CUDA events) [{}]: {}".format(card, json.dumps(pool)), flush=True)
+    for c in caps.values():
+        c.calls.clear()
+    del caps, lane, feats, boxes, bidx
+    step_profile("c4 recipe", {"res5_head": (box_head.ResNet50Conv5ROIFeatureExtractor, "forward"),
+                               "pooler": (detector, "multilevel_roi_align")})
+    print("c4 recipe: loaded {}/{} tensors from R-50.pkl; 3 iterations at batch 8: {}; peak "
+          "memory {:.3f} GB over the run [{}]".format(n_loaded, n_total, json.dumps(summary),
+                                                      peak_run_gb, card), flush=True)
+    print("c4 recipe kernel sites [{}]: {} {}".format(card, json.dumps(nms_c4), json.dumps(msite)),
+          flush=True)
+    sites["c4_recipe"] = path_sites(nms=[nms_c4], matcher=[msite])
+    dl.record.clear()
+    with Capture([rpn], "batched_nms", limit=1) as cap:
+        known_answer("c4_test", c4_yaml, os.path.join(out, "model_final.pth"),
+                     os.path.join(out, "test"), {"nms": 2})
+    with torch.inference_mode():
+        test_lane = nms_site(torch, nms, *cap.calls[0], plain_iters=1)
+    check(test_lane["shape"] == [8, 6000], "C4 test NMS lanes {}".format(test_lane["shape"]))
+    print("c4 test kernel site, the RPN's NMS [{}]: {}".format(card, json.dumps(test_lane)),
+          flush=True)
+    sites["c4_test"] = path_sites(nms=[test_lane])
+    del cap
+    serve("c4_serving", cfg, SEED + 22, {"nms": 2})
+    # the quick file through test_net alone, at a short side of 480
+    t1 = dl.reset()
+    quick = os.path.join(REPO, "configs", "quick_schedules", "e2e_faster_rcnn_R_50_C4_quick.yaml")
+    write_coco_json(minival, val["images"], val["annotations"], range(1, 81))
+    ((res, _),) = test_net.main(["--config-file", quick, "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
+                                 "INPUT.MIN_SIZE_TEST", "480", "INPUT.MAX_SIZE_TEST", "640",
+                                 "OUTPUT_DIR", os.path.join(out, "quick")])
+    dl.done("c4_quick_test", t1, {"nms": 2}, 2)
+    print("c4 quick: test_net --config-file configs/quick_schedules/"
+          "e2e_faster_rcnn_R_50_C4_quick.yaml INPUT.MIN_SIZE_TEST 480 INPUT.MAX_SIZE_TEST 640 "
+          "(its catalog:// R-50 from the cache, random heads) [{}]: {}".format(
+              card, json.dumps(dict(res.results["bbox"]))), flush=True)
+    phase_s["c4"] = time.perf_counter() - t0
+    return sites, phase_s
 
 
 def synthetic_person_keypoints(np, path, n_images, seed, hw=(480, 640)):

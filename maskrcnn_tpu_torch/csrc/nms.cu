@@ -22,14 +22,18 @@
 //      tile's sorted-validity word vbits[lane, tile].
 //   2. nms_reduce_kernel: one 128-thread block per lane. Warp 0 walks the
 //      lane 64 rows at a time; lane w of it owns words w, w + 32, ... of the
-//      `removed` bitset in registers. Block k is resolved from its diagonal
-//      word, held in registers, by a 64-step bit chain (a row still alive
-//      ORs its word in); then each lane ORs the kept rows' words of its own
-//      later columns. Meanwhile warps 1-3 copy the next block's rows into
-//      the other half of a double buffer in shared memory; one barrier a
-//      block. The walk stops after the last block holding a valid row, and
-//      the block writes the bool keep-mask straight into the original order
-//      through `order`.
+//      `removed` bitset in registers: 4 a lane up to 8192 boxes, 6 up to
+//      12288. Two instantiations, because the six-word walk slows short
+//      lanes though its extra words are predicated off (the reduce at 40 x
+//      2000 lanes: 0.080 ms against 0.057 on an H100, same 40 registers;
+//      tools/profile_nms_matcher.py --variant). Block k is resolved from its
+//      diagonal word, held in registers, by a 64-step bit chain (a row still
+//      alive ORs its word in); then each lane ORs the kept rows' words of
+//      its own later columns. Meanwhile warps 1-3 copy the next block's
+//      rows into the other half of a double buffer in shared memory; one
+//      barrier a block. The walk stops after the last block holding a
+//      valid row, and the block writes the bool keep-mask straight into the
+//      original order through `order`.
 //
 // What bounds it on the card: neither bytes nor arithmetic. The IoU tests
 // are a triangle of N^2/2 per lane, spread over every SM (the greedy scan
@@ -49,7 +53,7 @@
 namespace {
 
 constexpr int kTile = 64;            // boxes per mask word; threads of a mask block
-constexpr int kMaxWords = 128;       // N <= 8192 per lane
+constexpr int kMaxWords = 192;       // N <= 12288 per lane
 constexpr int kReduceThreads = 128;  // warp 0 walks, warps 1-3 stage the next block
 constexpr int kPitch = kTile + 1;    // words of a staged column's rows (bank spread)
 constexpr unsigned kFull = 0xffffffffu;
@@ -130,11 +134,11 @@ nms_mask_kernel(const float4* __restrict__ boxes, const int64_t* __restrict__ or
 }
 
 // the owned word q of `rem` chosen by a warp-uniform index
-__device__ __forceinline__ unsigned long long pick(const unsigned long long (&rem)[kMaxWords / 32],
-                                                   int q) {
+template <int kOwn>
+__device__ __forceinline__ unsigned long long pick(const unsigned long long (&rem)[kOwn], int q) {
   unsigned long long v = 0ULL;
 #pragma unroll
-  for (int k = 0; k < kMaxWords / 32; ++k) v = k == q ? rem[k] : v;
+  for (int k = 0; k < kOwn; ++k) v = k == q ? rem[k] : v;
   return v;
 }
 
@@ -151,14 +155,16 @@ __device__ __forceinline__ void stage_block(const unsigned long long* lane_mask,
   }
 }
 
+// kOwn: words of `removed` each lane of warp 0 owns (words <= 32 * kOwn)
+template <int kOwn>
 __global__ void __launch_bounds__(kReduceThreads)
 nms_reduce_kernel(const unsigned long long* __restrict__ mask,
                   const unsigned long long* __restrict__ vbits,
                   const int64_t* __restrict__ order, int n, int words,
                   bool* __restrict__ keep) {
   extern __shared__ unsigned long long smem[];
-  unsigned long long* s_removed = smem;                 // [kMaxWords]
-  unsigned long long* bufs = smem + kMaxWords;          // [2][words][kPitch]
+  unsigned long long* s_removed = smem;                 // [words]
+  unsigned long long* bufs = smem + words;              // [2][words][kPitch]
   __shared__ int s_last;
   const int lane = blockIdx.x;
   const size_t rows = (size_t)words * kTile;
@@ -167,11 +173,11 @@ nms_reduce_kernel(const unsigned long long* __restrict__ mask,
   const bool walker = threadIdx.x < 32;
   // warp 0 owns words l, l + 32, ... of `removed`: invalid rows and the
   // padding past n start out removed
-  unsigned long long rem[kMaxWords / 32];
+  unsigned long long rem[kOwn];
   if (walker) {
     int last = 0;  // one past the last word holding a valid row
 #pragma unroll
-    for (int q = 0; q < kMaxWords / 32; ++q) {
+    for (int q = 0; q < kOwn; ++q) {
       const int w = l + 32 * q;
       const unsigned long long v = w < words ? vbits[(size_t)lane * words + w] : 0ULL;
       rem[q] = ~v;
@@ -203,7 +209,7 @@ nms_reduce_kernel(const unsigned long long* __restrict__ mask,
       }
       const unsigned long long kept = ~cur;
 #pragma unroll
-      for (int q = 0; q < kMaxWords / 32; ++q) {
+      for (int q = 0; q < kOwn; ++q) {
         const int w = l + 32 * q;
         if (w == k) rem[q] = cur;
         if (w > k && w < last) {
@@ -224,7 +230,7 @@ nms_reduce_kernel(const unsigned long long* __restrict__ mask,
   }
   if (walker) {
 #pragma unroll
-    for (int q = 0; q < kMaxWords / 32; ++q) {
+    for (int q = 0; q < kOwn; ++q) {
       const int w = l + 32 * q;
       if (w < words) s_removed[w] = rem[q];
     }
@@ -238,8 +244,29 @@ nms_reduce_kernel(const unsigned long long* __restrict__ mask,
   }
 }
 
+// dynamic shared memory of a reduce launch: `removed` and the double buffer
+// of staged rows, sized by the lane's own words (201,216 B at 192 words)
 size_t reduce_smem(int words) {
-  return sizeof(unsigned long long) * ((size_t)kMaxWords + 2 * (size_t)words * kPitch);
+  return sizeof(unsigned long long) * ((size_t)words + 2 * (size_t)words * kPitch);
+}
+
+// A reduce launch at its instantiation; the first sets the shared-memory
+// limit once, for the most words the instantiation takes.
+template <int kOwn>
+cudaError_t launch_reduce(const unsigned long long* mask, const unsigned long long* vbits,
+                          const int64_t* order, int g, int n, int words, bool* keep,
+                          cudaStream_t s) {
+  static bool wide = false;  // shared memory past 48 KB allowed (n > 2944)
+  if (!wide) {
+    const cudaError_t e = cudaFuncSetAttribute(nms_reduce_kernel<kOwn>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)reduce_smem(32 * kOwn));
+    if (e != cudaSuccess) return e;
+    wide = true;
+  }
+  nms_reduce_kernel<kOwn><<<g, kReduceThreads, reduce_smem(words), s>>>(mask, vbits, order, n,
+                                                                        words, keep);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -268,16 +295,9 @@ extern "C" int nms_keep(const void* boxes, const void* order, const void* valid,
   nms_mask_kernel<<<dim3(words * (words + 1) / 2, g), kTile, 0, s>>>(
       (const float4*)boxes, (const int64_t*)order, (const bool*)valid, n, words, thresh,
       mask, vbits);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  static bool wide = false;  // shared memory past 48 KB allowed (n > 2944)
-  if (!wide) {
-    e = cudaFuncSetAttribute(nms_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)reduce_smem(kMaxWords));
-    if (e != cudaSuccess) return (int)e;
-    wide = true;
-  }
-  nms_reduce_kernel<<<g, kReduceThreads, reduce_smem(words), s>>>(
-      mask, vbits, (const int64_t*)order, n, words, (bool*)keep);
-  return (int)cudaGetLastError();
+  const auto* ord = (const int64_t*)order;
+  if (words <= 128) return (int)launch_reduce<4>(mask, vbits, ord, g, n, words, (bool*)keep, s);
+  return (int)launch_reduce<6>(mask, vbits, ord, g, n, words, (bool*)keep, s);
 }

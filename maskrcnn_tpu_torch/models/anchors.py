@@ -57,17 +57,23 @@ def generate_cell_anchors(stride=16, sizes=(32, 64, 128, 256, 512),
 class AnchorGenerator:
     """One cell-anchor set per FPN level. A level's size may be a tuple of
     sizes (RetinaNet's octave scales): its cells then hold every size at
-    every ratio, ratio-major, as the JAX AnchorGeneratorConfig."""
+    every ratio, ratio-major, as the JAX AnchorGeneratorConfig. With one
+    stride (the C4 models' single level) the one set holds every size at
+    every ratio: 15 anchors a location at the default sizes and ratios."""
 
     def __init__(self, sizes, aspect_ratios, strides, straddle_thresh=0):
-        if len(strides) != len(sizes):
-            raise ValueError("FPN needs one anchor size per stride")
         self.straddle_thresh = straddle_thresh
-        self.cell_anchors = [
-            generate_cell_anchors(stride, size if isinstance(size, (tuple, list)) else (size,),
-                                  aspect_ratios)
-            for stride, size in zip(strides, sizes)
-        ]
+        if len(strides) == 1:
+            self.cell_anchors = [generate_cell_anchors(strides[0], sizes, aspect_ratios)]
+        elif len(strides) != len(sizes):
+            raise ValueError("FPN needs one anchor size per stride")
+        else:
+            self.cell_anchors = [
+                generate_cell_anchors(stride,
+                                      size if isinstance(size, (tuple, list)) else (size,),
+                                      aspect_ratios)
+                for stride, size in zip(strides, sizes)
+            ]
         self.strides = list(strides)
 
     def num_anchors_per_location(self):
@@ -99,8 +105,9 @@ class AnchorGenerator:
 
 def make_anchor_generator(cfg):
     r = cfg.MODEL.RPN
-    if not r.USE_FPN:
-        raise NotImplementedError("single-level RPN anchors are not ported yet")
+    if not r.USE_FPN and len(r.ANCHOR_STRIDE) != 1:
+        raise ValueError("a single-level RPN takes one ANCHOR_STRIDE, not {}".format(
+            r.ANCHOR_STRIDE))
     return AnchorGenerator(r.ANCHOR_SIZES, r.ASPECT_RATIOS, r.ANCHOR_STRIDE,
                            r.STRADDLE_THRESH)
 

@@ -1,6 +1,7 @@
 """GeneralizedRCNN (training and inference) and build_detection_model.
 
-PyTorch counterpart of maskrcnn_tpu/models/detector.py for Mask R-CNN FPN:
+PyTorch counterpart of maskrcnn_tpu/models/detector.py for Mask R-CNN with
+an FPN or a C4 body:
 
 * ``train_forward``: backbone, RPN head, RPN loss (matcher kernel), training
   proposals (NMS kernel), box targets and loss (ROIAlign kernel, P=7), the
@@ -48,8 +49,17 @@ RetinaNet (MODEL.RETINANET_ON, models/retinanet.py) has no ROI heads:
 ``train_forward`` returns loss_retina_cls and loss_retina_reg (the anchor
 matcher kernel, no sampler draws), ``infer_forward`` the padded detection
 dict without masks (the NMS kernel); MASK_ON and KEYPOINT_ON are off under
-it, as in the JAX package. RPN-only (ROADMAP.md Queue 1 item 15) and C4
-models wait for later slices.
+it, as in the JAX package. RPN-only models (ROADMAP.md Queue 1 item 15)
+wait for a later slice.
+
+C4 models (R-50-C4: one map at stride 16, 15 anchors a location) pool at
+POOLER_SAMPLING_RATIO 0 through the adaptive pooler, which has no kernel
+(models/poolers.py:adaptive_roi_align): the box ROIs of each image are a
+block of the sampled batch (training) or of the proposals (inference), so
+they take its matmul path; the box head's extractor is the res5 head. With
+SHARE_BOX_FEATURE_EXTRACTOR the mask head's input is the box pooler and the
+box extractor on the mask ROIs: the gather path on the positives in
+training, the matmul path on the detection slots at inference.
 """
 
 import torch
@@ -168,7 +178,9 @@ class GeneralizedRCNN(nn.Module):
             m.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO,
         )
         if self.mask_on:
-            self.roi_heads.mask = MaskHead(cfg, c)
+            self.share_mask_fe = m.ROI_MASK_HEAD.SHARE_BOX_FEATURE_EXTRACTOR
+            shared = self.roi_heads.box.feature_extractor.out_dim if self.share_mask_fe else None
+            self.roi_heads.mask = MaskHead(cfg, c, shared_dim=shared)
             self.mask_pooler = PoolerConfig(
                 m.ROI_MASK_HEAD.POOLER_RESOLUTION, m.ROI_MASK_HEAD.POOLER_SCALES,
                 m.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO,
@@ -208,6 +220,17 @@ class GeneralizedRCNN(nn.Module):
             xs < image_sizes[:, 1][:, None, None, None]
         )
         return torch.where(inside, x, torch.zeros((), device=x.device))
+
+    def _mask_features(self, nhwc, rois, batch_idx, rois_per_image=None):
+        """The mask predictor's input on `rois`: the box pooler and the box
+        extractor when the mask head shares it, else the mask pooler's
+        output for the mask head's own extractor (MaskHead.features)."""
+        if self.share_mask_fe:
+            pooled = multilevel_roi_align(nhwc[: len(self.box_pooler.scales)], rois, batch_idx,
+                                          self.box_pooler, rois_per_image=rois_per_image)
+            return self.roi_heads.box.feature_extractor(pooled)
+        return multilevel_roi_align(nhwc[: len(self.mask_pooler.scales)], rois, batch_idx,
+                                    self.mask_pooler, rois_per_image=rois_per_image)
 
     def _prepare_images(self, images, image_sizes):
         """uint8 batches are normalized here; float batches are taken as
@@ -290,7 +313,7 @@ class GeneralizedRCNN(nn.Module):
         nhwc = _nhwc(features)
         rois, batch_idx = _flatten_rois(targets["rois"])
         pooled = multilevel_roi_align(nhwc[: len(self.box_pooler.scales)], rois, batch_idx,
-                                      self.box_pooler)
+                                      self.box_pooler, rois_per_image=targets["rois"].shape[1])
         class_logits, box_regression = self.roi_heads.box(pooled)
         losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
             class_logits, box_regression, targets, cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)
@@ -313,9 +336,8 @@ class GeneralizedRCNN(nn.Module):
 
         if self.mask_on:
             m_rois, m_batch, m_valid, m_labels, m_mg = capped(cfg.TPU.MASK_ROI_CAP)
-            pooled = multilevel_roi_align(nhwc[: len(self.mask_pooler.scales)], m_rois,
-                                          m_batch, self.mask_pooler)
-            mask_logits = self.roi_heads.mask.logits_at_class(pooled, m_labels)
+            x = self._mask_features(nhwc, m_rois, m_batch)
+            mask_logits = self.roi_heads.mask.logits_at_class(x, m_labels)
             with torch.no_grad():
                 gt_masks = batch["gt_masks"]
                 g, s = gt_masks.shape[1], gt_masks.shape[-1]
@@ -365,7 +387,8 @@ class GeneralizedRCNN(nn.Module):
         nhwc = _nhwc(features)
         rois, batch_idx = _flatten_rois(prop_boxes)
         pooled = multilevel_roi_align(
-            nhwc[: len(self.box_pooler.scales)], rois, batch_idx, self.box_pooler
+            nhwc[: len(self.box_pooler.scales)], rois, batch_idx, self.box_pooler,
+            rois_per_image=prop_boxes.shape[1],
         )
         class_logits, box_regression = self.roi_heads.box(pooled)
         b, n = prop_scores.shape
@@ -378,12 +401,9 @@ class GeneralizedRCNN(nn.Module):
         )
         if self.mask_on:
             det_rois, det_batch = _flatten_rois(detections["boxes"])
-            pooled = multilevel_roi_align(
-                nhwc[: len(self.mask_pooler.scales)], det_rois, det_batch,
-                self.mask_pooler,
-            )
-            probs = self.roi_heads.mask(pooled, detections["labels"].reshape(-1))
             d = detections["boxes"].shape[1]
+            x = self._mask_features(nhwc, det_rois, det_batch, rois_per_image=d)
+            probs = self.roi_heads.mask(x, detections["labels"].reshape(-1))
             detections["masks"] = probs.reshape(b, d, probs.shape[-2], probs.shape[-1])
         if self.keypoint_on:
             det_rois, det_batch = _flatten_rois(detections["boxes"])

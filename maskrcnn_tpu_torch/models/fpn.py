@@ -3,8 +3,9 @@
 PyTorch counterpart of maskrcnn_tpu/models/fpn.py: lateral 1x1 convs,
 top-down 2x nearest upsampling, 3x3 output convs; then either P6 as the
 1x1/stride-2 max pool of P5, which is a plain stride-2 subsample (R-CNN),
-or ``LastLevelP6P7`` (RetinaNet). The GN and ReLU options wait for their
-model families.
+or ``LastLevelP6P7`` (RetinaNet). With MODEL.FPN.USE_GN each conv loses its
+bias and is followed by a group norm; with USE_RELU each output conv (not
+the laterals) by a ReLU, in that order (JAX ``fpn._block``).
 
 A level of zero input channels keeps its slot empty (None), as the JAX
 ``init_fpn`` does: RetinaNet's FPN over C3-C5 has modules 1-3, so that the
@@ -14,36 +15,52 @@ names line up with the JAX tree and with the reference's fpn_inner2..4.
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Conv2d, init_conv_, nearest_upsample2x
+from .layers import Conv2d, GroupNorm, init_conv_, nearest_upsample2x
 
 
 class _ConvBlock(nn.Module):
-    """Holds one conv under the name the JAX param tree uses ("conv")."""
+    """One conv, and its group norm and ReLU when asked for, under the names
+    the JAX param tree uses ("conv", "gn")."""
 
-    def __init__(self, cin, cout, k):
+    def __init__(self, cin, cout, k, gn_groups=0, relu=False):
         super().__init__()
-        self.conv = Conv2d(cin, cout, k, padding=k // 2)
+        self.conv = Conv2d(cin, cout, k, padding=k // 2, bias=not gn_groups)
+        self.gn = GroupNorm(cout, gn_groups) if gn_groups else None
+        self.relu = relu
+
+    def reset_parameters(self, gen):
+        init_conv_(self.conv, gen, init="kaiming_uniform")
+        if self.gn is not None:
+            self.gn.reset_parameters()
 
     def forward(self, x):
-        return self.conv(x)
+        x = self.conv(x)
+        if self.gn is not None:
+            x = self.gn(x)
+        return F.relu(x) if self.relu else x
 
 
 class FPN(nn.Module):
-    def __init__(self, in_channels_list, out_channels, top_block="maxpool"):
+    """gn_groups: the group norm's groups (0 without one); relu: a ReLU
+    after each output conv."""
+
+    def __init__(self, in_channels_list, out_channels, top_block="maxpool", gn_groups=0,
+                 relu=False):
         super().__init__()
         self.inner = nn.ModuleList(
-            [_ConvBlock(c, out_channels, 1) if c else None for c in in_channels_list]
+            [_ConvBlock(c, out_channels, 1, gn_groups) if c else None for c in in_channels_list]
         )
         self.layer = nn.ModuleList(
-            [_ConvBlock(out_channels, out_channels, 3) if c else None for c in in_channels_list]
+            [_ConvBlock(out_channels, out_channels, 3, gn_groups, relu) if c else None
+             for c in in_channels_list]
         )
         self.top_block = top_block
 
     def reset_parameters(self, gen):
         for inner, layer in zip(self.inner, self.layer):
             if inner is not None:
-                init_conv_(inner.conv, gen, init="kaiming_uniform")
-                init_conv_(layer.conv, gen, init="kaiming_uniform")
+                inner.reset_parameters(gen)
+                layer.reset_parameters(gen)
 
     def forward(self, features):
         """features [C2..C5] -> [P2..P5] and, with the max-pool block, P6

@@ -1,4 +1,5 @@
-"""NN primitives of the port: conv, transposed conv, frozen BN, linear, pools.
+"""NN primitives of the port: conv, transposed conv, frozen BN, group norm,
+linear, pools.
 
 PyTorch counterpart of maskrcnn_tpu/models/layers.py. The JAX package keeps
 parameters in float32 and casts them to the compute dtype at each use; the
@@ -123,6 +124,40 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x):
         s, t = self.scale_shift()
         return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
+
+
+def group_norm(x, scale, bias, num_groups, eps=1e-5):
+    """Group norm of NCHW x (images, or ROI batches [R, C, P, P]) as the JAX
+    package's layers.group_norm computes it: the statistics in float32 over
+    (H, W, the channels of a group), the variance in two passes, then the
+    affine in float32 and a cast back to x's dtype. Runs on the NHWC view
+    (free for channels_last maps, the JAX layout)."""
+    n, c, h, w = x.shape
+    xf = x.permute(0, 2, 3, 1).float().reshape(n, h, w, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+    return (xf * scale + bias).to(x.dtype).permute(0, 3, 1, 2)
+
+
+class GroupNorm(nn.Module):
+    """Trainable group norm with the JAX leaf names ``scale`` and ``bias``
+    (init 1 and 0). Only MODEL.GROUP_NORM.NUM_GROUPS sets the groups, as in
+    the JAX package (DIM_PER_GP is not read)."""
+
+    def __init__(self, c, num_groups):
+        super().__init__()
+        self.num_groups = num_groups
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def reset_parameters(self):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return group_norm(x, self.scale, self.bias, self.num_groups)
 
 
 def conv_frozen_bn(x, conv, bn):

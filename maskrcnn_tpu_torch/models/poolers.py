@@ -27,6 +27,16 @@ forward as the JAX package chooses (``backward_choice``):
 the chunk rows), which the index shares. The kernels take NHWC levels with
 C % 8 == 0 and 16-byte aligned buffers, and the wrappers raise on anything
 else. There is no fallback between the kernels and the plain version.
+
+Adaptive sampling (POOLER_SAMPLING_RATIO 0, the C4 heads) has no kernel: as
+in the JAX package it is plain tensor code on every device
+(``adaptive_roi_align``). A bin takes n = clip(ceil(bin), 1, s) samples an
+axis from a static superset of s, sample k weighing 1/n when k < n
+(``adaptive_axis_samples``). On one level s is the map's own bound,
+min(8, ceil(H / P), ceil(W / P)), exact because the ROIs are clipped to the
+image; there the ROIs of image-major blocks of ``rois_per_image`` pool as
+two products against the whole map (``c4_matmul_pool``), other ROIs by the
+gather path in ROI chunks.
 """
 
 import ctypes
@@ -35,6 +45,7 @@ import math
 import os
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import native
 from ..ops.box_ops import TO_REMOVE
@@ -45,12 +56,14 @@ class PoolerConfig:
     canonical_scale = 224
     canonical_level = 4
 
+    # ratio 0: the reference's adaptive ceil(roi / bin) samples a bin, exact
+    # up to this many an axis (adaptive_roi_align)
+    adaptive_max = 8
+
     def __init__(self, output_size, scales, sampling_ratio):
-        if int(sampling_ratio) <= 0:
-            raise NotImplementedError(
-                "adaptive sampling (ratio 0, the C4 heads) is not ported yet")
         self.output_size = int(output_size)
         self.scales = tuple(scales)
+        self.adaptive = int(sampling_ratio) <= 0
         self.sampling_ratio = int(sampling_ratio)
         self.k_min = -int(math.log2(self.scales[0]))
         self.k_max = -int(math.log2(self.scales[-1]))
@@ -93,25 +106,32 @@ def sample_corners(level_shapes, boxes, batch_idx, pcfg):
     rows of the levels flattened and concatenated into one
     [sum_l B*Hl*Wl, C] buffer, weight [4, R, PS, PS] float32, and outside
     [R, PS, PS] for samples that contribute 0 (PS = P * sampling ratio)."""
-    p, s = pcfg.output_size, pcfg.sampling_ratio
-    dev = boxes.device
     r = boxes.shape[0]
+    lvl = assign_levels(boxes, pcfg).long() if len(level_shapes) > 1 else \
+        torch.zeros((r,), dtype=torch.long, device=boxes.device)
+    ys, xs = _sample_coords(boxes, lvl, pcfg)
+    return _corners(level_shapes, batch_idx, lvl, ys, xs)
+
+
+def _corners(level_shapes, batch_idx, lvl, ys, xs):
+    """The gather path's corners of the samples at rows ys [R, Sy] and
+    columns xs [R, Sx] of each ROI's level lvl [R]: (index, weight,
+    outside) as sample_corners gives them, [.., R, Sy, Sx]."""
+    dev = ys.device
+    r, ny, nx = ys.shape[0], ys.shape[1], xs.shape[1]
     hs = [shape[1] for shape in level_shapes]
     ws = [shape[2] for shape in level_shapes]
     offsets, off = [], 0
-    for bl, hl, wl in level_shapes:
+    for shape in level_shapes:
         offsets.append(off)
-        off += bl * hl * wl
-
-    lvl = assign_levels(boxes, pcfg).long() if len(level_shapes) > 1 else \
-        torch.zeros((r,), dtype=torch.long, device=dev)
+        off += shape[0] * shape[1] * shape[2]
+    lvl = lvl.long()
     roi_h = _const(hs, dev)[lvl]
     roi_w = _const(ws, dev)[lvl]
     roi_off = _const(offsets, dev)[lvl] + batch_idx.long() * (roi_h * roi_w)
-    ys, xs = _sample_coords(boxes, lvl, pcfg)
 
-    y = ys[:, :, None].expand(r, p * s, p * s)
-    x = xs[:, None, :].expand(r, p * s, p * s)
+    y = ys[:, :, None].expand(r, ny, nx)
+    x = xs[:, None, :].expand(r, ny, nx)
     h_f = roi_h.float()[:, None, None]
     w_f = roi_w.float()[:, None, None]
     outside = (y < -1.0) | (y > h_f) | (x < -1.0) | (x > w_f)
@@ -157,6 +177,155 @@ def multilevel_roi_align_plain(features, boxes, batch_idx, pcfg):
            + w[2] * flat[index[2]] + w[3] * flat[index[3]])
     val = torch.where(outside[..., None], torch.zeros((), dtype=dtype, device=boxes.device), val)
     return val.reshape(r, p, s, p, s, c).mean(dim=(2, 4))
+
+
+# -- adaptive sampling (no kernel: the JAX package's XLA paths) -------------------
+
+# the gather path pools the ROIs in chunks, and the matmul path its ROI
+# blocks, once the samples (or the [B, K, P, W, C] product) of one call
+# would pass this (the JAX package's _CHUNK_THRESHOLD_BYTES); in training
+# each chunk is recomputed in the backward pass, as jax.checkpoint does
+CHUNK_BYTES = 1 << 29
+
+
+def adaptive_axis_samples(origin, bin_sz, p, s_max):
+    """Sample positions and weights along one axis of the adaptive grid
+    (JAX ops/roi_align.py:adaptive_axis_samples): origin, bin_sz [R] ->
+    pos, wt [R, P * s_max]; sample k of a bin at (k + 0.5) * bin / n with
+    weight 1 / n when k < n = clip(ceil(bin), 1, s_max), else 0."""
+    n = torch.clamp(torch.ceil(bin_sz), 1.0, float(s_max))
+    j = torch.arange(p * s_max, device=origin.device)
+    binidx = (j // s_max).float()
+    k = (j % s_max).float()
+    pos = origin[:, None] + binidx[None] * bin_sz[:, None] + (k[None] + 0.5) * (
+        bin_sz[:, None] / n[:, None])
+    wt = (k[None] < n[:, None]).float() / n[:, None]
+    return pos, wt
+
+
+def _adaptive_axes(boxes, lvl, pcfg, s):
+    """Each ROI's adaptive sample rows and columns on its level: (ys, wy,
+    xs, wx), [R, P * s] each."""
+    p = pcfg.output_size
+    rois, rw, rh = _level_rois(boxes, lvl, pcfg)
+    ys, wy = adaptive_axis_samples(rois[:, 1], _true_div(rh, p), p, s)
+    xs, wx = adaptive_axis_samples(rois[:, 0], _true_div(rw, p), p, s)
+    return ys, wy, xs, wx
+
+
+def _adaptive_gather(flat, level_shapes, boxes, batch_idx, pcfg, s):
+    """The gather path of the adaptive grid on one block of ROIs (JAX
+    poolers._pool_roi_block): flat [sum_l B*Hl*Wl, C] -> [R, P, P, C] in
+    flat's dtype, each sample weighted by wy * wx and the bin summed."""
+    p, dtype, c = pcfg.output_size, flat.dtype, flat.shape[-1]
+    r = boxes.shape[0]
+    lvl = assign_levels(boxes, pcfg) if len(level_shapes) > 1 else \
+        torch.zeros((r,), dtype=torch.int32, device=boxes.device)
+    ys, wy, xs, wx = _adaptive_axes(boxes, lvl, pcfg, s)
+    index, weight, outside = _corners(level_shapes, batch_idx, lvl, ys, xs)
+    w = weight[..., None].to(dtype)
+    val = (w[0] * flat[index[0]] + w[1] * flat[index[1]]
+           + w[2] * flat[index[2]] + w[3] * flat[index[3]])
+    val = torch.where(outside[..., None], torch.zeros((), dtype=dtype, device=flat.device), val)
+    wgt = (wy[:, :, None] * wx[:, None, :]).to(dtype)
+    return (val * wgt[..., None]).reshape(r, p, s, p, s, c).sum(dim=(2, 4))
+
+
+def _dense_axis_weights(coords, w, size, p, s):
+    """[R, P, size]: the summed weight of each cell of an axis of `size`
+    in each output bin, from the adaptive samples coords, w [R, P * s], by
+    the gather path's per-sample rules (outside [-1, size] zero, the
+    bilinear split over the floor cell and the next, the snap at the last
+    cell): JAX poolers._dense_axis_weights."""
+    r = coords.shape[0]
+    outside = (coords < -1.0) | (coords > float(size))
+    y = coords.clamp(min=0.0)
+    y_low = torch.clamp(y.long(), max=size - 1)
+    y_high = torch.clamp(y_low + 1, max=size - 1)
+    y = torch.where(y_low >= size - 1, y_low.float(), y)
+    ly = y - y_low
+    hy = 1.0 - ly
+    w_eff = torch.where(outside, torch.zeros_like(w), w)
+    cells = torch.arange(size, device=coords.device)
+    dense = ((w_eff * hy)[:, :, None] * (cells == y_low[:, :, None])
+             + (w_eff * ly)[:, :, None] * (cells == y_high[:, :, None]))
+    return dense.reshape(r, p, s, size).sum(dim=2)
+
+
+def c4_matmul_pool(feature, boxes, pcfg, k_per_image, s):
+    """Single-level adaptive ROIAlign as two products against the whole
+    map (JAX poolers._c4_matmul_pool): with RowW [R, P, H] and ColW
+    [R, P, W] the dense bin weights of each axis in the map's dtype,
+    A = RowW . F per image, then out = ColW . A. feature [B, H, W, C]
+    (NHWC), boxes [B * k_per_image, 4] in image-major blocks -> [R, P, P, C]
+    in the feature's dtype (each product accumulated in float32 and rounded
+    once). The blocks are cut into chunks of kc ROIs an image, kc the
+    largest divisor of k_per_image whose [B, kc, P, W, C] product stays
+    under CHUNK_BYTES / 2."""
+    b, h, w, c = feature.shape
+    p, dtype = pcfg.output_size, feature.dtype
+    r = boxes.shape[0]
+    if r != b * k_per_image:
+        raise ValueError("the matmul pooler takes {} x {} ROIs, not {}".format(
+            b, k_per_image, r))
+    lvl = torch.zeros((r,), dtype=torch.int32, device=boxes.device)
+    ys, wy, xs, wx = _adaptive_axes(boxes, lvl, pcfg, s)
+    roww = _dense_axis_weights(ys, wy, h, p, s).to(dtype).reshape(b, k_per_image, p, h)
+    colw = _dense_axis_weights(xs, wx, w, p, s).to(dtype).reshape(b, k_per_image, p, w)
+    per_roi = b * p * w * c * feature.element_size()
+    kc = max(1, min(k_per_image, (CHUNK_BYTES // 2) // per_roi))
+    while k_per_image % kc:
+        kc -= 1
+    f2 = feature.reshape(b, h, w * c)
+
+    def body(wr, wc, f):
+        a = torch.bmm(wr.reshape(b, kc * p, h), f).reshape(b, kc, p, w, c)
+        # [B, kc, Pi, Pj, C], made contiguous: einsum returns a view with Pi
+        # and Pj swapped in memory, and PyTorch's CPU convolution computes
+        # a wrong input gradient on NHWC maps of such strides (2.5e-2 of
+        # its max off at the res5 head, tests/test_torch_c4.py)
+        return torch.einsum("bkjw,bkiwc->bkijc", wc, a).contiguous()
+
+    if kc == k_per_image:
+        out = body(roww, colw, f2)
+    else:
+        remat = torch.is_grad_enabled() and f2.requires_grad
+        out = torch.cat([
+            checkpoint(body, roww[:, i:i + kc], colw[:, i:i + kc], f2, use_reentrant=False)
+            if remat else body(roww[:, i:i + kc], colw[:, i:i + kc], f2)
+            for i in range(0, k_per_image, kc)], dim=1)
+    return out.reshape(r, p, p, c)
+
+
+def adaptive_roi_align(features, boxes, batch_idx, pcfg, rois_per_image=None):
+    """ROIAlign at POOLER_SAMPLING_RATIO 0 (the JAX package's gather and
+    matmul paths, plain tensor code on every device). features: NHWC
+    [B, Hl, Wl, C] per scale; boxes [R, 4]; rois_per_image: K when the
+    boxes are image-major blocks of K, which on one level takes
+    c4_matmul_pool. -> [R, P, P, C] in the features' dtype."""
+    p = pcfg.output_size
+    s = pcfg.adaptive_max
+    if len(features) == 1:
+        h, w = features[0].shape[1], features[0].shape[2]
+        s = min(s, max(-(-h // p), -(-w // p), 1))
+        if rois_per_image and boxes.shape[0] == features[0].shape[0] * rois_per_image:
+            return c4_matmul_pool(features[0], boxes, pcfg, rois_per_image, s)
+    c = features[0].shape[-1]
+    shapes = [tuple(f.shape) for f in features]
+    flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
+    r = boxes.shape[0]
+    bytes_per_roi = (p * s) ** 2 * c * flat.element_size()
+    if r * bytes_per_roi <= CHUNK_BYTES:
+        return _adaptive_gather(flat, shapes, boxes, batch_idx, pcfg, s)
+    chunk = max(1, CHUNK_BYTES // (2 * bytes_per_roi))
+    chunk = 1 << (chunk.bit_length() - 1)
+    remat = torch.is_grad_enabled() and flat.requires_grad
+    outs = []
+    for i in range(0, r, chunk):
+        args = (flat, shapes, boxes[i:i + chunk], batch_idx[i:i + chunk], pcfg, s)
+        outs.append(checkpoint(_adaptive_gather, *args, use_reentrant=False) if remat
+                    else _adaptive_gather(*args))
+    return torch.cat(outs)
 
 
 # -- separable geometry and the "roi" backward's tiles ---------------------------
@@ -768,14 +937,18 @@ def _roi_align_cuda(features, boxes, batch_idx, pcfg, bwd):
     return RoIAlignFunction.apply(pcfg, bwd, boxes, bidx, lvl, *features)
 
 
-def multilevel_roi_align(features, boxes, batch_idx, pcfg):
+def multilevel_roi_align(features, boxes, batch_idx, pcfg, rois_per_image=None):
     """Pool each ROI from its assigned level. features: list of NHWC
     [B, Hl, Wl, C], one per scale; boxes [R, 4]; batch_idx [R] ->
     [R, P, P, C] in the features' dtype. The backward kernel is read from
     the environment here (``backward_choice``) on every device; CPU
-    tensors take the plain version and its autograd whatever it names."""
+    tensors take the plain version and its autograd whatever it names.
+    An adaptive pooler takes ``adaptive_roi_align`` on every device (no
+    kernel, no launch), with rois_per_image as it describes."""
     if len(features) != len(pcfg.scales):
         raise ValueError("one feature map per pooler scale")
+    if pcfg.adaptive:
+        return adaptive_roi_align(features, boxes, batch_idx, pcfg, rois_per_image)
     bwd = backward_choice(pcfg)
     if boxes.device.type == "cpu":
         return multilevel_roi_align_plain(features, boxes, batch_idx, pcfg)

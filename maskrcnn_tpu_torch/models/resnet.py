@@ -1,16 +1,25 @@
-"""ResNet / ResNeXt body with frozen BN.
+"""ResNet / ResNeXt body with frozen BN or group norm, and the C4 res5 head.
 
 PyTorch counterpart of maskrcnn_tpu/models/resnet.py. Every frozen BN is
 folded into the conv before it (conv_frozen_bn), the same algebra as the
-JAX ``conv_norm``. The stem is the plain 7x7/stride-2/pad-3 conv: the JAX
-package's space-to-depth stem is a TPU rewrite of the same math. Group norm
-and deformable convs belong to other model families and are not ported yet.
+JAX ``conv_norm``; group norm (TRANS_FUNC "BottleneckWithGN", the
+gn_baselines files) is not folded: it follows its bias-free conv, as in the
+JAX package. The stem is the plain 7x7/stride-2/pad-3 conv: the JAX
+package's space-to-depth stem is a TPU rewrite of the same math. Deformable
+convs belong to another model family and are not ported yet.
+
+The stage tables cover the FPN bodies and the C4/C5 bodies (``ResNet``
+returns the maps of the stages whose spec returns them: C5 alone, or C4
+alone); ``ResNetHead`` is the C4 models' res5 stage run on pooled ROIs
+(JAX ``make_res5_head_config`` / ``apply_res5_head``).
 
 Training: the stem and the first FREEZE_CONV_BODY_AT - 1 stages are frozen
-(their parameters do not require grad, so the optimizer skips them), and
-TPU.REMAT_BACKBONE "auto" recomputes each trainable block in the backward
-pass (torch.utils.checkpoint) only for bodies of more than 16 blocks or
-with grouped convs: R-50 runs without it.
+(their parameters do not require grad, so the optimizer skips them; group
+norm's affine trains in the other stages, and in the stem too at
+FREEZE_CONV_BODY_AT 0), and TPU.REMAT_BACKBONE "auto" recomputes each
+trainable block in the backward pass (torch.utils.checkpoint) only for
+bodies of more than 16 blocks or with grouped convs: R-50 runs without it.
+The res5 head never recomputes, as in the JAX package.
 """
 
 from collections import namedtuple
@@ -20,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import Conv2d, FrozenBatchNorm2d, conv_frozen_bn, init_conv_, max_pool2d
+from .layers import Conv2d, FrozenBatchNorm2d, GroupNorm, conv_frozen_bn, init_conv_, max_pool2d
 
 StageSpec = namedtuple("StageSpec", ["index", "block_count", "return_features"])
 
@@ -33,6 +42,10 @@ def _spec(counts, returns):
 
 
 STAGE_SPECS = {
+    "R-50-C4": _spec((3, 4, 6), (False, False, True)),
+    "R-50-C5": _spec((3, 4, 6, 3), (False, False, False, True)),
+    "R-101-C4": _spec((3, 4, 23), (False, False, True)),
+    "R-101-C5": _spec((3, 4, 23, 3), (False, False, False, True)),
     "R-50-FPN": _spec((3, 4, 6, 3), (True, True, True, True)),
     "R-50-FPN-RETINANET": _spec((3, 4, 6, 3), (True, True, True, True)),
     "R-101-FPN": _spec((3, 4, 23, 3), (True, True, True, True)),
@@ -41,23 +54,47 @@ STAGE_SPECS = {
 }
 
 
+NORMS = {"BottleneckWithFixedBatchNorm": "bn", "BottleneckWithGN": "gn"}
+
+
+def norm_kind(cfg):
+    """"bn" (frozen BN) or "gn" (group norm) from RESNETS.TRANS_FUNC, as the
+    JAX ``_norm_kind``; the stem follows the same choice."""
+    name = cfg.MODEL.RESNETS.TRANS_FUNC
+    if name not in NORMS:
+        raise NotImplementedError("ResNet {} is not ported yet".format(name))
+    return NORMS[name]
+
+
+def _norm(c, kind, gn_groups):
+    return GroupNorm(c, gn_groups) if kind == "gn" else FrozenBatchNorm2d(c)
+
+
+def conv_norm(x, conv, norm):
+    """A bias-free conv and its norm: frozen BN folded into the conv, group
+    norm applied after it."""
+    if isinstance(norm, GroupNorm):
+        return norm(conv(x))
+    return conv_frozen_bn(x, conv, norm)
+
+
 class Bottleneck(nn.Module):
     def __init__(self, cin, bottleneck, cout, stride, dilation, num_groups,
-                 stride_in_1x1):
+                 stride_in_1x1, norm="bn", gn_groups=32):
         super().__init__()
         s1, s2 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = Conv2d(cin, bottleneck, 1, stride=s1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(bottleneck)
+        self.bn1 = _norm(bottleneck, norm, gn_groups)
         self.conv2 = Conv2d(bottleneck, bottleneck, 3, stride=s2,
                             padding=dilation, dilation=dilation,
                             groups=num_groups, bias=False)
-        self.bn2 = FrozenBatchNorm2d(bottleneck)
+        self.bn2 = _norm(bottleneck, norm, gn_groups)
         self.conv3 = Conv2d(bottleneck, cout, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(cout)
+        self.bn3 = _norm(cout, norm, gn_groups)
         if cin != cout:
             self.downsample = nn.Module()
             self.downsample.conv = Conv2d(cin, cout, 1, stride=stride, bias=False)
-            self.downsample.bn = FrozenBatchNorm2d(cout)
+            self.downsample.bn = _norm(cout, norm, gn_groups)
         else:
             self.downsample = None
 
@@ -66,27 +103,39 @@ class Bottleneck(nn.Module):
             init_conv_(conv, gen)
         if self.downsample is not None:
             init_conv_(self.downsample.conv, gen)
+        for m in self.modules():
+            if isinstance(m, GroupNorm):
+                m.reset_parameters()
 
     def forward(self, x):
-        out = F.relu(conv_frozen_bn(x, self.conv1, self.bn1))
-        out = F.relu(conv_frozen_bn(out, self.conv2, self.bn2))
-        out = conv_frozen_bn(out, self.conv3, self.bn3)
+        out = F.relu(conv_norm(x, self.conv1, self.bn1))
+        out = F.relu(conv_norm(out, self.conv2, self.bn2))
+        out = conv_norm(out, self.conv3, self.bn3)
         if self.downsample is not None:
-            identity = conv_frozen_bn(x, self.downsample.conv, self.downsample.bn)
+            identity = conv_norm(x, self.downsample.conv, self.downsample.bn)
         else:
             identity = x
         return F.relu(out + identity)
 
 
 class Stem(nn.Module):
-    def __init__(self, cout):
+    def __init__(self, cout, norm="bn", gn_groups=32):
         super().__init__()
         self.conv1 = Conv2d(3, cout, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(cout)
+        self.bn1 = _norm(cout, norm, gn_groups)
 
     def forward(self, x):
-        x = F.relu(conv_frozen_bn(x, self.conv1, self.bn1))
+        x = F.relu(conv_norm(x, self.conv1, self.bn1))
         return max_pool2d(x, window=3, stride=2, padding=1)
+
+
+def _stage(cin, bottleneck, cout, count, first_stride, dilation, r, norm, gn_groups):
+    return nn.ModuleList([
+        Bottleneck(cin if k == 0 else cout, bottleneck, cout,
+                   stride=first_stride if k == 0 else 1, dilation=dilation,
+                   num_groups=r.NUM_GROUPS, stride_in_1x1=r.STRIDE_IN_1X1,
+                   norm=norm, gn_groups=gn_groups)
+        for k in range(count)])
 
 
 class ResNet(nn.Module):
@@ -95,30 +144,23 @@ class ResNet(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         r = cfg.MODEL.RESNETS
-        if r.TRANS_FUNC != "BottleneckWithFixedBatchNorm":
-            raise NotImplementedError("ResNet {} is not ported yet".format(r.TRANS_FUNC))
+        norm = norm_kind(cfg)
         if any(r.STAGE_WITH_DCN):
             raise NotImplementedError("deformable convs are not ported yet")
         specs = STAGE_SPECS[cfg.MODEL.BACKBONE.CONV_BODY]
         bottleneck2 = r.NUM_GROUPS * r.WIDTH_PER_GROUP
         out2 = r.RES2_OUT_CHANNELS
-        self.stem = Stem(r.STEM_OUT_CHANNELS)
+        gn_groups = cfg.MODEL.GROUP_NORM.NUM_GROUPS
+        self.stem = Stem(r.STEM_OUT_CHANNELS, norm, gn_groups)
         self.stage_names = []
         self.return_features = []
         for spec in specs:
             i = spec.index
             cin = r.STEM_OUT_CHANNELS if i == 1 else out2 * 2 ** (i - 2)
-            cout = out2 * 2 ** (i - 1)
-            blocks = []
-            for k in range(spec.block_count):
-                blocks.append(Bottleneck(
-                    cin if k == 0 else cout, bottleneck2 * 2 ** (i - 1), cout,
-                    stride=(1 if i == 1 else 2) if k == 0 else 1,
-                    dilation=r.RES5_DILATION if i == 4 else 1,
-                    num_groups=r.NUM_GROUPS, stride_in_1x1=r.STRIDE_IN_1X1,
-                ))
             name = "layer{}".format(i)
-            setattr(self, name, nn.ModuleList(blocks))
+            setattr(self, name, _stage(cin, bottleneck2 * 2 ** (i - 1), out2 * 2 ** (i - 1),
+                                       spec.block_count, 1 if i == 1 else 2,
+                                       r.RES5_DILATION if i == 4 else 1, r, norm, gn_groups))
             self.stage_names.append(name)
             self.return_features.append(spec.return_features)
         self.out_channels = [
@@ -140,6 +182,8 @@ class ResNet(nn.Module):
 
     def reset_parameters(self, gen):
         init_conv_(self.stem.conv1, gen)
+        if isinstance(self.stem.bn1, GroupNorm):
+            self.stem.bn1.reset_parameters()
         for name in self.stage_names:
             for block in getattr(self, name):
                 block.reset_parameters(gen)
@@ -155,3 +199,29 @@ class ResNet(nn.Module):
             if ret:
                 outputs.append(x)
         return outputs
+
+
+class ResNetHead(nn.Module):
+    """The C4 heads' res5 (JAX ``make_res5_head_config`` /
+    ``apply_res5_head``): three bottlenecks from RES2_OUT_CHANNELS * 4 to
+    * 8 channels, the first at stride 2 unless ROI_BOX_HEAD.DILATION > 1,
+    the body's norm, groups and STRIDE_IN_1X1. Takes NCHW ROI features."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        r = cfg.MODEL.RESNETS
+        dilation = cfg.MODEL.ROI_BOX_HEAD.DILATION
+        out2 = r.RES2_OUT_CHANNELS
+        self.out_channels = out2 * 8
+        self.layer4 = _stage(out2 * 4, r.NUM_GROUPS * r.WIDTH_PER_GROUP * 8, out2 * 8, 3,
+                             2 if dilation == 1 else 1, dilation, r, norm_kind(cfg),
+                             cfg.MODEL.GROUP_NORM.NUM_GROUPS)
+
+    def reset_parameters(self, gen):
+        for block in self.layer4:
+            block.reset_parameters(gen)
+
+    def forward(self, x):
+        for block in self.layer4:
+            x = block(x)
+        return x

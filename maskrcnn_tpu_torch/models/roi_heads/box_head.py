@@ -1,17 +1,23 @@
-"""ROI box head (FPN): 2-layer MLP extractor, predictor, training targets,
-loss and inference.
+"""ROI box head: feature extractors, predictors, training targets, loss
+and inference.
 
-PyTorch counterpart of maskrcnn_tpu/models/roi_heads/box_head.py for the
-FPN2MLPFeatureExtractor + FPNPredictor pair; ``prepare_box_targets`` (match
-the proposals to the gt, sample a fixed ROI batch, encode its targets) and
-``box_head_loss``; and ``box_head_inference``: softmax, per-class decode and
-clip, a top-k prefilter per (image, class) lane, per-class NMS over all
-lanes at once, and the top DETECTIONS_PER_IMG survivors per image as padded
-outputs.
+PyTorch counterpart of maskrcnn_tpu/models/roi_heads/box_head.py: the
+extractors FPN2MLPFeatureExtractor (two fcs), FPNXconv1fcFeatureExtractor
+(NUM_STACKED_CONVS 3x3 convs, with a group norm each under USE_GN and a
+bias only without, then fc6) and ResNet50Conv5ROIFeatureExtractor (the C4
+models' res5 head); the predictors FPNPredictor and FastRCNNPredictor (a
+global average pool of the res5 output first); ``prepare_box_targets``
+(match the proposals to the gt, sample a fixed ROI batch, encode its
+targets) and ``box_head_loss``; and ``box_head_inference``: softmax,
+per-class decode and clip, a top-k prefilter per (image, class) lane,
+per-class NMS over all lanes at once, and the top DETECTIONS_PER_IMG
+survivors per image as padded outputs.
 
-The pooled [R, P, P, C] features are flattened in (P, P, C) order, as the
-JAX head flattens its NHWC patches, so fc6 converts from the JAX weight by a
-plain transpose.
+The pooled [R, P, P, C] features (and the Xconv head's conv output) are
+flattened in (P, P, C) order, as the JAX head flattens its NHWC patches, so
+fc6 converts from the JAX weight by a plain transpose. The res5 head
+returns NCHW [R, 2048, P/2, P/2], the input of FastRCNNPredictor and of a
+mask head that shares the extractor.
 """
 
 import torch
@@ -24,7 +30,8 @@ from ...ops.matcher import match_proposals
 from ...ops.nms import NEG_INF, batched_nms
 from ...ops.sampler import sample_topk_indices
 from ...utils import comm
-from ..layers import Linear, init_linear_
+from ..layers import Conv2d, GroupNorm, Linear, init_conv_, init_linear_
+from ..resnet import ResNetHead
 from ..rpn import top_k_stable
 
 
@@ -47,7 +54,73 @@ class FPN2MLPFeatureExtractor(nn.Module):
         return F.relu(self.fc7(x))
 
 
+class _XconvBlock(nn.Module):
+    def __init__(self, cin, cout, gn_groups):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, 3, padding=1, bias=not gn_groups)
+        self.gn = GroupNorm(cout, gn_groups) if gn_groups else None
+
+
+class FPNXconv1fcFeatureExtractor(nn.Module):
+    """NUM_STACKED_CONVS 3x3 convs of CONV_HEAD_DIM, each with a group norm
+    (USE_GN) or a bias, and a ReLU; then fc6 and a ReLU."""
+
+    def __init__(self, cfg, in_channels):
+        super().__init__()
+        h = cfg.MODEL.ROI_BOX_HEAD
+        gn_groups = cfg.MODEL.GROUP_NORM.NUM_GROUPS if h.USE_GN else 0
+        blocks, cin = [], in_channels
+        for _ in range(h.NUM_STACKED_CONVS):
+            blocks.append(_XconvBlock(cin, h.CONV_HEAD_DIM, gn_groups))
+            cin = h.CONV_HEAD_DIM
+        self.convs = nn.ModuleList(blocks)
+        self.fc6 = Linear(cin * h.POOLER_RESOLUTION ** 2, h.MLP_HEAD_DIM)
+        self.out_dim = h.MLP_HEAD_DIM
+
+    def reset_parameters(self, gen):
+        for blk in self.convs:
+            init_conv_(blk.conv, gen, init="kaiming_normal_fanin")
+            if blk.gn is not None:
+                blk.gn.reset_parameters()
+        init_linear_(self.fc6, gen)
+
+    def forward(self, x):
+        """x [R, P, P, C] -> [R, D]."""
+        x = x.permute(0, 3, 1, 2)
+        for blk in self.convs:
+            x = blk.conv(x)
+            if blk.gn is not None:
+                x = blk.gn(x)
+            x = F.relu(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return F.relu(self.fc6(x))
+
+
+class ResNet50Conv5ROIFeatureExtractor(nn.Module):
+    """The C4 models' res5 head on the pooled ROIs: [R, P, P, C] (NHWC) ->
+    NCHW [R, 2048, P/2, P/2] (stride 2 unless ROI_BOX_HEAD.DILATION > 1)."""
+
+    def __init__(self, cfg, in_channels):
+        super().__init__()
+        self.head = ResNetHead(cfg)
+        self.out_dim = self.head.out_channels
+
+    def reset_parameters(self, gen):
+        self.head.reset_parameters(gen)
+
+    def forward(self, x):
+        return self.head(x.permute(0, 3, 1, 2))
+
+
+EXTRACTORS = {"FPN2MLPFeatureExtractor": FPN2MLPFeatureExtractor,
+              "FPNXconv1fcFeatureExtractor": FPNXconv1fcFeatureExtractor,
+              "ResNet50Conv5ROIFeatureExtractor": ResNet50Conv5ROIFeatureExtractor}
+
+
 class FPNPredictor(nn.Module):
+    """cls_score and bbox_pred on [R, D]; as FastRCNNPredictor, the global
+    average pool of a 4-d input (the res5 output) first."""
+
     def __init__(self, cfg, in_dim):
         super().__init__()
         num_classes = cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES
@@ -60,6 +133,8 @@ class FPNPredictor(nn.Module):
         init_linear_(self.bbox_pred, gen, init="normal", std=0.001)
 
     def forward(self, x):
+        if x.ndim == 4:
+            x = x.mean(dim=(2, 3))
         return self.cls_score(x).float(), self.bbox_pred(x).float()
 
 
@@ -67,10 +142,11 @@ class BoxHead(nn.Module):
     def __init__(self, cfg, in_channels):
         super().__init__()
         h = cfg.MODEL.ROI_BOX_HEAD
-        if h.FEATURE_EXTRACTOR != "FPN2MLPFeatureExtractor" or h.PREDICTOR != "FPNPredictor":
+        if h.FEATURE_EXTRACTOR not in EXTRACTORS or h.PREDICTOR not in (
+                "FPNPredictor", "FastRCNNPredictor"):
             raise NotImplementedError("box head {} + {} is not ported yet".format(
                 h.FEATURE_EXTRACTOR, h.PREDICTOR))
-        self.feature_extractor = FPN2MLPFeatureExtractor(cfg, in_channels)
+        self.feature_extractor = EXTRACTORS[h.FEATURE_EXTRACTOR](cfg, in_channels)
         self.predictor = FPNPredictor(cfg, self.feature_extractor.out_dim)
 
     def reset_parameters(self, gen):

@@ -1,11 +1,18 @@
-"""ROI mask head (FPN): 4-conv extractor, the deconv + 1x1 predictor, and
-the training pieces.
+"""ROI mask head: its extractor, the deconv + 1x1 predictor, and the
+training pieces.
 
-PyTorch counterpart of maskrcnn_tpu/models/roi_heads/mask_head.py for the
-MaskRCNNFPNFeatureExtractor + MaskRCNNC4Predictor pair: full logits at
-inference; in training the logits of each ROI's gt class only
-(``MaskHead.logits_at_class``), the positive-ROI selection, the projection
-of the gt mask patches into the ROI frames, and the BCE loss.
+PyTorch counterpart of maskrcnn_tpu/models/roi_heads/mask_head.py for
+MaskRCNNC4Predictor after MaskRCNNFPNFeatureExtractor (4 convs), after
+ResNet50Conv5ROIFeatureExtractor (the res5 head), or, under
+SHARE_BOX_FEATURE_EXTRACTOR (the C4 mask files), after the box head's own
+extractor: the mask head then holds no extractor, and the detector hands it
+that extractor's output. Full logits at inference; in training the logits
+of each ROI's gt class only (``MaskHead.logits_at_class``), the
+positive-ROI selection, the projection of the gt mask patches into the ROI
+frames, and the BCE loss.
+
+ROI_MASK_HEAD.USE_GN adds no group norm: the JAX package's mask head has
+none (maskrcnn-benchmark's has one after each conv; ROADMAP.md Queue 3).
 """
 
 import torch
@@ -15,6 +22,7 @@ import torch.nn.functional as F
 from ...ops.sampler import top_k_fast
 from ...utils import comm
 from ..layers import Conv2d, ConvTranspose2d, init_conv_
+from .box_head import ResNet50Conv5ROIFeatureExtractor
 
 
 class _ConvBlock(nn.Module):
@@ -27,23 +35,27 @@ class MaskRCNNFPNFeatureExtractor(nn.Module):
     def __init__(self, cfg, in_channels):
         super().__init__()
         h = cfg.MODEL.ROI_MASK_HEAD
-        if h.USE_GN:
-            raise NotImplementedError("GN mask head is not ported yet")
         blocks, cin = [], in_channels
         for cout in h.CONV_LAYERS:
             blocks.append(_ConvBlock(cin, cout, h.DILATION))
             cin = cout
         self.convs = nn.ModuleList(blocks)
-        self.out_channels = cin
+        self.out_dim = cin
 
     def reset_parameters(self, gen):
         for blk in self.convs:
             init_conv_(blk.conv, gen, init="kaiming_normal_fanin")
 
     def forward(self, x):
+        """[R, P, P, C] (NHWC) -> NCHW [R, D, P, P]."""
+        x = x.permute(0, 3, 1, 2)
         for blk in self.convs:
             x = F.relu(blk.conv(x))
         return x
+
+
+EXTRACTORS = {"MaskRCNNFPNFeatureExtractor": MaskRCNNFPNFeatureExtractor,
+              "ResNet50Conv5ROIFeatureExtractor": ResNet50Conv5ROIFeatureExtractor}
 
 
 class MaskRCNNC4Predictor(nn.Module):
@@ -68,37 +80,46 @@ class MaskRCNNC4Predictor(nn.Module):
 
 
 class MaskHead(nn.Module):
-    def __init__(self, cfg, in_channels):
+    """shared_dim: the width of the box head's extractor output when the
+    mask head shares it (SHARE_BOX_FEATURE_EXTRACTOR), else None."""
+
+    def __init__(self, cfg, in_channels, shared_dim=None):
         super().__init__()
         h = cfg.MODEL.ROI_MASK_HEAD
-        if (h.FEATURE_EXTRACTOR != "MaskRCNNFPNFeatureExtractor"
-                or h.PREDICTOR != "MaskRCNNC4Predictor"
-                or h.SHARE_BOX_FEATURE_EXTRACTOR):
+        if h.FEATURE_EXTRACTOR not in EXTRACTORS or h.PREDICTOR != "MaskRCNNC4Predictor":
             raise NotImplementedError("mask head {} + {} is not ported yet".format(
                 h.FEATURE_EXTRACTOR, h.PREDICTOR))
-        self.feature_extractor = MaskRCNNFPNFeatureExtractor(cfg, in_channels)
-        self.predictor = MaskRCNNC4Predictor(cfg, self.feature_extractor.out_channels)
+        if shared_dim is None:
+            self.feature_extractor = EXTRACTORS[h.FEATURE_EXTRACTOR](cfg, in_channels)
+            shared_dim = self.feature_extractor.out_dim
+        else:
+            self.feature_extractor = None
+        self.predictor = MaskRCNNC4Predictor(cfg, shared_dim)
 
     def reset_parameters(self, gen):
-        self.feature_extractor.reset_parameters(gen)
+        if self.feature_extractor is not None:
+            self.feature_extractor.reset_parameters(gen)
         self.predictor.reset_parameters(gen)
 
-    def forward(self, pooled, labels):
-        """pooled [R, P, P, C] (NHWC), labels [R] -> mask probabilities
-        [R, M, M] of each ROI's own class."""
-        x = self.feature_extractor(pooled.permute(0, 3, 1, 2))
-        logits = self.predictor(x)
+    def features(self, x):
+        """The predictor's NCHW input: the head's extractor on the pooled
+        [R, P, P, C] (NHWC), or x itself, the shared extractor's output."""
+        return x if self.feature_extractor is None else self.feature_extractor(x)
+
+    def forward(self, x, labels):
+        """x (see ``features``), labels [R] -> mask probabilities [R, M, M]
+        of each ROI's own class."""
+        logits = self.predictor(self.features(x))
         safe = labels.long().clamp(0, logits.shape[1] - 1)
         picked = logits[torch.arange(logits.shape[0], device=logits.device), safe]
         return torch.sigmoid(picked)
 
-    def logits_at_class(self, pooled, labels):
-        """Training: pooled [R, P, P, C] (NHWC), labels [R] -> float32 logits
+    def logits_at_class(self, x, labels):
+        """Training: x (see ``features``), labels [R] -> float32 logits
         [R, M, M] of each ROI's label only. The 1x1 predictor's weight column
         of that class is gathered first, so the other classes' maps are
         never computed (apply_mask_predictor_at_class)."""
-        x = self.feature_extractor(pooled.permute(0, 3, 1, 2))
-        x = F.relu(self.predictor.conv5_mask(x))
+        x = F.relu(self.predictor.conv5_mask(self.features(x)))
         fcn = self.predictor.mask_fcn_logits
         safe = labels.long().clamp(0, fcn.out_channels - 1)
         wl = fcn.weight[:, :, 0, 0][safe].to(x.dtype)  # [R, D]

@@ -34,6 +34,16 @@ def top_k_stable(x, k):
     return vals[..., :k], idx[..., :k]
 
 
+def top_k_fast(x, k):
+    """The JAX package's top_k_fast: lax.top_k's values; below 8192 entries
+    or for k < 64 its index order too (top_k_stable), above that the order
+    within tied values is open (JAX takes approx_max_k there), and
+    torch.topk takes its place."""
+    if x.shape[-1] >= 8192 and k >= 64:
+        return torch.topk(x, k, dim=-1)
+    return top_k_stable(x, k)
+
+
 class RPNHead(nn.Module):
     def __init__(self, in_channels, num_anchors):
         super().__init__()
@@ -67,7 +77,7 @@ def _level_candidates(anchors, objectness, bbox_reg, image_hw, pre_nms_top_n,
     b, n = objectness.shape
     k = min(pre_nms_top_n, n)
     scores = torch.sigmoid(objectness.float())
-    top_scores, top_idx = torch.topk(scores, k, dim=-1)  # tie order unspecified, as in JAX
+    top_scores, top_idx = top_k_fast(scores, k)
     top_deltas = torch.gather(bbox_reg.float(), 1, top_idx[..., None].expand(-1, -1, 4))
     boxes = decode_boxes(top_deltas, anchors[top_idx])
     boxes = clip_boxes_to_image(boxes, image_hw)

@@ -34,14 +34,28 @@ def _unsort(order, keep_sorted):
     return torch.zeros_like(keep_sorted).scatter_(1, order, keep_sorted)
 
 
+def _suppression(sboxes, iou_threshold, rows=1024):
+    """sup [G, N, N] bool: column j comes after row i and IoU(i, j) >
+    threshold. The IoU is taken `rows` rows at a time: a lane of 12,000
+    boxes holds 144 M pairs, whose float32 IoU at once would take 576 MB
+    a lane."""
+    g, n, _ = sboxes.shape
+    sup = torch.empty((g, n, n), dtype=torch.bool, device=sboxes.device)
+    cols = torch.arange(n, device=sboxes.device)
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        later = cols[None, :] > cols[r0:r1, None]
+        sup[:, r0:r1] = (box_iou(sboxes[:, r0:r1], sboxes) > iou_threshold) & later
+    return sup
+
+
 def batched_nms_plain(boxes, scores, valid, iou_threshold):
     """boxes [G, N, 4], scores [G, N], valid [G, N] bool -> keep [G, N]
     bool in the original order. The greedy scan of ops/nms.py:nms_mask,
     over all lanes at once."""
     g, n, _ = boxes.shape
     order, sboxes, keep = _sort_lanes(boxes, scores, valid)
-    later = torch.ones((n, n), dtype=torch.bool, device=boxes.device).triu(1)
-    sup = (box_iou(sboxes, sboxes) > iou_threshold) & later  # [G, N, N]
+    sup = _suppression(sboxes, iou_threshold)
     for i in range(n):
         keep = keep & ~(keep[:, i:i + 1] & sup[:, i])
     return _unsort(order, keep)

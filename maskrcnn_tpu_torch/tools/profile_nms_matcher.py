@@ -2,14 +2,16 @@
 
 Run from the root of a checkout, with one CUDA card visible:
 
-    python3 -m maskrcnn_tpu_torch.tools.profile_nms_matcher [--parent DIR] [--variant DIR]
-        [--save FILE] [--timeline]
+    python3 -m maskrcnn_tpu_torch.tools.profile_nms_matcher [--parent DIR] [--variant DIR ...]
+        [--save FILE] [--timeline] [--rpn]
 
 It builds the flagship as chip_smoke.py does (seeded weights, bf16 compute,
 frozen-BN statistics from the input), serves one 480x640 request and takes
 one training step at batch 8 of 800x1344, and keeps the inputs of the three
 NMS calls (serving RPN 5 x 1000 at t=0.7, serving box post-process 80 x 200
-at t=0.5, training RPN 40 x 2000 at t=0.7) and of the step's matcher call.
+at t=0.5, training RPN 40 x 2000 at t=0.7) and of the step's matcher call;
+the training RPN's 40 lanes twice over make an 80 x 2000 site, the lanes of
+a batch of 16.
 For each it prints one JSON line with the kernel alone on prepared buffers
 (CUDA events, ms per call) and the device time of each launch inside that
 call (torch.profiler, ms per call, by kernel name).
@@ -18,14 +20,18 @@ With --parent DIR (an unpacked checkout of another commit) it also builds
 that checkout's csrc/nms.cu and csrc/matcher.cu into build/profile/ and times
 them on the same inputs, in turns with this checkout's (parent, this, this,
 parent). --variant DIR does the same for another design of this
-checkout's entry points (nms_keep, match_anchors) kept in DIR. --save FILE
-writes the captured inputs (CPU tensors) with
-torch.save. --timeline also times the phases of the matcher's one launch
+checkout's entry points (nms_keep, match_anchors) kept in DIR (given more
+than once, for each; named by DIR's last component). --save FILE writes the
+captured inputs (CPU tensors) with torch.save. --timeline also times the phases of the matcher's one launch
 on the step's inputs: a copy of csrc/matcher.cu in build/profile/ in which
 thread 0 of every block reads the global timer at each phase's end; it
 prints, in microseconds from the first block's start, when the last block
 ended each phase (staging, the first grid barrier, pass 1, the fold of the
-block maxima, the second barrier, pass 2).
+block maxima, the second barrier, pass 2). --rpn times the same training
+step with the RPN's per-level top-k taken three ways (torch.topk on every
+level, a stable sort on every level, and rpn.top_k_fast, the JAX package's
+choice by size), in turns, with what rpn's select_proposals takes of the
+step's device time (chip_smoke.function_shares).
 """
 
 import ctypes
@@ -202,15 +208,34 @@ def current_matcher(matcher, anchors, gt, valid, high, low):
     return (lambda: matcher.launch(anchors, gt, valid, high, low, best, out)), (lambda: out)
 
 
+def flagship_training(cs):
+    """The flagship's training step at batch 8 of 800x1344 (bf16, seeded
+    weights, frozen-BN statistics from the input), as chip_smoke.py builds
+    it: (step, batch)."""
+    from maskrcnn_tpu_torch.config import flagship_cfg
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.models import build_detection_model
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+
+    cfg = flagship_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    model = build_detection_model(cfg, device="cuda", seed=cs.SEED)
+    batch = cs.train_batch(torch, np, cs.TRAIN_BATCH, cs.TRAIN_HW, cs.TRAIN_SIZE,
+                           cfg.TPU.MAX_GT_BOXES, cfg.TPU.GT_MASK_SIZE, cs.SEED, "cuda")
+    cs.calibrate_frozen_bn(torch, model, batch["images"])
+    opt = make_optimizer(cfg, model)
+    step = make_train_step(model, opt, make_lr_scheduler(cfg, opt),
+                           generator=torch.Generator(device="cuda").manual_seed(cs.SEED))
+    return step, batch
+
+
 def capture_sites(cs):
     """The inputs of the serving request's two NMS calls and of one training
     step's NMS and matcher calls, as chip_smoke.py drives them."""
     from maskrcnn_tpu_torch.config import flagship_cfg
-    from maskrcnn_tpu_torch.engine import make_train_step
-    from maskrcnn_tpu_torch.models import build_detection_model, rpn
+    from maskrcnn_tpu_torch.models import rpn
     from maskrcnn_tpu_torch.models.roi_heads import box_head
     from maskrcnn_tpu_torch.predictor import Predictor
-    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
 
     cfg = flagship_cfg()
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
@@ -226,28 +251,52 @@ def capture_sites(cs):
     del pred
     torch.cuda.empty_cache()
 
-    cfg = flagship_cfg()
-    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
-    model = build_detection_model(cfg, device="cuda", seed=cs.SEED)
-    batch = cs.train_batch(torch, np, cs.TRAIN_BATCH, cs.TRAIN_HW, cs.TRAIN_SIZE,
-                           cfg.TPU.MAX_GT_BOXES, cfg.TPU.GT_MASK_SIZE, cs.SEED, "cuda")
-    cs.calibrate_frozen_bn(torch, model, batch["images"])
-    opt = make_optimizer(cfg, model)
-    step = make_train_step(model, opt, make_lr_scheduler(cfg, opt),
-                           generator=torch.Generator(device="cuda").manual_seed(cs.SEED))
+    step, batch = flagship_training(cs)
     step(batch)
     with cs.Capture([rpn], "batched_nms") as train_nms, \
             cs.Capture([rpn], "match_anchors_batched") as train_match:
         step(batch)
     torch.cuda.synchronize()
-    del model, opt, step
+    del step, batch
     torch.cuda.empty_cache()
     names = ("serving_rpn", "serving_box", "training_rpn")
     sites = {k: tuple(t.detach() if torch.is_tensor(t) else t for t in call)
              for k, call in zip(names, serve_nms.calls + train_nms.calls)}
+    boxes, scores, valid, thresh = sites["training_rpn"]
+    sites["training_rpn_x2"] = (torch.cat([boxes] * 2), torch.cat([scores] * 2),
+                                torch.cat([valid] * 2), thresh)
     sites["matcher"] = tuple(t.detach() if torch.is_tensor(t) else t
                              for t in train_match.calls[0])
     return sites
+
+
+def rpn_topk(cs, card, steps=3):
+    """The flagship's training step with the RPN's per-level top-k taken
+    three ways, in turns (topk, stable, by_size, by_size, stable, topk):
+    one JSON line of each way's wall ms, device busy and select_proposals
+    share a step (torch.profiler over `steps` steps, after one warm step)."""
+    from maskrcnn_tpu_torch.models import detector, rpn
+
+    step, batch = flagship_training(cs)
+    step(batch)
+    plain = rpn.top_k_fast
+    ways = {"topk": lambda x, k: torch.topk(x, k, dim=-1), "stable": rpn.top_k_stable,
+            "by_size": plain}
+    res = {"site": "rpn_top_k", "batch": list(batch["images"].shape), "card": card}
+    for way in ("topk", "stable", "by_size", "by_size", "stable", "topk"):
+        rpn.top_k_fast = ways[way]
+        try:
+            step(batch)
+            got = cs.function_shares(torch, {"select_proposals": (detector, "select_proposals")},
+                                     step, batch, steps)
+        finally:
+            rpn.top_k_fast = plain
+        res.setdefault(way, []).append(
+            {"wall_ms": got["wall_ms"], "device_busy_ms": got["device_busy_ms"],
+             "select_proposals_ms": got["select_proposals"].get("ms", "not measured")})
+    print(json.dumps(res), flush=True)
+    del step, batch
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -265,10 +314,13 @@ def main():
 
     native.build(("nms", "matcher"))
     parents = _other_libs(native, parent, "parent") if parent else {}
-    variants = _other_libs(native, args[args.index("--variant") + 1], "variant") \
-        if "--variant" in args else {}
+    variants = {"variant:" + os.path.basename(os.path.normpath(d)): _other_libs(
+        native, d, "variant_" + os.path.basename(os.path.normpath(d)))
+        for d in (args[i + 1] for i, a in enumerate(args) if a == "--variant")}
     card = cs.card_line()
     print("card:", card, flush=True)
+    if "--rpn" in args:
+        rpn_topk(cs, card)
     sites = capture_sites(cs)
     if save:
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
@@ -281,9 +333,9 @@ def main():
             designs = {"this": current_matcher(matcher, *args_)}
             if parents:
                 designs["parent"] = parent_matcher(parents["matcher"], *args_)
-            if variants:
-                designs["variant"] = variant(native, "matcher", variants["matcher"],
-                                             current_matcher, matcher, *args_)
+            for tag, libs in variants.items():
+                designs[tag] = variant(native, "matcher", libs["matcher"], current_matcher,
+                                       matcher, *args_)
             res = {"site": name, "anchors": args_[0].shape[0], "gt": list(args_[1].shape[:2]),
                    "valid_gt": int(args_[2].sum())}
         else:
@@ -292,9 +344,8 @@ def main():
             designs = {"this": current_nms(nms, *args_)}
             if parents:
                 designs["parent"] = parent_nms(parents["nms"], nms, *args_)
-            if variants:
-                designs["variant"] = variant(native, "nms", variants["nms"], current_nms, nms,
-                                             *args_)
+            for tag, libs in variants.items():
+                designs[tag] = variant(native, "nms", libs["nms"], current_nms, nms, *args_)
             res = {"site": name, "lanes": list(scores.shape), "iou_threshold": thresh,
                    "kept": int(want.sum())}
         others = [d for d in designs if d != "this"]

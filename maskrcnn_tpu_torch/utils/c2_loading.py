@@ -13,8 +13,11 @@ maskrcnn_benchmark/utils/c2_model_loading.py:12-206). Two stages:
      fpn.inner.i.conv -> fpn.fpn_inner{i+1}, rpn -> rpn.head, the mask
      head's convs.k.conv -> mask_fcn{k+1}; RetinaNet's towers
      {cls,bbox}_tower.i -> {cls,bbox}_tower.{2i} and P6/P7 top.p6/p7 ->
-     fpn.top_blocks.p6/p7). The keypoint head's modules carry the
-     reference's names (conv_fcn1..8, kps_score_lowres) and need none.
+     fpn.top_blocks.p6/p7; a group norm's scale -> weight, the Xconv
+     head's convs.k -> xconvs.{3k}, an FPN group norm as its conv). The
+     keypoint head's modules carry the reference's names (conv_fcn1..8,
+     kps_score_lowres) and need none, nor does the C4 box head's res5
+     (head.layer4.i: Detectron's res5_i blobs end the same way).
 
 The layouts are the reference's and mostly the port's own: conv OIHW,
 linear [out, in] and the mask and keypoint heads' transposed convs
@@ -140,6 +143,16 @@ _RENAMES = (
     (r"^backbone\.top\.", "backbone.fpn.top_blocks."),
     (r"\.mask\.feature_extractor\.convs\.(\d+)\.conv\.",
      lambda m: ".mask.feature_extractor.mask_fcn{}.".format(int(m[1]) + 1)),
+    # group norm (the body's norms, the FPN's, the Xconv head's): the JAX
+    # rewriter names an FPN conv's norm as the conv itself, fpn_inner{i}
+    # (weight and bias), and an Xconv head conv k xconvs.{3k}
+    (r"\.box\.feature_extractor\.convs\.(\d+)\.conv\.",
+     lambda m: ".box.feature_extractor.xconvs.{}.".format(3 * int(m[1]))),
+    (r"\.box\.feature_extractor\.convs\.(\d+)\.gn\.",
+     lambda m: ".box.feature_extractor.xconvs.{}.gn.".format(3 * int(m[1]))),
+    (r"\.fpn\.(inner|layer)\.(\d+)\.gn\.",
+     lambda m: ".fpn.fpn_{}{}.".format(m[1], int(m[2]) + 1)),
+    (r"\.scale$", ".weight"),
 )
 
 

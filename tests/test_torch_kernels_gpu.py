@@ -125,6 +125,28 @@ def test_nms_kernel_on_transposed_inputs(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [8193, 12000, 12288])
+def test_nms_kernel_takes_lanes_above_8192_boxes(cuda, n):
+    """Lanes past 128 words: the C4 training lanes (12000 boxes) and the
+    cap, 12288 (192 words), in the reduce launch of six owned words a lane;
+    12289 boxes raise."""
+    rs = np.random.RandomState(n)
+    g = 3
+    boxes = torch.from_numpy(_boxes(rs, (g, n), 0, 1300, 4, 400)).to(cuda)
+    scores = torch.from_numpy(np.round(rs.uniform(size=(g, n)) * 4096) / 4096).float().to(cuda)
+    valid = torch.from_numpy(rs.uniform(size=(g, n)) > 0.05).to(cuda)
+    valid[1, : n // 2] = False  # a lane whose first valid box sits past 64 blocks
+    got = batched_nms(boxes, scores, valid, 0.7)
+    want = batched_nms_plain(boxes, scores, valid, 0.7)
+    assert torch.equal(got, want)
+    assert int(got.sum()) > 1000 and not got[~valid].any()
+    with pytest.raises(ValueError, match="at most 12288"):
+        batched_nms(boxes[:1, :1].expand(1, 12289, 4).contiguous(),
+                    torch.zeros(1, 12289, device=cuda),
+                    torch.ones(1, 12289, dtype=torch.bool, device=cuda), 0.7)
+
+
+@pytest.mark.gpu
 def test_nms_kernel_rejects_what_it_does_not_take(cuda):
     boxes = torch.zeros(2, 8, 4, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):

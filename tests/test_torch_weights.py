@@ -431,3 +431,159 @@ def test_imagenet_pkl_fills_a_retinanet_body(offline, caplog):
         want = jax_c2.load_c2_weights(str(offline / "R-50.pkl"), jcfg, template)
     want = params_from_jax(want)
     assert all(torch.equal(got[k], v) for k, v in want.items())
+
+
+# -- group norm and C4 (GN baselines, R-50-C4) ----------------------------------------
+
+
+def _gn_pair():
+    """A narrow GN Mask R-CNN (GN stem, bottlenecks and FPN, Xconv1fc box
+    head with GN) in both packages, and a seeded JAX template."""
+    jcfg, tcfg = jax_defaults.clone(), torch_defaults.clone()
+    for c in (jcfg, tcfg):
+        c.merge_from_file(os.path.join(REPO, "configs", "gn_baselines",
+                                       "e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml"))
+        narrow(tiny(c))
+        c.MODEL.WEIGHT = ""
+        c.MODEL.GROUP_NORM.NUM_GROUPS = 2
+        c.MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM = 32
+    jm = build_jax_model(jcfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jm, _seeded_tree(shapes, np.random.RandomState(100), _identity_bn)
+
+
+def _c4_pair(name="e2e_mask_rcnn_R_50_C4_1x.yaml"):
+    jcfg, tcfg = jax_defaults.clone(), torch_defaults.clone()
+    for c in (jcfg, tcfg):
+        c.merge_from_file(os.path.join(REPO, "configs", name))
+        narrow(tiny(c))
+        c.MODEL.WEIGHT = ""
+        c.MODEL.RESNETS.BACKBONE_OUT_CHANNELS = c.MODEL.RESNETS.RES2_OUT_CHANNELS * 4
+    jm = build_jax_model(jcfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jm, _seeded_tree(shapes, np.random.RandomState(100), _identity_bn)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_gn_imagenet_pkl_equals_jax(tmp_path, caplog):
+    """A synthetic R-50-GN.pkl (Detectron's conv1_gn_s / res*_branch*_gn_s
+    names) through catalog://ImageNetPretrained/MSRA/R-50-GN loads as JAX's
+    loader loads it, bit for bit and by count: the body's convs and group
+    norms, nothing of the FPN or the heads."""
+    jcfg, tcfg, jm, template = _gn_pair()
+    state = _random_state(jm, seed=5)
+    blobs = detectron_blobs(np, state, imagenet=True)
+    assert "conv1_gn_s" in blobs and "res2_0_branch1_gn_b" in blobs
+    assert not any(k.endswith(("_bn_s", "_bn_b")) for k in blobs)
+    path = str(tmp_path / "R-50-GN.pkl")
+    write_pkl(path, blobs, wrap=False)
+    with caplog.at_level(logging.INFO):
+        want = jax_c2.load_c2_weights(path, jcfg, template)
+    model = _port_model(tcfg, template)
+    loaded = c2_loading.load_c2_weights(path, tcfg, model.state_dict())
+    _assert_equal_to_jax(model, loaded, want, caplog)
+    body = [k for k in model.state_dict() if k.startswith("backbone.body.")]
+    assert sorted(loaded) == sorted(body)
+    assert sum(k.endswith(".scale") for k in loaded) == 1 + 3 * 16 + 4
+    for k in ("backbone.body.stem.bn1.scale", "backbone.body.layer4.0.downsample.bn.bias"):
+        assert torch.equal(loaded[k], torch.from_numpy(state[k])), k
+
+
+def test_gn_imagenet_pkl_through_the_catalog(offline, caplog):
+    jcfg, tcfg, jm, template = _gn_pair()
+    state = _random_state(jm, seed=6)
+    name = "catalog://ImageNetPretrained/MSRA/R-50-GN"
+    url = ModelCatalog.get(name[len("catalog://"):])
+    assert url == JaxModelCatalog.get(name[len("catalog://"):])
+    write_pkl(str(offline / cached_name(url)), detectron_blobs(np, state, imagenet=True),
+              wrap=False)
+    model = _port_model(tcfg, template)
+    tcfg.MODEL.WEIGHT = name
+    with caplog.at_level(logging.INFO):
+        DetectronCheckpointer(tcfg, model).load(name)
+    got = model.state_dict()
+    for k, v in state.items():
+        if k.startswith("backbone.body."):
+            assert torch.equal(got[k], torch.from_numpy(v)), k
+
+
+def test_c4_detectron_model_final_equals_jax_and_serves(tmp_path, caplog):
+    """A synthetic Detectron Mask R-CNN R-50-C4 model_final.pkl: res2-res4
+    in the body, res5 in the box head (head.layer4), the single-level RPN's
+    conv_rpn / rpn_cls_logits / rpn_bbox_pred, the predictors and the mask
+    deconv, loaded bit for bit and by count as JAX loads it; then served
+    against JAX at tests/test_torch_detector.py's tolerances."""
+    jcfg, tcfg, jm, template = _c4_pair()
+    state = {k: v.numpy() for k, v in params_from_jax(numpy_params(jm, seed=2)).items()}
+    assert not any(k.startswith("roi_heads.mask.feature_extractor") for k in state)
+    blobs = detectron_blobs(np, state)
+    assert {"res5_2_branch2c_w", "res4_5_branch2c_bn_s", "conv_rpn_w", "rpn_cls_logits_w",
+            "conv5_mask_w"} <= set(blobs)
+    assert not any("fpn" in k or k.startswith("fc6") for k in blobs)
+    path = str(tmp_path / "model_final.pkl")
+    write_pkl(path, blobs, wrap=True)
+    with caplog.at_level(logging.INFO):
+        want = jax_c2.load_c2_weights(path, jcfg, template)
+    model = _port_model(tcfg, template)
+    loaded = c2_loading.load_c2_weights(path, tcfg, model.state_dict())
+    _assert_equal_to_jax(model, loaded, want, caplog)
+    kept = set(model.state_dict()) - set(loaded)
+    assert kept and all(k.endswith(("running_mean", "running_var")) for k in kept)
+    k = "roi_heads.box.feature_extractor.head.layer4.2.conv3.weight"
+    assert torch.equal(loaded[k], torch.from_numpy(state[k]))
+
+    rs = np.random.RandomState(0)
+    images = rs.randint(0, 256, (2, 256, 320, 3)).astype(np.uint8)
+    sizes = np.array([[256, 320], [224, 300]], np.int32)
+    jdet = jax.jit(jm.infer_forward)(jax.tree.map(jnp.asarray, want),
+                                     {"images": jnp.asarray(images),
+                                      "image_sizes": jnp.asarray(sizes)})
+    tdet = model.infer_forward({"images": torch.from_numpy(images),
+                                "image_sizes": torch.from_numpy(sizes)})
+    jdet = {k: np.asarray(v) for k, v in jdet.items()}
+    assert jdet["valid"].sum() >= 8
+    _detections_equal({k: v.numpy() for k, v in tdet.items()}, jdet)
+
+
+@pytest.mark.parametrize("pair", ["gn", "c4"])
+def test_gn_and_c4_reference_keys_equal_jax(pair):
+    """Every GN and C4 tensor takes the reference key of the JAX package's
+    path rewriter: a group norm's scale as weight, the Xconv head's convs k
+    as xconvs.{3k}, an FPN conv's group norm under its conv's name, the C4
+    res5 as roi_heads.box.feature_extractor.head.layer4."""
+    _, _, jm, _ = _gn_pair() if pair == "gn" else _c4_pair()
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    flat = {k: v for k, v in _flatten_params(shapes).items() if v is not None}
+    for path in flat:
+        want = jax_c2._resolve_convk(jax_c2.torchstyle_key_for_path(path), "/" + path + "/")
+        assert c2_loading.torchstyle_key(_port_name(path, flat)) == want, path
+
+
+def test_jax_gn_heads_take_no_group_norm_and_the_port_follows():
+    """A witness of the JAX package's departure from maskrcnn-benchmark
+    (ROADMAP.md Queue 3): under ROI_BOX_HEAD.USE_GN and ROI_MASK_HEAD.USE_GN
+    the JAX FPN2MLPFeatureExtractor and MaskRCNNFPNFeatureExtractor hold no
+    group norm (the reference's make_fc / make_conv3x3 with use_gn put one
+    after each fc and conv, and drop the convs' biases); the port's tree is
+    JAX's, name for name and shape for shape."""
+    jcfg, tcfg = configs()
+    for c in (jcfg, tcfg):
+        c.merge_from_file(os.path.join(REPO, "configs", "gn_baselines",
+                                       "scratch_e2e_mask_rcnn_R_50_FPN_3x_gn.yaml"))
+        narrow(tiny(c))
+        c.MODEL.GROUP_NORM.NUM_GROUPS = 2
+    assert tcfg.MODEL.ROI_BOX_HEAD.USE_GN and tcfg.MODEL.ROI_MASK_HEAD.USE_GN
+    jm = build_jax_model(jcfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    heads = shapes["roi_heads"]
+    assert set(heads["box"]["feature_extractor"]) == {"fc6", "fc7"}
+    assert all(set(c) == {"conv"} and set(c["conv"]) == {"w", "b"}
+               for c in heads["mask"]["feature_extractor"]["convs"])
+    want = {k: tuple(v.shape) for k, v in params_from_jax(
+        jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
+    model = build_detection_model(tcfg, device="cpu")
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert got == want
+    assert not any(".gn." in k for k in got if k.startswith("roi_heads."))
