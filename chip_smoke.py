@@ -226,6 +226,36 @@ The GN and C4 families as written (after 31, on phase 24's trees and cache):
      box ROIs); test_net with the known answer and one Predictor request;
      then configs/quick_schedules/e2e_faster_rcnn_R_50_C4_quick.yaml
      through test_net alone at a short side of 480.
+The last three families as written (after 33, on phase 24's trees and cache):
+ 34. RPN-only: configs/rpn_R_50_FPN_1x.yaml through train_net for 3
+     iterations at batch 16 from the cache's R-50.pkl: the matcher once a
+     step and nothing else (no proposals, no NMS), two losses, the solver
+     as in 24, the matcher exact on the first step; test_net on 16 images
+     (box-proposal recall AR@100 / AR@1000), the RPN's NMS exact on both
+     batches' [40 x 1000] lanes, then a known answer (each image's 20 first
+     proposals as gt: AR@100 and AR@1000 >= 0.99); one Predictor request
+     (the proposals); configs/rpn_R_50_C4_1x.yaml through test_net on 8
+     images, NMS exact on its [8 x 6000] lanes;
+ 35. deformable convs: configs/dcn/e2e_mask_rcnn_mdconv_R_50_FPN_1x.yaml
+     through train_net for 3 iterations at batch 16 (cut to 8, then 4, only
+     where the card runs out of memory, printed), the R-50.pkl into the
+     body with the 26 offset-conv tensors at their zero init; the four
+     kernels held to their plain versions on the first step as in 24; the
+     step's time, device busy, peak memory and the deformable blocks' share
+     (function_shares); test_net with a bbox and segm known answer; the v1
+     Faster file through test_net on 8 images; a deformable v2 bottleneck
+     of layer2's widths with offsets of about a cell, float32 card against
+     CPU (output 1e-5, every gradient 2e-4 of its max);
+ 36. FBNet: configs/e2e_mask_rcnn_fbnet.yaml through train_net for 3
+     iterations at SOLVER.IMS_PER_BATCH 16 (the published 128 over 8
+     cards), from the seeded model with each frozen BN set from 8 images
+     (the file names no weights): matcher 1 and NMS 1 a step, both exact
+     on the first step's [16 x 12000] anchors (the 320x640 bucket's 20 x 40
+     cells) and [16 x 6000] lanes, nothing frozen; the step's time and peak memory; test_net with a bbox and segm
+     known answer; e2e_faster_rcnn_fbnet_chamv1a_600.yaml and
+     e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml served once each (frozen BN
+     set from the warm-up image), the latter float32 card against CPU
+     (phase 6's gate).
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
@@ -1918,13 +1948,15 @@ def data_layer_phase(torch, np, card):
         check(len(counts) == 1, "loader count lines: {}".format(counts))
         return counts[0]
 
-    def train_summary(meters, config, opts=(), n_losses=5):
+    def train_summary(meters, config, opts=(), n_losses=5,
+                      frozen_prefixes=("backbone.body.stem.", "backbone.body.layer1.")):
         """Each iteration's n_losses losses and their sum, every one finite, and the solver each
         iteration ran: both parameter groups at the rate of the config's
         schedule (linear warm-up from WARMUP_FACTOR, GAMMA at each of STEPS;
         biases at BIAS_LR_FACTOR x with WEIGHT_DECAY_BIAS), computed here
         from the config file, and only the stem and layer1 frozen
-        (FREEZE_CONV_BODY_AT 2)."""
+        (FREEZE_CONV_BODY_AT 2; frozen_prefixes (): nothing frozen, as an
+        FBNet body)."""
         losses = [{k: v.item() for k, v in m.items()} for m in record.pop("losses")]
         check(all(len(it) == n_losses + 1 and all(math.isfinite(v) for v in it.values())
                   for it in losses), "losses {}".format(losses))
@@ -1949,8 +1981,9 @@ def data_layer_phase(torch, np, card):
                   "iteration {} ran the solver groups {}, the schedule says {}".format(
                       k, groups, want))
         frozen = record.pop("frozen")
-        check(frozen and all(n.startswith(("backbone.body.stem.", "backbone.body.layer1."))
-                             for n in frozen), "frozen parameters {}".format(frozen))
+        check(bool(frozen) == bool(frozen_prefixes)
+              and all(n.startswith(frozen_prefixes) for n in frozen),
+              "frozen parameters {}".format(frozen))
         waits, times = list(meters.meters["data"].deque), list(meters.meters["time"].deque)
         return {"losses_each": losses, "lr_each": [g[0][0] for g in solver],
                 "frozen_parameters": len(frozen), "s_per_iter_each": times,
@@ -2288,6 +2321,14 @@ def data_layer_phase(torch, np, card):
                 step_sites=step_sites))
             sites.update(gc_sites)
             phase_s.update(gc_s)
+
+            # 34-36. RPN-only, deformable convs and FBNet on this phase's trees and cache
+            lf_sites, lf_s = last_families_phase(torch, np, card, types.SimpleNamespace(
+                work=work, cache=cache, coco=coco, record=record, reset=reset, done=done,
+                loaded_count=loaded_count, train_summary=train_summary, first_step=first_step,
+                step_sites=step_sites))
+            sites.update(lf_sites)
+            phase_s.update(lf_s)
         return {"launches": launches, "phase_s": phase_s, "sites": sites}
     finally:
         for (obj, name), value in zip(patched, saved):
@@ -2647,6 +2688,137 @@ def families_phase(torch, np, card, dl):
     return sites
 
 
+def kernel_path_sites(**found):
+    """A path's kernel sites by kernel (empty where the path runs none)."""
+    return {k: found.get(k, []) for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
+
+
+def coco_minival(dl):
+    """Phase 24's val2014 annotations and the path of coco_2014_minival's
+    annotation file, which each test pass writes anew."""
+    ann_dir = os.path.join(dl.work, "coco", "annotations")
+    with open(os.path.join(ann_dir, "instances_valminusminival2014.json")) as f:
+        val = json.load(f)
+    return val, os.path.join(ann_dir, "instances_minival2014.json")
+
+
+def coco_known_answer(torch, np, card, dl, path, yaml, ckpt, out, per_batch, opts=()):
+    """test_net on coco_2014_minival (the 16 val2014 images, SCORE_THRESH 0
+    for random heads, bbox and segm), then its predictions evaluated
+    against themselves as the gt, boxes and pasted masks (RLE, which the
+    evaluator reads and the dataset's poly targets do not): AP50 >= 0.99.
+    A detection whose pasted mask holds no pixel is no segm answer: it
+    leaves the segm gt and predictions (counted)."""
+    import pickle
+
+    from maskrcnn_tpu_torch.data.datasets import COCODataset
+    from maskrcnn_tpu_torch.data.evaluation.coco_eval import (
+        do_coco_evaluation,
+        prepare_for_coco_segmentation,
+    )
+    from maskrcnn_tpu_torch.tools import test_net
+    from maskrcnn_tpu_torch.utils import maskops
+
+    val, minival = coco_minival(dl)
+    write_coco_json(minival, val["images"], val["annotations"], range(1, 81))
+    test_opts = ["--config-file", yaml, "--ckpt", ckpt, "MODEL.ROI_HEADS.SCORE_THRESH",
+                 "0.0"] + list(opts)
+    t0 = dl.reset()
+    ((res, _),) = test_net.main(test_opts + ["OUTPUT_DIR", out])
+    dl.done(path, t0, per_batch, 2)
+    check(set(res.results) == {"bbox", "segm"}, "{} evaluated {}".format(path, set(res.results)))
+    with open(os.path.join(out, "inference", "coco_2014_minival", "predictions.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    gts = detections_as_gt(preds, val["images"])
+    root = os.path.join(dl.work, "coco", "val2014")
+    rles = prepare_for_coco_segmentation(preds, COCODataset(minival, root))
+    masks = [r["segmentation"] for info in val["images"] for r in rles[info["id"]]]
+    check(len(masks) == len(gts), "{} masks for {} detections".format(len(masks), len(gts)))
+    for a, m in zip(gts, masks):
+        a["segmentation"] = m
+    filled = [[maskops.rle_area(r["segmentation"]) > 0 for r in rles[info["id"]]]
+              for info in val["images"]]
+    known = {}
+    for iou_type, anns, dets in (
+            ("bbox", gts, preds),
+            ("segm", [a for a, f in zip(gts, sum(filled, [])) if f],
+             [p[np.asarray(f, bool)] for p, f in zip(preds, filled)])):
+        known_json = os.path.join(out, "known_answer_{}.json".format(iou_type))
+        write_coco_json(known_json, val["images"], anns, range(1, 81))
+        r, _ = do_coco_evaluation(COCODataset(known_json, root), dets, False, None,
+                                  [iou_type], (), 4)
+        known[iou_type] = dict(r.results[iou_type])
+    known = {"first_pass": {k: dict(v) for k, v in res.results.items()},
+             "gt_from_detections": len(gts), "empty_masks": len(gts) - sum(map(sum, filled)),
+             "known_answer": known}
+    print("{} test_net on 16 images at TEST.IMS_PER_BATCH 8, then its known answer "
+          "(the detections' boxes and masks as gt) [{}]: {}".format(path, card, json.dumps(known)),
+          flush=True)
+    check(min(known["known_answer"][k]["AP50"] for k in ("bbox", "segm")) >= 0.99,
+          "{} known-answer AP50 {}".format(path, known["known_answer"]))
+    return known
+
+
+def serve_once(torch, np, card, dl, path, cfg, seed, per_request, prepare=None):
+    """One request of 480x640 through Predictor from the config (its
+    catalog:// weights from the cache), after a warm-up; prepare(predictor,
+    warm-up image), when given, runs first (the frozen-BN calibration of a
+    body without weights). Returns the served config and the weights."""
+    from maskrcnn_tpu_torch.predictor import Predictor
+
+    scfg = cfg.clone()
+    scfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
+    pred = Predictor(scfg, device="cuda", seed=seed, min_image_size=scfg.INPUT.MIN_SIZE_TEST)
+    rs = np.random.RandomState(seed)
+    warm, img = (rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(2))
+    if prepare is not None:
+        prepare(pred, warm)
+    pred.compute_prediction(warm)
+    t0 = dl.reset()
+    t1 = time.perf_counter()
+    o = pred.compute_prediction(img)
+    ms = (time.perf_counter() - t1) * 1e3
+    dl.done(path, t0, per_request, 1)
+    n = len(o["scores"])
+    rpn_cfg = scfg.MODEL.RPN
+    if scfg.MODEL.RPN_ONLY:  # the proposals
+        cap = rpn_cfg.FPN_POST_NMS_TOP_N_TEST if rpn_cfg.USE_FPN else rpn_cfg.POST_NMS_TOP_N_TEST
+        labels = o["labels"] == 1
+    else:
+        cap = scfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
+        labels = (o["labels"] >= 1) & (o["labels"] <= 80)
+    check(0 < n <= cap and np.isfinite(o["boxes"]).all()
+          and labels.all() and (not scfg.MODEL.MASK_ON or o["masks"].shape == (n, 480, 640)),
+          "{} request: {}".format(path, {k: v.shape for k, v in o.items()}))
+    state = {k: v.detach().cpu().clone() for k, v in pred.model.state_dict().items()}
+    del pred
+    torch.cuda.empty_cache()
+    print("{}: one 480x640 request in {:.2f} ms, {} detections [{}]".format(path, ms, n, card),
+          flush=True)
+    return scfg, state
+
+
+def step_profile_shares(torch, card, dl, path, targets):
+    """A run's recorded training step profiled (profile_steps), then what
+    each function of `targets` takes of a step's device time
+    (function_shares, a trace of its own)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
+    prof["peak_step_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    shares = function_shares(torch, targets, dl.record["step"], dl.record["batch"])
+    for label in targets:
+        got = shares[label]
+        check(got["calls"] > 0, "{}: no call of {} in the profiled step".format(path, label))
+        check(not isinstance(got.get("ms"), float) or got["ms"] <= shares["device_busy_ms"],
+              "{}: {} takes more than the step: {}".format(path, label, shares))
+    prof["shares"] = shares
+    print("{} step, torch.profiler [{}]: {}".format(path, card, json.dumps(
+        {k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "idle_share", "peak_step_gb",
+                                  "top_kernels_ms", "shares")})), flush=True)
+    return prof
+
+
 def gn_c4_phase(torch, np, card, dl):
     """32-33. The GN and C4 families as written, on phase 24's COCO trees and
     weight cache (dl: the data-layer phases' work tree, cache and helpers):
@@ -2655,121 +2827,26 @@ def gn_c4_phase(torch, np, card, dl):
     iterations, test_net with a known answer and a Predictor request; the
     C4 quick file through test_net alone. Returns the kernel sites and the
     wall seconds by path."""
-    import pickle
-
     from maskrcnn_tpu_torch.config import cfg as defaults
     from maskrcnn_tpu_torch.config.paths_catalog import ModelCatalog
-    from maskrcnn_tpu_torch.data.datasets import COCODataset
-    from maskrcnn_tpu_torch.data.evaluation.coco_eval import (
-        do_coco_evaluation,
-        prepare_for_coco_segmentation,
-    )
     from maskrcnn_tpu_torch.models import build_detection_model, detector, layers, poolers, rpn
     from maskrcnn_tpu_torch.models.roi_heads import box_head
     from maskrcnn_tpu_torch.ops import matcher, nms
-    from maskrcnn_tpu_torch.predictor import Predictor
     from maskrcnn_tpu_torch.tools import test_net, train_net
-    from maskrcnn_tpu_torch.utils import maskops
     from maskrcnn_tpu_torch.utils.model_zoo import cached_name
 
-    ann_dir = os.path.join(dl.work, "coco", "annotations")
-    with open(os.path.join(ann_dir, "instances_valminusminival2014.json")) as f:
-        val = json.load(f)
-    minival = os.path.join(ann_dir, "instances_minival2014.json")
     sites, phase_s = {}, {}
-
-    def path_sites(**found):
-        return {k: found.get(k, []) for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
+    path_sites = kernel_path_sites
+    val, minival = coco_minival(dl)
 
     def known_answer(path, yaml, ckpt, out, per_batch, opts=()):
-        """test_net on coco_2014_minival (the 16 val2014 images, SCORE_THRESH 0
-        for random heads, bbox and segm), then its predictions evaluated
-        against themselves as the gt, boxes and pasted masks (RLE, which the
-        evaluator reads and the dataset's poly targets do not):
-        AP50 >= 0.99. A detection whose pasted mask holds no pixel is no
-        segm answer: it leaves the segm gt and predictions (counted)."""
-        write_coco_json(minival, val["images"], val["annotations"], range(1, 81))
-        test_opts = ["--config-file", yaml, "--ckpt", ckpt, "MODEL.ROI_HEADS.SCORE_THRESH",
-                     "0.0"] + list(opts)
-        t0 = dl.reset()
-        ((res, _),) = test_net.main(test_opts + ["OUTPUT_DIR", out])
-        dl.done(path, t0, per_batch, 2)
-        check(set(res.results) == {"bbox", "segm"}, "{} evaluated {}".format(path, set(res.results)))
-        with open(os.path.join(out, "inference", "coco_2014_minival", "predictions.pkl"), "rb") as f:
-            preds = pickle.load(f)
-        gts = detections_as_gt(preds, val["images"])
-        root = os.path.join(dl.work, "coco", "val2014")
-        rles = prepare_for_coco_segmentation(preds, COCODataset(minival, root))
-        masks = [r["segmentation"] for info in val["images"] for r in rles[info["id"]]]
-        check(len(masks) == len(gts), "{} masks for {} detections".format(len(masks), len(gts)))
-        for a, m in zip(gts, masks):
-            a["segmentation"] = m
-        filled = [[maskops.rle_area(r["segmentation"]) > 0 for r in rles[info["id"]]]
-                  for info in val["images"]]
-        known = {}
-        for iou_type, anns, dets in (
-                ("bbox", gts, preds),
-                ("segm", [a for a, f in zip(gts, sum(filled, [])) if f],
-                 [p[np.asarray(f, bool)] for p, f in zip(preds, filled)])):
-            known_json = os.path.join(out, "known_answer_{}.json".format(iou_type))
-            write_coco_json(known_json, val["images"], anns, range(1, 81))
-            r, _ = do_coco_evaluation(COCODataset(known_json, root), dets, False, None,
-                                      [iou_type], (), 4)
-            known[iou_type] = dict(r.results[iou_type])
-        known = {"first_pass": {k: dict(v) for k, v in res.results.items()},
-                 "gt_from_detections": len(gts), "empty_masks": len(gts) - sum(map(sum, filled)),
-                 "known_answer": known}
-        print("{} test_net on 16 images at TEST.IMS_PER_BATCH 8, then its known answer "
-              "(the detections' boxes and masks as gt) [{}]: {}".format(path, card, json.dumps(known)),
-              flush=True)
-        check(min(known["known_answer"][k]["AP50"] for k in ("bbox", "segm")) >= 0.99,
-              "{} known-answer AP50 {}".format(path, known["known_answer"]))
-        return known
+        return coco_known_answer(torch, np, card, dl, path, yaml, ckpt, out, per_batch, opts)
 
     def serve(path, cfg, seed, per_request):
-        """One request of 480x640 through Predictor from the config (its
-        catalog:// weights from the cache), after a warm-up."""
-        scfg = cfg.clone()
-        scfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
-        pred = Predictor(scfg, device="cuda", seed=seed, min_image_size=scfg.INPUT.MIN_SIZE_TEST)
-        rs = np.random.RandomState(seed)
-        warm, img = (rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(2))
-        pred.compute_prediction(warm)
-        t0 = dl.reset()
-        t1 = time.perf_counter()
-        o = pred.compute_prediction(img)
-        ms = (time.perf_counter() - t1) * 1e3
-        dl.done(path, t0, per_request, 1)
-        n = len(o["scores"])
-        check(0 < n <= scfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG and o["masks"].shape == (n, 480, 640)
-              and np.isfinite(o["boxes"]).all() and ((o["labels"] >= 1) & (o["labels"] <= 80)).all(),
-              "{} request: {}".format(path, {k: v.shape for k, v in o.items()}))
-        state = {k: v.detach().cpu().clone() for k, v in pred.model.state_dict().items()}
-        del pred
-        torch.cuda.empty_cache()
-        print("{}: one 480x640 request in {:.2f} ms, {} detections [{}]".format(path, ms, n, card),
-              flush=True)
-        return scfg, state
+        return serve_once(torch, np, card, dl, path, cfg, seed, per_request)
 
     def step_profile(path, targets):
-        """The step's profile (profile_steps), then what each function of
-        `targets` takes of a step's device time (function_shares, a trace
-        of its own)."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
-        prof["peak_step_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        shares = function_shares(torch, targets, dl.record["step"], dl.record["batch"])
-        for label in targets:
-            got = shares[label]
-            check(got["calls"] > 0, "{}: no call of {} in the profiled step".format(path, label))
-            check(not isinstance(got.get("ms"), float) or got["ms"] <= shares["device_busy_ms"],
-                  "{}: {} takes more than the step: {}".format(path, label, shares))
-        prof["shares"] = shares
-        print("{} step, torch.profiler [{}]: {}".format(path, card, json.dumps(
-            {k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "idle_share", "peak_step_gb",
-                                      "top_kernels_ms", "shares")})), flush=True)
-        return prof
+        return step_profile_shares(torch, card, dl, path, targets)
 
     # 32. GN Mask R-CNN R-50-FPN, Xconv1fc head, from a synthetic R-50-GN.pkl
     t0 = dl.reset()
@@ -2926,6 +3003,356 @@ def gn_c4_phase(torch, np, card, dl):
           "(its catalog:// R-50 from the cache, random heads) [{}]: {}".format(
               card, json.dumps(dict(res.results["bbox"]))), flush=True)
     phase_s["c4"] = time.perf_counter() - t0
+    return sites, phase_s
+
+
+def calibrate_unfolded_bn(torch, model, run):
+    """Set every frozen BN that runs as its own module (not folded into its
+    conv: FBNet's, a deformable conv's) from the first input it meets while
+    run() runs: running mean and variance (+1e-5) of that input, weight 1,
+    bias 0. Returns (BNs set, BNs in the model)."""
+    from maskrcnn_tpu_torch.models.layers import FrozenBatchNorm2d
+
+    seen = set()
+
+    def pre(mod, args):
+        if id(mod) in seen:
+            return
+        seen.add(id(mod))
+        x = args[0].float()
+        mod.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        mod.running_var.copy_(x.var(dim=(0, 2, 3)) + 1e-5)
+        mod.weight.fill_(1.0)
+        mod.bias.zero_()
+
+    bns = [m for m in model.modules() if isinstance(m, FrozenBatchNorm2d)]
+    hooks = [m.register_forward_pre_hook(pre) for m in bns]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(seen), len(bns)
+
+
+def dcn_block_check(torch, np, card):
+    """A deformable (v2) bottleneck of layer2's widths (256 -> 128 -> 512,
+    stride 2) with seeded weights, offsets of about a cell and random frozen
+    BN, on a 2 x 256 x 20 x 24 input: float32 on the card (no TF32) against
+    the CPU (PyTorch's own convolutions), the output within 1e-5 of its
+    largest value and every gradient (input, offset conv, convs) within
+    2e-4 of its largest value."""
+    import copy
+
+    from maskrcnn_tpu_torch.models.resnet import Bottleneck
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    block = Bottleneck(256, 128, 512, stride=2, dilation=1, num_groups=1, stride_in_1x1=True,
+                       dcn=dict(modulated=True, deformable_groups=1))
+    block.reset_parameters(gen)
+    with torch.no_grad():
+        block.conv2_offset.weight.normal_(0, (9 * 128) ** -0.5, generator=gen)
+        block.conv2_offset.bias.normal_(0, 0.3, generator=gen)
+        for bn in (block.bn1, block.bn2, block.bn3, block.downsample.bn):
+            c = bn.weight.numel()
+            bn.weight.uniform_(0.3, 0.7, generator=gen)
+            bn.bias.uniform_(-0.1, 0.1, generator=gen)
+            bn.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    x = torch.randn(2, 256, 20, 24, generator=gen)
+    cot = torch.randn(2, 512, 10, 12, generator=gen)
+    got = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            b = copy.deepcopy(block).to(dev)
+            xx = x.to(dev).requires_grad_()
+            with torch.backends.mkldnn.flags(enabled=False):
+                out = b(xx)
+                (out * cot.to(dev)).sum().backward()
+            got[dev] = dict({"out": out.detach().cpu(), "x": xx.grad.cpu()},
+                            **{n: p.grad.cpu() for n, p in b.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rel = {k: ((got["cuda"][k] - v).abs().max() / v.abs().max()).item()
+           for k, v in got["cpu"].items()}
+    print("dcn bottleneck, float32 card vs CPU (v2, 256-128-512, stride 2, offsets of about a "
+          "cell), error over each tensor's largest value [{}]: {}".format(card, json.dumps(rel)),
+          flush=True)
+    check(rel["out"] <= 1e-5 and all(v <= 2e-4 for v in rel.values()),
+          "DCN bottleneck card vs CPU: {}".format(rel))
+    return rel
+
+
+def last_families_phase(torch, np, card, dl):
+    """34-36. The last three families as written, on phase 24's COCO trees and
+    weight cache (dl: the data-layer phases' work tree, cache and helpers):
+    RPN-only R-50-FPN (train_net, test_net with box-proposal recall and a
+    known answer, a Predictor request) and R-50-C4 (test_net); deformable
+    Mask R-CNN v2 (train_net, test_net with a known answer) and v1 Faster
+    R-CNN (test_net), a deformable bottleneck card against CPU; FBNet Mask
+    R-CNN (train_net, test_net with a known answer) and two FBNet files
+    served. Returns the kernel sites and the wall seconds by path."""
+    import gc
+    import pickle
+
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, resnet, rpn
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.tools import test_net, train_net
+
+    sites, phase_s = {}, {}
+    val, minival = coco_minival(dl)
+    r50 = "catalog://ImageNetPretrained/MSRA/R-50"
+    eight = {i["id"] for i in val["images"][:8]}
+
+    def first_eight():
+        write_coco_json(minival, val["images"][:8],
+                        [a for a in val["annotations"] if a["image_id"] in eight], range(1, 81))
+
+    def cfg_of(yaml):
+        c = defaults.clone()
+        c.merge_from_file(yaml)
+        return c
+
+    # 34. RPN-only R-50-FPN from the cache's R-50.pkl, then R-50-C4
+    t0 = dl.reset()
+    rpn_yaml = os.path.join(REPO, "configs", "rpn_R_50_FPN_1x.yaml")
+    cfg = cfg_of(rpn_yaml)
+    check(cfg.MODEL.RPN_ONLY and cfg.MODEL.WEIGHT == r50 and cfg.SOLVER.IMS_PER_BATCH == 16
+          and cfg.MODEL.RPN.FPN_POST_NMS_TOP_N_TEST == 2000,
+          "the RPN-only YAML reads {}".format(cfg.MODEL.WEIGHT))
+    out = os.path.join(dl.work, "rpn")
+    print("rpn recipe: train_net --config-file configs/rpn_R_50_FPN_1x.yaml --skip-test "
+          "SOLVER.MAX_ITER 3 OUTPUT_DIR <dir> (batch 16 on phase 24's trees, its catalog:// "
+          "R-50 from the cache)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with Capture([rpn], "match_anchors_batched", limit=1) as cap:
+        _, meters = train_net.main(["--config-file", rpn_yaml, "--skip-test",
+                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
+        # the matcher once a step, no proposals: no NMS
+        dl.done("rpn_recipe", t0, {"matcher": 1}, 3)
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_loaded, n_total = dl.loaded_count()
+    summary = dl.train_summary(meters, rpn_yaml, n_losses=2)
+    msite = matcher_site(torch, matcher, *cap.calls[0])
+    check(msite["images"] == 16, "RPN-only matcher on {} images".format(msite["images"]))
+    del cap
+    sites["rpn_recipe"] = kernel_path_sites(matcher=[msite])
+    print("rpn recipe: loaded {}/{} tensors from R-50.pkl; 3 iterations at batch 16: {}; peak "
+          "memory {:.3f} GB over the run; matcher site [{}]: {}".format(
+              n_loaded, n_total, json.dumps(summary), peak_run_gb, card, json.dumps(msite)),
+          flush=True)
+    dl.record.clear()
+
+    def proposals_test(path, opts, out_dir):
+        """test_net of the RPN-only file on coco_2014_minival: the box-proposal
+        recalls, the RPN's NMS lanes of each batch held to the plain
+        version, and the predictions."""
+        t1 = dl.reset()
+        with Capture([rpn], "batched_nms") as nms_cap:
+            ((res, _),) = test_net.main(["--config-file", rpn_yaml] + opts
+                                        + ["OUTPUT_DIR", out_dir])
+            dl.done(path, t1, {"nms": 1}, 2)
+        check(set(res.results) == {"box_proposal"}, "{} evaluated {}".format(path, res.results))
+        with torch.inference_mode():
+            lanes = [nms_site(torch, nms, *c, plain_iters=1) for c in nms_cap.calls]
+        check([s_["shape"] for s_ in lanes] == [[40, 1000]] * 2,
+              "{} NMS lanes {}".format(path, [s_["shape"] for s_ in lanes]))
+        with open(os.path.join(out_dir, "inference", "coco_2014_minival", "predictions.pkl"),
+                  "rb") as f:
+            preds = pickle.load(f)
+        return dict(res.results["box_proposal"]), lanes, preds
+
+    write_coco_json(minival, val["images"], val["annotations"], range(1, 81))
+    ckpt = ["--ckpt", os.path.join(out, "model_final.pth")]
+    first, lanes, preds = proposals_test("rpn_test", ckpt, os.path.join(out, "test"))
+    # a known answer: each image's 20 first proposals (in objectness order)
+    # as its gt; the second pass's proposals hold each of them exactly
+    top = [p[np.arange(min(len(p), 20))] for p in preds]
+    check(all(len(p) == 20 for p in top), "proposals an image: {}".format([len(p) for p in preds]))
+    write_coco_json(minival, val["images"], detections_as_gt(top, val["images"]), range(1, 81))
+    second, _, _ = proposals_test("rpn_known", ckpt, os.path.join(out, "known"))
+    known = {"first_pass": first, "gt_from_proposals": 20 * len(top), "known_answer": second}
+    print("rpn test_net on 16 images at TEST.IMS_PER_BATCH 8 (box-proposal recall), then its known "
+          "answer (each image's 20 first proposals as gt) [{}]: {}".format(card, json.dumps(known)),
+          flush=True)
+    check(second["AR@1000"] >= 0.99 and second["AR@100"] >= 0.99,
+          "RPN-only known-answer recall {}".format(second))
+    for s_ in lanes:
+        print("rpn test kernel site, the RPN's NMS [{}]: {}".format(card, json.dumps(s_)),
+              flush=True)
+    sites["rpn_test"] = kernel_path_sites(nms=lanes)
+    sites["rpn_known"] = kernel_path_sites()
+    serve_once(torch, np, card, dl, "rpn_serving", cfg, SEED + 30, {"nms": 1})
+    # R-50-C4 RPN-only through test_net on 8 images
+    t1 = dl.reset()
+    c4_yaml = os.path.join(REPO, "configs", "rpn_R_50_C4_1x.yaml")
+    first_eight()
+    with Capture([rpn], "batched_nms", limit=1) as nms_cap:
+        ((res, _),) = test_net.main(["--config-file", c4_yaml,
+                                     "OUTPUT_DIR", os.path.join(dl.work, "rpn_c4")])
+        dl.done("rpn_c4_test", t1, {"nms": 1}, 1)
+    with torch.inference_mode():
+        c4_lane = nms_site(torch, nms, *nms_cap.calls[0], plain_iters=1)
+    del nms_cap
+    check(c4_lane["shape"] == [8, 6000], "RPN-only C4 NMS lanes {}".format(c4_lane["shape"]))
+    sites["rpn_c4_test"] = kernel_path_sites(nms=[c4_lane])
+    print("rpn c4: test_net --config-file configs/rpn_R_50_C4_1x.yaml on 8 images (its catalog:// "
+          "R-50 from the cache) [{}]: {}; the RPN's NMS: {}".format(
+              card, json.dumps(dict(res.results["box_proposal"])), json.dumps(c4_lane)),
+          flush=True)
+    phase_s["rpn_only"] = time.perf_counter() - t0
+
+    # 35. Deformable convs: Mask R-CNN v2 from the cache's R-50.pkl
+    t0 = time.perf_counter()
+    dcn_yaml = os.path.join(REPO, "configs", "dcn", "e2e_mask_rcnn_mdconv_R_50_FPN_1x.yaml")
+    cfg = cfg_of(dcn_yaml)
+    check(cfg.MODEL.WEIGHT == r50 and tuple(cfg.MODEL.RESNETS.STAGE_WITH_DCN)
+          == (False, True, True, True) and cfg.MODEL.RESNETS.WITH_MODULATED_DCN
+          and cfg.SOLVER.IMS_PER_BATCH == 16, "the DCN YAML reads {}".format(cfg.MODEL.RESNETS))
+    out = os.path.join(dl.work, "dcn")
+    batch, opts = 16, []
+    while True:
+        print("dcn recipe: train_net --config-file configs/dcn/e2e_mask_rcnn_mdconv_R_50_FPN_1x.yaml "
+              "--skip-test SOLVER.MAX_ITER 3 OUTPUT_DIR <dir>{} (batch {} on phase 24's trees, "
+              "its catalog:// R-50 from the cache)".format(
+                  "".join(" " + o for o in opts), batch), flush=True)
+        t1 = dl.reset()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with dl.first_step(pooled=2) as caps:
+                _, meters = train_net.main(["--config-file", dcn_yaml, "--skip-test",
+                                            "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out] + opts)
+                dl.done("dcn_recipe", t1, {"matcher": 1, "nms": 1, "roi_align": 2,
+                                           "roi_align_backward": 2}, 3)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            check(batch > 4, "DCN training does not fit at batch {}: {}".format(batch, e))
+            print("dcn recipe: batch {} does not fit on the card ({}); the batch is cut to {}"
+                  .format(batch, str(e).splitlines()[0], batch // 2), flush=True)
+            caps = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(out, ignore_errors=True)
+            batch //= 2
+            opts = ["SOLVER.IMS_PER_BATCH", str(batch)]
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_loaded, n_total = dl.loaded_count()
+    offsets = [k for k in dl.record["start"] if "conv2_offset" in k]
+    body = [k for k in dl.record["start"] if k.startswith("backbone.body.")
+            and not k.endswith(("running_mean", "running_var"))]
+    # every tensor of the body but the offset convs, which Detectron's R-50 lacks
+    check(len(offsets) == 26 and all(not dl.record["start"][k].any() for k in offsets)
+          and n_loaded == len(body) - len(offsets),
+          "R-50.pkl loaded {}/{} tensors into the DCN model; offset convs {}".format(
+              n_loaded, n_total, len(offsets)))
+    summary = dl.train_summary(meters, dcn_yaml, opts, n_losses=5)
+    sites["dcn_recipe"], _ = dl.step_sites("dcn recipe", caps, batch, (batch * 5, 2000), pooled=2)
+    del caps
+    prof = step_profile_shares(torch, card, dl, "dcn recipe", {
+        "deformable_block": (resnet.Bottleneck, "deform"),
+        "deform_conv2d": (resnet, "deform_conv2d")})
+    print("dcn recipe: loaded {}/{} tensors from R-50.pkl (the 26 offset-conv tensors at their "
+          "zero init); 3 iterations at batch {}: {}; peak memory {:.3f} GB over the run, "
+          "{:.3f} GB in the profiled steps [{}]".format(
+              n_loaded, n_total, batch, json.dumps(summary), peak_run_gb, prof["peak_step_gb"],
+              card), flush=True)
+    dl.record.clear()
+    sites["dcn_test"] = kernel_path_sites()
+    coco_known_answer(torch, np, card, dl, "dcn_test", dcn_yaml,
+                      os.path.join(out, "model_final.pth"), os.path.join(out, "test"),
+                      {"nms": 2, "roi_align": 2})
+    # the v1 Faster file through test_net on 8 images
+    t1 = dl.reset()
+    first_eight()
+    v1_yaml = os.path.join(REPO, "configs", "dcn", "e2e_faster_rcnn_dconv_R_50_FPN_1x.yaml")
+    ((res, _),) = test_net.main(["--config-file", v1_yaml, "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
+                                 "OUTPUT_DIR", os.path.join(dl.work, "dcn_v1")])
+    dl.done("dcn_v1_test", t1, {"nms": 2, "roi_align": 1}, 1)
+    sites["dcn_v1_test"] = kernel_path_sites()
+    print("dcn v1: test_net --config-file configs/dcn/e2e_faster_rcnn_dconv_R_50_FPN_1x.yaml on 8 "
+          "images (its catalog:// R-50 from the cache, random heads) [{}]: {}".format(
+              card, json.dumps(dict(res.results["bbox"]))), flush=True)
+    dcn_block_check(torch, np, card)
+    phase_s["dcn"] = time.perf_counter() - t0
+
+    # 36. FBNet Mask R-CNN at the per-card share of its published batch
+    t0 = time.perf_counter()
+    fb_yaml = os.path.join(REPO, "configs", "e2e_mask_rcnn_fbnet.yaml")
+    cfg = cfg_of(fb_yaml)
+    check(cfg.MODEL.BACKBONE.CONV_BODY == "FBNet" and not cfg.MODEL.WEIGHT
+          and cfg.SOLVER.IMS_PER_BATCH == 128 and cfg.MODEL.RPN.RPN_HEAD == "FBNet.rpn_head",
+          "the FBNet YAML reads {}".format(cfg.MODEL.BACKBONE.CONV_BODY))
+    # the seeded model, each frozen BN set from 8 of phase 24's images (the
+    # file names no weights), handed to train_net as its MODEL.WEIGHT
+    model = build_detection_model(cfg, device="cuda", seed=SEED + 50)
+    images = torch.from_numpy(np.stack([dl.coco["train2014"][i] for i in range(1, 9)])).cuda()
+    sizes = torch.tensor([[480, 640]] * 8, dtype=torch.int32, device="cuda")
+    n_set, n_bn = calibrate_unfolded_bn(torch, model, lambda: model.infer_forward(
+        {"images": images, "image_sizes": sizes}))
+    check(n_set == n_bn > 0, "calibrated {} of {} FBNet BNs".format(n_set, n_bn))
+    weights = os.path.join(dl.work, "fbnet_seeded.pth")
+    torch.save({"model": model.state_dict()}, weights)
+    del model, images
+    out = os.path.join(dl.work, "fbnet")
+    opts = ["SOLVER.IMS_PER_BATCH", "16", "MODEL.WEIGHT", weights]
+    print("fbnet recipe: train_net --config-file configs/e2e_mask_rcnn_fbnet.yaml --skip-test "
+          "SOLVER.MAX_ITER 3 SOLVER.IMS_PER_BATCH 16 (the published 128 over 8 cards: 16 a card) "
+          "MODEL.WEIGHT <the seeded model, its {} frozen BNs set from 8 images> OUTPUT_DIR <dir> "
+          "(phase 24's trees at 320-640 px)".format(n_bn), flush=True)
+    t1 = dl.reset()
+    torch.cuda.reset_peak_memory_stats()
+    caps = {"nms": Capture([rpn], "batched_nms", limit=1),
+            "matcher": Capture([rpn], "match_anchors_batched", limit=1)}
+    with contextlib.ExitStack() as stack:
+        for c in caps.values():
+            stack.enter_context(c)
+        _, meters = train_net.main(["--config-file", fb_yaml, "--skip-test",
+                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out] + opts)
+        # the adaptive pooler on the single stride-16 map: no ROIAlign kernel
+        dl.done("fbnet_recipe", t1, {"matcher": 1, "nms": 1}, 3)
+    peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = dl.train_summary(meters, fb_yaml, opts, n_losses=5, frozen_prefixes=())
+    with torch.no_grad():
+        fb_nms = nms_site(torch, nms, *caps["nms"].calls[0], plain_iters=1)
+    fb_matcher = matcher_site(torch, matcher, *caps["matcher"].calls[0])
+    check(fb_nms["shape"] == [16, 6000] and fb_matcher["images"] == 16,
+          "FBNet NMS lanes {}, matcher on {} images".format(fb_nms["shape"],
+                                                          fb_matcher["images"]))
+    for c in caps.values():
+        c.calls.clear()
+    del caps
+    sites["fbnet_recipe"] = kernel_path_sites(nms=[fb_nms], matcher=[fb_matcher])
+    prof = step_profile_shares(torch, card, dl, "fbnet recipe", {
+        "pooler": (detector, "multilevel_roi_align")})
+    print("fbnet recipe: 3 iterations at batch 16: {}; peak memory {:.3f} GB over the run, "
+          "{:.3f} GB in the profiled steps; kernel sites [{}]: {} {}".format(
+              json.dumps(summary), peak_run_gb, prof["peak_step_gb"], card, json.dumps(fb_nms),
+              json.dumps(fb_matcher)), flush=True)
+    dl.record.clear()
+    sites["fbnet_test"] = kernel_path_sites()
+    coco_known_answer(torch, np, card, dl, "fbnet_test", fb_yaml,
+                      os.path.join(out, "model_final.pth"), os.path.join(out, "test"), {"nms": 2})
+
+    def calibrated(pred, warm):
+        n_set, n_bn = calibrate_unfolded_bn(torch, pred.model,
+                                            lambda: pred.compute_prediction(warm))
+        check(n_set == n_bn > 0, "calibrated {} of {} FBNet BNs".format(n_set, n_bn))
+
+    for k, name in enumerate(("e2e_faster_rcnn_fbnet_chamv1a_600.yaml",
+                              "e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml")):
+        scfg, state = serve_once(torch, np, card, dl, "fbnet_serving_" + name.split("_")[-2],
+                                 cfg_of(os.path.join(REPO, "configs", name)), SEED + 51 + k,
+                                 {"nms": 2}, prepare=calibrated)
+        sites["fbnet_serving_" + name.split("_")[-2]] = kernel_path_sites()
+    ref = reference_check(torch, np, detector, scfg, state)
+    print("fbnet xirb16d_dsmask float32 card vs CPU on a 256x320 image [{}]: {}".format(
+        card, json.dumps(ref)), flush=True)
+    check(ref["agree"] >= 0.9, "FBNet: card and CPU disagree on {:.1%} of detections".format(
+        1 - ref["agree"]))
+    phase_s["fbnet"] = time.perf_counter() - t0
     return sites, phase_s
 
 

@@ -1,12 +1,13 @@
-"""Backbone builder: ResNet C4/C5, ResNet + FPN (P2-P6), or ResNet +
-FPN-RetinaNet (P3-P7).
+"""Backbone builder: ResNet C4/C5, ResNet + FPN (P2-P6), ResNet +
+FPN-RetinaNet (P3-P7), or an FBNet body (one map at stride 16,
+models/fbnet.py).
 
-PyTorch counterpart of maskrcnn_tpu/models/backbone.py. The FBNet bodies
-wait for their model family.
+PyTorch counterpart of maskrcnn_tpu/models/backbone.py.
 """
 
 import torch.nn as nn
 
+from .fbnet import FBNetBackbone
 from .fpn import FPN, LastLevelP6P7
 from .resnet import ResNet
 
@@ -70,7 +71,7 @@ class ResNetFPN(nn.Module):
 def build_backbone(cfg):
     body = cfg.MODEL.BACKBONE.CONV_BODY
     if body.startswith("FBNet"):
-        raise NotImplementedError("backbone {} is not ported yet".format(body))
+        return FBNetBackbone(cfg)
     if "FPN" not in body:
         return ResNetC4(cfg)
     return ResNetFPN(cfg, retinanet="RETINANET" in body)

@@ -49,8 +49,18 @@ RetinaNet (MODEL.RETINANET_ON, models/retinanet.py) has no ROI heads:
 ``train_forward`` returns loss_retina_cls and loss_retina_reg (the anchor
 matcher kernel, no sampler draws), ``infer_forward`` the padded detection
 dict without masks (the NMS kernel); MASK_ON and KEYPOINT_ON are off under
-it, as in the JAX package. RPN-only models (ROADMAP.md Queue 1 item 15)
-wait for a later slice.
+it, as in the JAX package.
+
+RPN-only models (MODEL.RPN_ONLY without RetinaNet, the rpn_* files) have
+no ROI heads: ``train_forward`` returns loss_objectness and
+loss_rpn_box_reg (the matcher kernel, no proposals, so no NMS), and
+``infer_forward`` the proposals as the detections (the NMS kernel): boxes,
+scores (the objectness), labels 1 and valid, in select_proposals' order.
+
+FBNet models (CONV_BODY "FBNet", models/fbnet.py): one map at stride 16,
+RPN_HEAD "FBNet.rpn_head", the box head's FBNet.roi_head and the mask
+head's FBNet.roi_head_mask with MaskRCNNConv1x1Predictor; their poolers are
+single-level, so they take the adaptive pooler as C4 does.
 
 C4 models (R-50-C4: one map at stride 16, 15 anchors a location) pool at
 POOLER_SAMPLING_RATIO 0 through the adaptive pooler, which has no kernel
@@ -69,6 +79,7 @@ from ..ops.sampler import top_k_fast, uniform_draws
 from ..utils import comm
 from .anchors import make_anchor_generator, make_anchor_generator_retinanet
 from .backbone import build_backbone
+from .fbnet import FBNetRPNHead
 from .poolers import PoolerConfig, multilevel_roi_align
 from .roi_heads.box_head import BoxHead, box_head_inference, box_head_loss, prepare_box_targets
 from .roi_heads.keypoint_head import (
@@ -87,6 +98,8 @@ from .retinanet import RetinaNetHead, retinanet_inference, retinanet_loss
 from .rpn import RPNHead, rpn_loss, select_proposals
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+RPN_HEADS = {"SingleConvRPNHead": lambda cfg, c, a: RPNHead(c, a),
+             "FBNet.rpn_head": FBNetRPNHead}
 
 
 def _flatten_rois(boxes):
@@ -144,12 +157,9 @@ class GeneralizedRCNN(nn.Module):
         super().__init__()
         m = cfg.MODEL
         self.retinanet_on = m.RETINANET_ON
-        if not self.retinanet_on:
-            if m.RPN_ONLY:
-                raise NotImplementedError(
-                    "RPN-only models are not ported yet (ROADMAP.md Queue 1 item 15)")
-            if m.RPN.RPN_HEAD != "SingleConvRPNHead":
-                raise NotImplementedError("RPN head {} is not ported yet".format(m.RPN.RPN_HEAD))
+        self.rpn_only = m.RPN_ONLY and not self.retinanet_on
+        if not self.retinanet_on and m.RPN.RPN_HEAD not in RPN_HEADS:
+            raise NotImplementedError("RPN head {} is not ported yet".format(m.RPN.RPN_HEAD))
         self.cfg = cfg.clone()
         self.compute_dtype = _DTYPES[cfg.TPU.COMPUTE_DTYPE]
         self.register_buffer("pixel_mean", torch.tensor(cfg.INPUT.PIXEL_MEAN, dtype=torch.float32),
@@ -170,7 +180,9 @@ class GeneralizedRCNN(nn.Module):
             self.rpn = RetinaNetHead(cfg, c)
             return
         self.anchor_gen = make_anchor_generator(cfg)
-        self.rpn = RPNHead(c, self.anchor_gen.num_anchors_per_location()[0])
+        self.rpn = RPN_HEADS[m.RPN.RPN_HEAD](cfg, c, self.anchor_gen.num_anchors_per_location()[0])
+        if self.rpn_only:
+            return
         self.roi_heads = nn.Module()
         self.roi_heads.box = BoxHead(cfg, c)
         self.box_pooler = PoolerConfig(
@@ -196,7 +208,7 @@ class GeneralizedRCNN(nn.Module):
         """Seeded init with the distributions of the JAX model.init."""
         self.backbone.reset_parameters(gen)
         self.rpn.reset_parameters(gen)
-        if self.retinanet_on:
+        if self.retinanet_on or self.rpn_only:
             return
         self.roi_heads.box.reset_parameters(gen)
         if self.mask_on:
@@ -294,6 +306,8 @@ class GeneralizedRCNN(nn.Module):
             rcfg.POSITIVE_FRACTION,
         )
         losses = {"loss_objectness": loss_obj, "loss_rpn_box_reg": loss_rpn_box}
+        if self.rpn_only:
+            return losses
 
         with torch.no_grad():
             prop_boxes, _, prop_valid = select_proposals(
@@ -383,6 +397,10 @@ class GeneralizedRCNN(nn.Module):
         prop_boxes, prop_scores, prop_valid = select_proposals(
             anchors, objectness, bbox_reg, image_sizes, cfg.MODEL.RPN
         )
+        if self.rpn_only:
+            return dict(boxes=prop_boxes, scores=prop_scores, valid=prop_valid,
+                        labels=torch.ones(prop_scores.shape, dtype=torch.int32,
+                                          device=prop_scores.device))
 
         nhwc = _nhwc(features)
         rois, batch_idx = _flatten_rois(prop_boxes)

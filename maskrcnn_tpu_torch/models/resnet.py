@@ -5,8 +5,14 @@ folded into the conv before it (conv_frozen_bn), the same algebra as the
 JAX ``conv_norm``; group norm (TRANS_FUNC "BottleneckWithGN", the
 gn_baselines files) is not folded: it follows its bias-free conv, as in the
 JAX package. The stem is the plain 7x7/stride-2/pad-3 conv: the JAX
-package's space-to-depth stem is a TPU rewrite of the same math. Deformable
-convs belong to another model family and are not ported yet.
+package's space-to-depth stem is a TPU rewrite of the same math.
+
+Deformable convs (RESNETS.STAGE_WITH_DCN[i - 1] for layer{i}, the dcn/
+files): the block's conv2 becomes a deformable conv v1, or v2 under
+WITH_MODULATED_DCN (ops/deform_conv.py), whose offsets (and masks) come
+from ``conv2_offset``, a 3x3 conv with a bias, zero at init, run in float32
+(2 * 9 offsets a deformable group, then 9 masks through a sigmoid for v2).
+Its norm follows it unfolded, as in the JAX package.
 
 The stage tables cover the FPN bodies and the C4/C5 bodies (``ResNet``
 returns the maps of the stages whose spec returns them: C5 alone, or C4
@@ -29,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.deform_conv import deform_conv2d
 from .layers import Conv2d, FrozenBatchNorm2d, GroupNorm, conv_frozen_bn, init_conv_, max_pool2d
 
 StageSpec = namedtuple("StageSpec", ["index", "block_count", "return_features"])
@@ -79,8 +86,11 @@ def conv_norm(x, conv, norm):
 
 
 class Bottleneck(nn.Module):
+    """dcn: None, or {"modulated": bool, "deformable_groups": int} for a
+    deformable conv2."""
+
     def __init__(self, cin, bottleneck, cout, stride, dilation, num_groups,
-                 stride_in_1x1, norm="bn", gn_groups=32):
+                 stride_in_1x1, norm="bn", gn_groups=32, dcn=None):
         super().__init__()
         s1, s2 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = Conv2d(cin, bottleneck, 1, stride=s1, bias=False)
@@ -89,6 +99,11 @@ class Bottleneck(nn.Module):
                             padding=dilation, dilation=dilation,
                             groups=num_groups, bias=False)
         self.bn2 = _norm(bottleneck, norm, gn_groups)
+        self.dcn = dcn
+        if dcn is not None:
+            taps = (27 if dcn["modulated"] else 18) * dcn["deformable_groups"]
+            self.conv2_offset = Conv2d(bottleneck, taps, 3, stride=s2, padding=dilation,
+                                       dilation=dilation)
         self.conv3 = Conv2d(bottleneck, cout, 1, bias=False)
         self.bn3 = _norm(cout, norm, gn_groups)
         if cin != cout:
@@ -103,13 +118,33 @@ class Bottleneck(nn.Module):
             init_conv_(conv, gen)
         if self.downsample is not None:
             init_conv_(self.downsample.conv, gen)
+        if self.dcn is not None:
+            with torch.no_grad():
+                self.conv2_offset.weight.zero_()
+                self.conv2_offset.bias.zero_()
         for m in self.modules():
             if isinstance(m, GroupNorm):
                 m.reset_parameters()
 
+    def deform(self, x):
+        """The deformable conv2 and its norm on NCHW x, in x's dtype."""
+        conv, g = self.conv2, self.dcn["deformable_groups"]
+        xf = x.float()  # the offset conv's input and the sampled map, one copy
+        off = self.conv2_offset(xf).permute(0, 2, 3, 1)
+        mask = None
+        if self.dcn["modulated"]:
+            off, mask = off[..., :18 * g], torch.sigmoid(off[..., 18 * g:])
+        out = deform_conv2d(xf.permute(0, 2, 3, 1), off, conv.weight, mask, stride=conv.stride[0],
+                            padding=conv.padding[0], dilation=conv.dilation[0],
+                            groups=conv.groups, deformable_groups=g, compute_dtype=x.dtype)
+        return self.bn2(out.permute(0, 3, 1, 2))
+
     def forward(self, x):
         out = F.relu(conv_norm(x, self.conv1, self.bn1))
-        out = F.relu(conv_norm(out, self.conv2, self.bn2))
+        if self.dcn is not None:
+            out = F.relu(self.deform(out))
+        else:
+            out = F.relu(conv_norm(out, self.conv2, self.bn2))
         out = conv_norm(out, self.conv3, self.bn3)
         if self.downsample is not None:
             identity = conv_norm(x, self.downsample.conv, self.downsample.bn)
@@ -129,12 +164,12 @@ class Stem(nn.Module):
         return max_pool2d(x, window=3, stride=2, padding=1)
 
 
-def _stage(cin, bottleneck, cout, count, first_stride, dilation, r, norm, gn_groups):
+def _stage(cin, bottleneck, cout, count, first_stride, dilation, r, norm, gn_groups, dcn=None):
     return nn.ModuleList([
         Bottleneck(cin if k == 0 else cout, bottleneck, cout,
                    stride=first_stride if k == 0 else 1, dilation=dilation,
                    num_groups=r.NUM_GROUPS, stride_in_1x1=r.STRIDE_IN_1X1,
-                   norm=norm, gn_groups=gn_groups)
+                   norm=norm, gn_groups=gn_groups, dcn=dcn)
         for k in range(count)])
 
 
@@ -145,8 +180,8 @@ class ResNet(nn.Module):
         super().__init__()
         r = cfg.MODEL.RESNETS
         norm = norm_kind(cfg)
-        if any(r.STAGE_WITH_DCN):
-            raise NotImplementedError("deformable convs are not ported yet")
+        dcn = dict(modulated=r.WITH_MODULATED_DCN, deformable_groups=r.DEFORMABLE_GROUPS)
+        with_dcn = tuple(r.STAGE_WITH_DCN)
         specs = STAGE_SPECS[cfg.MODEL.BACKBONE.CONV_BODY]
         bottleneck2 = r.NUM_GROUPS * r.WIDTH_PER_GROUP
         out2 = r.RES2_OUT_CHANNELS
@@ -160,7 +195,8 @@ class ResNet(nn.Module):
             name = "layer{}".format(i)
             setattr(self, name, _stage(cin, bottleneck2 * 2 ** (i - 1), out2 * 2 ** (i - 1),
                                        spec.block_count, 1 if i == 1 else 2,
-                                       r.RES5_DILATION if i == 4 else 1, r, norm, gn_groups))
+                                       r.RES5_DILATION if i == 4 else 1, r, norm, gn_groups,
+                                       dcn if i - 1 < len(with_dcn) and with_dcn[i - 1] else None))
             self.stage_names.append(name)
             self.return_features.append(spec.return_features)
         self.out_channels = [

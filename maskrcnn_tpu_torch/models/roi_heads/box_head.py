@@ -4,9 +4,10 @@ and inference.
 PyTorch counterpart of maskrcnn_tpu/models/roi_heads/box_head.py: the
 extractors FPN2MLPFeatureExtractor (two fcs), FPNXconv1fcFeatureExtractor
 (NUM_STACKED_CONVS 3x3 convs, with a group norm each under USE_GN and a
-bias only without, then fc6) and ResNet50Conv5ROIFeatureExtractor (the C4
-models' res5 head); the predictors FPNPredictor and FastRCNNPredictor (a
-global average pool of the res5 output first); ``prepare_box_targets``
+bias only without, then fc6), ResNet50Conv5ROIFeatureExtractor (the C4
+models' res5 head) and FBNet.roi_head (the FBNet bbox stages' blocks,
+models/fbnet.py); the predictors FPNPredictor and FastRCNNPredictor (a
+global average pool of a 4-d extractor output first); ``prepare_box_targets``
 (match the proposals to the gt, sample a fixed ROI batch, encode its
 targets) and ``box_head_loss``; and ``box_head_inference``: softmax,
 per-class decode and clip, a top-k prefilter per (image, class) lane,
@@ -30,6 +31,7 @@ from ...ops.matcher import match_proposals
 from ...ops.nms import NEG_INF, batched_nms
 from ...ops.sampler import sample_topk_indices
 from ...utils import comm
+from ..fbnet import FBNetROIHead
 from ..layers import Conv2d, GroupNorm, Linear, init_conv_, init_linear_
 from ..resnet import ResNetHead
 from ..rpn import top_k_stable
@@ -114,7 +116,8 @@ class ResNet50Conv5ROIFeatureExtractor(nn.Module):
 
 EXTRACTORS = {"FPN2MLPFeatureExtractor": FPN2MLPFeatureExtractor,
               "FPNXconv1fcFeatureExtractor": FPNXconv1fcFeatureExtractor,
-              "ResNet50Conv5ROIFeatureExtractor": ResNet50Conv5ROIFeatureExtractor}
+              "ResNet50Conv5ROIFeatureExtractor": ResNet50Conv5ROIFeatureExtractor,
+              "FBNet.roi_head": lambda cfg, c: FBNetROIHead(cfg, c, "bbox")}
 
 
 class FPNPredictor(nn.Module):

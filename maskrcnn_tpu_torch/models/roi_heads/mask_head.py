@@ -1,15 +1,16 @@
-"""ROI mask head: its extractor, the deconv + 1x1 predictor, and the
-training pieces.
+"""ROI mask head: its extractor, its predictor, and the training pieces.
 
-PyTorch counterpart of maskrcnn_tpu/models/roi_heads/mask_head.py for
-MaskRCNNC4Predictor after MaskRCNNFPNFeatureExtractor (4 convs), after
-ResNet50Conv5ROIFeatureExtractor (the res5 head), or, under
-SHARE_BOX_FEATURE_EXTRACTOR (the C4 mask files), after the box head's own
-extractor: the mask head then holds no extractor, and the detector hands it
-that extractor's output. Full logits at inference; in training the logits
-of each ROI's gt class only (``MaskHead.logits_at_class``), the
-positive-ROI selection, the projection of the gt mask patches into the ROI
-frames, and the BCE loss.
+PyTorch counterpart of maskrcnn_tpu/models/roi_heads/mask_head.py:
+MaskRCNNC4Predictor (deconv, then a 1x1 conv) after
+MaskRCNNFPNFeatureExtractor (4 convs), after ResNet50Conv5ROIFeatureExtractor
+(the res5 head), or, under SHARE_BOX_FEATURE_EXTRACTOR (the C4 mask files),
+after the box head's own extractor: the mask head then holds no extractor,
+and the detector hands it that extractor's output; and
+MaskRCNNConv1x1Predictor (the 1x1 conv alone) after FBNet.roi_head_mask (the
+FBNet mask stages' blocks, which upsample to RESOLUTION themselves). Full
+logits at inference; in training the logits of each ROI's gt class only
+(``MaskHead.logits_at_class``), the positive-ROI selection, the projection
+of the gt mask patches into the ROI frames, and the BCE loss.
 
 ROI_MASK_HEAD.USE_GN adds no group norm: the JAX package's mask head has
 none (maskrcnn-benchmark's has one after each conv; ROADMAP.md Queue 3).
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from ...ops.sampler import top_k_fast
 from ...utils import comm
+from ..fbnet import FBNetROIHead
 from ..layers import Conv2d, ConvTranspose2d, init_conv_
 from .box_head import ResNet50Conv5ROIFeatureExtractor
 
@@ -55,7 +57,8 @@ class MaskRCNNFPNFeatureExtractor(nn.Module):
 
 
 EXTRACTORS = {"MaskRCNNFPNFeatureExtractor": MaskRCNNFPNFeatureExtractor,
-              "ResNet50Conv5ROIFeatureExtractor": ResNet50Conv5ROIFeatureExtractor}
+              "ResNet50Conv5ROIFeatureExtractor": ResNet50Conv5ROIFeatureExtractor,
+              "FBNet.roi_head_mask": lambda cfg, c: FBNetROIHead(cfg, c, "mask")}
 
 
 class MaskRCNNC4Predictor(nn.Module):
@@ -73,10 +76,33 @@ class MaskRCNNC4Predictor(nn.Module):
             self.conv5_mask.bias.zero_()
         init_conv_(self.mask_fcn_logits, gen, init="kaiming_normal_fanin")
 
+    def upsample(self, x):
+        """[R, C, M/2, M/2] -> the 1x1 conv's input [R, D, M, M]."""
+        return F.relu(self.conv5_mask(x))
+
     def forward(self, x):
         """[R, C, M/2, M/2] -> logits [R, num_classes, M, M] float32."""
-        x = F.relu(self.conv5_mask(x))
+        return self.mask_fcn_logits(self.upsample(x)).float()
+
+
+class MaskRCNNConv1x1Predictor(nn.Module):
+    def __init__(self, cfg, in_channels):
+        super().__init__()
+        self.mask_fcn_logits = Conv2d(in_channels, cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES, 1)
+
+    def reset_parameters(self, gen):
+        init_conv_(self.mask_fcn_logits, gen, init="kaiming_normal_fanin")
+
+    def upsample(self, x):
+        return x
+
+    def forward(self, x):
+        """[R, C, M, M] -> logits [R, num_classes, M, M] float32."""
         return self.mask_fcn_logits(x).float()
+
+
+PREDICTORS = {"MaskRCNNC4Predictor": MaskRCNNC4Predictor,
+              "MaskRCNNConv1x1Predictor": MaskRCNNConv1x1Predictor}
 
 
 class MaskHead(nn.Module):
@@ -86,7 +112,7 @@ class MaskHead(nn.Module):
     def __init__(self, cfg, in_channels, shared_dim=None):
         super().__init__()
         h = cfg.MODEL.ROI_MASK_HEAD
-        if h.FEATURE_EXTRACTOR not in EXTRACTORS or h.PREDICTOR != "MaskRCNNC4Predictor":
+        if h.FEATURE_EXTRACTOR not in EXTRACTORS or h.PREDICTOR not in PREDICTORS:
             raise NotImplementedError("mask head {} + {} is not ported yet".format(
                 h.FEATURE_EXTRACTOR, h.PREDICTOR))
         if shared_dim is None:
@@ -94,7 +120,7 @@ class MaskHead(nn.Module):
             shared_dim = self.feature_extractor.out_dim
         else:
             self.feature_extractor = None
-        self.predictor = MaskRCNNC4Predictor(cfg, shared_dim)
+        self.predictor = PREDICTORS[h.PREDICTOR](cfg, shared_dim)
 
     def reset_parameters(self, gen):
         if self.feature_extractor is not None:
@@ -119,7 +145,7 @@ class MaskHead(nn.Module):
         [R, M, M] of each ROI's label only. The 1x1 predictor's weight column
         of that class is gathered first, so the other classes' maps are
         never computed (apply_mask_predictor_at_class)."""
-        x = F.relu(self.predictor.conv5_mask(self.features(x)))
+        x = self.predictor.upsample(self.features(x))
         fcn = self.predictor.mask_fcn_logits
         safe = labels.long().clamp(0, fcn.out_channels - 1)
         wl = fcn.weight[:, :, 0, 0][safe].to(x.dtype)  # [R, D]

@@ -145,7 +145,7 @@ def select_proposals(anchors_per_level, objectness_per_level, bbox_reg_per_level
             kth = torch.topk(flat, min(fpn_post, flat.numel())).values[-1]
             keep = masked >= torch.clamp(kth, min=NEG_INF / 2)
             masked = torch.where(keep, masked, torch.full_like(masked, NEG_INF))
-        sel_scores, sel = torch.topk(masked, k, dim=-1)
+        sel_scores, sel = top_k_fast(masked, k)
         valid = sel_scores > NEG_INF / 2
         boxes = torch.gather(boxes, 1, sel[..., None].expand(-1, -1, 4))
         boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))

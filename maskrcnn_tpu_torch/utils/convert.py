@@ -6,7 +6,9 @@ mean, var}. ``params_from_jax`` walks that tree (given as numpy arrays, so
 this module needs no JAX) and returns a flat ``{name: torch.Tensor}`` that
 ``GeneralizedRCNN.load_state_dict`` takes with ``strict=True``:
 
-  * tree paths become dotted module names (list index = ModuleList index;
+  * tree paths become dotted module names (list index = ModuleList index,
+    as FBNet's ``trunk``, ``tower`` and ``blocks`` lists; a deformable
+    block's ``conv2_offset`` is a conv like the others;
     an empty slot, None, as RetinaNet's FPN keeps for C2, is skipped and
     keeps its index, so the FPN over C3-C5 loads into modules 1-3; its
     ``backbone.top`` is P6/P7 and its ``rpn`` the RetinaNet head);

@@ -144,12 +144,19 @@ def test_masker_matches_cv2_paste():
 
 
 def test_unported_model_families_raise():
-    """RPN-only models (RetinaNet and Keypoint R-CNN are ported:
-    tests/test_torch_retinanet.py, tests/test_torch_keypoint.py)."""
+    """No model family is left unported: RPN-only models build without ROI
+    heads (tests/test_torch_rpn_only.py; FBNet and deformable convs:
+    tests/test_torch_fbnet.py, tests/test_torch_dcn.py; RetinaNet and
+    Keypoint R-CNN: tests/test_torch_retinanet.py, test_torch_keypoint.py).
+    An RPN head that no config of the repository names still raises."""
     from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
 
     _, c = configs()
     c.MODEL.RPN_ONLY = True
+    model = GeneralizedRCNN(c)
+    assert model.rpn_only and not hasattr(model, "roi_heads")
+    _, c = configs()
+    c.MODEL.RPN.RPN_HEAD = "SingleConvRPNHeadWithGN"
     with pytest.raises(NotImplementedError):
         GeneralizedRCNN(c)
     _, c = configs()

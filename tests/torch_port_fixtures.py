@@ -9,6 +9,8 @@ port through ``params_from_jax``.
 """
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -144,3 +146,14 @@ def jax_sampler_draws(rng, b, n_anchors, n_proposals):
             neg.append(np.asarray(jax.random.uniform(kn, (n,))))
         draws[kind + "_pos"], draws[kind + "_neg"] = np.stack(pos), np.stack(neg)
     return draws
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """PyTorch on one thread for a module: its many small CPU ops would
+    otherwise each wait at an OpenMP barrier for threads that the test
+    workers, sharing the machine's cores, keep descheduled."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
