@@ -256,6 +256,27 @@ The last three families as written (after 33, on phase 24's trees and cache):
      e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml served once each (frozen BN
      set from the warm-up image), the latter float32 card against CPU
      (phase 6's gate).
+Test-time augmentation, the demo, the zoo gate and polygons (phase 24's
+trees and cache):
+ 37. configs/test_time_aug/e2e_mask_rcnn_R_50_FPN_1x.yaml as written (800,
+     then 400-1200 at MAX_SIZE 2000, each flipped: 18 passes an image) from
+     the cache's R-50 through inference(bbox_aug_cfg=cfg) on 4 images of
+     480x640 and 4 of 640x480: NMS and ROIAlign forward 36 times an image,
+     s/img split into host preprocessing, model and merge, peak memory;
+     both kernels against their plain versions at the largest (1216x1600)
+     and smallest (416x544) pass; a known answer (the merged detections as
+     gt: AP50 >= 0.99); float32 card against CPU on a small image at
+     reduced scales; test_net with TTA over the Faster R-CNN file;
+ 38. COCODemo on the flagship (the cache's Detectron model_final) at
+     min_image_size 800: request, paste and drawing ms, the drawn image,
+     the heatmap montage, the webcam loop over 3 frames; the keypoint file
+     drawn;
+ 39. tools/eval_zoo.py's main on configs/caffe2/e2e_mask_rcnn_R_50_FPN_1x_caffe2.yaml
+     (its model_final from the cache) with --ann-file/--img-dir: exit 1
+     with the published EXPECTED_RESULTS, 0 with a band that holds;
+ 40. convert("poly") of phase 25's Cityscapes val masks at 1024x2048: ms a
+     mask and the round trip's IoU, the native tracing against its plain
+     twin on three instances.
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
@@ -2329,6 +2350,13 @@ def data_layer_phase(torch, np, card):
                 step_sites=step_sites))
             sites.update(lf_sites)
             phase_s.update(lf_s)
+
+            # 37-40. TTA, the demo, eval_zoo and polygons on this phase's trees and cache
+            td_sites, td_s = tta_demo_phase(torch, np, card, types.SimpleNamespace(
+                work=work, cache=cache, coco=coco, reset=reset, done=done, logs=logs,
+                launches=launches))
+            sites.update(td_sites)
+            phase_s.update(td_s)
         return {"launches": launches, "phase_s": phase_s, "sites": sites}
     finally:
         for (obj, name), value in zip(patched, saved):
@@ -3355,6 +3383,309 @@ def last_families_phase(torch, np, card, dl):
     phase_s["fbnet"] = time.perf_counter() - t0
     return sites, phase_s
 
+
+TTA_SIZES = ((480, 640),) * 4 + ((640, 480),) * 4
+
+
+def tta_demo_phase(torch, np, card, dl):
+    """37-40. On phase 24's trees and weight cache (dl: the data-layer phases'
+    work tree, cache and helpers): 37, test-time augmentation from the
+    published TTA file as written (18 passes an image) through inference in
+    process on an 8-image val tree, the kernels at its largest and smallest
+    pass, a known answer, float32 card against CPU, then test_net with TTA
+    over the Faster R-CNN file; 38, COCODemo on the flagship (the cache's
+    Detectron model_final) and on the keypoint file, the heatmap montage and
+    the webcam loop; 39, eval_zoo on the caffe2 file with the gate passing
+    and failing; 40, convert("poly") of phase 25's Cityscapes binary masks.
+    Returns the kernel sites and the wall seconds by path."""
+    import pickle
+
+    from maskrcnn_tpu_torch import predictor as predictor_module
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.data.build import make_data_loader
+    from maskrcnn_tpu_torch.data.datasets import CityScapesDataset
+    from maskrcnn_tpu_torch.demo import COCODemo, webcam
+    from maskrcnn_tpu_torch.engine import bbox_aug
+    from maskrcnn_tpu_torch.engine.inference import inference
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, rpn
+    from maskrcnn_tpu_torch.models.roi_heads import box_head
+    from maskrcnn_tpu_torch.ops import nms
+    from maskrcnn_tpu_torch.tools import eval_zoo, test_net
+    from maskrcnn_tpu_torch.utils.checkpoint import DetectronCheckpointer
+    from maskrcnn_tpu_torch.utils.maskops import trace_contours, trace_contours_plain
+
+    sites, phase_s = {}, {}
+    r50 = "catalog://ImageNetPretrained/MSRA/R-50"
+    final = "catalog://Caffe2Detectron/COCO/35858933/e2e_mask_rcnn_R-50-FPN_1x"
+
+    def cfg_of(yaml, opts=()):
+        c = defaults.clone()
+        c.merge_from_file(os.path.join(REPO, "configs", yaml))
+        c.merge_from_list(list(opts))
+        return c
+
+    # 37. test-time augmentation: the published file as written
+    t0 = dl.reset()
+    dl.coco["val2017"], n_gt, ann = synthetic_coco(np, dl.work, "val2017", TTA_SIZES,
+                                                   seed=SEED + 60)
+    opts = ["MODEL.ROI_HEADS.SCORE_THRESH", "0.0", "DATASETS.TEST", "('coco_2017_val',)"]
+    cfg = cfg_of("test_time_aug/e2e_mask_rcnn_R_50_FPN_1x.yaml", opts)
+    passes = bbox_aug.tta_passes(cfg)
+    check(cfg.TEST.BBOX_AUG.ENABLED and len(passes) == 18 and cfg.MODEL.WEIGHT == r50
+          and cfg.MODEL.MASK_ON, "the TTA YAML reads {} passes".format(len(passes)))
+    cfg.freeze()
+    print("tta: configs/test_time_aug/e2e_mask_rcnn_R_50_FPN_1x.yaml as written ({} passes an "
+          "image: {}), {} ({}, heads seeded), {}; inference(iou_types=('bbox',), "
+          "bbox_aug_cfg=cfg) in process on a synthetic coco_2017_val of 4 images of 480x640 "
+          "and 4 of 640x480 ({} instances)".format(len(passes), passes, r50, cfg.TPU.COMPUTE_DTYPE,
+                                                   " ".join(opts), n_gt), flush=True)
+    model = build_detection_model(cfg, device="cuda", seed=SEED + 61)
+    DetectronCheckpointer(cfg, model, save_dir=os.path.join(dl.work, "tta")).load(
+        cfg.MODEL.WEIGHT)
+    timing = {"host": 0.0, "model": 0.0, "merge": 0.0}
+    saved = bbox_aug.pass_input, bbox_aug.merge_passes, model.infer_forward
+
+    def timed(key, fn, sync=False):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            timing[key] += time.perf_counter() - t
+            return out
+        return run
+
+    bbox_aug.pass_input = timed("host", saved[0])
+    bbox_aug.merge_passes = timed("merge", saved[1])
+    model.infer_forward = timed("model", saved[2], sync=True)
+    out = os.path.join(dl.work, "tta_out")
+    try:
+        (loader,) = make_data_loader(cfg, is_train=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        first, _ = inference(model, loader, "coco_2017_val", iou_types=("bbox",),
+                             output_folder=out, bbox_aug_cfg=cfg)
+        wall = time.perf_counter() - t1
+    finally:
+        bbox_aug.pass_input, bbox_aug.merge_passes = saved[:2]
+        del model.infer_forward
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = len(TTA_SIZES)
+    dl.done("tta", t0, {"nms": 2 * len(passes), "roi_align": 2 * len(passes)}, n)
+    t_checks = time.perf_counter()
+    split = {"s_per_img": wall / n, "host_s_per_img": timing["host"] / n,
+             "model_s_per_img": timing["model"] / n, "merge_s_per_img": timing["merge"] / n,
+             "rest_s_per_img": (wall - sum(timing.values())) / n}
+    with open(os.path.join(out, "predictions.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    check(len(preds) == n and all(0 < len(p) <= cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
+                                  and set(p.fields()) == {"scores", "labels"}
+                                  and np.isfinite(p.bbox).all() for p in preds),
+          "tta predictions {}".format([len(p) for p in preds]))
+    print("tta: {} images, launches per image NMS {} and ROIAlign forward {}; {} [{}]; "
+          "peak memory {:.3f} GB; bbox AP {:.4f}".format(
+              n, dl.launches["tta"]["nms"] // n, dl.launches["tta"]["roi_align"] // n,
+              json.dumps(split), card, peak_gb, first.results["bbox"]["AP"]), flush=True)
+
+    # the kernels at the largest and the smallest pass, against their plain versions
+    found = {"nms": [], "roi_align": []}
+    img = dl.coco["val2017"][1]
+    for scale in (max(cfg.TEST.BBOX_AUG.SCALES), min(cfg.TEST.BBOX_AUG.SCALES)):
+        padded, _ = bbox_aug.pass_input(img, scale, cfg.TEST.BBOX_AUG.MAX_SIZE, cfg)
+        with Capture([rpn, box_head], "batched_nms") as nc, \
+                Capture([detector], "multilevel_roi_align") as rc:
+            bbox_aug.im_detect_bbox(model, [img], scale, cfg.TEST.BBOX_AUG.MAX_SIZE, cfg)
+        check(len(nc.calls) == 2 and len(rc.calls) == 2, "tta pass {}: {} NMS, {} ROIAlign calls"
+              .format(scale, len(nc.calls), len(rc.calls)))
+        with torch.inference_mode():
+            found["nms"] += [nms_site(torch, nms, *c, plain_iters=3) for c in nc.calls]
+            found["roi_align"] += [roi_site(torch, poolers, *c) for c in rc.calls]
+        for name, ss in found.items():
+            for s_ in ss[-2:]:
+                print("tta kernel site {} at scale {} (padded {}x{}) [{}]: {}".format(
+                    name, scale, padded.shape[1], padded.shape[2], card, json.dumps(s_)),
+                      flush=True)
+    sites["tta"] = kernel_path_sites(**found)
+
+    # a known answer: the first pass's detections as the gt of a second pass
+    with open(ann) as f:
+        infos = json.load(f)["images"]
+    gts = detections_as_gt(preds, infos)
+    write_coco_json(ann, infos, gts, range(1, 81))
+    (loader,) = make_data_loader(cfg, is_train=False)
+    second, _ = inference(model, loader, "coco_2017_val", iou_types=("bbox",),
+                          output_folder=None, bbox_aug_cfg=cfg)
+    known = {"gt_from_detections": len(gts), "AP50": second.results["bbox"]["AP50"],
+             "AP": second.results["bbox"]["AP"]}
+    print("tta known answer (the first pass's merged detections as gt) [{}]: {}".format(
+        card, json.dumps(known)), flush=True)
+    check(known["AP50"] >= 0.99, "TTA known-answer AP50 {}".format(known["AP50"]))
+
+    # float32, card against CPU, one small image at reduced scales
+    c32 = cfg.clone()
+    c32.defrost()
+    c32.TPU.COMPUTE_DTYPE = "float32"
+    c32.INPUT.MIN_SIZE_TEST, c32.INPUT.MAX_SIZE_TEST = 160, 267
+    c32.TEST.BBOX_AUG.SCALES, c32.TEST.BBOX_AUG.MAX_SIZE = (192,), 320
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    small = np.random.RandomState(SEED + 62).randint(0, 256, (240, 320, 3)).astype(np.uint8)
+    state = model.state_dict()
+    merged = []
+    try:
+        for dev in ("cuda", "cpu"):
+            m = detector.GeneralizedRCNN(c32)
+            m.load_state_dict(state)
+            merged.append(bbox_aug.im_detect_bbox_aug(m.to(dev).eval(), [small], c32)[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    agree = match_detections(merged[0], merged[1])
+    print("tta float32 card vs CPU on a 240x320 image, passes {} [{}]: {} and {} detections, "
+          "{:.1%} with a partner".format(bbox_aug.tta_passes(c32), card, len(merged[0]),
+                                         len(merged[1]), agree), flush=True)
+    check(len(merged[0]) > 0 and agree >= 0.9, "TTA card and CPU disagree on {:.1%}".format(
+        1 - agree))
+    del model, state, m
+    torch.cuda.empty_cache()
+    phase_s["tta_checks"] = time.perf_counter() - t_checks
+
+    # test_net with TTA switched on over the Faster R-CNN file
+    t0 = dl.reset()
+    tta_opts = ["TEST.BBOX_AUG.ENABLED", "True", "TEST.BBOX_AUG.H_FLIP", "True",
+                "TEST.BBOX_AUG.SCALES", "(400, 600, 1000)", "TEST.BBOX_AUG.MAX_SIZE", "2000",
+                "TEST.BBOX_AUG.SCALE_H_FLIP", "True"]
+    faster_opts = opts + tta_opts + ["OUTPUT_DIR", os.path.join(dl.work, "tta_test_net")]
+    (res, _), = test_net.main(["--config-file", os.path.join(REPO, "configs",
+                                                             "e2e_faster_rcnn_R_50_FPN_1x.yaml")]
+                              + faster_opts)
+    dl.done("tta_test_net", t0, {"nms": 16, "roi_align": 8}, n)
+    check(set(res.results) == {"bbox"}, "test_net with TTA evaluated {}".format(set(res.results)))
+    print("tta test_net --config-file configs/e2e_faster_rcnn_R_50_FPN_1x.yaml {} [{}]: bbox "
+          "{}".format(" ".join(faster_opts[:-1]), card, json.dumps(dict(res.results["bbox"]))),
+          flush=True)
+
+    # 38. the demo: COCODemo on the flagship and on the keypoint file
+    t0 = dl.reset()
+    rs = np.random.RandomState(SEED + 63)
+    image = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    demo_cfg = cfg_of("e2e_mask_rcnn_R_50_FPN_1x.yaml", [
+        "MODEL.WEIGHT", final, "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
+        "OUTPUT_DIR", os.path.join(dl.work, "demo")])
+    demo = COCODemo(demo_cfg, min_image_size=800)
+    requests = 1
+    preds = demo.compute_prediction(image)  # warm-up
+    scores = np.sort(np.asarray(preds.get_field("scores")))
+    demo.confidence_threshold = float(scores[-21]) if len(scores) > 20 else 0.0
+    with Capture([predictor_module], "paste_masks_in_image") as pc:
+        t1 = time.perf_counter()
+        preds = demo.compute_prediction(image)
+        predict_ms = (time.perf_counter() - t1) * 1e3
+        requests += 1
+    top = demo.select_top_predictions(preds)
+    t1 = time.perf_counter()
+    drawn = demo.draw(image, top)
+    draw_ms = (time.perf_counter() - t1) * 1e3
+    with torch.inference_mode():
+        paste_ms = cuda_ms(torch, lambda: predictor_module.paste_masks_in_image(*pc.calls[0]), 10)
+    check(drawn.shape == image.shape and drawn.dtype == np.uint8 and (drawn != image).any()
+          and len(top) == min(20, len(scores)), "the demo drew {} of shape {}".format(
+              len(top), drawn.shape))
+    run_ms = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        out_img = demo.run_on_opencv_image(image)
+        run_ms.append((time.perf_counter() - t1) * 1e3)
+        requests += 1
+    check(np.array_equal(out_img, drawn), "run_on_opencv_image differs from its own drawing")
+    heat = COCODemo(demo_cfg, show_mask_heatmaps=True, min_image_size=800, model=demo.model,
+                    confidence_threshold=demo.confidence_threshold)
+    montage = heat.run_on_opencv_image(image)
+    requests += 1
+    check(montage.shape == image.shape and montage.dtype == np.uint8,
+          "montage {} {}".format(montage.shape, montage.dtype))
+    frames = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(3)]
+    shown = []
+    webcam.run(demo, frames, lambda img, s: shown.append((img.shape, img.dtype, s)))
+    requests += 3
+    check(len(shown) == 3 and all(s[0] == (480, 640, 3) and s[1] == np.uint8 for s in shown),
+          "webcam loop {}".format(shown))
+    del demo, heat
+    kp_cfg = cfg_of("e2e_keypoint_rcnn_R_50_FPN_1x.yaml", [
+        "MODEL.ROI_HEADS.SCORE_THRESH", "0.0", "OUTPUT_DIR", os.path.join(dl.work, "demo_kp")])
+    check(kp_cfg.MODEL.WEIGHT == r50, "the keypoint YAML reads {}".format(kp_cfg.MODEL.WEIGHT))
+    kp_demo = COCODemo(kp_cfg, confidence_threshold=0.0, min_image_size=800)
+    kp_preds = kp_demo.compute_prediction(image)
+    kp_img = kp_demo.draw(image, kp_demo.select_top_predictions(kp_preds))
+    requests += 1
+    joints = np.asarray(kp_preds.get_field("keypoints"))
+    check(kp_img.shape == image.shape and kp_img.dtype == np.uint8 and joints.shape[1:] == (17, 4)
+          and np.isfinite(joints).all(), "keypoint demo {} {}".format(kp_img.shape, joints.shape))
+    dl.done("demo", t0, {"nms": 2, "roi_align": 2}, requests)
+    latency = {"request_ms": predict_ms, "paste_ms": paste_ms, "model_ms": predict_ms - paste_ms,
+               "drawing_ms": draw_ms, "run_on_opencv_image_ms": run_ms,
+               "drawn_detections": len(top), "keypoint_detections": len(kp_preds),
+               "joints_above_threshold": int((joints[..., 3] > 2.0).sum())}
+    print("demo: COCODemo(configs/e2e_mask_rcnn_R_50_FPN_1x.yaml with {}, min_image_size 800) on "
+          "480x640: {} -> image {} {}; heatmap montage {} {}; webcam loop over 3 frames; "
+          "configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml drawn [{}]".format(
+              final, json.dumps(latency), drawn.shape, drawn.dtype, montage.shape, montage.dtype,
+              card), flush=True)
+    del kp_demo
+    torch.cuda.empty_cache()
+
+    # 39. eval_zoo on the caffe2 file: its model_final from the cache, the tree given
+    t0 = dl.reset()
+    caffe2 = os.path.join(REPO, "configs", "caffe2", "e2e_mask_rcnn_R_50_FPN_1x_caffe2.yaml")
+    zoo = ["--config-file", caffe2, "--ann-file", ann,
+           "--img-dir", os.path.join(dl.work, "coco", "val2017"), "--output-dir"]
+    rc_written = eval_zoo.main(zoo + [os.path.join(dl.work, "zoo_written"),
+                                      "MODEL.ROI_HEADS.SCORE_THRESH", "0.0"])
+    gate = "[['bbox', 'AP', 0.0, 0.1], ['segm', 'AP', 0.0, 0.1]]"
+    rc_band = eval_zoo.main(zoo + [os.path.join(dl.work, "zoo_band"),
+                                   "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
+                                   "TEST.EXPECTED_RESULTS", gate])
+    dl.done("eval_zoo", t0, {"nms": 2, "roi_align": 2}, 2)
+    checks = [line for line in dl.logs.lines if "sanity check" in line]
+    print("eval_zoo --config-file configs/caffe2/e2e_mask_rcnn_R_50_FPN_1x_caffe2.yaml "
+          "--ann-file <the 8 images' json> --img-dir <coco/val2017> (its {} from the cache): "
+          "exit {} with the published EXPECTED_RESULTS, exit {} with {} [{}]: {}".format(
+              final, rc_written, rc_band, gate, card, json.dumps(checks)), flush=True)
+    check(rc_written == 1 and rc_band == 0, "eval_zoo exits {} and {}".format(rc_written, rc_band))
+
+    # 40. polygons from phase 25's Cityscapes binary masks
+    t0 = time.perf_counter()
+    val = CityScapesDataset(os.path.join(dl.work, "cityscapes", "leftImg8bit"),
+                            os.path.join(dl.work, "cityscapes", "gtFine"), "val", "mask")
+    trace_s, ious, rings, n_masks = 0.0, [], 0, 0
+    for idx in range(len(val)):
+        masks = val[idx][1].get_field("masks")
+        t1 = time.perf_counter()
+        polys = masks.convert("poly")
+        trace_s += time.perf_counter() - t1
+        n_masks += len(masks)
+        rings += sum(len(inst.polygons) for inst in polys.instances.polygons)
+        back = polys.convert("mask").get_mask_tensor().reshape(len(masks), *CITYSCAPES_HW)
+        dense = masks.get_mask_tensor().reshape(len(masks), *CITYSCAPES_HW).astype(bool)
+        inter = (back.astype(bool) & dense).sum((1, 2))
+        union = (back.astype(bool) | dense).sum((1, 2))
+        ious += (inter / np.maximum(union, 1)).tolist()
+        if idx == 0:  # the plain twin on the first instances, cropped to their boxes
+            for j, box in enumerate(val[idx][1].bbox[:3]):
+                x0, y0, x1, y1 = (int(v) for v in box)
+                crop = dense[j, max(y0 - 2, 0):y1 + 3, max(x0 - 2, 0):x1 + 3]
+                check(all(np.array_equal(a, b) for a, b in zip(
+                    trace_contours(crop), trace_contours_plain(crop))),
+                      "the native and plain tracing differ on instance {}".format(j))
+    poly = {"frames": len(val), "masks": n_masks, "rings": rings,
+            "ms_per_mask": trace_s * 1e3 / max(n_masks, 1), "round_trip_iou_mean":
+            float(np.mean(ious)), "round_trip_iou_min": float(np.min(ious))}
+    print("polygons: convert('poly') of the Cityscapes val masks at 1024x2048, then back to "
+          "masks [{}]: {}".format(card, json.dumps(poly)), flush=True)
+    check(n_masks > 0 and rings >= n_masks and poly["round_trip_iou_min"] >= 0.8,
+          "polygons {}".format(poly))
+    phase_s["polygons"] = time.perf_counter() - t0
+    return sites, phase_s
 
 def synthetic_person_keypoints(np, path, n_images, seed, hw=(480, 640)):
     """A COCO person-keypoint annotation file for images 1..n_images of hw:

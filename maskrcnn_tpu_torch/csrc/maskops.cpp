@@ -14,6 +14,12 @@
 //                       its box on the image and emitted as COCO RLE counts,
 //                       without the [h, w] canvas
 //
+// and one of its own, the JAX package's cv2.findContours call:
+//
+//   find_external_contours : the outer borders of a binary mask, as OpenCV's
+//                       findContours(RETR_EXTERNAL, CHAIN_APPROX_TC89_L1)
+//                       returns them (OpenCV 5's implementation)
+//
 // Built by the host C++ compiler at first use (ops/native.py), called
 // through ctypes from maskrcnn_tpu_torch/utils/maskops.py.
 
@@ -231,4 +237,243 @@ extern "C" int64_t paste_encode_mask(
   emit(0, (im_w - x_1) * im_h);  // trailing all-zero columns
   counts_out[nc++] = run;
   return nc;
+}
+
+// -- outer contours: Suzuki-Abe border following + Teh-Chin L1 ----------------
+//
+// OpenCV's findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_TC89_L1), point for
+// point. The mask (nonzero = 1) gets a zero border of one pixel and is
+// scanned in raster order; a 0 -> 1 step starts an outer border unless the
+// last marked border pixel of the row (lnbd) belongs to an outer border
+// already followed (marked 2: inside it). The border is followed as a chain
+// of Freeman codes (0 = +x, counter-clockwise with y down), its pixels marked
+// -126 where the pixel to their right is background and 2 otherwise; the
+// chain is then reduced by the Teh-Chin dominant-point passes with the
+// 1-curvature (OpenCV approx.cpp: support regions, non-maxima suppression,
+// one-pixel support, then couples of neighbours), including the three places
+// where OpenCV 5's rewrite of that last pass differs from the older code
+// (maskops.py:trace_contours_plain, the numpy twin, says which). Contours come
+// out in OpenCV's order, the last one found first.
+
+namespace {
+
+const int kDx[8] = {1, 1, 0, -1, -1, -1, 0, 1};
+const int kDy[8] = {0, -1, -1, -1, 0, 1, 1, 1};
+const int kAbsDiff[15] = {1, 2, 3, 4, 3, 2, 1, 0, 1, 2, 3, 4, 3, 2, 1};
+
+// Follow the outer border that starts at flat index i0 of the bordered image
+// (row stride `stride`); returns its chain codes, marks its pixels.
+std::vector<int8_t> trace_border(std::vector<int8_t>& img, int64_t stride, int64_t i0) {
+  const int64_t d8[8] = {1, 1 - stride, -stride, -stride - 1, -1, stride - 1, stride, stride + 1};
+  int64_t deltas[16];
+  for (int k = 0; k < 16; ++k) deltas[k] = d8[k & 7];
+  std::vector<int8_t> codes;
+  int s_end = 4, s = 4;
+  int64_t i1;
+  do {
+    s = (s - 1) & 7;
+    i1 = i0 + deltas[s];
+  } while (img[i1] == 0 && s != s_end);
+  if (s == s_end) {  // a single pixel
+    img[i0] = -126;
+    return codes;
+  }
+  int64_t i3 = i0, i4 = i0;
+  for (;;) {
+    s_end = s;
+    while (s < 15) {
+      i4 = i3 + deltas[++s];
+      if (img[i4] != 0) break;
+    }
+    s &= 7;
+    if (static_cast<unsigned>(s - 1) < static_cast<unsigned>(s_end)) {
+      img[i3] = -126;
+    } else if (img[i3] == 1) {
+      img[i3] = 2;
+    }
+    codes.push_back(static_cast<int8_t>(s));
+    if (i4 == i0 && i3 == i1) break;
+    i3 = i4;
+    s = (s + 4) & 7;
+  }
+  return codes;
+}
+
+struct ChainPoint {
+  int x, y, s, k;
+  int64_t next;
+};
+
+// The Teh-Chin L1 reduction of a closed chain starting at (x0, y0); appends
+// the kept points to out as x, y pairs.
+void approximate_tc89_l1(const std::vector<int8_t>& codes, int x0, int y0,
+                         std::vector<int32_t>& out) {
+  const int64_t n = static_cast<int64_t>(codes.size());
+  if (n == 0) {
+    out.push_back(x0);
+    out.push_back(y0);
+    return;
+  }
+  const int64_t nil = -1, head = n + 1;
+  std::vector<ChainPoint> a(n + 2, ChainPoint{0, 0, 0, 0, nil});
+  int x = x0, y = y0, prev = codes[n - 1];
+  int64_t cur = head;
+  for (int64_t i = 0; i < n; ++i) {  // pass 0: the 1-curvature of each point
+    const int c = codes[i];
+    const int s = kAbsDiff[c - prev + 7];
+    if (s != 0) {
+      a[cur].next = i;
+      cur = i;
+    }
+    a[i].s = s;
+    a[i].x = x;
+    a[i].y = y;
+    x += kDx[c];
+    y += kDy[c];
+    prev = c;
+  }
+  a[cur].next = nil;
+  auto wrap_lo = [n](int64_t i) { return i < 0 ? i + n : i; };
+  auto wrap_hi = [n](int64_t i) { return i >= n ? i - n : i; };
+  for (cur = a[head].next; cur != nil; cur = a[cur].next) {  // pass 1: support regions
+    const int64_t i = cur;
+    int l = 0, d_num = 0, k = 1;
+    for (;; ++k) {
+      const int64_t i1 = wrap_lo(i - k), i2 = wrap_hi(i + k);
+      const int dx = a[i2].x - a[i1].x, dy = a[i2].y - a[i1].y;
+      const int lk = dx * dx + dy * dy;
+      const int dk_num = (a[i].x - a[i1].x) * dy - (a[i].y - a[i1].y) * dx;
+      const float d = static_cast<float>(static_cast<double>(d_num) * lk -
+                                         static_cast<double>(dk_num) * l);
+      if (k > 1 && (l >= lk || (d_num > 0 && d <= 0) || (d_num < 0 && d >= 0))) break;
+      d_num = dk_num;
+      l = lk;
+    }
+    a[i].k = k - 1;
+  }
+  int64_t prev_cur = head;
+  for (cur = a[head].next; cur != nil; cur = a[cur].next) {  // pass 2: non-maxima
+    const int k2 = a[cur].k >> 1, s = a[cur].s;
+    int j = 1;
+    for (; j <= k2; ++j) {
+      if (a[wrap_lo(cur - j)].s > s || a[wrap_hi(cur + j)].s > s) break;
+    }
+    if (j <= k2) {
+      a[prev_cur].next = a[cur].next;
+      a[cur].s = 0;
+    } else {
+      prev_cur = cur;
+    }
+  }
+  prev_cur = head;
+  for (cur = a[head].next; cur != nil; cur = a[cur].next) {  // pass 3: support of 1
+    if (a[cur].k == 1 && (a[cur].s <= a[wrap_lo(cur - 1)].s || a[cur].s <= a[wrap_hi(cur + 1)].s)) {
+      a[prev_cur].next = a[cur].next;
+      a[cur].s = 0;
+    } else {
+      prev_cur = cur;
+    }
+  }
+  bool all_survived = false;
+  if (a[0].s != 0 && a[n - 1].s != 0) {  // pass 4: a run across the chain's start
+    int64_t i1 = 1;
+    for (; i1 < n && a[i1].s != 0; ++i1) a[i1 - 1].s = 0;
+    if (i1 == n) {
+      all_survived = true;
+    } else {
+      --i1;
+      int64_t i2 = n - 2;
+      for (; i2 > 0 && a[i2].s != 0; --i2) {
+        a[i2].next = nil;
+        a[i2 + 1].s = 0;
+      }
+      ++i2;
+      if (i1 == 0 && i2 == n - 1) {  // only two points: the first one also at the end
+        a[n] = a[0];
+        a[n].next = nil;
+        a[n - 1].next = n;
+      }
+      a[head].next = i1;
+    }
+  }
+  if (!all_survived) {  // pass 4: couples and longer runs of neighbours
+    cur = a[head].next;
+    int64_t first = cur == 0 ? 0 : head;
+    prev_cur = first;
+    int count = 1;
+    while (cur != nil) {
+      const int64_t nx = a[cur].next;
+      if (nx == nil || nx - cur != 1) {
+        if (count == 2) {
+          if (a[prev_cur].s > a[cur].s ||
+              (a[prev_cur].s == a[cur].s && a[prev_cur].k <= a[cur].k)) {
+            a[prev_cur].next = nx;  // drop the second
+            cur = prev_cur;
+          } else {
+            a[first == prev_cur ? head : first].next = cur;  // drop the first
+          }
+        } else if (count > 2) {
+          a[a[first].next].next = cur;  // keep the run's ends
+        }
+        first = cur;
+        count = 1;
+      } else {
+        ++count;
+      }
+      prev_cur = cur;
+      cur = a[cur].next;
+    }
+  }
+  for (cur = a[head].next; cur != nil; cur = a[cur].next) {
+    out.push_back(a[cur].x);
+    out.push_back(a[cur].y);
+  }
+}
+
+}  // namespace
+
+// mask: h*w uint8 (nonzero = foreground). Writes the contours' x, y pairs
+// (int32, contour after contour) into points (room for point_cap pairs) and
+// each contour's number of points into sizes (room for size_cap); returns
+// the number of contours and sets *n_points. When either buffer is too
+// small nothing is written and the caller retries with the returned sizes.
+extern "C" int64_t find_external_contours(const uint8_t* mask, int64_t h, int64_t w,
+                                          int32_t* points, int64_t point_cap,
+                                          int64_t* sizes, int64_t size_cap,
+                                          int64_t* n_points) {
+  const int64_t stride = w + 2;
+  std::vector<int8_t> img((h + 2) * stride, 0);
+  for (int64_t y = 0; y < h; ++y)
+    for (int64_t x = 0; x < w; ++x) img[(y + 1) * stride + x + 1] = mask[y * w + x] != 0;
+  std::vector<std::vector<int32_t>> found;
+  for (int64_t y = 1; y <= h; ++y) {
+    const int64_t row = y * stride;
+    int prev = 0;
+    int64_t lnbd = row;
+    for (int64_t x = 1; x <= w; ++x) {
+      int p = img[row + x];
+      if (p == prev) continue;
+      if (prev == 0 && p == 1 && img[lnbd] <= 0) {
+        std::vector<int8_t> codes = trace_border(img, stride, row + x);
+        found.emplace_back();
+        approximate_tc89_l1(codes, static_cast<int>(x - 1), static_cast<int>(y - 1), found.back());
+        p = img[row + x];
+      }
+      prev = p;
+      if (prev & -2) lnbd = row + x;
+    }
+  }
+  int64_t total = 0;
+  for (const auto& c : found) total += static_cast<int64_t>(c.size()) / 2;
+  *n_points = total;
+  const int64_t n = static_cast<int64_t>(found.size());
+  if (n > size_cap || total > point_cap) return n;
+  int64_t at = 0;
+  for (int64_t i = 0; i < n; ++i) {  // the last contour found first
+    const auto& c = found[n - 1 - i];
+    sizes[i] = static_cast<int64_t>(c.size()) / 2;
+    std::memcpy(points + at, c.data(), c.size() * sizeof(int32_t));
+    at += static_cast<int64_t>(c.size());
+  }
+  return n;
 }

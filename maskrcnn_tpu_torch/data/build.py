@@ -10,7 +10,11 @@ shared-memory loader (maskrcnn_tpu/data/loader.py) exists because that
 package has no torch; here torch's loader takes its place. For testing, one
 loader per name in DATASETS.TEST, each in order (sequential sampler, no
 aspect grouping), TEST.IMS_PER_BATCH images a batch; every batch carries
-the images' dataset indices.
+the images' dataset indices. Under test-time augmentation
+(TEST.BBOX_AUG.ENABLED) a test loader has no transforms and its batches
+are (images, targets, indices) tuples of the untransformed images
+(BBoxAugCollator), as the JAX package's; engine/bbox_aug.py transforms
+each pass.
 
 The workers run the dataset, the transforms and the collator on the CPU and
 hand back CPU tensors; they never touch CUDA, so the default fork start is
@@ -23,7 +27,6 @@ shuffled from the epoch's seed for training, in order for testing (padded
 to a multiple of the processes: evaluation gathers by dataset index).
 """
 
-import importlib.util
 import os
 
 import torch
@@ -32,8 +35,9 @@ import torch.utils.data
 from ..config import paths_catalog
 from ..parallel.distributed import images_per_process
 from ..utils import comm
+from ..utils.imports import import_file
 from ..utils.miscellaneous import cfg_device
-from .collate import BatchCollator
+from .collate import BatchCollator, BBoxAugCollator
 from .datasets import CityScapesDataset, COCODataset, ConcatDataset, PascalVOCDataset
 from .samplers import (
     BatchSampler,
@@ -122,10 +126,7 @@ def _resolve_catalog(cfg):
     path = cfg.PATHS_CATALOG
     if os.path.abspath(path) == os.path.abspath(paths_catalog.__file__):
         return paths_catalog.DatasetCatalog
-    spec = importlib.util.spec_from_file_location("maskrcnn_tpu_torch_paths_catalog", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.DatasetCatalog
+    return import_file("maskrcnn_tpu_torch_paths_catalog", path).DatasetCatalog
 
 
 def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
@@ -135,7 +136,8 @@ def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
     is_distributed, this process's share of each batch from its shard of
     the dataset; ValueError if the processes cannot share the batch evenly.
     Batches are dicts of CPU tensors in the collator's layout, pinned when
-    MODEL.DEVICE is CUDA."""
+    MODEL.DEVICE is CUDA; under test-time augmentation, a test loader's
+    batches are BBoxAugCollator's tuples."""
     num_replicas, rank = (comm.get_world_size(), comm.get_rank()) if is_distributed else (1, 0)
     if is_train:
         images_per_batch = cfg.SOLVER.IMS_PER_BATCH
@@ -143,9 +145,6 @@ def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
         num_iters = cfg.SOLVER.MAX_ITER
         dataset_list = cfg.DATASETS.TRAIN
     else:
-        if cfg.TEST.BBOX_AUG.ENABLED:
-            raise NotImplementedError("test-time augmentation (TEST.BBOX_AUG) is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 14)")
         images_per_batch = cfg.TEST.IMS_PER_BATCH
         key = "TEST.IMS_PER_BATCH"
         num_iters = None
@@ -153,13 +152,15 @@ def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
         dataset_list = cfg.DATASETS.TEST
     if is_distributed:
         images_per_batch = images_per_process(images_per_batch, key)
-    datasets = build_dataset(dataset_list, build_transforms(cfg, is_train), _resolve_catalog(cfg),
-                             is_train)
+    bbox_aug = not is_train and cfg.TEST.BBOX_AUG.ENABLED
+    transforms = None if bbox_aug else build_transforms(cfg, is_train)
+    datasets = build_dataset(dataset_list, transforms, _resolve_catalog(cfg), is_train)
     if cfg.MODEL.MASK_ON:
         # build the native mask ops once, before the workers start
         from ..utils import maskops
 
         maskops.library()
+    collator = BBoxAugCollator() if bbox_aug else TensorBatches(BatchCollator(cfg, is_train))
     loaders = []
     for dataset in datasets:
         if is_distributed:
@@ -173,8 +174,8 @@ def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
             images_per_batch, num_iters, start_iter)
         loaders.append(torch.utils.data.DataLoader(
             dataset, batch_sampler=batch_sampler,
-            collate_fn=TensorBatches(BatchCollator(cfg, is_train)),
+            collate_fn=collator,
             num_workers=cfg.DATALOADER.NUM_WORKERS, worker_init_fn=_seed_worker,
-            pin_memory=cfg_device(cfg).type == "cuda",
+            pin_memory=cfg_device(cfg).type == "cuda" and not bbox_aug,
         ))
     return loaders[0] if is_train else loaders

@@ -147,3 +147,14 @@ class BatchCollator:
         if self.keypoint_on:
             out["gt_keypoints"] = gt_kps
         return out
+
+
+class BBoxAugCollator:
+    """The test loader's collator under test-time augmentation (JAX
+    data/collate.py:BBoxAugCollator, after the reference
+    data/collate_batch.py): the samples stay as they are, (images, targets,
+    indices) tuples of the untransformed HWC uint8 RGB images; each pass
+    of engine/bbox_aug.py transforms them itself."""
+
+    def __call__(self, batch):
+        return list(zip(*batch))

@@ -8,8 +8,11 @@ the host in one wait, then become BoxLists resized to the original images.
 Keypoint models' joints are a "keypoints" field (DetectionKeypoints, resized
 with the boxes): decoded on the device when the model returns keypoints,
 else decoded here from its heatmaps by the exact host decode
-(keypoint_head.heatmaps_to_keypoints_exact). A test loader with test-time
-augmentation raises (ROADMAP.md Queue 1 item 14, data/build.py).
+(keypoint_head.heatmaps_to_keypoints_exact). With ``bbox_aug_cfg`` whose
+TEST.BBOX_AUG.ENABLED is set, the loader's batches are the untransformed
+images (data/build.py) and each goes through engine/bbox_aug.py's passes
+and merge; that path answers "bbox" alone and refuses other iou types
+before its first pass.
 
 In a process group each rank runs its shard of the dataset (the
 distributed test loader's), ``comm.all_gather`` merges the shards and rank
@@ -134,20 +137,56 @@ def compute_on_dataset(model, data_loader, timer=None):
     return results
 
 
+def compute_on_dataset_bbox_aug(model, data_loader, cfg, timer=None):
+    """{dataset index: BoxList of its merged detections on the original
+    image} under test-time augmentation: the loader's batches are
+    (images, targets, indices) of untransformed images (BBoxAugCollator),
+    each image run through every pass of engine/bbox_aug.py. `timer`
+    covers each batch's passes and merge."""
+    from .bbox_aug import im_detect_bbox_aug
+
+    results = {}
+    dataset = data_loader.dataset
+    for images, _targets, indices in data_loader:
+        if timer:
+            timer.tic()
+        boxlists = im_detect_bbox_aug(model, list(images), cfg)
+        if timer:
+            timer.toc()
+        for bl, idx in zip(boxlists, indices):
+            info = dataset.get_img_info(int(idx))
+            results[int(idx)] = bl.resize((info["width"], info["height"]))
+    return results
+
+
 def inference(model, data_loader, dataset_name, iou_types=("bbox",), box_only=False,
-              output_folder=None, expected_results=(), expected_results_sigma_tol=4):
+              output_folder=None, expected_results=(), expected_results_sigma_tol=4,
+              bbox_aug_cfg=None):
     """Detections for every image of `data_loader`, written to
     output_folder/predictions.pkl (a pickled list of BoxLists by dataset
     index) when an output folder is given, and evaluated; returns what
     ``data.evaluation.evaluate`` returns, (COCOResults, {}) for COCO; None
-    on the ranks other than 0 of a process group, which run their shards."""
+    on the ranks other than 0 of a process group, which run their shards.
+    bbox_aug_cfg: the configuration, when its TEST.BBOX_AUG.ENABLED is set,
+    runs test-time augmentation (ValueError, before any pass, for an iou
+    type other than "bbox")."""
+    bbox_aug = bbox_aug_cfg is not None and bbox_aug_cfg.TEST.BBOX_AUG.ENABLED
+    if bbox_aug and set(iou_types) - {"bbox"}:
+        raise ValueError(
+            "test-time augmentation gives boxes only; it cannot evaluate {} (its passes' masks "
+            "and keypoints are not merged): pass iou_types=('bbox',)".format(
+                sorted(set(iou_types) - {"bbox"})))
     logger = logging.getLogger("maskrcnn_tpu_torch.inference")
     dataset = data_loader.dataset
     logger.info("Start evaluation on {} dataset({} images).".format(dataset_name, len(dataset)))
     total_timer = Timer()
     inference_timer = Timer()
     total_timer.tic()
-    predictions = compute_on_dataset(model, data_loader, inference_timer)
+    if bbox_aug:
+        predictions = compute_on_dataset_bbox_aug(model, data_loader, bbox_aug_cfg,
+                                                  inference_timer)
+    else:
+        predictions = compute_on_dataset(model, data_loader, inference_timer)
     comm.synchronize()
     total_time = total_timer.toc()
     logger.info("Total run time: {:.3f} s ({:.4f} s / img per device)".format(

@@ -81,6 +81,7 @@ from .anchors import make_anchor_generator, make_anchor_generator_retinanet
 from .backbone import build_backbone
 from .fbnet import FBNetRPNHead
 from .poolers import PoolerConfig, multilevel_roi_align
+from .registry import META_ARCHITECTURES
 from .roi_heads.box_head import BoxHead, box_head_inference, box_head_loss, prepare_box_targets
 from .roi_heads.keypoint_head import (
     KeypointHead,
@@ -441,10 +442,17 @@ class GeneralizedRCNN(nn.Module):
 
 def build_detection_model(cfg, device="cuda", seed=0):
     """The model of `cfg` with seeded random weights, on `device` (the card
-    unless the caller asks for "cpu")."""
-    if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
-        raise ValueError("Unknown META_ARCHITECTURE {}".format(cfg.MODEL.META_ARCHITECTURE))
-    model = GeneralizedRCNN(cfg)
-    gen = torch.Generator().manual_seed(seed)
-    model.reset_parameters(gen)
+    unless the caller asks for "cpu"). A MODEL.META_ARCHITECTURE registered
+    in models/registry.py's META_ARCHITECTURES is built from the config
+    first (its reset_parameters(generator), when it has one, draws the
+    weights), as the JAX package consults that registry."""
+    meta = cfg.MODEL.META_ARCHITECTURE
+    if meta in META_ARCHITECTURES:
+        model = META_ARCHITECTURES[meta](cfg)
+    elif meta == "GeneralizedRCNN":
+        model = GeneralizedRCNN(cfg)
+    else:
+        raise ValueError("Unknown META_ARCHITECTURE {}".format(meta))
+    if hasattr(model, "reset_parameters"):
+        model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -2,10 +2,11 @@
 
 PyTorch counterpart of maskrcnn_tpu/models/masker.py (the reference's
 expand_masks / paste_mask_in_image), run on the device for all detections
-at once. Each M x M mask gets a zero border of PADDING cells, its box is
-expanded by (M + 2 * PADDING) / M and truncated to integers, the padded mask
-is resized bilinearly to the box's (h, w) and thresholded, and the result is
-written into the image where the box overlaps it.
+at once. Each M x M mask gets a zero border of `padding` cells, its box is
+expanded by (M + 2 padding) / M and truncated to integers, the padded mask
+is resized bilinearly to the box's (h, w) and thresholded (or, with a
+negative threshold, scaled to 0-255 grey levels), and the result is written
+into the image where the box overlaps it.
 
 The resize is separable: for every detection, one [H, M + 2p] matrix of
 row weights and one [W, M + 2p] matrix of column weights hold the bilinear
@@ -51,16 +52,20 @@ THRESHOLD = 0.5
 PADDING = 1
 
 
-def paste_masks_in_image(masks, boxes, im_h, im_w):
+def paste_masks_in_image(masks, boxes, im_h, im_w, threshold=THRESHOLD, padding=PADDING):
     """masks [N, M, M] probabilities, boxes [N, 4] xyxy in image pixels ->
-    [N, im_h, im_w] uint8 binary masks (probability > THRESHOLD)."""
+    [N, im_h, im_w] uint8: binary masks (probability > threshold) when
+    threshold >= 0, else the probabilities as 0-255 grey levels (times 255,
+    truncated: the Masker's heatmap mode, threshold -1)."""
     n, m = masks.shape[0], masks.shape[-1]
     if n == 0:
         return torch.zeros((0, im_h, im_w), dtype=torch.uint8, device=masks.device)
-    padded = F.pad(masks.float(), (PADDING,) * 4)
-    src = m + 2 * PADDING
+    padded = F.pad(masks.float(), (padding,) * 4)
+    src = m + 2 * padding
     box = expand_boxes(boxes.float(), src / m).to(torch.int64)  # truncation
     rows = _axis_weights(box[:, 1], box[:, 3], im_h, src)  # [N, H, S]
     cols = _axis_weights(box[:, 0], box[:, 2], im_w, src)  # [N, W, S]
     probs = rows @ padded @ cols.transpose(1, 2)  # [N, H, W]
-    return (probs > THRESHOLD).to(torch.uint8)
+    if threshold >= 0:
+        return (probs > threshold).to(torch.uint8)
+    return (probs * 255).to(torch.uint8)

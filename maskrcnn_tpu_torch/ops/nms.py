@@ -14,6 +14,7 @@ two.
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import native
@@ -167,3 +168,31 @@ def batched_nms(boxes, scores, valid, iou_threshold):
 
 
 batched_nms.launches = 0
+
+
+def nms_numpy(boxes, scores, iou_threshold):
+    """Greedy NMS on the host in float64, the JAX package's
+    ops/nms.py:nms_numpy (the reference CPU kernel, csrc/cpu/nms_cpu.cpp):
+    boxes [N, 4] xyxy, scores [N] -> the kept indices int64, in descending
+    score order (stable), +1 IoU convention, suppressed at IoU > threshold.
+    Test-time augmentation merges its passes with it: the card's kernel
+    computes its IoU in float32, which could flip a decision at the
+    threshold."""
+    boxes = np.asarray(boxes, np.float64)
+    scores = np.asarray(scores, np.float64)
+    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = np.argsort(-scores, kind="stable")
+    keep = []
+    suppressed = np.zeros(len(boxes), bool)
+    for pos, i in enumerate(order):
+        if suppressed[i]:
+            continue
+        keep.append(i)
+        rest = order[pos + 1:]
+        w = np.maximum(0.0, np.minimum(x2[i], x2[rest]) - np.maximum(x1[i], x1[rest]) + 1)
+        h = np.maximum(0.0, np.minimum(y2[i], y2[rest]) - np.maximum(y1[i], y1[rest]) + 1)
+        inter = w * h
+        iou = inter / (areas[i] + areas[rest] - inter)
+        suppressed[rest[iou > iou_threshold]] = True
+    return np.array(keep, np.int64)

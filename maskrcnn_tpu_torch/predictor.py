@@ -1,8 +1,9 @@
 """Serving entry point: one BGR image in, detections on the original image out.
 
 PyTorch counterpart of demo/predictor.py:COCODemo.compute_prediction with
-engine/inference.py:detections_to_boxlists, without the drawing code. Every
-step runs on the model's device:
+engine/inference.py:detections_to_boxlists; the port's COCODemo, with the
+drawing, is demo/predictor.py, on top of this class. Every step runs on the
+model's device:
 
   1. the BGR uint8 image is resized bilinearly (half-pixel centres, as
      cv2.INTER_LINEAR) so its short side is ``min_image_size`` (224 by
@@ -13,7 +14,9 @@ step runs on the model's device:
      DATALOADER.SIZE_DIVISIBILITY;
   3. ``GeneralizedRCNN.infer_forward``;
   4. the valid detections' boxes are rescaled to the original image and their
-     masks pasted into it (models/masker.py); keypoint models' joints are
+     masks pasted into it (models/masker.py, at ``mask_threshold``: binary
+     masks at 0.5 by default, 0-255 probabilities when it is negative);
+     keypoint models' joints are
      decoded from their heatmaps on the host (the exact decode, as
      test_net's; or on the device under TPU.KEYPOINT_DECODE_ON_DEVICE) and
      rescaled with the boxes, as engine/inference.py's BoxLists are.
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from .engine.inference import DetectionKeypoints
 from .models.detector import build_detection_model
 from .models.roi_heads.keypoint_head import heatmaps_to_keypoints_exact
-from .models.masker import paste_masks_in_image
+from .models.masker import THRESHOLD, paste_masks_in_image
 from .utils.checkpoint import DetectronCheckpointer
 
 
@@ -49,9 +52,11 @@ class Predictor:
     ``min_image_size`` is the resized short side (COCODemo's argument of the
     same name; pass cfg.INPUT.MIN_SIZE_TEST to serve at the test size)."""
 
-    def __init__(self, cfg, model=None, device="cuda", seed=0, min_image_size=224):
+    def __init__(self, cfg, model=None, device="cuda", seed=0, min_image_size=224,
+                 mask_threshold=THRESHOLD):
         self.cfg = cfg.clone()
         self.min_image_size = min_image_size
+        self.mask_threshold = mask_threshold
         self.device = torch.device(device)
         if model is None:
             model = build_detection_model(self.cfg, device=device, seed=seed)
@@ -98,7 +103,8 @@ class Predictor:
             "labels": det["labels"][0][valid],
         }
         if "masks" in det:
-            out["masks"] = paste_masks_in_image(det["masks"][0][valid], boxes, h, w)
+            out["masks"] = paste_masks_in_image(det["masks"][0][valid], boxes, h, w,
+                                                self.mask_threshold)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         if "keypoints" in det:
             kps = det["keypoints"][0][valid].cpu().numpy()

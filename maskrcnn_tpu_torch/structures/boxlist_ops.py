@@ -1,14 +1,38 @@
 """Host-side operations on BoxLists (numpy).
 
-Port of the evaluation's half of maskrcnn_tpu/structures/boxlist_ops.py
-(after the reference maskrcnn_benchmark/structures/boxlist_ops.py): the IoU
-of two BoxLists and their concatenation. The padded on-device versions of
-box operations are in ops/box_ops.py.
+Port of maskrcnn_tpu/structures/boxlist_ops.py (after the reference
+maskrcnn_benchmark/structures/boxlist_ops.py): NMS of one BoxList in
+float64 (ops/nms.py:nms_numpy; test-time augmentation merges its passes
+with it), the small-box filter, the IoU of two BoxLists and their
+concatenation. The padded on-device versions of box operations are in
+ops/box_ops.py.
 """
 
 import numpy as np
 
+from ..ops.nms import nms_numpy
 from .boxlist import TO_REMOVE, BoxList
+
+
+def boxlist_nms(boxlist, nms_thresh, max_proposals=-1, score_field="scores"):
+    """The boxes that greedy NMS over all of them, of every label together,
+    keeps at IoU `nms_thresh` (none suppressed when it is <= 0), in
+    descending score order, the first `max_proposals` when it is positive."""
+    if nms_thresh <= 0:
+        return boxlist
+    mode = boxlist.mode
+    boxlist = boxlist.convert("xyxy")
+    keep = nms_numpy(boxlist.bbox, boxlist.get_field(score_field), nms_thresh)
+    if max_proposals > 0:
+        keep = keep[:max_proposals]
+    return boxlist[keep].convert(mode)
+
+
+def remove_small_boxes(boxlist, min_size):
+    """The boxes whose width and height (+1 convention) are both >= min_size."""
+    xywh = boxlist.convert("xywh").bbox
+    keep = (xywh[:, 2] >= min_size) & (xywh[:, 3] >= min_size)
+    return boxlist[keep]
 
 
 def boxlist_iou(boxlist1, boxlist2):

@@ -11,9 +11,11 @@ backings, one API:
     output pixel i takes source pixel floor(i * (1 / (dst / src))) in
     float64, clamped to the last one, as cv2.resize does.
 
-``SegmentationMask.convert("mask")`` rasterizes polygons; the other way,
-contour tracing (OpenCV's findContours in the JAX package), is not ported
-(ROADMAP.md Queue 1 item 17) and raises.
+``SegmentationMask.convert("mask")`` rasterizes polygons; ``convert("poly")``
+traces each binary mask's outer contours (``BinaryMaskList.convert_to_polygon``:
+OpenCV's findContours(RETR_EXTERNAL, CHAIN_APPROX_TC89_L1) in the JAX
+package, the native ``utils/maskops.py:trace_contours`` here, without
+OpenCV).
 """
 
 import numpy as np
@@ -178,6 +180,18 @@ class BinaryMaskList:
     def get_mask_tensor(self):
         return self.masks
 
+    def convert_to_polygon(self):
+        """Each instance's outer contours as flat float64 [x0, y0, x1, y1, ...]
+        rings in OpenCV's order (JAX segmentation_mask.py:convert_to_polygon);
+        contours of fewer than 3 points are dropped."""
+        from ..utils.maskops import trace_contours
+
+        if self.masks.size == 0:
+            return PolygonList([], self.size)
+        instances = [[c.reshape(-1).astype(np.float64).tolist()
+                      for c in trace_contours(m) if c.shape[0] >= 3] for m in self.masks]
+        return PolygonList(instances, self.size)
+
     def __len__(self):
         return self.masks.shape[0]
 
@@ -223,9 +237,9 @@ class SegmentationMask:
         if mode == "mask":
             return SegmentationMask(
                 BinaryMaskList(self.instances.get_mask_tensor(), self.size), self.size, "mask")
-        raise NotImplementedError(
-            "SegmentationMask.convert('poly'): tracing binary masks into polygons is not ported "
-            "(ROADMAP.md Queue 1 item 17)")
+        if mode == "poly":
+            return SegmentationMask(self.instances.convert_to_polygon(), self.size, "poly")
+        raise ValueError("SegmentationMask mode {!r}".format(mode))
 
     def get_mask_tensor(self):
         t = self.instances.get_mask_tensor()

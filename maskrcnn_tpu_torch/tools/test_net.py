@@ -10,7 +10,10 @@ on request). The weights come from OUTPUT_DIR's last_checkpoint when there
 is one, else from --ckpt, else from MODEL.WEIGHT: a .pth of this package or
 a .npz of the JAX package. Every dataset of DATASETS.TEST is evaluated (bbox,
 and segm for mask models), its predictions written to
-OUTPUT_DIR/inference/<name>/predictions.pkl when OUTPUT_DIR is set.
+OUTPUT_DIR/inference/<name>/predictions.pkl when OUTPUT_DIR is set. With
+TEST.BBOX_AUG.ENABLED the detections are test-time augmented
+(engine/bbox_aug.py), which answers bbox alone: a mask or keypoint
+model's evaluation then raises ValueError before its first pass.
 
 Under a launcher each process takes one card and its shard of every test
 dataset (TEST.IMS_PER_BATCH stays the global batch); rank 0 gathers,
@@ -30,6 +33,7 @@ from ..models.detector import build_detection_model
 from ..parallel.distributed import init_distributed
 from ..utils import comm
 from ..utils.checkpoint import DetectronCheckpointer
+from ..utils.collect_env import collect_env_info
 from ..utils.logger import setup_logger
 from ..utils.miscellaneous import mkdir
 
@@ -63,7 +67,7 @@ def run_test(cfg, model):
             model, data_loader, dataset_name=dataset_name, iou_types=iou_types,
             box_only=box_only(cfg), output_folder=output_folder,
             expected_results=cfg.TEST.EXPECTED_RESULTS,
-            expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL))
+            expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL, bbox_aug_cfg=cfg))
         comm.synchronize()
     return results
 
@@ -90,6 +94,7 @@ def main(argv=None):
         torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU",
         torch.__version__, torch.version.cuda))
     logger.info(cfg)
+    logger.info("Collecting env info:\n" + collect_env_info())
 
     model = build_detection_model(cfg, device=device)
     checkpointer = DetectronCheckpointer(cfg, model, save_dir=cfg.OUTPUT_DIR, logger=logger)

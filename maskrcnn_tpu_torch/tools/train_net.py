@@ -38,6 +38,7 @@ from ..parallel.distributed import broadcast_parameters, init_distributed
 from ..solver import make_lr_scheduler, make_optimizer
 from ..utils import comm
 from ..utils.checkpoint import DetectronCheckpointer
+from ..utils.collect_env import collect_env_info
 from ..utils.logger import setup_logger
 from ..utils.miscellaneous import mkdir, save_config, save_labels
 from .test_net import box_only, run_test
@@ -69,7 +70,7 @@ def train(cfg, output_dir, device):
         def run_validation(val_model, iteration):
             for name, loader in zip(cfg.DATASETS.TEST, val_loaders):
                 inference(val_model, loader, dataset_name=name, iou_types=("bbox",),
-                          box_only=box_only(cfg), output_folder=None)
+                          box_only=box_only(cfg), output_folder=None, bbox_aug_cfg=cfg)
                 comm.synchronize()
 
     meters = do_train(model, optimizer, scheduler, data_loader, checkpointer, device,
@@ -102,6 +103,7 @@ def main(argv=None):
         torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU",
         torch.__version__, torch.version.cuda))
     logger.info(args)
+    logger.info("Collecting env info:\n" + collect_env_info())
     if args.config_file:
         logger.info("Loaded configuration file {}".format(args.config_file))
     logger.info("Running with config:\n{}".format(cfg))

@@ -7,7 +7,10 @@ build (maskrcnn_tpu/utils/_maskops_native.py): ``polygons_to_mask``,
 copied as ``csrc/maskops.cpp``, built by ``ops/native.py`` with the host
 compiler at first use and called through ctypes. There is no other path
 for them (the JAX package's numpy fallbacks need OpenCV), so a failed build
-raises. The rest is numpy.
+raises. ``trace_contours`` (the outer contours of a binary mask, which the
+JAX package takes from OpenCV's findContours) is C++ of the port's own in
+the same file, with a plain Python twin, ``trace_contours_plain``, that
+the tests hold it to. The rest is numpy.
 
 The RLE string codec is COCO's compressed format exactly (column-major runs,
 delta-coded counts from index 3 on, 5-bit groups with a continuation bit,
@@ -34,6 +37,8 @@ def library():
         lib.run_intersection.restype = _I64
         lib.paste_encode_mask.argtypes = [p, _I64, _I64, p, ctypes.c_double, _I64, _I64, p]
         lib.paste_encode_mask.restype = _I64
+        lib.find_external_contours.argtypes = [p, _I64, _I64, p, _I64, p, _I64, p]
+        lib.find_external_contours.restype = _I64
         lib._typed = True
     return lib
 
@@ -217,3 +222,196 @@ def paste_encode_mask(mask, box, im_h, im_w, thresh=0.5, padding=1):
     nc = library().paste_encode_mask(mask.ctypes.data, m, int(padding), box.ctypes.data,
                                      float(thresh), im_h, im_w, counts.ctypes.data)
     return {"size": [im_h, im_w], "counts": rle_counts_to_string(counts[:nc])}
+
+
+# -- outer contours ------------------------------------------------------------
+
+
+def trace_contours(mask):
+    """The outer contours of a binary [H, W] mask (nonzero = foreground), as
+    OpenCV's findContours(RETR_EXTERNAL, CHAIN_APPROX_TC89_L1) returns them:
+    a list of int32 [K, 2] (x, y) arrays, the last contour found first
+    (csrc/maskops.cpp:find_external_contours)."""
+    m = np.ascontiguousarray(mask)
+    if m.dtype != np.uint8:
+        m = (m != 0).astype(np.uint8)
+    h, w = m.shape
+    lib = library()
+    point_cap, size_cap = 4 * (h + w) + 64, 64
+    n_points = ctypes.c_int64(0)
+    while True:
+        points = np.empty((point_cap, 2), np.int32)
+        sizes = np.empty(size_cap, np.int64)
+        n = lib.find_external_contours(m.ctypes.data, h, w, points.ctypes.data, point_cap,
+                                       sizes.ctypes.data, size_cap, ctypes.byref(n_points))
+        if n <= size_cap and n_points.value <= point_cap:
+            break
+        point_cap, size_cap = max(point_cap, n_points.value), max(size_cap, n)
+    return np.split(points[:n_points.value], np.cumsum(sizes[:n])[:-1]) if n else []
+
+
+_DX = (1, 1, 0, -1, -1, -1, 0, 1)
+_DY = (0, -1, -1, -1, 0, 1, 1, 1)
+_ABS_DIFF = (1, 2, 3, 4, 3, 2, 1, 0, 1, 2, 3, 4, 3, 2, 1)
+
+
+def _follow_border(img, stride, i0):
+    """Suzuki-Abe: follow the outer border starting at flat index i0 of the
+    bordered image (a list, row stride `stride`), marking its pixels (-126
+    where the right neighbour is background, else 2); its Freeman codes."""
+    deltas = [1, 1 - stride, -stride, -stride - 1, -1, stride - 1, stride, stride + 1] * 2
+    s_end = s = 4
+    while True:
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if img[i1] != 0 or s == s_end:
+            break
+    if s == s_end:  # a single pixel
+        img[i0] = -126
+        return []
+    codes = []
+    i3 = i0
+    while True:
+        s_end = s
+        while s < 15:
+            s += 1
+            i4 = i3 + deltas[s]
+            if img[i4] != 0:
+                break
+        s &= 7
+        if 1 <= s <= s_end:
+            img[i3] = -126
+        elif img[i3] == 1:
+            img[i3] = 2
+        codes.append(s)
+        if i4 == i0 and i3 == i1:
+            return codes
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def _tc89_l1(codes, origin):
+    """The Teh-Chin L1 reduction of a closed chain of Freeman codes from
+    `origin`: the kept (x, y) points. The passes of OpenCV's approx.cpp over
+    a linked list (indices into the chain; `head` stands before the first).
+    OpenCV 5 rewrote the last pass, and its output differs from the older
+    code's in three places, kept here: a couple's first point is really
+    removed; when the list starts at the chain's first point, a run there
+    keeps its second point as well; when only the chain's first and last
+    points survive around the start, the first stays at the front as well
+    as being copied to the end."""
+    n = len(codes)
+    if n == 0:
+        return [origin]
+    nil, head = -1, n + 1
+    pts, s, k, nxt = [None] * (n + 2), [0] * (n + 2), [0] * (n + 2), [nil] * (n + 2)
+    x, y = origin
+    prev, cur = codes[-1], head
+    for i, c in enumerate(codes):  # pass 0: the 1-curvature of each point
+        s[i] = _ABS_DIFF[c - prev + 7]
+        if s[i] != 0:
+            nxt[cur] = cur = i
+        pts[i] = (x, y)
+        x, y, prev = x + _DX[c], y + _DY[c], c
+    nxt[cur] = nil
+    cur = nxt[head]
+    while cur != nil:  # pass 1: the support region of each point
+        (x0, y0), l, d_num, kk = pts[cur], 0, 0, 1
+        while True:
+            a, b = pts[(cur - kk) % n], pts[(cur + kk) % n]
+            dx, dy = b[0] - a[0], b[1] - a[1]
+            lk = dx * dx + dy * dy
+            dk_num = (x0 - a[0]) * dy - (y0 - a[1]) * dx
+            d = d_num * lk - dk_num * l
+            if kk > 1 and (l >= lk or (d_num > 0 and d <= 0) or (d_num < 0 and d >= 0)):
+                break
+            d_num, l, kk = dk_num, lk, kk + 1
+        k[cur] = kk - 1
+        cur = nxt[cur]
+    cur, prev_cur = nxt[head], head
+    while cur != nil:  # pass 2: non-maxima suppression
+        j = 1
+        while j <= k[cur] >> 1 and s[(cur - j) % n] <= s[cur] and s[(cur + j) % n] <= s[cur]:
+            j += 1
+        if j <= k[cur] >> 1:
+            nxt[prev_cur], s[cur] = nxt[cur], 0
+        else:
+            prev_cur = cur
+        cur = nxt[cur]
+    cur, prev_cur = nxt[head], head
+    while cur != nil:  # pass 3: points whose support is one point
+        if k[cur] == 1 and (s[cur] <= s[(cur - 1) % n] or s[cur] <= s[(cur + 1) % n]):
+            nxt[prev_cur], s[cur] = nxt[cur], 0
+        else:
+            prev_cur = cur
+        cur = nxt[cur]
+    if s[0] != 0 and s[n - 1] != 0:  # pass 4: a run across the chain's start
+        i1 = 1
+        while i1 < n and s[i1] != 0:
+            s[i1 - 1] = 0
+            i1 += 1
+        if i1 == n:
+            return _linked_points(pts, nxt, head)
+        i1 -= 1
+        i2 = n - 2
+        while i2 > 0 and s[i2] != 0:
+            nxt[i2], s[i2 + 1] = nil, 0
+            i2 -= 1
+        i2 += 1
+        if i1 == 0 and i2 == n - 1:  # only two points: the first also at the end
+            pts[n], s[n], k[n], nxt[n] = pts[0], s[0], k[0], nil
+            nxt[n - 1] = n
+        nxt[head] = i1
+    cur = nxt[head]
+    first = prev_cur = 0 if cur == 0 else head
+    count = 1
+    while cur != nil:  # pass 4: couples and longer runs of neighbours
+        if nxt[cur] == nil or nxt[cur] - cur != 1:
+            if count == 2:
+                if s[prev_cur] > s[cur] or (s[prev_cur] == s[cur] and k[prev_cur] <= k[cur]):
+                    nxt[prev_cur] = nxt[cur]  # drop the second
+                    cur = prev_cur
+                else:
+                    nxt[head if first == prev_cur else first] = cur  # drop the first
+            elif count > 2:
+                nxt[nxt[first]] = cur  # keep the run's ends
+            first, count = cur, 1
+        else:
+            count += 1
+        prev_cur, cur = cur, nxt[cur]
+    return _linked_points(pts, nxt, head)
+
+
+def _linked_points(pts, nxt, head):
+    out, cur = [], nxt[head]
+    while cur != -1:
+        out.append(pts[cur])
+        cur = nxt[cur]
+    return out
+
+
+def trace_contours_plain(mask):
+    """trace_contours in plain Python (the same scan, border following and
+    reduction, a pixel at a time): the twin the native routine is held to."""
+    m = np.asarray(mask)
+    h, w = m.shape
+    stride = w + 2
+    grid = np.zeros((h + 2, stride), np.int8)
+    grid[1:-1, 1:-1] = m != 0
+    img = grid.reshape(-1).tolist()
+    found = []
+    for y in range(1, h + 1):
+        row, prev = y * stride, 0
+        lnbd = row
+        for x in range(1, w + 1):
+            p = img[row + x]
+            if p == prev:
+                continue
+            if prev == 0 and p == 1 and img[lnbd] <= 0:
+                codes = _follow_border(img, stride, row + x)
+                found.append(_tc89_l1(codes, (x - 1, y - 1)))
+                p = img[row + x]
+            prev = p
+            if prev & -2:
+                lnbd = row + x
+    return [np.asarray(c, np.int32).reshape(-1, 2) for c in found[::-1]]

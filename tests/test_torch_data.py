@@ -185,25 +185,37 @@ def test_make_data_loader_matches_jax(tree, monkeypatch, workers):
         np.testing.assert_allclose(g["gt_boxes"].numpy(), w["gt_boxes"], rtol=0, atol=1e-4)
 
 
-def test_unported_data_options_raise(tree):
-    """What the data layer still lacks raises, naming its ROADMAP item:
-    tracing binary masks into polygons (item 17) and test-time augmentation
-    (item 14). ColorJitter, binary masks, VOC, Cityscapes and concatenation
+def test_unported_data_options_raise(tree, monkeypatch):
+    """The data options that once raised, naming their ROADMAP items, now
+    run: tracing binary masks into polygons (item 17; its parity with
+    OpenCV in tests/test_torch_polygon.py) and the test-time-augmentation
+    loader (item 14: untransformed images, tests/test_torch_tta.py).
+    ColorJitter, binary masks, VOC, Cityscapes and concatenation
     (tests/test_torch_datasets.py) and keypoint targets
     (tests/test_torch_keypoint.py) are ported."""
     _, tcfg = _configs()
     tcfg.INPUT.BRIGHTNESS = 0.2
     assert type(build_transforms(tcfg, True).transforms[0]).__name__ == "ColorJitter"
-    masks = SegmentationMask(np.zeros((1, 4, 4), np.uint8), (4, 4), mode="mask")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        masks.convert("poly")
+    rect = np.zeros((2, 6, 6), np.uint8)
+    rect[1, 1:5, 1:4] = 1
+    polys = SegmentationMask(rect, (6, 6), mode="mask").convert("poly")
+    assert polys.mode == "poly"
+    assert [[p.tolist() for p in inst.polygons] for inst in polys.instances.polygons] == [
+        [], [[1.0, 1.0, 1.0, 4.0, 3.0, 4.0, 3.0, 1.0]]]
     _, tcfg = _configs()
     tcfg.MODEL.KEYPOINT_ON = True
     assert BatchCollator(tcfg).keypoint_on
+    monkeypatch.setenv("MASKRCNN_TPU_DATA_DIR", str(tree))
     _, tcfg = _configs()
     tcfg.TEST.BBOX_AUG.ENABLED = True
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_data_loader(tcfg, is_train=False)
+    tcfg.DATASETS.TEST = ("coco_2017_train",)
+    tcfg.TEST.IMS_PER_BATCH = 4
+    (loader,) = make_data_loader(tcfg, is_train=False)
+    batches = list(loader)
+    assert [list(b[2]) for b in batches] == [[0, 1, 2, 3], [4, 5, 6]]
+    images, targets = batches[0][:2]
+    assert all(t.size == (160, 120) for t in targets)
+    assert all(im.dtype == np.uint8 and im.shape == (120, 160, 3) for im in images)
 
 
 def test_paths_catalog_from_the_config(tree, tmp_path):

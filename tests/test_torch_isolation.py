@@ -34,7 +34,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "utils.model_serialization", "data.datasets.voc", "data.datasets.cityscapes",
                  "data.datasets.concat", "data.evaluation.voc_eval",
                  "data.evaluation.cityscapes_eval", "models.roi_heads.keypoint_head",
-                 "structures.keypoints"):
+                 "structures.keypoints", "engine.bbox_aug", "demo.predictor", "demo.draw",
+                 "demo.webcam", "tools.eval_zoo", "structures.image_list", "models.registry",
+                 "utils.registry", "utils.collect_env", "utils.env", "utils.imports"):
         assert "maskrcnn_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"

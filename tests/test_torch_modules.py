@@ -7,6 +7,8 @@ convolutions in different orders); single layers and head math 1e-5;
 labels and keep decisions exact.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from maskrcnn_tpu.models.roi_heads import mask_head as jmh
 from maskrcnn_tpu.models.rpn import apply_rpn_head, make_rpn_cfg
 from maskrcnn_tpu.models.rpn import select_proposals as jax_select_proposals
 from maskrcnn_tpu.ops import box_ops as jbox
+from maskrcnn_tpu_torch.models import build_detection_model as build_torch_model
 from maskrcnn_tpu_torch.models import layers as tl
 from maskrcnn_tpu_torch.models.anchors import make_anchor_generator
 from maskrcnn_tpu_torch.models.roi_heads.box_head import box_head_inference
@@ -297,3 +300,91 @@ def test_device_normalization_matches_jax(pair):
     want = jm._prepare_images(jnp.asarray(img), jnp.asarray(sizes))
     got = tm._prepare_images(torch.from_numpy(img), torch.from_numpy(sizes))
     _close(got, want, 1e-6)
+
+
+def test_registered_meta_architecture_is_built_from_the_config():
+    """models/registry.py: build_detection_model consults META_ARCHITECTURES
+    before GeneralizedRCNN, as the JAX package's does; a name registered
+    twice raises."""
+    from maskrcnn_tpu_torch.models import registry
+
+    class Tiny(torch.nn.Module):
+        def __init__(self, cfg):
+            super().__init__()
+            self.cfg = cfg
+            self.w = torch.nn.Parameter(torch.zeros(3))
+
+        def reset_parameters(self, generator):
+            with torch.no_grad():
+                self.w.uniform_(generator=generator)
+
+    name = "TinyTestDetector"
+    registry.META_ARCHITECTURES.register(name, Tiny)
+    try:
+        _, c = configs()
+        c.MODEL.META_ARCHITECTURE = name
+        a, b = build_torch_model(c, device="cpu", seed=4), build_torch_model(c, device="cpu", seed=4)
+        assert isinstance(a, Tiny) and a.cfg is c and not a.training
+        assert torch.equal(a.w, b.w) and a.w.abs().sum() > 0
+        with pytest.raises(KeyError):
+            registry.META_ARCHITECTURES.register(name, Tiny)
+
+        @registry.META_ARCHITECTURES.register(name + "2")
+        def build(cfg):
+            return Tiny(cfg)
+
+        assert registry.META_ARCHITECTURES[name + "2"] is build
+        c.MODEL.META_ARCHITECTURE = "NoSuchDetector"
+        with pytest.raises(ValueError):
+            build_torch_model(c, device="cpu")
+    finally:
+        registry.META_ARCHITECTURES.pop(name)
+        registry.META_ARCHITECTURES.pop(name + "2", None)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "torch"])
+def test_to_image_list_matches_jax(kind):
+    from maskrcnn_tpu.structures.image_list import to_image_list as jax_to_image_list
+    from maskrcnn_tpu_torch.structures.image_list import ImageList, to_image_list
+
+    rs = np.random.RandomState(0)
+    images = [rs.rand(h, w, 3).astype(np.float32) for h, w in ((37, 50), (64, 33), (20, 20))]
+    given = images if kind == "numpy" else [torch.from_numpy(im) for im in images]
+    for kw in ({}, {"size_divisible": 32}, {"target_shape": (96, 96)}):
+        want = jax_to_image_list(images, **kw)
+        got = to_image_list(given, **kw)
+        assert isinstance(got, ImageList) and got.image_sizes == want.image_sizes
+        np.testing.assert_array_equal(np.asarray(got.tensors), want.tensors)
+    with pytest.raises(ValueError):
+        to_image_list(given, target_shape=(32, 32))
+    batch = to_image_list(given[0])
+    assert len(batch) == 1 and to_image_list(batch) is batch
+
+
+def test_env_hook_import_file_and_collect_env(tmp_path):
+    """utils/env.py runs MASKRCNN_TPU_ENV_MODULE's setup_environment when it
+    is imported (a file path, through utils/imports.import_file, or a
+    module name); utils/collect_env.py names torch, CUDA, cuDNN and nvcc."""
+    import subprocess
+    import sys
+
+    from maskrcnn_tpu_torch.utils.collect_env import collect_env_info
+    from maskrcnn_tpu_torch.utils.imports import import_file
+
+    hook = tmp_path / "my_env.py"
+    hook.write_text("import os\n"
+                    "def setup_environment():\n"
+                    "    print('hook ran', os.environ['MASKRCNN_TPU_ENV_MODULE'])\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for target, path in ((str(hook), repo), ("my_env", str(tmp_path) + os.pathsep + repo)):
+        env = dict(os.environ, MASKRCNN_TPU_ENV_MODULE=target, PYTHONPATH=path)
+        out = subprocess.run([sys.executable, "-c", "import maskrcnn_tpu_torch.utils.env"],
+                             env=env, capture_output=True, text=True, timeout=120, cwd=repo)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "hook ran " + target
+    mod = import_file("my_env_module", str(hook), make_importable=True)
+    assert callable(mod.setup_environment) and sys.modules["my_env_module"] is mod
+    sys.modules.pop("my_env_module")
+    info = collect_env_info()
+    for key in ("PyTorch: " + torch.__version__, "PyTorch CUDA:", "cuDNN:", "Devices:", "nvcc:"):
+        assert key in info

@@ -224,3 +224,46 @@ def test_do_train_validates_at_the_period(monkeypatch, start, total, period, wan
                      100, {"iteration": start}, test_period=period,
                      run_validation=lambda m, it: seen.append((m, it)))
     assert seen == [(model, it) for it in want]
+
+
+CAFFE2 = os.path.join(REPO, "configs", "caffe2", "e2e_mask_rcnn_R_50_FPN_1x_caffe2.yaml")
+
+
+@pytest.mark.parametrize("gate", ["passes", "fails"])
+def test_eval_zoo_gate(tmp_path, gate):
+    """tools/eval_zoo.py's main on the caffe2 Mask R-CNN config (narrow, on
+    the CPU) with a synthetic Detectron model_final.pkl of the same model
+    and a COCO tree through --ann-file/--img-dir: exit 0 when
+    TEST.EXPECTED_RESULTS holds, 1 when it does not."""
+    from chip_smoke import detectron_blobs, write_pkl
+    from maskrcnn_tpu_torch.config import cfg as torch_defaults
+    from maskrcnn_tpu_torch.tools import eval_zoo
+
+    img_dir, ann_file = make_synthetic_coco(str(tmp_path / "data"), num_images=4,
+                                            num_classes=3, seed=5)
+    opts = [v for i in range(0, len(OPTS), 2) for v in OPTS[i:i + 2]
+            if OPTS[i] not in ("MODEL.WEIGHT", "DATASETS.TRAIN", "DATASETS.TEST")]
+    c = torch_defaults.clone()
+    c.merge_from_file(CAFFE2)
+    c.merge_from_list(opts)
+    state = {k: v.numpy() for k, v in build_detection_model(c, device="cpu", seed=3)
+             .state_dict().items()}
+    weight = str(tmp_path / "model_final.pkl")
+    write_pkl(weight, detectron_blobs(np, state), wrap=True)
+    expected = [["bbox", "AP", 0.5, 0.2]] if gate == "passes" else [["bbox", "AP", 2.0, 0.01]]
+    logs = _LogLines()
+    logger = logging.getLogger("maskrcnn_tpu_torch")
+    logger.addHandler(logs)
+    try:
+        rc = eval_zoo.main(["--config-file", CAFFE2, "--weight", weight, "--ann-file", ann_file,
+                            "--img-dir", img_dir, "--output-dir", str(tmp_path / "out")]
+                           + opts + ["DATALOADER.NUM_WORKERS", "0",
+                                     "TEST.EXPECTED_RESULTS", repr(expected)])
+    finally:
+        logger.removeHandler(logs)
+    assert rc == (0 if gate == "passes" else 1)
+    text = "\n".join(logs.lines)
+    assert "Start evaluation on zoo_eval dataset(4 images)." in text
+    assert "bbox > AP sanity check {}".format("passed" if gate == "passes" else "FAILED") in text
+    assert (tmp_path / "out" / "zoo_eval" / "predictions.pkl").exists()
+    assert "Loading checkpoint from {}".format(weight) in text

@@ -145,13 +145,42 @@ def test_resumed_training_draws_what_a_straight_run_draws(monkeypatch):
 
 @pytest.mark.parametrize("opts,error", [
     (["MODEL.DEVICE", "tpu"], ValueError),
-    (["MODEL.DEVICE", "cpu", "SOLVER.TEST_PERIOD", "100", "DATASETS.TEST",
-      "('coco_2017_train',)", "TEST.BBOX_AUG.ENABLED", "True"], NotImplementedError),
+    (["MODEL.DEVICE", "cpu", "TPU.MESH_AXES", "('data', 'model')", "TPU.MESH_SHAPE", "(1, 2)"],
+     NotImplementedError),
 ])
 def test_train_net_rejects_what_the_port_lacks(tmp_path, monkeypatch, opts, error):
+    """A device the port does not run on, and the tensor-parallel "model"
+    mesh axis (ROADMAP.md Queue 1 item 16). Test-time augmentation, which
+    the second case named until the port had it, validates instead
+    (test_train_net_validates_with_tta)."""
     data_root = _data_tree(tmp_path)
     monkeypatch.setenv("MASKRCNN_TPU_DATA_DIR", str(data_root))
     with pytest.raises(error):
         train_net.main(["--config-file", CONFIG, "--skip-test"] + OPTS + opts + [
             "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", str(tmp_path / "out"),
             "DATALOADER.NUM_WORKERS", "0"])
+
+
+def test_train_net_validates_with_tta(tmp_path, monkeypatch):
+    """SOLVER.TEST_PERIOD with TEST.BBOX_AUG.ENABLED: the validation loader
+    hands untransformed images to the augmented passes (two here: the test
+    size and its flip), bbox only."""
+    from maskrcnn_tpu_torch.engine import bbox_aug
+
+    data_root = _data_tree(tmp_path)
+    monkeypatch.setenv("MASKRCNN_TPU_DATA_DIR", str(data_root))
+    passes = []
+    run = bbox_aug.im_detect_bbox
+
+    def counted(model, images, scale, max_size, cfg, hflip=False):
+        passes.append((len(images), scale, hflip))
+        return run(model, images, scale, max_size, cfg, hflip)
+
+    monkeypatch.setattr(bbox_aug, "im_detect_bbox", counted)
+    train_net.main(["--config-file", CONFIG, "--skip-test"] + OPTS + [
+        "MODEL.DEVICE", "cpu", "SOLVER.TEST_PERIOD", "2", "DATASETS.TEST", "('coco_2017_train',)",
+        "TEST.BBOX_AUG.ENABLED", "True", "TEST.BBOX_AUG.H_FLIP", "True", "SOLVER.MAX_ITER", "2",
+        "OUTPUT_DIR", str(tmp_path / "out"), "DATALOADER.NUM_WORKERS", "0"])
+    sizes = [p[1] for p in passes]
+    assert sum(p[0] for p in passes) == 2 * 6 and [p[2] for p in passes][:2] == [False, True]
+    assert len(set(sizes)) == 1
