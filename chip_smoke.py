@@ -44,7 +44,7 @@ Training (a second model instance):
      and "chunk" at P=14;
  11. training img/s and MFU (FLOPs of one step from FlopCounterMode against
      the H100's 989 TFLOP/s dense bf16), the step's peak memory, and a
-     torch.profiler breakdown of two steps' device time, with the default
+     torch.profiler breakdown of one step's device time, with the default
      "roi" backward and again with "rmw" at P=7 and "chunk" at P=14: the
      launch counters show the backward each run was given ("roi" twice a
      step; "rmw" and "chunk" once each), two tile launches a step, no
@@ -119,6 +119,39 @@ ranks on one device):
      from a torchrun-style environment (init_distributed makes the NCCL
      group; the step's collectives and the broadcast run through it), then
      the gradient all-reduce and the broadcast timed.
+The model mesh axis (after 23: output-channel tensor parallelism over
+TPU.MESH_AXES ("data", "model"), this script's gloo workers on the one card;
+each rank's weights hold its block of the output channels, each conv and fc
+gathers its whole weight over the model group at use):
+ 41. phase 20's batch and weights on (data 1, model 2), in the same two
+     workers after 22, both images on both ranks: in bf16 (the flagship's
+     dtype) the FPN features and one SGD step's losses against a
+     one-process bf16 step, bit for bit (the mesh runs one process's ops on
+     the same whole weights); in float32 one SGD step against the
+     one-process step (losses 1e-5 relative, the gathered parameters
+     within 2e-4 of the step's max|change|), fc6's block [512, 12544] on
+     each rank, the replicated leaves bitwise equal on both, and a
+     checkpoint written under the mesh by rank 0 at the full layout (equal
+     to the gathered model, within 2e-4 of the step of one process's,
+     momentum included);
+ 42. bf16, the flagship on (data 2, model 2), four ranks, at global batch 8
+     (bench.py's, 4 images a data coordinate), 3 steps: launches per rank
+     (matcher 1, NMS 1, ROIAlign forward 2, "roi" backward 2 a step), finite
+     losses, the replicated leaves bitwise equal on all four ranks and the
+     blocks across each data group; each kernel against its plain version
+     at the per-rank shapes, rank by rank; the per-rank step times, the
+     last step's collectives timed and their bytes by group (the model
+     group's weight gathers, the data group's), the gradient all-reduce
+     alone, the parameters' and
+     momentum's bytes beside a data-only rank's, peak memory;
+ 43. train_net under (data 2, model 2) on phase 12's tree, global batch 8:
+     4 iterations with a checkpoint at 4 (written by rank 0 only, gathered
+     over its model group), a resume to 6 without --skip-test that
+     validates at 6 and runs the final test on the sharded model (each val
+     image gathered once, from model coordinate 0); model_final.pth read in
+     one process equal to the model the ranks gathered; then phase 18's
+     known answer through test_net under the mesh in bf16, phase 18's
+     batches of 8 on each data coordinate: bbox AP50 >= 0.99.
 The published configs as written (in-process, no download: urllib's
 retrieve raises; weights from catalog:// names in a local cache, the
 MASKRCNN_TPU_CACHE of the phase; data handed over in memory):
@@ -193,7 +226,7 @@ Keypoint R-CNN as written (after 30, on phase 24's images and cache):
      in 24; the kernels of the first step against their plain versions,
      the keypoint site's forward (512 ROIs, P=14) and backward among them;
      the step's time and peak memory; then test_net on
-     keypoints_coco_2014_minival (16 images, TEST.IMS_PER_BATCH 8,
+     keypoints_coco_2014_minival (8 images, TEST.IMS_PER_BATCH 8,
      SCORE_THRESH 0, bbox and keypoints) through the exact host decode,
      its seconds an image, and a known answer (each image's first 20
      detections and their decoded joints as gt: keypoint AP50 >= 0.99);
@@ -210,7 +243,7 @@ The GN and C4 families as written (after 31, on phase 24's trees and cache):
      forward 2 and "roi" backward 2 a step, held to their plain versions on
      the first step; the step's time, device busy, idle share and peak
      memory, and the group norms' device time (one step's group-norm calls
-     by shape, each timed forward and backward alone); test_net on 16
+     by shape, each timed forward and backward alone); test_net on 8
      images and its known answer (the detections' boxes and pasted masks as
      gt: bbox and segm AP50 >= 0.99); one Predictor request; float32 card
      vs CPU (phase 6's gate);
@@ -246,7 +279,7 @@ The last three families as written (after 33, on phase 24's trees and cache):
      Faster file through test_net on 8 images; a deformable v2 bottleneck
      of layer2's widths with offsets of about a cell, float32 card against
      CPU (output 1e-5, every gradient 2e-4 of its max);
- 36. FBNet: configs/e2e_mask_rcnn_fbnet.yaml through train_net for 3
+ 36. FBNet: configs/e2e_mask_rcnn_fbnet.yaml through train_net for 2
      iterations at SOLVER.IMS_PER_BATCH 16 (the published 128 over 8
      cards), from the seeded model with each frozen BN set from 8 images
      (the file names no weights): matcher 1 and NMS 1 a step, both exact
@@ -264,8 +297,8 @@ trees and cache):
      480x640 and 4 of 640x480: NMS and ROIAlign forward 36 times an image,
      s/img split into host preprocessing, model and merge, peak memory;
      both kernels against their plain versions at the largest (1216x1600)
-     and smallest (416x544) pass; a known answer (the merged detections as
-     gt: AP50 >= 0.99); float32 card against CPU on a small image at
+     and smallest (416x544) pass; a known answer on the 8 images (their
+     merged detections as gt: AP50 >= 0.99); float32 card against CPU on a small image at
      reduced scales; test_net with TTA over the Faster R-CNN file;
  38. COCODemo on the flagship (the cache's Detectron model_final) at
      min_image_size 800: request, paste and drawing ms, the drawn image,
@@ -280,7 +313,8 @@ trees and cache):
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
-multi-card path's the two ranks' sum), the card's line, and the result line.
+multi-card path's the two ranks' sum, the tensor-parallel path's the four
+ranks' of phase 42), the card's line, and the result line.
 """
 
 import contextlib
@@ -311,6 +345,9 @@ VAL_IMAGES = 8
 # the multi-card phases: two ranks on the one card; the float32 step's two images
 MULTI_WORLD, MULTI_STEPS = 2, 3
 F32_HW = (320, 480)
+# the model-axis phases 42-43: four ranks on the one card, (data 2, model 2),
+# at bench.py's global batch
+TP_WORLD, TP_BATCH = 4, 8
 EVAL_SIZES = ((480, 640),) * 16 + ((640, 480),) * 16
 EVAL_BATCH = 8
 COCO_CATEGORY_IDS = [c for c in range(1, 91)
@@ -325,6 +362,10 @@ CITYSCAPES_IDS = tuple(range(24, 32))
 CITYSCAPES_NAMES = dict(zip(CITYSCAPES_IDS, ("person", "rider", "car", "truck", "bus",
                                              "caravan", "trailer", "train")))
 VOC_IMAGES = 16
+# Keypoint R-CNN's test_net (phase 31; its exact host decode takes ~3 s an
+# image): 8 of the 16 val images, one batch; the GN, C4, DCN and FBNet ones
+# (32-36): 8; the TTA known answer's second pass (37): its 8 images
+KEYPOINT_TEST_IMAGES, FAMILY_TEST_IMAGES, TTA_KNOWN_IMAGES = 8, 8, 8
 # the weight of each residual block's last frozen BN and its shortcut's in
 # the synthetic R-50.pkl: the body's outputs at a tenth of unit scale, so
 # that the published learning rates do not blow up the random heads
@@ -998,6 +1039,7 @@ def run(torch):
         t0 = time.perf_counter()
         mc = multi_card_phase(torch, np, card, keep)
         phase_s["multi_card"] = time.perf_counter() - t0
+        phase_s.update(mc["phase_s"])
     finally:
         for d in keep.values():
             shutil.rmtree(d, ignore_errors=True)
@@ -1011,31 +1053,34 @@ def run(torch):
     def by_path(key):
         paths = {"serving": serving[key], "training": tr["launches"][key],
                  "entry_point": entry["launches"][key], "evaluation": ev["launches"][key],
-                 "multi_card": mc["launches"][key]}
+                 "multi_card": mc["launches"][key],
+                 "tensor_parallel": mc["tensor_parallel"]["launches"][key]}
         paths.update({path: n[key] for path, n in dl["launches"].items()})
         return paths
 
     roi_cu = "maskrcnn_tpu_torch/csrc/roi_align.cu"
     tpu = "maskrcnn_tpu/ops/pallas/"
+    tp = mc["tensor_parallel"]
     cs = {k: [s for path in dl["sites"].values() for s in path[k]]
           for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
     kernels = [
         kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu", tpu + "nms_kernel.py:161",
                      by_path("nms"), nms_sites + tr["nms_sites"] + ev["nms_sites"]
-                     + mc["nms_sites"] + cs["nms"]),
+                     + mc["nms_sites"] + tp["nms_sites"] + cs["nms"]),
         kernel_entry("roi_align", roi_cu, tpu + "roi_align_kernel.py:434", by_path("roi_align"),
                      roi_sites + tr["roi_sites"] + ev["roi_sites"] + mc["roi_sites"]
-                     + cs["roi_align"]),
+                     + tp["roi_sites"] + cs["roi_align"]),
         kernel_entry("roi_align_backward", roi_cu, tpu + "roi_align_kernel.py:1020",
                      by_path("roi_align_backward"), tr["bwd_sites_roi"] + mc["bwd_sites_roi"]
-                     + cs["roi_align_backward"]),
+                     + tp["bwd_sites_roi"] + cs["roi_align_backward"]),
         kernel_entry("roi_align_backward_rmw", roi_cu, tpu + "roi_align_kernel.py:646",
                      by_path("roi_align_backward_rmw"), tr["bwd_sites_rmw"]),
         kernel_entry("roi_align_backward_chunk", roi_cu, tpu + "roi_align_kernel.py:850",
                      by_path("roi_align_backward_chunk"), tr["bwd_sites_chunk"]),
         kernel_entry("matcher", "maskrcnn_tpu_torch/csrc/matcher.cu",
                      tpu + "matcher_kernel.py:183", by_path("matcher"),
-                     tr["matcher_sites"] + mc["matcher_sites"] + cs["matcher"]),
+                     tr["matcher_sites"] + mc["matcher_sites"] + tp["matcher_sites"]
+                     + cs["matcher"]),
     ]
 
     def shape(name, s):
@@ -1244,7 +1289,7 @@ def train_phase(torch, np, card):
 
     # the profiled steps run the backward they were given: "roi" twice a
     # step by default, "rmw" and "chunk" once each a step with the overrides
-    steps_profiled = 2
+    steps_profiled = 1
     before = backward_launches()
     prof = profile_steps(torch, step, batch, steps_profiled)
     print("training step profile: " + json.dumps(prof), flush=True)
@@ -2366,7 +2411,7 @@ def data_layer_phase(torch, np, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def function_shares(torch, targets, step, batch, steps=2):
+def function_shares(torch, targets, step, batch, steps=2, summary=False):
     """What each function of `targets` ({label: (owner, attribute)}, a
     module's function or a class's method) takes of a training step's
     device time, read off one torch.profiler trace of `steps` steps: the
@@ -2375,7 +2420,8 @@ def function_shares(torch, targets, step, batch, steps=2):
     autograd engine's evaluate_function events, joined to them by sequence
     number and forward thread), beside the step's device busy in the same
     trace (the ranges' own device spans left out). Per step; "not measured"
-    where the profiler sees no device time."""
+    where the profiler sees no device time. With summary=True also
+    "profile": profile_steps's reading of the same trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2427,6 +2473,8 @@ def function_shares(torch, targets, step, batch, steps=2):
             got.update(forward_ms=fwd_ms, backward_ms=bwd_ms, ms=fwd_ms + bwd_ms,
                        share=(fwd_ms + bwd_ms) / busy_ms)
         res[label] = got
+    if summary:
+        res["profile"] = profile_summary(prof, steps, wall_ms)
     return res
 
 
@@ -2607,7 +2655,7 @@ def families_phase(torch, np, card, dl):
     del caps, m, head, feats, leaves, ones, logits, labels, x
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
+    prof = profile_steps(torch, dl.record["step"], dl.record["batch"], steps=1)
     peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
     if isinstance(prof.get("device_busy_ms"), float):
         known = [split[k] for k in ("head_ms", "focal_loss_ms", "matcher_ms")]
@@ -2731,8 +2779,9 @@ def coco_minival(dl):
 
 
 def coco_known_answer(torch, np, card, dl, path, yaml, ckpt, out, per_batch, opts=()):
-    """test_net on coco_2014_minival (the 16 val2014 images, SCORE_THRESH 0
-    for random heads, bbox and segm), then its predictions evaluated
+    """test_net on coco_2014_minival (the first FAMILY_TEST_IMAGES of the
+    val2014 images, one batch of 8, SCORE_THRESH 0 for random heads, bbox
+    and segm), then its predictions evaluated
     against themselves as the gt, boxes and pasted masks (RLE, which the
     evaluator reads and the dataset's poly targets do not): AP50 >= 0.99.
     A detection whose pasted mask holds no pixel is no segm answer: it
@@ -2748,40 +2797,43 @@ def coco_known_answer(torch, np, card, dl, path, yaml, ckpt, out, per_batch, opt
     from maskrcnn_tpu_torch.utils import maskops
 
     val, minival = coco_minival(dl)
-    write_coco_json(minival, val["images"], val["annotations"], range(1, 81))
+    images = val["images"][:FAMILY_TEST_IMAGES]
+    ids = {info["id"] for info in images}
+    write_coco_json(minival, images, [a for a in val["annotations"] if a["image_id"] in ids],
+                    range(1, 81))
     test_opts = ["--config-file", yaml, "--ckpt", ckpt, "MODEL.ROI_HEADS.SCORE_THRESH",
                  "0.0"] + list(opts)
     t0 = dl.reset()
     ((res, _),) = test_net.main(test_opts + ["OUTPUT_DIR", out])
-    dl.done(path, t0, per_batch, 2)
+    dl.done(path, t0, per_batch, FAMILY_TEST_IMAGES // 8)
     check(set(res.results) == {"bbox", "segm"}, "{} evaluated {}".format(path, set(res.results)))
     with open(os.path.join(out, "inference", "coco_2014_minival", "predictions.pkl"), "rb") as f:
         preds = pickle.load(f)
-    gts = detections_as_gt(preds, val["images"])
+    gts = detections_as_gt(preds, images)
     root = os.path.join(dl.work, "coco", "val2014")
     rles = prepare_for_coco_segmentation(preds, COCODataset(minival, root))
-    masks = [r["segmentation"] for info in val["images"] for r in rles[info["id"]]]
+    masks = [r["segmentation"] for info in images for r in rles[info["id"]]]
     check(len(masks) == len(gts), "{} masks for {} detections".format(len(masks), len(gts)))
     for a, m in zip(gts, masks):
         a["segmentation"] = m
     filled = [[maskops.rle_area(r["segmentation"]) > 0 for r in rles[info["id"]]]
-              for info in val["images"]]
+              for info in images]
     known = {}
     for iou_type, anns, dets in (
             ("bbox", gts, preds),
             ("segm", [a for a, f in zip(gts, sum(filled, [])) if f],
              [p[np.asarray(f, bool)] for p, f in zip(preds, filled)])):
         known_json = os.path.join(out, "known_answer_{}.json".format(iou_type))
-        write_coco_json(known_json, val["images"], anns, range(1, 81))
+        write_coco_json(known_json, images, anns, range(1, 81))
         r, _ = do_coco_evaluation(COCODataset(known_json, root), dets, False, None,
                                   [iou_type], (), 4)
         known[iou_type] = dict(r.results[iou_type])
     known = {"first_pass": {k: dict(v) for k, v in res.results.items()},
              "gt_from_detections": len(gts), "empty_masks": len(gts) - sum(map(sum, filled)),
              "known_answer": known}
-    print("{} test_net on 16 images at TEST.IMS_PER_BATCH 8, then its known answer "
-          "(the detections' boxes and masks as gt) [{}]: {}".format(path, card, json.dumps(known)),
-          flush=True)
+    print("{} test_net on {} images at TEST.IMS_PER_BATCH 8, then its known answer "
+          "(the detections' boxes and masks as gt) [{}]: {}".format(path, len(images), card,
+                                                                  json.dumps(known)), flush=True)
     check(min(known["known_answer"][k]["AP50"] for k in ("bbox", "segm")) >= 0.99,
           "{} known-answer AP50 {}".format(path, known["known_answer"]))
     return known
@@ -2827,14 +2879,15 @@ def serve_once(torch, np, card, dl, path, cfg, seed, per_request, prepare=None):
 
 
 def step_profile_shares(torch, card, dl, path, targets):
-    """A run's recorded training step profiled (profile_steps), then what
-    each function of `targets` takes of a step's device time
-    (function_shares, a trace of its own)."""
+    """A run's recorded training step profiled once: profile_steps's reading
+    and what each function of `targets` takes of the step's device time
+    (function_shares)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
+    shares = function_shares(torch, targets, dl.record["step"], dl.record["batch"], steps=1,
+                             summary=True)
+    prof = shares.pop("profile")
     prof["peak_step_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    shares = function_shares(torch, targets, dl.record["step"], dl.record["batch"])
     for label in targets:
         got = shares[label]
         check(got["calls"] > 0, "{}: no call of {} in the profiled step".format(path, label))
@@ -2988,9 +3041,9 @@ def gn_c4_phase(torch, np, card, dl):
         pool = {"rois": boxes.shape[0], "P": pcfg.output_size, "samples_an_axis": s_,
                 "map": [h, w, feats[0].shape[3]], "rel_err": errs,
                 "matmul_ms": cuda_ms(torch, lambda: poolers.c4_matmul_pool(
-                    feats[0], boxes, pcfg, k, s_), 3, warmup=1),
+                    feats[0], boxes, pcfg, k, s_), 1, warmup=1),
                 "gather_ms": cuda_ms(torch, lambda: poolers.adaptive_roi_align(
-                    feats, boxes, bidx, pcfg), 3, warmup=1)}
+                    feats, boxes, bidx, pcfg), 1, warmup=1)}
     check(errs["float32"] <= 1e-4 and errs["bfloat16"] <= 2e-2,
           "C4 matmul pooler against the gather pooler: {}".format(errs))
     print("c4 box pooler, matmul path against the gather path on the first step's inputs "
@@ -3284,7 +3337,7 @@ def last_families_phase(torch, np, card, dl):
         "deform_conv2d": (resnet, "deform_conv2d")})
     print("dcn recipe: loaded {}/{} tensors from R-50.pkl (the 26 offset-conv tensors at their "
           "zero init); 3 iterations at batch {}: {}; peak memory {:.3f} GB over the run, "
-          "{:.3f} GB in the profiled steps [{}]".format(
+          "{:.3f} GB in the profiled step [{}]".format(
               n_loaded, n_total, batch, json.dumps(summary), peak_run_gb, prof["peak_step_gb"],
               card), flush=True)
     dl.record.clear()
@@ -3327,7 +3380,7 @@ def last_families_phase(torch, np, card, dl):
     out = os.path.join(dl.work, "fbnet")
     opts = ["SOLVER.IMS_PER_BATCH", "16", "MODEL.WEIGHT", weights]
     print("fbnet recipe: train_net --config-file configs/e2e_mask_rcnn_fbnet.yaml --skip-test "
-          "SOLVER.MAX_ITER 3 SOLVER.IMS_PER_BATCH 16 (the published 128 over 8 cards: 16 a card) "
+          "SOLVER.MAX_ITER 2 SOLVER.IMS_PER_BATCH 16 (the published 128 over 8 cards: 16 a card) "
           "MODEL.WEIGHT <the seeded model, its {} frozen BNs set from 8 images> OUTPUT_DIR <dir> "
           "(phase 24's trees at 320-640 px)".format(n_bn), flush=True)
     t1 = dl.reset()
@@ -3338,9 +3391,9 @@ def last_families_phase(torch, np, card, dl):
         for c in caps.values():
             stack.enter_context(c)
         _, meters = train_net.main(["--config-file", fb_yaml, "--skip-test",
-                                    "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out] + opts)
+                                    "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", out] + opts)
         # the adaptive pooler on the single stride-16 map: no ROIAlign kernel
-        dl.done("fbnet_recipe", t1, {"matcher": 1, "nms": 1}, 3)
+        dl.done("fbnet_recipe", t1, {"matcher": 1, "nms": 1}, 2)
     peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = dl.train_summary(meters, fb_yaml, opts, n_losses=5, frozen_prefixes=())
     with torch.no_grad():
@@ -3355,8 +3408,8 @@ def last_families_phase(torch, np, card, dl):
     sites["fbnet_recipe"] = kernel_path_sites(nms=[fb_nms], matcher=[fb_matcher])
     prof = step_profile_shares(torch, card, dl, "fbnet recipe", {
         "pooler": (detector, "multilevel_roi_align")})
-    print("fbnet recipe: 3 iterations at batch 16: {}; peak memory {:.3f} GB over the run, "
-          "{:.3f} GB in the profiled steps; kernel sites [{}]: {} {}".format(
+    print("fbnet recipe: 2 iterations at batch 16: {}; peak memory {:.3f} GB over the run, "
+          "{:.3f} GB in the profiled step; kernel sites [{}]: {} {}".format(
               json.dumps(summary), peak_run_gb, prof["peak_step_gb"], card, json.dumps(fb_nms),
               json.dumps(fb_matcher)), flush=True)
     dl.record.clear()
@@ -3509,13 +3562,17 @@ def tta_demo_phase(torch, np, card, dl):
     sites["tta"] = kernel_path_sites(**found)
 
     # a known answer: the first pass's detections as the gt of a second pass
+    # on the first TTA_KNOWN_IMAGES of the images (each takes 18 passes)
     with open(ann) as f:
-        infos = json.load(f)["images"]
+        tree = f.read()
+    infos = json.loads(tree)["images"][:TTA_KNOWN_IMAGES]
     gts = detections_as_gt(preds, infos)
     write_coco_json(ann, infos, gts, range(1, 81))
     (loader,) = make_data_loader(cfg, is_train=False)
     second, _ = inference(model, loader, "coco_2017_val", iou_types=("bbox",),
                           output_folder=None, bbox_aug_cfg=cfg)
+    with open(ann, "w") as f:  # every image again, for test_net below
+        f.write(tree)
     known = {"gt_from_detections": len(gts), "AP50": second.results["bbox"]["AP50"],
              "AP": second.results["bbox"]["AP"]}
     print("tta known answer (the first pass's merged detections as gt) [{}]: {}".format(
@@ -3819,8 +3876,11 @@ def keypoint_phase(torch, np, card, dl):
               for name, n, seed in (("person_keypoints_train2014.json", n_train, SEED + 13),
                                     ("person_keypoints_valminusminival2014.json", n_val,
                                      SEED + 14))]
-    shutil.copy(os.path.join(ann_dir, "person_keypoints_valminusminival2014.json"),
-                os.path.join(ann_dir, "person_keypoints_minival2014.json"))
+    # the test split: the first KEYPOINT_TEST_IMAGES of the same images and
+    # persons (the exact host decode's ~3 s an image bounds the test)
+    n_test = KEYPOINT_TEST_IMAGES
+    synthetic_person_keypoints(np, os.path.join(ann_dir, "person_keypoints_minival2014.json"),
+                               n_test, SEED + 14)
     sites = {}
 
     # training as written: batch 16, 800x1333, bf16, 8 x 512 convs, 56x56 heatmaps
@@ -3854,7 +3914,7 @@ def keypoint_phase(torch, np, card, dl):
     del caps
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prof = profile_steps(torch, dl.record["step"], dl.record["batch"])
+    prof = profile_steps(torch, dl.record["step"], dl.record["batch"], steps=1)
     peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
     print("keypoint recipe: loaded {}/{} tensors from R-50.pkl; 3 iterations at batch 16: {}; "
           "peak memory {:.3f} GB a step ({:.3f} GB over the run, the first step's inputs "
@@ -3865,8 +3925,8 @@ def keypoint_phase(torch, np, card, dl):
         flush=True)
     dl.record.clear()
 
-    # test_net on keypoints_coco_2014_minival: 16 images, bbox and keypoints,
-    # the exact host decode timed; then the known answer
+    # test_net on keypoints_coco_2014_minival: bbox and keypoints, the exact
+    # host decode timed; then the known answer
     decode = {"s": 0.0, "rois": 0, "calls": 0}
     exact = inference.heatmaps_to_keypoints_exact
 
@@ -3886,15 +3946,15 @@ def keypoint_phase(torch, np, card, dl):
                                      os.path.join(out, "model_final.pth"),
                                      "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
                                      "OUTPUT_DIR", test_out])
-        dl.done("keypoint_test", t0, {"nms": 2, "roi_align": 2}, n_val // 8)
+        dl.done("keypoint_test", t0, {"nms": 2, "roi_align": 2}, 1)
     finally:
         inference.heatmaps_to_keypoints_exact = exact
-    check(set(res.results) == {"bbox", "keypoints"} and decode["calls"] == n_val,
+    check(set(res.results) == {"bbox", "keypoints"} and decode["calls"] == n_test,
           "keypoint test evaluated {} and decoded {} images".format(set(res.results),
                                                                     decode["calls"]))
     print("keypoint test_net on {} images at TEST.IMS_PER_BATCH 8 (SCORE_THRESH 0 for random "
           "heads): the exact host decode {:.4f} s an image ({} ROIs, {:.2f} ms a ROI) [{}]; "
-          "{}".format(n_val, decode["s"] / n_val, decode["rois"],
+          "{}".format(n_test, decode["s"] / n_test, decode["rois"],
                       decode["s"] * 1e3 / max(decode["rois"], 1), card,
                       json.dumps({k: dict(v) for k, v in res.results.items()})), flush=True)
     with open(os.path.join(test_out, "inference", "keypoints_coco_2014_minival",
@@ -3974,11 +4034,7 @@ def profile_steps(torch, step, batch, steps=2):
     device's kernels and copies, the idle share, and the kernels with the
     most time. Informational: a profiler that sees no device time leaves
     its numbers as "not measured"."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def self_device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3987,6 +4043,16 @@ def profile_steps(torch, step, batch, steps=2):
             step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    return profile_summary(prof, steps, wall_ms)
+
+
+def profile_summary(prof, steps, wall_ms):
+    """profile_steps's reading of a trace of `steps` steps."""
+    from torch.autograd import DeviceType
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
     events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                     key=self_device_us, reverse=True)
     busy_ms = sum(self_device_us(e) for e in events) / 1e3 / steps
@@ -4272,13 +4338,26 @@ def multi_card_phase(torch, np, card, keep):
             (2, proposal_slots(cfg, per_level, cfg.TPU.MAX_GT_BOXES)), gen, "cuda")
         opt = make_optimizer(cfg, model)
         metrics = make_train_step(model, opt, make_lr_scheduler(cfg, opt))(batch, draws=draws)
+        # 41's bf16 reference: the same weights, batch and draws in the
+        # flagship's dtype, the FPN features and one step's losses
+        cfg16 = cfg.clone()
+        cfg16.TPU.COMPUTE_DTYPE = "bfloat16"
+        model16 = build_detection_model(cfg16, device="cuda", seed=SEED)
+        model16.load_state_dict(state)
+        with torch.no_grad():
+            features16 = [f.cpu() for f in model16._backbone(batch)[0]]
+        opt16 = make_optimizer(cfg16, model16)
+        metrics16 = make_train_step(model16, opt16, make_lr_scheduler(cfg16, opt16))(
+            batch, draws=draws)
         torch.save({"cfg": cfg._to_plain(), "state": state,
                     "batch": {k: v.cpu() for k, v in batch.items()},
                     "draws": {k: v.cpu() for k, v in draws.items()},
                     "losses": {k: v.item() for k, v in metrics.items()},
-                    "after": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+                    "after": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    "cfg16": cfg16._to_plain(), "features16": features16,
+                    "losses16": {k: v.item() for k, v in metrics16.items()}},
                    os.path.join(work, "f32_job.pt"))
-        del model, opt, batch, draws, state
+        del model, opt, batch, draws, state, model16, opt16, features16
         # 21. the flagship with frozen-BN statistics from bench.py's batch of 8
         cfg = flagship_cfg()
         model = build_detection_model(cfg, device="cuda", seed=SEED)
@@ -4316,8 +4395,9 @@ def multi_card_phase(torch, np, card, keep):
                   json.dumps({k: v.item() for k, v in metrics.items()})), flush=True)
 
         t0 = time.perf_counter()
-        ranks = spawn_ranks("f32,bf16,entry", MULTI_WORLD, work, 720)
-        print("multi-card: phases 20-22 in {:.1f} s".format(time.perf_counter() - t0), flush=True)
+        ranks = spawn_ranks("f32,bf16,entry,tp_f32", MULTI_WORLD, work, 720)
+        print("multi-card: phases 20-22 and 41 in {:.1f} s".format(time.perf_counter() - t0),
+              flush=True)
         out = check_two_ranks(ranks, card)
 
         # 23. NCCL at world size 1 from a torchrun-style environment
@@ -4336,9 +4416,115 @@ def multi_card_phase(torch, np, card, keep):
               "phase 23 launched {}".format(nccl["launches"]))
         check(all(math.isfinite(v) for v in nccl["losses"].values()) and nccl["losses"],
               "phase 23 losses {}".format(nccl["losses"]))
+
+        # 42-43. the model axis: four ranks, (data 2, model 2)
+        t0 = time.perf_counter()
+        tp4 = spawn_ranks("tp_bf16,tp_entry", TP_WORLD, work, 900)
+        four_s = time.perf_counter() - t0
+        out["tensor_parallel"] = check_tensor_parallel(
+            torch, [r["tp_f32"] for r in ranks], tp4, card, work)
+        out["phase_s"] = {"tensor_parallel_41": max(r["seconds"]["tp_f32"] for r in ranks),
+                          "tensor_parallel_42_43": four_s}
+        print("multi-card: the model axis, phase 41 in {:.1f} s, phases 42-43 in {:.1f} s".format(
+            *out["phase_s"].values()), flush=True)
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def check_tensor_parallel(torch, f32, four, card, work):
+    """The checks of phases 41-43 on the ranks' results; returns the
+    model-axis path's launches (the four ranks' sum) and per-rank kernel
+    sites."""
+    from maskrcnn_tpu_torch.config import flagship_cfg
+    from maskrcnn_tpu_torch.models import build_detection_model
+    from maskrcnn_tpu_torch.utils.checkpoint import DetectronCheckpointer
+
+    print("model axis (data 1, model 2), float32 step against one process [{}]: {}".format(
+        card, json.dumps(f32)), flush=True)
+    for rank, r in enumerate(f32):
+        check(max(r["loss_rel_err"].values()) <= 1e-5, "phase 41 rank {}: losses off the "
+              "one-process step's by {}".format(rank, r["loss_rel_err"]))
+        check(r["param_err"] <= 2e-4 * r["param_step"], "phase 41 rank {}: gathered parameters "
+              "off by {} > 2e-4 * max|step| {}".format(rank, r["param_err"], r["param_step"]))
+        check(r["fc6_block"] == [512, 12544], "phase 41 rank {}: fc6's block {}".format(
+            rank, r["fc6_block"]))
+        check(r["replicated_equal_to_rank0"] and r["blocks_equal_across_data_group"],
+              "phase 41 rank {}: replicated leaves differ from rank 0's".format(rank))
+        # bf16: the same ops on the same whole weights as one process; a
+        # weight, bias or block rounded or cast otherwise changes bits
+        check(r["bf16"]["equal"], "phase 41 rank {}: bf16 features or losses differ from one "
+              "process's {}".format(rank, r["bf16"]))
+    ckpt = f32[0]["ckpt"]
+    check(ckpt["equal_to_gathered"] and ckpt["err_to_one_process"] <= 2e-4 * f32[0]["param_step"]
+          and ckpt["momentum_buffers"] > 0, "phase 41 checkpoint {}".format(ckpt))
+
+    bf16 = [r["tp_bf16"] for r in four]
+    per_step = {"matcher": 1, "nms": 1, "roi_align": 2, "roi_align_backward": 2,
+                "roi_align_backward_rmw": 0, "roi_align_backward_chunk": 0}
+    for rank, r in enumerate(bf16):
+        print("model axis (data 2, model 2) bf16 rank {} [{}]: {}".format(rank, card, json.dumps(
+            {k: v for k, v in r.items() if k != "sites"})), flush=True)
+        check(r["coords"] == [rank // 2, rank % 2], "rank {} at {}".format(rank, r["coords"]))
+        check(r["launches"] == {k: MULTI_STEPS * v for k, v in per_step.items()},
+              "phase 42 rank {} launched {} in {} steps".format(rank, r["launches"], MULTI_STEPS))
+        check(all(math.isfinite(v) for m in r["losses"] for v in m.values()),
+              "phase 42 rank {}: losses {}".format(rank, r["losses"]))
+        check(r["replicated_equal_to_rank0"] and r["blocks_equal_across_data_group"],
+              "phase 42 rank {}: replicated leaves or blocks differ".format(rank))
+        sites = r["sites"]
+        b = r["images"]
+        check(sites["nms_sites"][0]["shape"] == [5 * b, 2000] and
+              sites["matcher_sites"][0]["images"] == b and
+              [(x["rois"], x["P"]) for x in sites["roi_sites"]] == [(512 * b, 7), (128 * b, 14)] and
+              [(x["rois"], x["P"]) for x in sites["bwd_sites_roi"]] == [(512 * b, 7), (128 * b, 14)],
+              "phase 42 rank {}: per-rank kernel sites {}".format(rank, {
+                  k: [(x.get("shape"), x.get("rois"), x.get("P")) for x in v]
+                  for k, v in sites.items()}))
+        for k, v in sites.items():
+            for site in v:
+                print("model axis rank {} kernel site [{}]: {}".format(rank, card, json.dumps(
+                    dict(site, rank=rank))), flush=True)
+    if TP_BATCH != TRAIN_BATCH:
+        print("model axis: phase 42's global batch cut from {} to {}".format(TRAIN_BATCH, TP_BATCH))
+
+    entry = [r["tp_entry"] for r in four]
+    print("model axis train_net and test_net under (data 2, model 2): " + json.dumps(entry),
+          flush=True)
+    check([e["saves"] for e in entry] == [["model_0000004.pth", "model_final.pth"]] + [[]] * 3,
+          "phase 43 checkpoints written {}".format([e["saves"] for e in entry]))
+    check(all(e["resumed"] and e["validated"] for e in entry),
+          "phase 43: a rank did not resume from model_final or validate")
+    check(entry[0]["iterations"] == [[4], [6]], "phase 43 rank 0 logged iterations {}".format(
+        entry[0]["iterations"]))
+    check(all(math.isfinite(v) for e in entry for v in e["losses"].values()),
+          "phase 43 losses {}".format([e["losses"] for e in entry]))
+    for e in entry:  # validation and the final test, then the known answer
+        for shards, n in [(s, VAL_IMAGES) for s in e["train_gathered"]] + [
+                (s, len(EVAL_SIZES)) for s in e["known_gathered"]]:
+            check(sorted(i for s in shards for i in s) == list(range(n))
+                  and not shards[1] and not shards[3],
+                  "phase 43: the gathered predictions' images {}".format(shards))
+    check(len(entry[0]["train_gathered"]) == 2, "phase 43 evaluated {} times in training"
+          .format(len(entry[0]["train_gathered"])))
+    check(all(e["known"] is None for e in entry[1:]), "ranks 1-3 returned results")
+    check(entry[0]["known"]["bbox"]["AP50"] >= 0.99, "phase 43 known-answer bbox AP50 {} < 0.99 "
+          "under the mesh".format(entry[0]["known"]["bbox"]["AP50"]))
+    # the checkpoint read in one process equals the model the ranks gathered
+    model = build_detection_model(flagship_cfg(), device="cpu", seed=SEED + 1)
+    DetectronCheckpointer(flagship_cfg(), model).load(os.path.join(work, "tp_out",
+                                                                   "model_final.pth"))
+    gathered = torch.load(os.path.join(work, "tp_state.pth"), weights_only=True)
+    check(set(gathered) == set(model.state_dict()) and all(
+        torch.equal(v, gathered[k]) for k, v in model.state_dict().items()),
+        "phase 43: model_final.pth read in one process differs from the gathered model")
+    print("model axis: model_final.pth read in one process equals the ranks' gathered model",
+          flush=True)
+
+    out = {"launches": {k: sum(r["launches"][k] for r in bf16) for k in per_step}}
+    for k in ("nms_sites", "roi_sites", "bwd_sites_roi", "matcher_sites"):
+        out[k] = [dict(s, rank=rank) for rank, r in enumerate(bf16) for s in r["sites"][k]]
+    return out
 
 
 def check_two_ranks(ranks, card):
@@ -4686,8 +4872,321 @@ def worker_nccl(torch, np, rank, world, work):
     return out
 
 
+def _mesh_cfg(cfg, shape):
+    """`cfg` under ("data", "model") / `shape`, on cuda:0, the mesh laid out
+    over this worker's group."""
+    from maskrcnn_tpu_torch.parallel import init_distributed
+
+    cfg.MODEL.DEVICE = "cuda:0"
+    cfg.TPU.MESH_AXES, cfg.TPU.MESH_SHAPE = ("data", "model"), shape
+    init_distributed(cfg)
+    return cfg
+
+
+def _equal_to(torch, tensors, src, group=None):
+    """Whether these tensors equal the process `src`'s bit for bit (one
+    broadcast of them flattened, over `group`)."""
+    import torch.distributed as dist
+
+    if not tensors:
+        return True
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src, group=group)
+    return bool(torch.equal(flat, theirs))
+
+
+def _tp_equality(torch, model):
+    """The replicated leaves against rank 0's, the sharded blocks against
+    those of the data group's first process (the same model coordinate)."""
+    from maskrcnn_tpu_torch.utils import comm
+
+    params = list(model.parameters())
+    mesh = comm.get_mesh()
+    return {"replicated_equal_to_rank0": _equal_to(
+                torch, [p for p in params if not hasattr(p, "model_dim")], 0),
+            "blocks_equal_across_data_group": _equal_to(
+                torch, [p for p in params if hasattr(p, "model_dim")], mesh.data_ranks[0],
+                comm.data_group())}
+
+
+def _tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _tp_bf16_against_one_process(torch, job, batch, draws):
+    """41 in bf16: the sharded model's FPN features and one SGD step's
+    losses on phase 20's batch, weights and draws against the one-process
+    bf16 step's (job["features16"], job["losses16"]): their largest
+    absolute differences, and whether they are equal bit for bit."""
+    from maskrcnn_tpu_torch.config.cfgnode import CfgNode
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
+    from maskrcnn_tpu_torch.parallel import shard_model
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+
+    cfg = _mesh_cfg(CfgNode(job["cfg16"]), (-1, 2))
+    model = GeneralizedRCNN(cfg)
+    model.load_state_dict(job["state"])
+    model.cuda()
+    opt = make_optimizer(cfg, model)
+    shard_model(model, opt)
+    with torch.no_grad():
+        features = [f.cpu() for f in model._backbone(batch)[0]]
+    metrics = make_train_step(model, opt, make_lr_scheduler(cfg, opt))(batch, draws=draws)
+    losses = {k: v.item() for k, v in metrics.items()}
+    want = job["features16"]
+    return {"feature_max_abs_err": [float((f.float() - w.float()).abs().max())
+                                    for f, w in zip(features, want)],
+            "feature_max_abs": [float(w.float().abs().max()) for w in want],
+            "loss_abs_err": {k: abs(v - job["losses16"][k]) for k, v in losses.items()},
+            "equal": all(torch.equal(f, w) for f, w in zip(features, want))
+            and losses == job["losses16"]}
+
+
+def worker_tp_f32(torch, np, rank, world, work):
+    """41. Phase 20's job on a (data 1, model 2) mesh, both images on both
+    ranks, the weights' output channels sharded: in bf16 the FPN features
+    and one step's losses against one process's; in float32 one SGD step
+    against the one-process step, fc6's block, the replicated leaves
+    compared, a checkpoint written under the mesh by rank 0 and read
+    back."""
+    from maskrcnn_tpu_torch.config.cfgnode import CfgNode
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
+    from maskrcnn_tpu_torch.parallel import gather_state, shard_model
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.utils.checkpoint import Checkpointer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = torch.load(os.path.join(work, "f32_job.pt"), weights_only=False)
+    batch = {k: v.cuda() for k, v in job["batch"].items()}
+    draws = {k: v.cuda() for k, v in job["draws"].items()}
+    bf16 = _tp_bf16_against_one_process(torch, job, batch, draws)
+    torch.cuda.empty_cache()
+    cfg = _mesh_cfg(CfgNode(job["cfg"]), (-1, 2))
+    model = GeneralizedRCNN(cfg)
+    model.load_state_dict(job["state"])
+    model.cuda()
+    opt = make_optimizer(cfg, model)
+    sched = make_lr_scheduler(cfg, opt)
+    dims = shard_model(model, opt)
+    fc6 = model.roi_heads.box.feature_extractor.fc6.weight
+    metrics = make_train_step(model, opt, sched)(batch, draws=draws)
+    losses = {k: v.item() for k, v in metrics.items()}
+    state, _ = gather_state(model, opt)
+    err, step = 0.0, 0.0
+    for name, p in state.items():
+        want, before = job["after"][name].cuda(), job["state"][name].cuda()
+        err = max(err, float((p - want).abs().max()))
+        step = max(step, float((want - before).abs().max()))
+    out_dir = os.path.join(work, "tp_f32_ckpt")
+    Checkpointer(model, opt, sched, out_dir).save("model_0000001", iteration=1)
+    ckpt = {}
+    if rank == 0:
+        saved = torch.load(os.path.join(out_dir, "model_0000001.pth"), map_location="cpu",
+                           weights_only=True)
+        ckpt = {"equal_to_gathered": all(torch.equal(saved["model"][k], v.cpu())
+                                         for k, v in state.items()),
+                "err_to_one_process": max(float((v - job["after"][k]).abs().max())
+                                          for k, v in saved["model"].items()),
+                "momentum_buffers": len(saved["optimizer"]["state"])}
+    return dict(_tp_equality(torch, model), losses=losses, ckpt=ckpt, bf16=bf16,
+                loss_rel_err={k: abs(v - job["losses"][k]) / max(abs(job["losses"][k]), 1e-12)
+                              for k, v in losses.items()},
+                param_err=err, param_step=step, fc6_block=list(fc6.shape), sharded=len(dims))
+
+
+def worker_tp_bf16(torch, np, rank, world, work):
+    """42. The flagship in bf16 on a (data 2, model 2) mesh at global batch
+    TP_BATCH: this data coordinate's images of bench.py's batch, MULTI_STEPS
+    steps, the last with every collective timed (CUDA synchronized around
+    it) and its bytes by group; launches, step times, the kernels at the
+    per-rank shapes (rank by rank); the gradient all-reduce alone; the
+    parameters' and the momentum's bytes; the ranks compared."""
+    import torch.distributed as dist
+
+    from maskrcnn_tpu_torch.config import flagship_cfg
+    from maskrcnn_tpu_torch.engine import make_train_step
+    from maskrcnn_tpu_torch.engine.trainer import step_seed
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, rpn
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.parallel import reduce_gradients, shard_model
+    from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.utils import comm
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _mesh_cfg(flagship_cfg(), (-1, 2))
+    model = build_detection_model(cfg, device="cuda", seed=SEED)
+    model.load_state_dict(torch.load(os.path.join(work, "bf16_state.pth"), weights_only=True))
+    full_param_bytes = _tensor_bytes(list(model.parameters()))
+    full = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+                       cfg.TPU.GT_MASK_SIZE, SEED, "cpu")
+    b = TP_BATCH // comm.data_size()
+    batch = {k: v[comm.data_rank() * b:(comm.data_rank() + 1) * b].cuda()
+             for k, v in full.items()}
+    del full
+    opt = make_optimizer(cfg, model)
+    sched = make_lr_scheduler(cfg, opt)
+    dims = shard_model(model, opt)
+    gen = torch.Generator(device="cuda")
+    step = make_train_step(model, opt, sched, generator=gen)
+    counters = training_counters(poolers, matcher, nms)
+    for fn in counters.values():
+        fn.launches = 0
+    # the last step with every collective timed between two synchronizations
+    groups = {"model": comm.model_group(), "data": comm.data_group()}
+    traffic = {g: {"calls": 0, "mb": 0.0, "ms": 0.0} for g in ("model", "data", "world")}
+    originals = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def timed(fn):
+        def wrapper(*args, group=None, **kwargs):
+            kind = next((k for k, g in groups.items() if g is group and g is not None), "world")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, group=group, **kwargs)
+            torch.cuda.synchronize()
+            traffic[kind]["ms"] += (time.perf_counter() - t0) * 1e3
+            traffic[kind]["calls"] += 1
+            traffic[kind]["mb"] += _tensor_bytes([t for t in args if torch.is_tensor(t)][:1]) / 1e6
+            return out
+        return wrapper
+
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with Capture([rpn], "match_anchors_batched", limit=1) as match_cap, \
+            Capture([rpn], "batched_nms", limit=1) as nms_cap, \
+            Capture([detector], "multilevel_roi_align", grads=True, limit=2) as roi_cap:
+        for i in range(MULTI_STEPS):
+            gen.manual_seed(step_seed(i + 1))
+            if i == MULTI_STEPS - 1:
+                for name, fn in originals.items():
+                    setattr(dist, name, timed(fn))
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+            finally:
+                for name, fn in originals.items():
+                    setattr(dist, name, fn)
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: v.item() for k, v in m.items()})
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    allreduce = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_gradients(model)
+        torch.cuda.synchronize()
+        allreduce.append((time.perf_counter() - t0) * 1e3)
+    momentum = [s["momentum_buffer"] for s in opt.state.values() if "momentum_buffer" in s]
+    equal = _tp_equality(torch, model)
+    opt.zero_grad(set_to_none=True)
+    del opt, step
+    torch.cuda.empty_cache()
+    sites = {}
+    for turn in range(world):
+        if turn == rank:
+            sites["matcher_sites"] = [matcher_site(torch, matcher, *match_cap.calls[0])]
+            with torch.no_grad():
+                sites["nms_sites"] = [nms_site(torch, nms, *nms_cap.calls[0], plain_iters=3)]
+                sites["roi_sites"] = [roi_site(torch, poolers, [f.detach() for f in c[0]], *c[1:])
+                                      for c in roi_cap.calls]
+            sites["bwd_sites_roi"] = [
+                roi_backward_site(torch, poolers, [f.detach() for f in c[0]], *c[1:],
+                                  roi_cap.out_grads[i], "roi")
+                for i, c in enumerate(roi_cap.calls)]
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return dict(equal, launches=launches, losses=losses, step_ms=times, traffic=traffic, images=b,
+                gradient_mb=_tensor_bytes(grads) / 1e6, allreduce_ms=allreduce,
+                param_mb=_tensor_bytes(list(model.parameters())) / 1e6,
+                momentum_mb=_tensor_bytes(momentum) / 1e6,
+                data_only_param_mb=full_param_bytes / 1e6, sharded=len(dims),
+                peak_memory_gb=peak_gb, coords=[comm.data_rank(), comm.model_rank()],
+                sites=sites)
+
+
+def worker_tp_entry(torch, np, rank, world, work):
+    """43. train_net on a (data 2, model 2) mesh: phase 22's flagship options
+    (global batch 8) for 4 iterations (a checkpoint at 4), a
+    resume to 6 that validates at 6 and runs the final test on the val tree;
+    the model gathered (rank 0's copy kept for the parent); then test_net
+    under the mesh on phase 18's known answer, phase 22's options."""
+    from maskrcnn_tpu_torch.parallel import gather_state
+    from maskrcnn_tpu_torch.tools import test_net, train_net
+    from maskrcnn_tpu_torch.utils import comm
+
+    with open(os.path.join(work, "entry_job.json")) as f:
+        job = json.load(f)
+    mesh = ["TPU.MESH_AXES", "('data', 'model')", "TPU.MESH_SHAPE", "(-1, 2)"]
+    out_dir = os.path.join(work, "tp_out")
+    opts = job["opts"] + mesh + ["OUTPUT_DIR", out_dir]
+    logs = LogLines()
+    for name in ("maskrcnn_tpu_torch", "maskrcnn_tpu_torch.checkpointer"):
+        logging.getLogger(name).addHandler(logs)
+    gathered = []
+    all_gather = comm.all_gather
+
+    def recording(data):
+        got = all_gather(data)
+        if isinstance(data, dict) and all(isinstance(k, int) for k in data):
+            gathered.append([sorted(d) for d in got])  # inference's shards by rank
+        return got
+
+    comm.all_gather = recording
+    try:
+        _override_images(job["images"])
+        with environ(MASKRCNN_TPU_DATA_DIR=job["root"]):
+            t0 = time.perf_counter()
+            train_net.main(["--skip-test"] + opts + ["SOLVER.MAX_ITER", "4"])
+            first_s = time.perf_counter() - t0
+            first = list(logs.lines)
+            logs.lines.clear()
+            t0 = time.perf_counter()
+            model, meters = train_net.main(opts + [
+                "SOLVER.MAX_ITER", "6", "SOLVER.TEST_PERIOD", "6", "DATASETS.TEST",
+                "('coco_2017_val',)", "TEST.IMS_PER_BATCH", "8"])
+            second_s = time.perf_counter() - t0
+            second = list(logs.lines)
+        state, _ = gather_state(model)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in state.items()}, os.path.join(work, "tp_state.pth"))
+        del model, state
+        torch.cuda.empty_cache()
+        train_gathered = list(gathered)
+        gathered.clear()
+        # phase 18's known answer, its batches of 8 on each data coordinate
+        _override_images(job["eval_images"])
+        with environ(MASKRCNN_TPU_DATA_DIR=job["eval_root"]):
+            t0 = time.perf_counter()
+            known = test_net.main(job["eval_opts"] + mesh + [
+                "OUTPUT_DIR", os.path.join(work, "tp_known_out")])
+            known_s = time.perf_counter() - t0
+    finally:
+        comm.all_gather = all_gather
+    return {"saves": [os.path.basename(line.split()[-1]) for line in first
+                      if line.startswith("Saving checkpoint to")],
+            "resumed": "Loading checkpoint from " + os.path.join(out_dir, "model_final.pth")
+            in second,
+            "validated": any(line == "Validation at iteration 6" for line in second),
+            "iterations": [[int(m) for line in lines for m in re.findall(r"iter: (\d+)", line)]
+                           for lines in (first, second)],
+            "losses": {k: m.global_avg for k, m in meters.meters.items() if k.startswith("loss")},
+            "train_gathered": train_gathered, "known_gathered": gathered,
+            "known": None if known is None else {k: dict(v) for k, v in known[0][0].results.items()},
+            "coords": [comm.data_rank(), comm.model_rank()],
+            "train_4_s": first_s, "resume_validate_test_s": second_s, "known_test_s": known_s}
+
+
 WORKER_PHASES = {"f32": worker_f32, "bf16": worker_bf16, "entry": worker_entry,
-                 "nccl": worker_nccl}
+                 "nccl": worker_nccl, "tp_f32": worker_tp_f32, "tp_bf16": worker_tp_bf16,
+                 "tp_entry": worker_tp_entry}
 
 
 def worker_main(argv):
@@ -4710,10 +5209,11 @@ def worker_main(argv):
 
             dist.init_process_group("gloo", init_method="tcp://localhost:" + port, rank=rank,
                                     world_size=world, timeout=datetime.timedelta(seconds=600))
-        results = {}
+        results = {"seconds": {}}
         for phase in phases:
             t0 = time.perf_counter()
             results[phase] = WORKER_PHASES[phase](torch, np, rank, world, work)
+            results["seconds"][phase] = time.perf_counter() - t0
             print("rank {}: phase {} in {:.1f} s".format(rank, phase, time.perf_counter() - t0),
                   flush=True)
         if dist.is_initialized():

@@ -22,9 +22,12 @@ safe after the parent has initialized the card. On a CUDA device the loader
 pins its batches, so that the copies to the card are asynchronous.
 Batch-size semantics: SOLVER.IMS_PER_BATCH and TEST.IMS_PER_BATCH are the
 global batch; with is_distributed each process loads its share of it
-(IMS_PER_BATCH // world images) from its shard of a DistributedSampler:
-shuffled from the epoch's seed for training, in order for testing (padded
-to a multiple of the processes: evaluation gathers by dataset index).
+(IMS_PER_BATCH // data_size images) from its data coordinate's shard of a
+DistributedSampler: shuffled from the epoch's seed for training, in order
+for testing (padded to a multiple of the data coordinates: evaluation
+gathers by dataset index). The processes of one data coordinate (its model
+group, parallel/mesh.py) load the same images in the same order, and their
+workers draw the same transforms (seeded alike).
 """
 
 import os
@@ -138,7 +141,7 @@ def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
     Batches are dicts of CPU tensors in the collator's layout, pinned when
     MODEL.DEVICE is CUDA; under test-time augmentation, a test loader's
     batches are BBoxAugCollator's tuples."""
-    num_replicas, rank = (comm.get_world_size(), comm.get_rank()) if is_distributed else (1, 0)
+    num_replicas, rank = (comm.data_size(), comm.data_rank()) if is_distributed else (1, 0)
     if is_train:
         images_per_batch = cfg.SOLVER.IMS_PER_BATCH
         key = "SOLVER.IMS_PER_BATCH"
@@ -161,6 +164,12 @@ def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
 
         maskops.library()
     collator = BBoxAugCollator() if bbox_aug else TensorBatches(BatchCollator(cfg, is_train))
+    generator = None
+    if is_distributed and comm.model_size() > 1:
+        # a model group loads the same batches: its workers take the seeds
+        # of the group's first process (drawn from the default generator)
+        seeds = comm.all_gather(int(torch.empty((), dtype=torch.int64).random_()))
+        generator = torch.Generator().manual_seed(seeds[comm.get_mesh().model_ranks[0]])
     loaders = []
     for dataset in datasets:
         if is_distributed:
@@ -176,6 +185,7 @@ def make_data_loader(cfg, is_train=True, is_distributed=False, start_iter=0):
             dataset, batch_sampler=batch_sampler,
             collate_fn=collator,
             num_workers=cfg.DATALOADER.NUM_WORKERS, worker_init_fn=_seed_worker,
+            generator=generator,
             pin_memory=cfg_device(cfg).type == "cuda" and not bbox_aug,
         ))
     return loaders[0] if is_train else loaders

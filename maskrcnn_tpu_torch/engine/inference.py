@@ -14,11 +14,12 @@ images (data/build.py) and each goes through engine/bbox_aug.py's passes
 and merge; that path answers "bbox" alone and refuses other iou types
 before its first pass.
 
-In a process group each rank runs its shard of the dataset (the
-distributed test loader's), ``comm.all_gather`` merges the shards and rank
-0 keeps one prediction per dataset index (the sampler pads the last shard
-with repeated images), writes them and evaluates; the other ranks return
-None.
+In a process group each data coordinate runs its shard of the dataset (the
+distributed test loader's; the processes of its model group run it
+together, parallel/mesh.py), ``comm.all_gather`` merges the shards of model
+coordinate 0's processes (each shard once) and rank 0 keeps one prediction
+per dataset index (the sampler pads the last shard with repeated images),
+writes them and evaluates; the other ranks return None.
 """
 
 import logging
@@ -194,7 +195,8 @@ def inference(model, data_loader, dataset_name, iou_types=("bbox",), box_only=Fa
     logger.info("Model inference time: {:.4f} s / img".format(
         inference_timer.total_time / max(len(predictions), 1)))
 
-    predictions = {k: v for p in comm.all_gather(predictions) for k, v in p.items()}
+    shard = predictions if comm.model_rank() == 0 else {}
+    predictions = {k: v for p in comm.all_gather(shard) for k, v in p.items()}
     if not comm.is_main_process():
         return None
     image_ids = sorted(predictions.keys())

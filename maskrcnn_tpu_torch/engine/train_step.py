@@ -6,13 +6,15 @@ sum of the losses, backward, the SGD step and the learning-rate schedule's
 step) and ``make_eval_step`` (``infer_forward``).
 
 In a process group the train step is the JAX mesh step (one program over
-the global batch), one process a card: each process's losses are its
-shares of the global batch's (the model divides by the global counts and
-takes its rows of the global draws), the gradients are summed over the
-processes in one all-reduce before the optimizer steps
+the global batch), one process a card: each process's losses are its data
+coordinate's shares of the global batch's (the model divides by the global
+counts and takes its rows of the global draws), the gradients are summed
+over the data axis in one all-reduce before the optimizer steps
 (``parallel.reduce_gradients``; summed, not averaged, since each share is
 already divided by the global count), and the metrics are the global
-losses. Every process then holds the same parameters, bit for bit.
+losses. Every process then holds the same replicated parameters, bit for
+bit, and the processes of a data group the same blocks of the sharded ones
+(parallel/mesh.py).
 """
 
 import torch

@@ -18,13 +18,18 @@ before each step from the iteration (``step_seed``) as the JAX trainer folds
 the iteration into its key: a run resumed at iteration k draws from k + 1
 on what a straight run draws there.
 
-In a process group (one process a card, each loading its share of the
-global batch) the step is the global-batch step (train_step.py), so the
-trainer's decisions are global too: a batch is skipped only when no
-process's share holds ground truth (one process skipping alone would
-desync the step's collectives), the logged losses are reduced over the
-processes (``comm.reduce_dict``), checkpoints are written by rank 0 and
+In a process group (one process a card, each loading its data
+coordinate's share of the global batch) the step is the global-batch step
+(train_step.py), so the trainer's decisions are global too: a batch is
+skipped only when no process's share holds ground truth (one process
+skipping alone would desync the step's collectives), the logged losses are
+reduced over the processes (``comm.reduce_dict``), checkpoints are written
+by rank 0 (gathered over its model group first, utils/checkpoint.py) and
 followed by a barrier, so that a resume on any rank reads a whole file.
+Under a "model" axis the processes of a model group must hold the same
+batch (data/build.py seeds their loaders alike): the gather that decides
+the skip carries a fingerprint of each batch, and differing ones within a
+model group raise.
 """
 
 import datetime
@@ -46,6 +51,26 @@ def step_seed(iteration):
     """The draw generator's seed at `iteration`: a function of (DRAW_SEED,
     iteration), the counterpart of jax.random.fold_in(PRNGKey(0), iteration)."""
     return (DRAW_SEED << 32) | iteration
+
+
+def _fingerprint(batch):
+    return (tuple(batch["images"].shape), float(batch["gt_boxes"].double().sum()),
+            int(batch["image_sizes"].sum()))
+
+
+def _global_has_gt(batch):
+    """Whether each process's batch holds ground truth, by rank; raises if
+    two processes of one model group hold different batches."""
+    has_gt = bool((batch["gt_labels"] > 0).any())
+    mesh = comm.get_mesh()
+    if mesh is None or mesh.model_size == 1:
+        return comm.all_gather(has_gt)
+    got = comm.all_gather((has_gt, _fingerprint(batch)))
+    prints = {got[r][1] for r in mesh.model_ranks}
+    if len(prints) > 1:
+        raise RuntimeError("the model group {} holds different batches: {}".format(
+            mesh.model_ranks, sorted(prints)))
+    return [g[0] for g in got]
 
 
 def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, checkpoint_period,
@@ -70,7 +95,7 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
         data_time = time.time() - end
         iteration += 1
         arguments["iteration"] = iteration
-        if not any(comm.all_gather(bool((batch["gt_labels"] > 0).any()))):
+        if not any(_global_has_gt(batch)):
             logger.warning("Iteration={} || batch has no ground truth, skipped".format(iteration))
             end = time.time()
             continue

@@ -27,11 +27,12 @@ anchors], box_pos, box_neg [B, P proposals]) may be passed in; missing ones
 come from the caller's torch.Generator.
 
 In a process group each process's ``train_forward`` takes its share of the
-global batch (ranks hold equal shares, in rank order) and computes its
-share of the global batch's losses, as the JAX mesh step: the draws are its
-rows of the global batch's draws (those passed in are the global batch's;
-those drawn come from B * world rows), the losses divide by the global
-counts (rpn.py, box_head.py, mask_head.py, keypoint_head.py,
+global batch (data coordinates hold equal shares, in data-rank order; the
+processes of one data coordinate, its model group, hold the same share) and
+computes its share of the global batch's losses, as the JAX mesh step: the
+draws are its rows of the global batch's draws (those passed in are the
+global batch's; those drawn come from B * data_size rows), the losses divide
+by the global counts (rpn.py, box_head.py, mask_head.py, keypoint_head.py,
 ops/losses.py), and the mask and keypoint heads keep the positives that
 their batch-wide caps keep over the global batch
 (``_cut_positives_globally``).
@@ -132,8 +133,8 @@ def _compact_positives(pos_state, cap):
 def _cut_positives_globally(pos_state, cap, b):
     """The batch-wide cap of _compact_positives over the global batch of a
     process group: the first `cap` * (global images) valid positives of the
-    global batch in order (ranks in order, each holding `b` images) are
-    kept, wherever they lie, so this process keeps its valid rows whose
+    global batch in order (data coordinates in order, each holding `b`
+    images) are kept, wherever they lie, so this process keeps its valid rows whose
     place in that order is below the cap. Rows are not compacted: a process
     may hold every kept positive. Returns pos_state with the cut validity.
     """
@@ -141,7 +142,7 @@ def _cut_positives_globally(pos_state, cap, b):
     if cap <= 0:
         return pos_state
     counts = comm.gather_rows(torch.stack([valid.sum(), valid.new_tensor(b, dtype=torch.int64)]))
-    offset = counts[:comm.get_rank(), 0].sum()
+    offset = counts[:comm.data_rank(), 0].sum()
     place = offset + torch.cumsum(valid.long(), 0) - 1
     keep = valid & (place < cap * counts[:, 1].sum())
     return rois, batch_idx, keep, labels, mg
@@ -281,7 +282,7 @@ class GeneralizedRCNN(nn.Module):
         if self.retinanet_on:
             return self._retinanet_train_forward(batch, gt_boxes, gt_labels)
 
-        rank, world = comm.get_rank(), comm.get_world_size()
+        rank, world = comm.data_rank(), comm.data_size()
 
         def draw(kind, n):
             """This process's rows of the global batch's draws."""

@@ -15,6 +15,14 @@ HWIO / [in, out] layouts onto these.
 Initialisers draw from an explicit ``torch.Generator`` with the same
 distributions as the JAX ``init_*`` functions (not the same numbers: the two
 frameworks' generators differ).
+
+Under the mesh's "model" axis (parallel/mesh.py:shard_model) a conv's,
+transposed conv's or fc's weight may hold only this process's block of its
+output channels. The layer gathers the whole weight at use (``full_weight``:
+the blocks cast to the input's dtype, then gathered over the model group;
+backward, this process's slice of the gradient) and computes what the
+unsharded layer computes, op for op. ``out_channels`` and the other
+attributes keep the full widths.
 """
 
 import math
@@ -22,6 +30,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils import comm
 
 # -- initialisers ---------------------------------------------------------------
 
@@ -78,12 +88,22 @@ def init_linear_(lin, gen, init="kaiming_uniform", std=0.01):
 # -- modules --------------------------------------------------------------------
 
 
+def full_weight(module, w=None):
+    """`w` (by default the module's weight; else a tensor computed from it
+    element by element, at its layout, such as its cast) whole: when the
+    weight is sharded on the model axis, the model group's blocks of `w`
+    gathered (comm.gather_from_model), else `w` itself."""
+    w = module.weight if w is None else w
+    dim = getattr(module.weight, "model_dim", None)
+    return w if dim is None else comm.gather_from_model(w, dim)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that runs in its input's dtype (weights cast at use)."""
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
+        return F.conv2d(x, full_weight(self, self.weight.to(x.dtype)), b, self.stride,
                         self.padding, self.dilation, self.groups)
 
 
@@ -97,13 +117,13 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride,
-                                  self.padding)
+        return F.conv_transpose2d(x, full_weight(self, self.weight.to(x.dtype)), b,
+                                  self.stride, self.padding)
 
 
 class Linear(nn.Linear):
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, full_weight(self, self.weight.to(x.dtype)), self.bias.to(x.dtype))
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -162,11 +182,14 @@ class GroupNorm(nn.Module):
 
 def conv_frozen_bn(x, conv, bn):
     """conv followed by frozen BN with the affine folded into the conv
-    (w * s, bias t), the algebra of resnet.conv_norm in the JAX package."""
+    (w * s, bias t), the algebra of resnet.conv_norm in the JAX package; a
+    weight sharded on the model axis folds s's block into its own, then is
+    gathered."""
     s, t = bn.scale_shift()
-    w = conv.weight * s[:, None, None, None]
-    return F.conv2d(x, w.to(x.dtype), t.to(x.dtype), conv.stride, conv.padding,
-                    conv.dilation, conv.groups)
+    if getattr(conv.weight, "model_dim", None) is not None:
+        s = comm.model_block(s, 0)
+    w = full_weight(conv, (conv.weight * s[:, None, None, None]).to(x.dtype))
+    return F.conv2d(x, w, t.to(x.dtype), conv.stride, conv.padding, conv.dilation, conv.groups)
 
 
 def max_pool2d(x, window=3, stride=2, padding=1):

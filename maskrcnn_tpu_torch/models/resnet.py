@@ -36,7 +36,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.deform_conv import deform_conv2d
-from .layers import Conv2d, FrozenBatchNorm2d, GroupNorm, conv_frozen_bn, init_conv_, max_pool2d
+from .layers import (
+    Conv2d,
+    FrozenBatchNorm2d,
+    GroupNorm,
+    conv_frozen_bn,
+    full_weight,
+    init_conv_,
+    max_pool2d,
+)
 
 StageSpec = namedtuple("StageSpec", ["index", "block_count", "return_features"])
 
@@ -127,16 +135,18 @@ class Bottleneck(nn.Module):
                 m.reset_parameters()
 
     def deform(self, x):
-        """The deformable conv2 and its norm on NCHW x, in x's dtype."""
+        """The deformable conv2 and its norm on NCHW x, in x's dtype (its
+        whole weight under the model axis, layers.full_weight)."""
         conv, g = self.conv2, self.dcn["deformable_groups"]
         xf = x.float()  # the offset conv's input and the sampled map, one copy
         off = self.conv2_offset(xf).permute(0, 2, 3, 1)
         mask = None
         if self.dcn["modulated"]:
             off, mask = off[..., :18 * g], torch.sigmoid(off[..., 18 * g:])
-        out = deform_conv2d(xf.permute(0, 2, 3, 1), off, conv.weight, mask, stride=conv.stride[0],
-                            padding=conv.padding[0], dilation=conv.dilation[0],
-                            groups=conv.groups, deformable_groups=g, compute_dtype=x.dtype)
+        out = deform_conv2d(xf.permute(0, 2, 3, 1), off, full_weight(conv), mask,
+                            stride=conv.stride[0], padding=conv.padding[0],
+                            dilation=conv.dilation[0], groups=conv.groups, deformable_groups=g,
+                            compute_dtype=x.dtype)
         return self.bn2(out.permute(0, 3, 1, 2))
 
     def forward(self, x):

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ...ops.sampler import top_k_fast
 from ...utils import comm
 from ..fbnet import FBNetROIHead
-from ..layers import Conv2d, ConvTranspose2d, init_conv_
+from ..layers import Conv2d, ConvTranspose2d, full_weight, init_conv_
 from .box_head import ResNet50Conv5ROIFeatureExtractor
 
 
@@ -144,11 +144,12 @@ class MaskHead(nn.Module):
         """Training: x (see ``features``), labels [R] -> float32 logits
         [R, M, M] of each ROI's label only. The 1x1 predictor's weight column
         of that class is gathered first, so the other classes' maps are
-        never computed (apply_mask_predictor_at_class)."""
+        never computed (apply_mask_predictor_at_class); under the model axis
+        from the whole weight."""
         x = self.predictor.upsample(self.features(x))
         fcn = self.predictor.mask_fcn_logits
         safe = labels.long().clamp(0, fcn.out_channels - 1)
-        wl = fcn.weight[:, :, 0, 0][safe].to(x.dtype)  # [R, D]
+        wl = full_weight(fcn)[:, :, 0, 0][safe].to(x.dtype)  # [R, D]
         out = torch.einsum("rdhw,rd->rhw", x, wl)
         return (out + fcn.bias[safe].to(x.dtype)[:, None, None]).float()
 

@@ -25,7 +25,7 @@ from ..ops.matcher import match_anchors_batched
 from ..ops.nms import NEG_INF, batched_nms
 from ..ops.sampler import sample_topk_indices
 from ..utils import comm
-from .layers import Conv2d, init_conv_
+from .layers import Conv2d, full_weight, init_conv_
 
 
 def top_k_stable(x, k):
@@ -57,9 +57,10 @@ class RPNHead(nn.Module):
 
     def forward(self, features):
         """features: list of [B, C, H, W] -> (objectness [B, A, H, W],
-        bbox_reg [B, 4A, H, W]) per level. The two 1x1 convs run as one."""
+        bbox_reg [B, 4A, H, W]) per level. The two 1x1 convs run as one, on
+        their whole weights under the model axis (layers.full_weight)."""
         a = self.cls_logits.out_channels
-        w = torch.cat([self.cls_logits.weight, self.bbox_pred.weight])
+        w = torch.cat([full_weight(self.cls_logits), full_weight(self.bbox_pred)])
         b = torch.cat([self.cls_logits.bias, self.bbox_pred.bias])
         objectness, bbox_reg = [], []
         for f in features:

@@ -4,3 +4,4 @@ from .distributed import (  # noqa: F401
     init_distributed,
     reduce_gradients,
 )
+from .mesh import create_mesh, gather_state, shard_model, sharded_dims  # noqa: F401

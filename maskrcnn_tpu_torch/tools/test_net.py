@@ -15,10 +15,12 @@ TEST.BBOX_AUG.ENABLED the detections are test-time augmented
 (engine/bbox_aug.py), which answers bbox alone: a mask or keypoint
 model's evaluation then raises ValueError before its first pass.
 
-Under a launcher each process takes one card and its shard of every test
-dataset (TEST.IMS_PER_BATCH stays the global batch); rank 0 gathers,
-evaluates and returns the results, the other ranks return None
-(train_net.py has the group's set-up).
+Under a launcher each process takes one card and its data coordinate's
+shard of every test dataset (TEST.IMS_PER_BATCH stays the global batch);
+with a "model" axis in TPU.MESH_AXES / MESH_SHAPE the loaded weights are
+sharded over it as in train_net (the JAX package's test_net reads neither
+key); rank 0 gathers, evaluates and returns the results, the other ranks
+return None (train_net.py has the group's set-up).
 """
 
 import argparse
@@ -30,7 +32,7 @@ from ..config import cfg as default_cfg
 from ..data.build import make_data_loader
 from ..engine.inference import inference
 from ..models.detector import build_detection_model
-from ..parallel.distributed import init_distributed
+from ..parallel import init_distributed, shard_model
 from ..utils import comm
 from ..utils.checkpoint import DetectronCheckpointer
 from ..utils.collect_env import collect_env_info
@@ -99,6 +101,7 @@ def main(argv=None):
     model = build_detection_model(cfg, device=device)
     checkpointer = DetectronCheckpointer(cfg, model, save_dir=cfg.OUTPUT_DIR, logger=logger)
     checkpointer.load(cfg.MODEL.WEIGHT if args.ckpt is None else args.ckpt)
+    shard_model(model)
     results = run_test(cfg, model)
     return results if comm.is_main_process() else None
 

@@ -16,12 +16,18 @@ test_net does.
 Under a launcher (``torchrun``: WORLD_SIZE and the rest in the environment)
 each process takes one card (cuda:LOCAL_RANK) and an NCCL group is made
 (gloo with MODEL.DEVICE cpu); a caller that made the default group first
-keeps it. SOLVER.IMS_PER_BATCH and TEST.IMS_PER_BATCH stay the global
-batch, each process loading its share; the step is the global-batch step of
-the JAX package's mesh (engine/train_step.py). Rank 0 logs, writes the
-checkpoints and evaluates the gathered predictions. ``--local_rank`` /
-``--local-rank`` (torch.distributed.launch) are accepted; the device
-follows LOCAL_RANK.
+keeps it. The processes lay out the mesh of TPU.MESH_AXES / MESH_SHAPE
+(parallel/mesh.py), as the JAX package's train_net does over its devices:
+with a "model" axis above 1, say ("data", "model") / (-1, 2), the weights'
+output channels are sharded over it after loading (shard_model) and each
+layer gathers its weight at use. SOLVER.IMS_PER_BATCH and
+TEST.IMS_PER_BATCH stay the global batch, each data coordinate loading its
+share (they must divide by the data axis); the step is the global-batch
+step of the JAX package's mesh (engine/train_step.py). Rank 0 logs, writes
+the checkpoints (at the full layout) and evaluates the gathered
+predictions; validation and the final test run the sharded model.
+``--local_rank`` / ``--local-rank`` (torch.distributed.launch) are
+accepted; the device follows LOCAL_RANK.
 """
 
 import argparse
@@ -34,7 +40,7 @@ from ..data.build import make_data_loader
 from ..engine.inference import inference
 from ..engine.trainer import do_train
 from ..models.detector import build_detection_model
-from ..parallel.distributed import broadcast_parameters, init_distributed
+from ..parallel import broadcast_parameters, init_distributed, shard_model
 from ..solver import make_lr_scheduler, make_optimizer
 from ..utils import comm
 from ..utils.checkpoint import DetectronCheckpointer
@@ -47,7 +53,10 @@ from .test_net import box_only, run_test
 def train(cfg, output_dir, device):
     """Build, load or resume, and train on `device`, validating every
     SOLVER.TEST_PERIOD iterations; returns (model, meters). In a process
-    group (init_distributed) every rank starts from rank 0's parameters."""
+    group (init_distributed) every rank starts from rank 0's parameters,
+    then takes its blocks of them under a "model" axis: the optimizer is
+    built, the checkpoint (a resumed momentum too) loaded and the
+    parameters broadcast at the full layout before shard_model."""
     distributed = comm.get_world_size() > 1
     model = build_detection_model(cfg, device=device)
     optimizer = make_optimizer(cfg, model)
@@ -58,6 +67,7 @@ def train(cfg, output_dir, device):
         logger=setup_logger("maskrcnn_tpu_torch.checkpointer", None, comm.get_rank()))
     arguments.update(checkpointer.load(cfg.MODEL.WEIGHT))
     broadcast_parameters(model)
+    shard_model(model, optimizer)
     data_loader = make_data_loader(cfg, is_train=True, is_distributed=distributed,
                                    start_iter=arguments["iteration"])
     if output_dir:

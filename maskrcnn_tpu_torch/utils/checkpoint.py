@@ -17,7 +17,12 @@ package's does.
 
 In a process group rank 0 writes (``save_to_disk``) and every rank loads,
 onto its own device: ``load`` waits at a barrier first, so that the tag and
-the file rank 0 wrote before it are whole when any rank reads them.
+the file rank 0 wrote before it are whole when any rank reads them. A
+checkpoint keeps the full layout under the mesh's "model" axis too, so that
+it loads in one process and the other way round: ``save`` gathers the
+sharded blocks and their momentum over rank 0's model group (every process
+of data coordinate 0 joins, parallel/mesh.py:gather_state) before rank 0
+writes, and ``load`` is called before the model is sharded.
 """
 
 import os
@@ -25,6 +30,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import gather_state
 from . import comm
 from .convert import params_from_jax
 
@@ -44,12 +50,16 @@ class Checkpointer:
             self.logger.info(msg)
 
     def save(self, name, **kwargs):
-        if not self.save_dir or not self.save_to_disk:
+        gathering = comm.model_size() > 1 and comm.data_rank() == 0
+        if not self.save_dir or not (self.save_to_disk or gathering):
+            return
+        model_state, opt_state = gather_state(self.model, self.optimizer)
+        if not self.save_to_disk:
             return
         os.makedirs(self.save_dir, exist_ok=True)
-        data = {"model": self.model.state_dict()}
+        data = {"model": model_state}
         if self.optimizer is not None:
-            data["optimizer"] = self.optimizer.state_dict()
+            data["optimizer"] = opt_state
         if self.scheduler is not None:
             data["scheduler"] = self.scheduler.state_dict()
         data.update(kwargs)

@@ -28,7 +28,9 @@ package and against one process.
   rank 0's gathered predictions equal one process's (labels exact, scores
   1e-5, boxes 1e-3 px); rank 1 returns None.
 * What the multi-process path refuses: a batch the ranks cannot share,
-  WORLD_SIZE=2 with an unreachable master, the tensor-parallel mesh axis.
+  WORLD_SIZE=2 with an unreachable master, a mesh that one process cannot
+  fill and an unknown mesh axis (tests/test_torch_mesh.py runs the
+  tensor-parallel "model" axis).
 """
 
 import os
@@ -134,6 +136,8 @@ def test_comm_collectives_and_their_one_process_identities(tmp_path, world):
     # without a group: the identities, and no collective
     t = torch.arange(6.0).reshape(2, 3)
     assert comm.get_world_size() == 1 and comm.get_rank() == 0
+    assert (comm.data_rank(), comm.data_size(), comm.model_rank(), comm.model_size()) == (
+        0, 1, 0, 1)
     assert comm.all_gather({"a": 1}) == [{"a": 1}]
     assert comm.reduce_dict({"l": torch.tensor(1.5)}) == {"l": 1.5}
     assert comm.global_sum(t) is t
@@ -461,11 +465,18 @@ def test_uneven_batches_an_unreachable_master_and_the_model_axis_raise(tmp_path,
         "RAISED could not make the process group of rank 1 of 2 at localhost:"), (
         proc.stdout + proc.stderr)[-3000:]
 
-    # the tensor-parallel "model" axis is not ported; no group otherwise
+    # no group without WORLD_SIZE; a mesh that one process cannot fill, or
+    # an axis neither "data" nor "model", raises (tests/test_torch_mesh.py
+    # runs the "model" axis in groups of 2 and 4)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     c = flagship_cfg(tiny=True)
     c.MODEL.DEVICE = "cpu"
     assert init_distributed(c) == torch.device("cpu") and comm.get_world_size() == 1
     c.TPU.MESH_AXES, c.TPU.MESH_SHAPE = ("data", "model"), (-1, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(ValueError, match="does not fit the 1 process"):
+        init_distributed(c)
+    c.TPU.MESH_AXES, c.TPU.MESH_SHAPE = ("model", "data"), (1, 1)
+    assert init_distributed(c) == torch.device("cpu") and comm.model_size() == 1
+    c.TPU.MESH_AXES = ("data", "tensor")
+    with pytest.raises(ValueError, match="the axes are"):
         init_distributed(c)

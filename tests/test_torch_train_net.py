@@ -146,12 +146,15 @@ def test_resumed_training_draws_what_a_straight_run_draws(monkeypatch):
 @pytest.mark.parametrize("opts,error", [
     (["MODEL.DEVICE", "tpu"], ValueError),
     (["MODEL.DEVICE", "cpu", "TPU.MESH_AXES", "('data', 'model')", "TPU.MESH_SHAPE", "(1, 2)"],
-     NotImplementedError),
+     ValueError),
+    (["MODEL.DEVICE", "cpu", "TPU.MESH_AXES", "('data', 'expert')", "TPU.MESH_SHAPE", "(1, 1)"],
+     ValueError),
 ])
 def test_train_net_rejects_what_the_port_lacks(tmp_path, monkeypatch, opts, error):
-    """A device the port does not run on, and the tensor-parallel "model"
-    mesh axis (ROADMAP.md Queue 1 item 16). Test-time augmentation, which
-    the second case named until the port had it, validates instead
+    """A device the port does not run on; a mesh that one process cannot
+    fill (a "model" axis of 2: tests/test_torch_mesh.py trains on one), and
+    an axis neither "data" nor "model". Test-time augmentation, which the
+    second case named until the port had it, validates instead
     (test_train_net_validates_with_tta)."""
     data_root = _data_tree(tmp_path)
     monkeypatch.setenv("MASKRCNN_TPU_DATA_DIR", str(data_root))
