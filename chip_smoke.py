@@ -42,8 +42,9 @@ Training (a second model instance):
      on the card (kernels) and on the CPU (plain versions): losses and a
      handful of gradients agree; then again with the "rmw" backward at P=7
      and "chunk" at P=14;
- 11. training img/s and MFU (FLOPs of one step from FlopCounterMode against
-     the H100's 989 TFLOP/s dense bf16), the step's peak memory, and a
+ 11. training img/s and MFU (maskrcnn_tpu_torch/utils/flops.py: FLOPs of one
+     step from FlopCounterMode against the card's dense bf16 peak, 989
+     TFLOP/s for the H100 SXM), the step's peak memory, and a
      torch.profiler breakdown of one step's device time, with the default
      "roi" backward and again with "rmw" at P=7 and "chunk" at P=14: the
      launch counters show the backward each run was given ("roi" twice a
@@ -310,11 +311,41 @@ trees and cache):
  40. convert("poly") of phase 25's Cityscapes val masks at 1024x2048: ms a
      mask and the round trip's IoU, the native tracing against its plain
      twin on three instances.
+Profiling (the model's phase ranges, maskrcnn_tpu_torch/utils/profiling.py):
+ 44. (in phase 13's first run) the trainer's trace hook at
+     MASKRCNN_TPU_PROFILE_AT 2: rank 0's Chrome trace holds the ranges of
+     iterations 2-7 and no other, device kernels and every phase range of
+     the training step, and the trainer logged its path; the records it
+     kept of each hand kernel (not gated: torch.profiler drops some), and
+     the run's s/iter on and off the traced iterations;
+ 45. (after 40) tools/profile_train.py's reading of the flagship's training
+     step (batch 8) and of --infer (batch 1), frozen BN calibrated from the
+     batch as in phase 7: the phase ranges plus the unattributed time within
+     2% of the device busy time, busy within the wall time, every phase
+     range holding device time, the shares by the JAX package's phase names;
+     phase 11's step time and phase 3's latencies beside the step time of
+     the last recorded run before the model carried the ranges, and one
+     range's host cost times the ranges of a training step;
+ 46. the paths no earlier phase runs: X-101-32x8d Mask R-CNN
+     (configs/e2e_mask_rcnn_X_101_32x8d_FPN_1x.yaml) through
+     profile_train.build_step at batch 8, remat "auto" on: finite losses,
+     every trainable parameter moved, launches a step, ms a step, peak
+     memory, its four kernels against their plain versions; the X-152-32x8d
+     caffe2 file through build_infer: three timed requests, finite outputs,
+     launches, peak memory, NMS and ROIAlign against their plain versions;
+     a Keypoint R-CNN request (the keypoint YAML, seeded, heads redrawn as
+     in 31) through Predictor with TPU.KEYPOINT_DECODE_ON_DEVICE: launches,
+     the device decode on the card against its CPU run within 1e-4 px
+     (tests/test_torch_keypoint.py's tolerance for it), its agreement with
+     the exact host decode on the same heatmaps and both decodes' times, and
+     the request's latency with either decode.
 Then each phase's wall seconds, the redesigned kernels' times (NMS, the
 matcher, the ROIAlign forward and its three backwards) beside their earlier
 designs' (PERF.md), one JSON line of the six kernels (launches by path, the
 multi-card path's the two ranks' sum, the tensor-parallel path's the four
-ranks' of phase 42), the card's line, and the result line.
+ranks' of phase 42, phase 46's paths among them), the card's line, and the
+result line. Every profile reading leaves the ranges' own device spans out
+and fails where the device reads busier than the wall clock.
 """
 
 import contextlib
@@ -338,6 +369,17 @@ SEED = 0
 # bench.py's training batch
 TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE = 8, (800, 1344), (800, 1333)
 TIMED_STEPS = 5
+# phase 44: the trainer's trace hook over phase 13's iterations 2-7
+TRACE_AT = 2
+# phase 11's training step in the last recorded run before the model carried
+# its phase ranges (PERF.md; NVIDIA H100 80GB HBM3, 700 W), printed beside
+# this run's
+UNRANGED_STEP_MS = 73.5
+# the phase ranges of the flagship's training step (the JAX package's
+# named scopes)
+TRAIN_PHASES = ("image_prep", "backbone", "stem", "layer1", "layer2", "layer3", "layer4", "fpn",
+                "rpn_head", "rpn_loss", "proposals", "box_targets", "box_head", "box_loss",
+                "mask_head", "mask_targets", "optimizer")
 # the training entry point's val tree; the evaluation phase's tree: 16
 # landscape images, then 16 portrait (the test loader keeps the order, so each
 # batch of 8 fills one of the two buckets), with COCO's 80 sparse category ids
@@ -370,12 +412,11 @@ KEYPOINT_TEST_IMAGES, FAMILY_TEST_IMAGES, TTA_KNOWN_IMAGES = 8, 8, 8
 # the synthetic R-50.pkl: the body's outputs at a tenth of unit scale, so
 # that the published learning rates do not blow up the random heads
 R50_RESIDUAL_SCALE = 0.1
-# Published H100 SXM peaks at 700 W: HBM bandwidth, float32 arithmetic
-# outside the tensor cores (all four kernels run on the CUDA cores), and
-# dense bf16 on the tensor cores (for the step's MFU).
+# Published H100 SXM peaks at 700 W: HBM bandwidth and float32 arithmetic
+# outside the tensor cores (all four kernels run on the CUDA cores); the
+# step's MFU takes the dense bf16 peak from maskrcnn_tpu_torch/utils/flops.py.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
 # arithmetic per IoU test (min/max/sub/add/clamp per side, product, union,
 # division, comparison) and per ROIAlign sample and channel (4 products,
 # 3 sums, 1 accumulate; the backward's 4 products and 4 adds alike)
@@ -410,11 +451,10 @@ def check(cond, msg):
 
 
 def card_line():
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(proc.returncode == 0, "nvidia-smi failed: " + proc.stderr.strip())
-    return proc.stdout.strip().splitlines()[0]
+    """nvidia-smi's name and power limit of the card."""
+    from maskrcnn_tpu_torch.utils.profiling import device_line
+
+    return device_line("cuda")
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
@@ -1048,6 +1088,10 @@ def run(torch):
     torch.cuda.empty_cache()
     phase_s["data_layer"] = time.perf_counter() - t0
     phase_s.update({"data_layer_" + k: v for k, v in dl["phase_s"].items()})
+    t0 = time.perf_counter()
+    pp = profiling_phase(torch, np, card, tr["throughput"]["step_ms"], seen)
+    phase_s["profiling"] = time.perf_counter() - t0
+    phase_s.update({"profiling_" + k: v for k, v in pp["phase_s"].items()})
     print("phase wall seconds: " + json.dumps(phase_s), flush=True)
 
     def by_path(key):
@@ -1056,12 +1100,14 @@ def run(torch):
                  "multi_card": mc["launches"][key],
                  "tensor_parallel": mc["tensor_parallel"]["launches"][key]}
         paths.update({path: n[key] for path, n in dl["launches"].items()})
+        paths.update({path: n[key] for path, n in pp["launches"].items()})
         return paths
 
     roi_cu = "maskrcnn_tpu_torch/csrc/roi_align.cu"
     tpu = "maskrcnn_tpu/ops/pallas/"
     tp = mc["tensor_parallel"]
-    cs = {k: [s for path in dl["sites"].values() for s in path[k]]
+    cs = {k: [s for path in list(dl["sites"].values()) + list(pp["sites"].values())
+              for s in path.get(k, [])]
           for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
     kernels = [
         kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu", tpu + "nms_kernel.py:161",
@@ -1110,45 +1156,15 @@ def run(torch):
     return torch.cuda.get_device_name(0), torch.cuda.device_count()
 
 
-def train_batch(torch, np, b, hw, sizes, gt_per_image, mask_size, seed, device,
-                block_masks=False):
-    """bench.py's synthetic training batch: float32 images (standard normal,
-    as if normalized), COCO-like gt (lognormal instance counts of mean ~7,
-    log-uniform sides of 16-500 px), random labels and binary gt mask
-    patches (per pixel, or in 4 x 4 blocks with block_masks)."""
-    h, w = hw
-    g = gt_per_image
-    rs = np.random.RandomState(seed)
-    gt_boxes = np.zeros((b, g, 4), np.float32)
-    gt_labels = np.zeros((b, g), np.int32)
-    for i in range(b):
-        n_gt = int(np.clip(rs.lognormal(mean=1.7, sigma=0.8), 1, g))
-        side = np.exp(rs.uniform(np.log(16), np.log(min(500, h, w)), (n_gt, 2)))
-        ctr = rs.uniform(0, 1, (n_gt, 2)) * np.array([w - 1, h - 1])
-        lo = np.clip(ctr - side / 2, 0, None)
-        hi = np.minimum(ctr + side / 2, [w - 1, h - 1])
-        hi = np.maximum(hi, lo + 2)
-        gt_boxes[i, :n_gt, :2] = lo
-        gt_boxes[i, :n_gt, 2:] = hi
-        gt_labels[i, :n_gt] = rs.randint(1, 81, n_gt)
-    images = rs.randn(b, h, w, 3).astype(np.float32)
-    if block_masks:
-        masks = (rs.rand(b, g, mask_size // 4, mask_size // 4) > 0.5).repeat(4, 2).repeat(4, 3)
-    else:
-        masks = rs.rand(b, g, mask_size, mask_size) > 0.5
-    batch = dict(images=images, image_sizes=np.asarray([sizes] * b, np.int32),
-                 gt_boxes=gt_boxes, gt_labels=gt_labels, gt_masks=masks.astype(np.uint8))
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-
-
 def train_phase(torch, np, card):
-    from torch.utils.flop_counter import FlopCounterMode
-
     from maskrcnn_tpu_torch.config import flagship_cfg
     from maskrcnn_tpu_torch.engine import make_train_step
     from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, rpn
     from maskrcnn_tpu_torch.ops import matcher, nms
     from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.tools.profile_train import train_batch
+    from maskrcnn_tpu_torch.utils import flops as flop_count
+    from maskrcnn_tpu_torch.utils import profiling
 
     # 7. model, batch, optimizer
     torch.backends.cudnn.allow_tf32 = True
@@ -1157,7 +1173,7 @@ def train_phase(torch, np, card):
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     t0 = time.perf_counter()
     model = build_detection_model(cfg, device="cuda", seed=SEED)
-    batch = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+    batch = train_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
                         cfg.TPU.GT_MASK_SIZE, SEED, "cuda")
     calibrate_frozen_bn(torch, model, batch["images"])
     opt = make_optimizer(cfg, model)
@@ -1269,15 +1285,16 @@ def train_phase(torch, np, card):
 
     # 11. throughput
     torch.backends.cudnn.allow_tf32 = True
-    with FlopCounterMode(display=False) as counter:
-        losses = model.train_forward(batch, generator=gen)
-        sum(losses.values()).backward()
+    flops = flop_count.step_flops(
+        lambda: sum(model.train_forward(batch, generator=gen).values()).backward())
     opt.zero_grad(set_to_none=True)
-    flops = counter.get_total_flops()
     step_s = sum(times) / len(times)
+    mfu = flop_count.mfu_fields(flops, step_s)
+    check("mfu" in mfu, "no published bf16 peak for {}".format(torch.cuda.get_device_name()))
     thr = {"img_per_s": TRAIN_BATCH / step_s, "step_ms": step_s * 1e3,
            "step_ms_each": [t * 1e3 for t in times], "flops_per_step": flops,
-           "mfu": flops / step_s / BF16_FLOPS_PER_S, "peak_memory_gb": peak_gb,
+           "tflops_per_s": mfu["tflops_per_sec"], "mfu": mfu["mfu"],
+           "peak_bf16_tflops": flop_count.device_peak_tflops(), "peak_memory_gb": peak_gb,
            "card": card}
     print("training throughput: " + json.dumps(thr), flush=True)
     print("training step peak memory: {:.3f} GB (torch.cuda.max_memory_allocated over the "
@@ -1291,14 +1308,14 @@ def train_phase(torch, np, card):
     # step by default, "rmw" and "chunk" once each a step with the overrides
     steps_profiled = 1
     before = backward_launches()
-    prof = profile_steps(torch, step, batch, steps_profiled)
+    prof = profiling.profile_steps(step, batch, steps_profiled)
     print("training step profile: " + json.dumps(prof), flush=True)
     check([a - b for a, b in zip(backward_launches(), before)] == [2 * steps_profiled, 0, 0],
           "the profiled default steps ran the backwards {}".format(backward_launches()))
     # the same step as the entry point runs it, "rmw" at P=7 and "chunk" at P=14
     before = backward_launches()
     with environ(MASKRCNN_POOLER_BWD_P7="rmw", MASKRCNN_POOLER_BWD_P14="chunk"):
-        prof_w = profile_steps(torch, step, batch, steps_profiled)
+        prof_w = profiling.profile_steps(step, batch, steps_profiled)
     print("training step profile with rmw/chunk: " + json.dumps(prof_w), flush=True)
     check([a - b for a, b in zip(backward_launches(), before)] ==
           [0, steps_profiled, steps_profiled],
@@ -1453,10 +1470,13 @@ def entry_point_phase(torch, np, card, step_throughput, keep):
             logs.lines.clear()
             return its
 
-        # 13. eight iterations through the entry point
+        # 13. eight iterations through the entry point, 44. iterations 2-7
+        # under the trainer's trace hook
         counters = training_counters(poolers, matcher, nms)
+        trace_dir = os.path.join(work, "trace")
         with environ(MASKRCNN_TPU_DATA_DIR=work, MASKRCNN_POOLER_BWD_P7="rmw",
-                     MASKRCNN_POOLER_BWD_P14="chunk"):
+                     MASKRCNN_POOLER_BWD_P14="chunk", MASKRCNN_TPU_PROFILE_DIR=trace_dir,
+                     MASKRCNN_TPU_PROFILE_AT=str(TRACE_AT)):
             for fn in counters.values():
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -1484,6 +1504,7 @@ def entry_point_phase(torch, np, card, step_throughput, keep):
             times = list(meters.meters["time"].deque)
             waits = list(meters.meters["data"].deque)
             step_s = meters.meters["time"].median
+            trace_hook_phase(card, lines, trace_dir, times)
             # the loader alone at the same settings, past its first batch
             lcfg = defaults.clone()
             lcfg.merge_from_list(opts + ["SOLVER.MAX_ITER", "25"])
@@ -1553,6 +1574,303 @@ def entry_point_phase(torch, np, card, step_throughput, keep):
         for lg in loggers:
             lg.removeHandler(logs)
         shutil.rmtree(work, ignore_errors=True)
+
+
+def trace_hook_phase(card, lines, trace_dir, times):
+    """44. The trainer's trace hook in phase 13's run (MASKRCNN_TPU_PROFILE_AT
+    TRACE_AT): rank 0's Chrome trace exists and holds the ranges of
+    iterations TRACE_AT to TRACE_AT + 5 and no other, device kernels, and
+    every phase range of the flagship's training step; the records of each
+    hand kernel it kept (not gated: torch.profiler drops some); the run's
+    s/iter on and off the traced iterations."""
+    from maskrcnn_tpu_torch.utils.profiling import HAND_KERNELS
+
+    path = os.path.join(trace_dir, "rank0.pt.trace.json")
+    check(os.path.exists(path) and os.listdir(trace_dir) == ["rank0.pt.trace.json"],
+          "the trace hook wrote {}".format(os.listdir(trace_dir) if os.path.isdir(trace_dir)
+                                            else "nothing"))
+    check(any("profiler trace written to " + path in line for line in lines),
+          "the trainer did not log the trace's path")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced = {"iteration {}".format(i) for i in range(TRACE_AT, TRACE_AT + 6)}
+    check({r for r in ranges if r.startswith("iteration ")} == traced,
+          "the trace holds the iterations {}".format(sorted(r for r in ranges
+                                                            if r.startswith("iteration "))))
+    check(kernels, "the trace holds no device kernel")
+    missing = set(TRAIN_PHASES) - ranges
+    check(not missing, "the trace lacks the phase ranges {}".format(sorted(missing)))
+    kept = {k: sum(k in n for n in kernels) for k in HAND_KERNELS}
+    # launches a step at phase 13's settings: NMS (mask, reduce) 1, ROIAlign
+    # forward 2, the rmw and chunk backwards' tile kernel 2, the matcher 1
+    expected = {"nms_mask_kernel": 6, "nms_reduce_kernel": 6, "roi_align_fwd_kernel": 12,
+                "roi_align_bwd_tile_kernel": 12, "matcher_kernel": 6}
+    off = [times[i] for i in range(len(times)) if not TRACE_AT - 1 <= i < TRACE_AT + 5]
+    on = times[TRACE_AT - 1:TRACE_AT + 5]
+    print("trace hook: {} ({:.1f} MB): iterations {}-{}, {} device kernels, every training "
+          "phase range; hand-kernel records kept {} of {} launched; s/iter traced (the last "
+          "writes the trace) {}, untraced (iteration 1 is the first) {} [{}]".format(
+              path, os.path.getsize(path) / 1e6, TRACE_AT, TRACE_AT + 5, len(kernels),
+              json.dumps(kept), json.dumps(expected), json.dumps(on), json.dumps(off), card),
+          flush=True)
+
+
+def profiling_phase(torch, np, card, step_ms, serving_ms):
+    """45-46. tools/profile_train.py on the flagship (train and --infer), then
+    the paths no earlier phase runs: X-101-32x8d training and X-152-32x8d
+    serving through profile_train's builders, and a Keypoint R-CNN request
+    decoded on the device. Returns the launches and kernel sites by path."""
+    from torch.profiler import record_function
+
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.models import detector, poolers, rpn
+    from maskrcnn_tpu_torch.models.roi_heads import box_head
+    from maskrcnn_tpu_torch.models.roi_heads import keypoint_head as kh
+    from maskrcnn_tpu_torch.ops import matcher, nms
+    from maskrcnn_tpu_torch.predictor import Predictor
+    from maskrcnn_tpu_torch.tools import profile_train
+
+    counters = training_counters(poolers, matcher, nms)
+    launches, sites, phase_s = {}, {}, {}
+
+    def counted(path, fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path] = {k: c.launches for k, c in counters.items()}
+        return out
+
+    def profiled(path, build, b, phases):
+        """profile_train's reading of the flagship (frozen BN calibrated from
+        its batch): the phase ranges and the unattributed time add up to
+        the device busy time within 2%; every phase of `phases` read."""
+        step, model, batch = build(b)
+        calibrate_frozen_bn(torch, model, batch["images"])
+        res = profile_train.measure(step, batch, "cuda")
+        profile_train.report(res, b, card, top_n=15)
+        linked, busy = sum(res["phases"].values()), res["device_busy_ms"]
+        check(abs(linked - busy) <= 0.02 * busy and 0 <= res["idle_share"] <= 1,
+              "{}: phases and unattributed {} ms against a device busy {} ms".format(
+                  path, linked, busy))
+        missing = set(phases) - set(res["phases"])
+        check(not missing, "{}: no device time under the ranges {}".format(path, missing))
+        shares = {k: {"ms": v, "share": v / busy} for k, v in res["phases"].items()}
+        print("{} by JAX's phase names, torch.profiler, 3 steps [{}]: {}".format(
+            path, card, json.dumps({"step_ms": res["step_s"] * 1e3, "wall_ms": res["wall_ms"],
+                                    "device_busy_ms": busy, "idle_share": res["idle_share"],
+                                    "linked_ms": linked, "phases": shares,
+                                    "families": res["families"]})), flush=True)
+        del step, model, batch
+        torch.cuda.empty_cache()
+
+    # 45. profile_train on the flagship
+    t0 = time.perf_counter()
+    profiled("profile_train (flagship train step, batch 8)", profile_train.build_step,
+             TRAIN_BATCH, set(TRAIN_PHASES) - {"image_prep"})
+    profiled("profile_train --infer (flagship, batch 1)", profile_train.build_infer, 1,
+             {"backbone", "stem", "layer1", "layer2", "layer3", "layer4", "fpn", "rpn_head",
+              "proposals", "box_head", "box_postproc", "mask_head"})
+    # the ranges' own host cost: an empty range entered and left, times the
+    # ranges a training step enters
+    t1 = time.perf_counter()
+    for _ in range(10000):
+        with record_function("phase"):
+            pass
+    range_us = (time.perf_counter() - t1) * 1e2
+    print("with the phase ranges: phase 11's step {} ms (the last recorded run without them: "
+          "{} ms), serving latency at seen shapes {} ms; one range {} us on the host, {} ranges "
+          "a training step: {} ms [{}]".format(
+              step_ms, UNRANGED_STEP_MS, json.dumps(serving_ms), range_us, len(TRAIN_PHASES),
+              range_us * len(TRAIN_PHASES) / 1e3, card), flush=True)
+    phase_s["profile_train"] = time.perf_counter() - t0
+
+    # 46. X-101-32x8d Mask R-CNN trains at batch 8, remat "auto" on
+    t0 = time.perf_counter()
+    with environ(MASKRCNN_TPU_PROFILE_CONFIG=os.path.join(
+            REPO, "configs", "e2e_mask_rcnn_X_101_32x8d_FPN_1x.yaml")):
+        step, model, batch = profile_train.build_step(TRAIN_BATCH)
+    body = model.backbone.body
+    check(body.remat and model.cfg.MODEL.RESNETS.NUM_GROUPS == 32
+          and sum(len(getattr(body, n)) for n in body.stage_names) == 33,
+          "X-101-32x8d: {} blocks, remat {}".format(
+              sum(len(getattr(body, n)) for n in body.stage_names), body.remat))
+    calibrate_frozen_bn(torch, model, batch["images"])
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    torch.cuda.reset_peak_memory_stats()
+    losses = [{k: v.item() for k, v in step(batch).items()}]
+    with Capture([rpn], "match_anchors_batched") as match_cap, \
+            Capture([rpn], "batched_nms") as nms_cap, \
+            Capture([detector], "multilevel_roi_align", grads=True) as roi_cap:
+        m = counted("x101_training", lambda: step(batch))
+    losses.append({k: v.item() for k, v in m.items()})
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append({k: v.item() for k, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(v) for it in losses for v in it.values()),
+          "X-101 losses {}".format(losses))
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters()
+                if p.requires_grad)
+    check(moved == len(before), "X-101: {} of {} trainable parameters moved".format(
+        moved, len(before)))
+    check(launches["x101_training"] == {"matcher": 1, "nms": 1, "roi_align": 2,
+                                        "roi_align_backward": 2, "roi_align_backward_rmw": 0,
+                                        "roi_align_backward_chunk": 0},
+          "X-101 step launched {}".format(launches["x101_training"]))
+    del before, m
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    got = {"matcher": [matcher_site(torch, matcher, *match_cap.calls[0])]}
+    with torch.no_grad():
+        got["nms"] = [nms_site(torch, nms, *nms_cap.calls[0], plain_iters=3)]
+        got["roi_align"] = [roi_site(torch, poolers, [f.detach() for f in c[0]], *c[1:])
+                            for c in roi_cap.calls]
+    got["roi_align_backward"] = [
+        roi_backward_site(torch, poolers, [f.detach() for f in c[0]], *c[1:],
+                          roi_cap.out_grads[i], "roi") for i, c in enumerate(roi_cap.calls)]
+    sites["x101_training"] = got
+    del match_cap, nms_cap, roi_cap, step, model, batch
+    torch.cuda.empty_cache()
+    print("X-101-32x8d Mask R-CNN (configs/e2e_mask_rcnn_X_101_32x8d_FPN_1x.yaml, seeded, "
+          "frozen BN from the batch) through profile_train.build_step at batch 8 of 800x1344, "
+          "remat auto (each trainable block recomputed): ms a step {}, peak {:.3f} GB, all "
+          "{} trainable parameters moved, launches a step {}, losses {} [{}]".format(
+              json.dumps(times), peak_gb, moved, json.dumps(launches["x101_training"]),
+              json.dumps(losses[-1]), card), flush=True)
+    for kind, ss in got.items():
+        for site in ss:
+            print("x101 training kernel site ({}): {}".format(kind, json.dumps(site)),
+                  flush=True)
+    phase_s["x101_training"] = time.perf_counter() - t0
+
+    # 46. the X-152-32x8d caffe2 file serves a few requests
+    t0 = time.perf_counter()
+    with environ(MASKRCNN_TPU_PROFILE_CONFIG=os.path.join(
+            REPO, "configs", "caffe2", "e2e_mask_rcnn_X-152-32x8d-FPN-IN5k_1.44x_caffe2.yaml")):
+        infer, model, batch = profile_train.build_infer(1)
+    body = model.backbone.body
+    check(sum(len(getattr(body, n)) for n in body.stage_names) == 50
+          and model.cfg.MODEL.RESNETS.NUM_GROUPS == 32, "X-152-32x8d: not 50 grouped blocks")
+    calibrate_frozen_bn(torch, model, batch["images"])
+    torch.cuda.reset_peak_memory_stats()
+    infer(batch)
+    torch.cuda.synchronize()
+    with Capture([rpn, box_head], "batched_nms") as nms_cap, \
+            Capture([detector], "multilevel_roi_align") as roi_cap:
+        det = counted("x152_serving", lambda: infer(batch))
+    latencies = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        det = infer(batch)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t1) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = int(det["valid"].sum())
+    check(0 < n and all(torch.isfinite(det[k]).all() for k in ("boxes", "scores", "masks"))
+          and tuple(det["masks"].shape[2:]) == (28, 28),
+          "X-152 request: {} detections, {}".format(n, {k: tuple(v.shape)
+                                                        for k, v in det.items()}))
+    check(launches["x152_serving"]["nms"] == 2 and launches["x152_serving"]["roi_align"] == 2
+          and sum(launches["x152_serving"].values()) == 4,
+          "X-152 request launched {}".format(launches["x152_serving"]))
+    with torch.inference_mode():
+        sites["x152_serving"] = {
+            "nms": [nms_site(torch, nms, *c, plain_iters=3) for c in nms_cap.calls],
+            "roi_align": [roi_site(torch, poolers, *c) for c in roi_cap.calls]}
+    del nms_cap, roi_cap, infer, model, batch, det
+    torch.cuda.empty_cache()
+    print("X-152-32x8d caffe2 Mask R-CNN (seeded, frozen BN from the image) through "
+          "profile_train.build_infer, one 800x1333 image a request: latency ms {}, {} "
+          "detections, peak {:.3f} GB, launches a request {} [{}]".format(
+              json.dumps(latencies), n, peak_gb, json.dumps(launches["x152_serving"]), card),
+          flush=True)
+    for kind, ss in sites["x152_serving"].items():
+        for site in ss:
+            print("x152 serving kernel site ({}): {}".format(kind, json.dumps(site)), flush=True)
+    phase_s["x152_serving"] = time.perf_counter() - t0
+
+    # 46. a Keypoint R-CNN request decoded on the device
+    t0 = time.perf_counter()
+    cfg = defaults.clone()
+    cfg.merge_from_file(os.path.join(REPO, "configs", "e2e_keypoint_rcnn_R_50_FPN_1x.yaml"))
+    cfg.MODEL.WEIGHT = ""
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
+    cfg.TPU.KEYPOINT_DECODE_ON_DEVICE = True
+    pred = Predictor(cfg, device="cuda", seed=SEED + 18, min_image_size=cfg.INPUT.MIN_SIZE_TEST)
+    rs = np.random.RandomState(SEED + 18)
+    warm = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    image = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    calibrate_frozen_bn(torch, pred.model, pred.preprocess(warm)[0])
+    gen = torch.Generator().manual_seed(SEED + 19)
+    with torch.no_grad():  # phase 31's redraw: spread scores and heatmaps
+        for k, v in pred.model.state_dict().items():
+            if k.endswith(".weight") and k.startswith(("roi_heads.keypoint.",
+                                                       "roi_heads.box.predictor.cls_score")):
+                if "kps_score_lowres" in k:
+                    gain, fan_in = 10.0, v.shape[0] * 4
+                else:
+                    gain, fan_in = (10.0 if "cls_score" in k else 2 ** 0.5), v[0].numel()
+                v.copy_(torch.randn(v.shape, generator=gen).to(v) * gain / fan_in ** 0.5)
+    pred.compute_prediction(warm)
+    t1 = time.perf_counter()
+    out = counted("keypoint_device_decode", lambda: pred.compute_prediction(image))
+    device_request_ms = (time.perf_counter() - t1) * 1e3
+    check(launches["keypoint_device_decode"]["nms"] == 2
+          and launches["keypoint_device_decode"]["roi_align"] == 2
+          and sum(launches["keypoint_device_decode"].values()) == 4,
+          "keypoint request launched {}".format(launches["keypoint_device_decode"]))
+    k = len(out["scores"])
+    check(k > 0 and out["keypoints"].shape == (k, 17, 4) and np.isfinite(out["keypoints"]).all(),
+          "device-decoded request: {} detections, keypoints {}".format(
+              k, out["keypoints"].shape))
+    # the request's heatmaps and boxes, at the model's input scale
+    images, image_sizes = pred.preprocess(image)
+    with Capture([detector], "heatmaps_to_keypoints") as dec_cap:
+        det = pred.model.infer_forward({"images": images, "image_sizes": image_sizes})
+    logits, rois = dec_cap.calls[0]
+    dev = kh.heatmaps_to_keypoints(logits, rois)
+    plain = kh.heatmaps_to_keypoints(logits.cpu(), rois.cpu())
+    err = (dev.cpu() - plain)[..., :2].abs().max().item()
+    check(err <= 1e-4, "device decode on the card off its CPU run by {} px".format(err))
+    valid = det["valid"][0]
+    maps = logits[valid].permute(0, 2, 3, 1).float().cpu().numpy()
+    boxes = rois[valid].cpu().numpy()
+    t1 = time.perf_counter()
+    exact = kh.heatmaps_to_keypoints_exact(maps, boxes)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    dev_np = dev[valid].cpu().numpy()
+    side = np.maximum(boxes[:, 2:] - boxes[:, :2], 1.0)[:, None, :] / logits.shape[-1]
+    bins = (np.abs(dev_np[..., :2] - exact[..., :2]) / side).max(-1)
+    pred.model.cfg.TPU.KEYPOINT_DECODE_ON_DEVICE = False
+    t1 = time.perf_counter()
+    host_out = pred.compute_prediction(image)
+    host_request_ms = (time.perf_counter() - t1) * 1e3
+    check(host_out["keypoints"].shape == out["keypoints"].shape,
+          "the host-decoded request: keypoints {}".format(host_out["keypoints"].shape))
+    res = {"detections": k, "device_decode_ms": cuda_ms(
+               torch, lambda: kh.heatmaps_to_keypoints(logits, rois), 20),
+           "device_decode_rois": int(rois.shape[0]), "host_decode_ms": host_ms,
+           "host_decode_rois": int(valid.sum()), "device_vs_cpu_px": err,
+           "joints_within_one_heatmap_bin_of_host": float((bins <= 1).mean()),
+           "max_bins_from_host": float(bins.max()),
+           "max_abs_score_diff": float(np.abs(dev_np[..., 3] - exact[..., 3]).max()),
+           "request_ms_device_decode": device_request_ms,
+           "request_ms_host_decode": host_request_ms}
+    print("keypoint request decoded on the device (configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml, "
+          "TPU.KEYPOINT_DECODE_ON_DEVICE True, seeded, heads redrawn as phase 31): launches {}, "
+          "against the exact host decode on the same heatmaps [{}]: {}".format(
+              json.dumps(launches["keypoint_device_decode"]), card, json.dumps(res)), flush=True)
+    del pred, dec_cap, det, logits, rois, dev
+    torch.cuda.empty_cache()
+    phase_s["keypoint_device_decode"] = time.perf_counter() - t0
+    return {"launches": launches, "sites": sites, "phase_s": phase_s}
 
 
 def test_size(h, w, min_size=800, max_size=1333):
@@ -2411,91 +2729,6 @@ def data_layer_phase(torch, np, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def function_shares(torch, targets, step, batch, steps=2, summary=False):
-    """What each function of `targets` ({label: (owner, attribute)}, a
-    module's function or a class's method) takes of a training step's
-    device time, read off one torch.profiler trace of `steps` steps: the
-    kernels under each of its calls (a record_function range named by its
-    label) and under the backward nodes that its operators recorded (the
-    autograd engine's evaluate_function events, joined to them by sequence
-    number and forward thread), beside the step's device busy in the same
-    trace (the ranges' own device spans left out). Per step; "not measured"
-    where the profiler sees no device time. With summary=True also
-    "profile": profile_steps's reading of the same trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def ranged(label, plain):
-        def call(*args, **kwargs):
-            with record_function(label):
-                return plain(*args, **kwargs)
-        return call
-
-    def device_us(e, kind="device_time_total"):
-        us = getattr(e, kind, None)  # cuda_time_total before torch 2.4
-        return getattr(e, kind.replace("device", "cuda")) if us is None else us
-
-    def below(e):
-        for c in e.cpu_children:
-            yield c
-            yield from below(c)
-
-    plain = {label: getattr(owner, attr) for label, (owner, attr) in targets.items()}
-    for label, (owner, attr) in targets.items():
-        setattr(owner, attr, ranged(label, plain[label]))
-    try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step(batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    finally:
-        for label, (owner, attr) in targets.items():
-            setattr(owner, attr, plain[label])
-    events = prof.events()
-    busy_ms = sum(device_us(e, "self_device_time_total") for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.key not in targets) / 1e3 / steps
-    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_ms > 0 else "not measured"}
-    engine = [e for e in events if e.device_type == DeviceType.CPU
-              and e.name.startswith("autograd::engine::evaluate_function:")]
-    for label in targets:
-        ranges = [e for e in events if e.device_type == DeviceType.CPU and e.name == label]
-        forward = {(c.sequence_nr, c.thread) for r in ranges for c in below(r)
-                   if c.sequence_nr >= 0}
-        backward = [e for e in engine
-                    if (e.sequence_nr, getattr(e, "fwd_thread", e.thread)) in forward]
-        got = {"calls": len(ranges) / steps, "backward_nodes": len(backward) / steps}
-        if busy_ms > 0:
-            fwd_ms = sum(device_us(r) for r in ranges) / 1e3 / steps
-            bwd_ms = sum(device_us(e) for e in backward) / 1e3 / steps
-            got.update(forward_ms=fwd_ms, backward_ms=bwd_ms, ms=fwd_ms + bwd_ms,
-                       share=(fwd_ms + bwd_ms) / busy_ms)
-        res[label] = got
-    if summary:
-        res["profile"] = profile_summary(prof, steps, wall_ms)
-    return res
-
-
-def device_busy_ms(torch, fn, iters=3):
-    """The summed time of the device's kernels and copies per call of fn,
-    from torch.profiler over `iters` calls; "not measured" where the
-    profiler sees no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else "not measured"
-
-
 def detections_as_gt(preds, infos):
     """COCO annotations of a test pass's detections (BoxLists on the
     original images, in the order of `infos`), boxes with the +1 convention;
@@ -2526,6 +2759,7 @@ def families_phase(torch, np, card, dl):
     from maskrcnn_tpu_torch.predictor import Predictor
     from maskrcnn_tpu_torch.tools import test_net, train_net
     from maskrcnn_tpu_torch.utils.model_zoo import cached_name
+    from maskrcnn_tpu_torch.utils import profiling
 
     def path_sites(**found):
         return {k: found.get(k, []) for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
@@ -2646,16 +2880,16 @@ def families_phase(torch, np, card, dl):
     def focal_step():
         retinanet.sigmoid_focal_loss(x, labels, gamma, alpha).sum().backward()
 
-    split = {"head_ms": device_busy_ms(torch, head_step),
+    split = {"head_ms": profiling.device_busy_ms(head_step),
              "head_events_ms": cuda_ms(torch, head_step, 3, warmup=1),
-             "focal_loss_ms": device_busy_ms(torch, focal_step),
+             "focal_loss_ms": profiling.device_busy_ms(focal_step),
              "focal_loss_events_ms": cuda_ms(torch, focal_step, 3, warmup=1),
              "matcher_ms": msite["kernel_ms"], "focal_elements": logits.numel(),
              "pyramid": [list(f.shape) for f in feats]}
     del caps, m, head, feats, leaves, ones, logits, labels, x
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prof = profile_steps(torch, dl.record["step"], dl.record["batch"], steps=1)
+    prof = profiling.profile_steps(dl.record["step"], dl.record["batch"], steps=1)
     peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
     if isinstance(prof.get("device_busy_ms"), float):
         known = [split[k] for k in ("head_ms", "focal_loss_ms", "matcher_ms")]
@@ -2879,19 +3113,22 @@ def serve_once(torch, np, card, dl, path, cfg, seed, per_request, prepare=None):
 
 
 def step_profile_shares(torch, card, dl, path, targets):
-    """A run's recorded training step profiled once: profile_steps's reading
-    and what each function of `targets` takes of the step's device time
-    (function_shares)."""
+    """A run's recorded training step profiled once: profile_summary's
+    reading and what each function of `targets` takes of its device busy
+    time (function_shares), one busy time for both."""
+    from maskrcnn_tpu_torch.utils import profiling
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    shares = function_shares(torch, targets, dl.record["step"], dl.record["batch"], steps=1,
-                             summary=True)
+    shares = profiling.function_shares(targets, dl.record["step"], dl.record["batch"], steps=1,
+                                       summary=True)
     prof = shares.pop("profile")
+    del shares["wall_ms"], shares["device_busy_ms"]  # prof's own
     prof["peak_step_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for label in targets:
         got = shares[label]
         check(got["calls"] > 0, "{}: no call of {} in the profiled step".format(path, label))
-        check(not isinstance(got.get("ms"), float) or got["ms"] <= shares["device_busy_ms"],
+        check(not isinstance(got.get("ms"), float) or got["ms"] <= prof["device_busy_ms"],
               "{}: {} takes more than the step: {}".format(path, label, shares))
     prof["shares"] = shares
     print("{} step, torch.profiler [{}]: {}".format(path, card, json.dumps(
@@ -3859,6 +4096,7 @@ def keypoint_phase(torch, np, card, dl):
     from maskrcnn_tpu_torch.models import detector
     from maskrcnn_tpu_torch.predictor import Predictor
     from maskrcnn_tpu_torch.tools import test_net, train_net
+    from maskrcnn_tpu_torch.utils import profiling
 
     yaml = os.path.join(REPO, "configs", "e2e_keypoint_rcnn_R_50_FPN_1x.yaml")
     ann_dir = os.path.join(dl.work, "coco", "annotations")
@@ -3914,7 +4152,7 @@ def keypoint_phase(torch, np, card, dl):
     del caps
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prof = profile_steps(torch, dl.record["step"], dl.record["batch"], steps=1)
+    prof = profiling.profile_steps(dl.record["step"], dl.record["batch"], steps=1)
     peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
     print("keypoint recipe: loaded {}/{} tensors from R-50.pkl; 3 iterations at batch 16: {}; "
           "peak memory {:.3f} GB a step ({:.3f} GB over the run, the first step's inputs "
@@ -4028,63 +4266,6 @@ def keypoint_phase(torch, np, card, dl):
     return sites
 
 
-def profile_steps(torch, step, batch, steps=2):
-    """Where a training step's device time goes (torch.profiler, CUPTI):
-    per step under the profiler, the wall time, the summed time of the
-    device's kernels and copies, the idle share, and the kernels with the
-    most time. Informational: a profiler that sees no device time leaves
-    its numbers as "not measured"."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    return profile_summary(prof, steps, wall_ms)
-
-
-def profile_summary(prof, steps, wall_ms):
-    """profile_steps's reading of a trace of `steps` steps."""
-    from torch.autograd import DeviceType
-
-    def self_device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                    key=self_device_us, reverse=True)
-    busy_ms = sum(self_device_us(e) for e in events) / 1e3 / steps
-    if busy_ms <= 0:
-        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
-
-    def in_roi_align(e):
-        while e is not None:
-            if "RoIAlignFunction" in e.name:
-                return True
-            e = e.cpu_parent
-        return False
-
-    # memsets asked for by the ROIAlign path (its forward, the window index,
-    # its backward): host calls under the pooler's autograd function; its
-    # kernel launches there show that the profiler links such calls to it
-    roi_calls = [e.name.lower() for e in prof.events() if e.device_type == DeviceType.CPU
-                 and e.name.lower().startswith(("cuda", "cu")) and in_roi_align(e.cpu_parent)]
-    roi_memsets = sum("memset" in n for n in roi_calls)
-    roi_launches = sum("launchkernel" in n for n in roi_calls)
-    return {
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-        "top_kernels_ms": [[e.key[:90], self_device_us(e) / 1e3 / steps, e.count / steps]
-                           for e in events[:15]],
-        "roi_align_kernels_per_step": {e.key[:90]: e.count / steps for e in events
-                                       if "roi_align" in e.key or "cast_to_bf16" in e.key},
-        "memsets_per_step": sum(e.count for e in events if "memset" in e.key.lower()) / steps,
-        "roi_align_memsets_per_step": roi_memsets / steps,
-        "roi_align_launch_calls_per_step": roi_launches / steps,
-    }
-
-
 def reference_check(torch, np, detector, cfg, state, images=None, image_sizes=None,
                     tol=(1e-4, 1e-2, 1e-3), report_tols=()):
     """The model's weights in float32 on a small batch: the card (kernels)
@@ -4171,12 +4352,13 @@ def train_reference_check(torch, np, cfg, state, backwards):
     errors)."""
     from maskrcnn_tpu_torch.models import detector
     from maskrcnn_tpu_torch.ops.sampler import uniform_draws
+    from maskrcnn_tpu_torch.tools.profile_train import train_batch
 
     c = cfg.clone()
     c.TPU.COMPUTE_DTYPE = "float32"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch = train_batch(torch, np, 2, (64, 96), (64, 96), 8, c.TPU.GT_MASK_SIZE, SEED + 1,
+    batch = train_batch(2, (64, 96), (64, 96), 8, c.TPU.GT_MASK_SIZE, SEED + 1,
                         "cpu", block_masks=True)
     b, g = batch["gt_labels"].shape
     with torch.no_grad():
@@ -4313,6 +4495,7 @@ def multi_card_phase(torch, np, card, keep):
     from maskrcnn_tpu_torch.models import build_detection_model
     from maskrcnn_tpu_torch.ops.sampler import uniform_draws
     from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.tools.profile_train import train_batch
 
     work = tempfile.mkdtemp(prefix="chip_smoke_multi_")
     try:
@@ -4322,7 +4505,7 @@ def multi_card_phase(torch, np, card, keep):
         cfg = flagship_cfg()
         cfg.TPU.COMPUTE_DTYPE = "float32"
         model = build_detection_model(cfg, device="cuda", seed=SEED)
-        batch = train_batch(torch, np, 2, F32_HW, F32_HW, cfg.TPU.MAX_GT_BOXES,
+        batch = train_batch(2, F32_HW, F32_HW, cfg.TPU.MAX_GT_BOXES,
                             cfg.TPU.GT_MASK_SIZE, SEED + 3, "cuda", block_masks=True)
         batch["images"][1] *= 0.5  # the second image's scores at another scale
         calibrate_frozen_bn(torch, model, batch["images"])
@@ -4361,7 +4544,7 @@ def multi_card_phase(torch, np, card, keep):
         # 21. the flagship with frozen-BN statistics from bench.py's batch of 8
         cfg = flagship_cfg()
         model = build_detection_model(cfg, device="cuda", seed=SEED)
-        batch = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+        batch = train_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
                             cfg.TPU.GT_MASK_SIZE, SEED, "cuda")
         calibrate_frozen_bn(torch, model, batch["images"])
         torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
@@ -4671,13 +4854,14 @@ def worker_bf16(torch, np, rank, world, work):
     from maskrcnn_tpu_torch.parallel import reduce_gradients
     from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
     from maskrcnn_tpu_torch.utils import comm
+    from maskrcnn_tpu_torch.tools.profile_train import train_batch
 
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = flagship_cfg()
     model = build_detection_model(cfg, device="cuda", seed=SEED)
     model.load_state_dict(torch.load(os.path.join(work, "bf16_state.pth"), weights_only=True))
-    full = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+    full = train_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
                        cfg.TPU.GT_MASK_SIZE, SEED, "cpu")
     b = TRAIN_BATCH // world
     batch = {k: v[rank * b:(rank + 1) * b].cuda() for k, v in full.items()}
@@ -5015,6 +5199,7 @@ def worker_tp_bf16(torch, np, rank, world, work):
     from maskrcnn_tpu_torch.parallel import reduce_gradients, shard_model
     from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
     from maskrcnn_tpu_torch.utils import comm
+    from maskrcnn_tpu_torch.tools.profile_train import train_batch
 
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5022,7 +5207,7 @@ def worker_tp_bf16(torch, np, rank, world, work):
     model = build_detection_model(cfg, device="cuda", seed=SEED)
     model.load_state_dict(torch.load(os.path.join(work, "bf16_state.pth"), weights_only=True))
     full_param_bytes = _tensor_bytes(list(model.parameters()))
-    full = train_batch(torch, np, TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+    full = train_batch(TRAIN_BATCH, TRAIN_HW, TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
                        cfg.TPU.GT_MASK_SIZE, SEED, "cpu")
     b = TP_BATCH // comm.data_size()
     batch = {k: v[comm.data_rank() * b:(comm.data_rank() + 1) * b].cuda()

@@ -15,9 +15,13 @@ already divided by the global count), and the metrics are the global
 losses. Every process then holds the same replicated parameters, bit for
 bit, and the processes of a data group the same blocks of the sharded ones
 (parallel/mesh.py).
+
+The optimizer's update runs in a ``record_function`` range "optimizer", the
+JAX step's named scope.
 """
 
 import torch
+from torch.profiler import record_function
 
 from ..parallel.distributed import reduce_gradients
 
@@ -40,8 +44,9 @@ def make_train_step(model, optimizer, scheduler, generator=None):
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         summed = reduce_gradients(model, list(losses.values()) + [total])
-        optimizer.step()
-        scheduler.step()
+        with record_function("optimizer"):
+            optimizer.step()
+            scheduler.step()
         metrics = dict(zip(losses, summed))
         metrics["loss"] = summed[-1]
         return metrics

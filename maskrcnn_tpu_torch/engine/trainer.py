@@ -30,17 +30,31 @@ Under a "model" axis the processes of a model group must hold the same
 batch (data/build.py seeds their loaders alike): the gather that decides
 the skip carries a fingerprint of each batch, and differing ones within a
 model group raise.
+
+Device trace (as the JAX trainer's jax.profiler hook): with
+MASKRCNN_TPU_PROFILE_DIR set, a torch.profiler trace (the host, and the
+card's kernels on a CUDA device) starts before iteration
+MASKRCNN_TPU_PROFILE_AT (default 50) and stops after iteration AT + 5, once
+that step's loss is ready (a synchronize, as JAX's block_until_ready); each
+process writes it as a Chrome trace, DIR/rank<rank>.pt.trace.json, and logs
+the path. Each step runs in a record_function range "iteration <n>", the
+model's phase ranges inside it. A skipped iteration AT starts no trace, as
+in JAX; where AT + 5 is skipped the trace stops after the next step run,
+or when the loop ends. Unset, no profiler starts.
 """
 
 import datetime
 import logging
 import math
+import os
 import time
 
 import torch
+from torch.profiler import profile, record_function
 
 from ..utils import comm
 from ..utils.metric_logger import MetricLogger
+from ..utils.profiling import activities, synchronize
 from .train_step import make_train_step
 
 
@@ -87,6 +101,9 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
     start_iter = arguments["iteration"]
     generator = torch.Generator(device=device)
     step = make_train_step(model, optimizer, scheduler, generator=generator)
+    profile_dir = os.environ.get("MASKRCNN_TPU_PROFILE_DIR")
+    profile_at = int(os.environ.get("MASKRCNN_TPU_PROFILE_AT", "50"))
+    prof = None
 
     start_training_time = time.time()
     end = time.time()
@@ -101,8 +118,16 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
             continue
 
         generator.manual_seed(step_seed(iteration))
-        metrics = step({k: v.to(device, non_blocking=True) for k, v in batch.items()
-                        if k != "indices"})
+        device_batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()
+                        if k != "indices"}
+        if profile_dir and iteration == profile_at:
+            prof = profile(activities=activities(device))
+            prof.start()
+        with record_function("iteration {}".format(iteration)):
+            metrics = step(device_batch)
+        if prof is not None and iteration >= profile_at + 5:
+            _write_trace(prof, profile_dir, device, logger)
+            prof = None
         logged = iteration % 20 == 0 or iteration == max_iter
         losses = comm.reduce_dict(metrics) if logged else {}
         batch_time = time.time() - end
@@ -131,6 +156,8 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
             end = time.time()
         if iteration >= max_iter:
             break
+    if prof is not None:
+        _write_trace(prof, profile_dir, device, logger)
 
     checkpointer.save("model_final", **arguments)
     comm.synchronize()
@@ -139,3 +166,14 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
         str(datetime.timedelta(seconds=int(total_training_time))),
         total_training_time / max(max_iter - start_iter, 1)))
     return meters
+
+
+def _write_trace(prof, profile_dir, device, logger):
+    """Stop the trace once the device has finished the traced steps and
+    write this process's Chrome trace."""
+    synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "rank{}.pt.trace.json".format(comm.get_rank()))
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to {}".format(path))

@@ -2,10 +2,13 @@
 FPN-RetinaNet (P3-P7), or an FBNet body (one map at stride 16,
 models/fbnet.py).
 
-PyTorch counterpart of maskrcnn_tpu/models/backbone.py.
+PyTorch counterpart of maskrcnn_tpu/models/backbone.py. The FPN (with
+RetinaNet's P6/P7) runs in a ``record_function`` range "fpn", as JAX's
+named scope.
 """
 
 import torch.nn as nn
+from torch.profiler import record_function
 
 from .fbnet import FBNetBackbone
 from .fpn import FPN, LastLevelP6P7
@@ -62,9 +65,10 @@ class ResNetFPN(nn.Module):
 
     def forward(self, x):
         features = self.body(x)
-        results = self.fpn(features)
-        if self.top is not None:
-            results += self.top(features[-1] if self.use_c5 else results[-1])
+        with record_function("fpn"):
+            results = self.fpn(features)
+            if self.top is not None:
+                results += self.top(features[-1] if self.use_c5 else results[-1])
         return results
 
 

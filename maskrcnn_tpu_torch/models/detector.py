@@ -22,6 +22,15 @@ host decode) or, under TPU.KEYPOINT_DECODE_ON_DEVICE, keypoints
 NCHW in channels_last memory format, so each pyramid level handed to the
 pooler is a free NHWC view.
 
+Both passes wrap their stages in ``torch.profiler.record_function`` ranges
+named, placed and nested as the JAX package's ``jax.named_scope``s:
+image_prep, backbone (the body's stem and layer1-4, and fpn, inside),
+rpn_head, rpn_loss, proposals, box_targets, box_head, box_loss, mask_head,
+mask_targets, keypoint_head and keypoint_loss in training; image_prep,
+backbone, rpn_head, proposals, box_head, box_postproc and mask_head at
+inference. RetinaNet's head and the inference keypoint head have none, as
+in JAX. The ranges change no output; utils/profiling.py reads them.
+
 The two samplers' uniform draws (``draws``: rpn_pos, rpn_neg [B, N
 anchors], box_pos, box_neg [B, P proposals]) may be passed in; missing ones
 come from the caller's torch.Generator.
@@ -75,6 +84,7 @@ training, the matmul path on the detection slots at inference.
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from ..ops.sampler import top_k_fast, uniform_draws
 from ..utils import comm
@@ -254,9 +264,11 @@ class GeneralizedRCNN(nn.Module):
         return images
 
     def _backbone(self, batch):
-        images = self._prepare_images(batch["images"], batch["image_sizes"])
-        x = images.permute(0, 3, 1, 2).to(self.compute_dtype)
-        features = self.backbone(x.contiguous(memory_format=torch.channels_last))
+        with record_function("image_prep"):
+            images = self._prepare_images(batch["images"], batch["image_sizes"])
+        with record_function("backbone"):
+            x = images.permute(0, 3, 1, 2).to(self.compute_dtype)
+            features = self.backbone(x.contiguous(memory_format=torch.channels_last))
         anchors = [
             self.anchor_gen.grid_anchors_level(l, f.shape[2], f.shape[3], f.device)
             for l, f in enumerate(features)
@@ -294,45 +306,53 @@ class GeneralizedRCNN(nn.Module):
             return tuple(draws[kind + s][rank * b:(rank + 1) * b] for s in ("_pos", "_neg"))
 
         features, anchors = self._backbone(batch)
-        objectness, bbox_reg = self.rpn(features)
+        with record_function("rpn_head"):
+            objectness, bbox_reg = self.rpn(features)
         b = gt_boxes.shape[0]
         cat_anchors = torch.cat(anchors)
         h = image_sizes[:, 0:1].float()
         w = image_sizes[:, 1:2].float()
         visible = self.anchor_gen.visibility(cat_anchors, h, w)
-        rpn_pos, rpn_neg = draw("rpn", cat_anchors.shape[0])
-        loss_obj, loss_rpn_box = rpn_loss(
-            cat_anchors, visible, _level_major(objectness, b, 1)[..., 0],
-            _level_major(bbox_reg, b, 4), gt_boxes, gt_valid, rpn_pos, rpn_neg,
-            rcfg.FG_IOU_THRESHOLD, rcfg.BG_IOU_THRESHOLD, rcfg.BATCH_SIZE_PER_IMAGE,
-            rcfg.POSITIVE_FRACTION,
-        )
+        obj_cat, reg_cat = _level_major(objectness, b, 1)[..., 0], _level_major(bbox_reg, b, 4)
+        with record_function("rpn_loss"):
+            rpn_pos, rpn_neg = draw("rpn", cat_anchors.shape[0])
+            loss_obj, loss_rpn_box = rpn_loss(
+                cat_anchors, visible, obj_cat, reg_cat, gt_boxes, gt_valid, rpn_pos, rpn_neg,
+                rcfg.FG_IOU_THRESHOLD, rcfg.BG_IOU_THRESHOLD, rcfg.BATCH_SIZE_PER_IMAGE,
+                rcfg.POSITIVE_FRACTION,
+            )
         losses = {"loss_objectness": loss_obj, "loss_rpn_box_reg": loss_rpn_box}
         if self.rpn_only:
             return losses
 
         with torch.no_grad():
-            prop_boxes, _, prop_valid = select_proposals(
-                anchors, [o.detach() for o in objectness], [r.detach() for r in bbox_reg],
-                image_sizes, rcfg, is_train=True, gt_boxes=gt_boxes, gt_valid=gt_valid,
-            )
-            box_pos, box_neg = draw("box", prop_boxes.shape[1])
+            with record_function("proposals"):
+                prop_boxes, _, prop_valid = select_proposals(
+                    anchors, [o.detach() for o in objectness], [r.detach() for r in bbox_reg],
+                    image_sizes, rcfg, is_train=True, gt_boxes=gt_boxes, gt_valid=gt_valid,
+                )
             gt_usable = None
             if self.keypoint_on:
                 gt_usable = keypoints_within_box_filter(batch["gt_keypoints"].float(), gt_boxes)
-            targets = prepare_box_targets(
-                prop_boxes, prop_valid, gt_boxes, gt_labels, box_pos, box_neg,
-                hcfg.FG_IOU_THRESHOLD, hcfg.BG_IOU_THRESHOLD, hcfg.BATCH_SIZE_PER_IMAGE,
-                hcfg.POSITIVE_FRACTION, tuple(hcfg.BBOX_REG_WEIGHTS), gt_usable=gt_usable,
-            )
+            with record_function("box_targets"):
+                box_pos, box_neg = draw("box", prop_boxes.shape[1])
+                targets = prepare_box_targets(
+                    prop_boxes, prop_valid, gt_boxes, gt_labels, box_pos, box_neg,
+                    hcfg.FG_IOU_THRESHOLD, hcfg.BG_IOU_THRESHOLD, hcfg.BATCH_SIZE_PER_IMAGE,
+                    hcfg.POSITIVE_FRACTION, tuple(hcfg.BBOX_REG_WEIGHTS), gt_usable=gt_usable,
+                )
 
-        nhwc = _nhwc(features)
         rois, batch_idx = _flatten_rois(targets["rois"])
-        pooled = multilevel_roi_align(nhwc[: len(self.box_pooler.scales)], rois, batch_idx,
-                                      self.box_pooler, rois_per_image=targets["rois"].shape[1])
-        class_logits, box_regression = self.roi_heads.box(pooled)
-        losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
-            class_logits, box_regression, targets, cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)
+        with record_function("box_head"):
+            nhwc = _nhwc(features)
+            pooled = multilevel_roi_align(nhwc[: len(self.box_pooler.scales)], rois, batch_idx,
+                                          self.box_pooler,
+                                          rois_per_image=targets["rois"].shape[1])
+            class_logits, box_regression = self.roi_heads.box(pooled)
+        with record_function("box_loss"):
+            losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
+                class_logits, box_regression, targets,
+                cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)
 
         if self.mask_on or self.keypoint_on:
             with torch.no_grad():
@@ -352,27 +372,31 @@ class GeneralizedRCNN(nn.Module):
 
         if self.mask_on:
             m_rois, m_batch, m_valid, m_labels, m_mg = capped(cfg.TPU.MASK_ROI_CAP)
-            x = self._mask_features(nhwc, m_rois, m_batch)
-            mask_logits = self.roi_heads.mask.logits_at_class(x, m_labels)
-            with torch.no_grad():
-                gt_masks = batch["gt_masks"]
-                g, s = gt_masks.shape[1], gt_masks.shape[-1]
-                flat_ix = m_batch.long() * g + m_mg
-                tgt = project_gt_masks(gt_masks.reshape(-1, s, s)[flat_ix],
-                                       gt_boxes.reshape(-1, 4)[flat_ix], m_rois,
-                                       mask_logits.shape[1])
-            losses["loss_mask"] = mask_head_loss_picked(mask_logits, tgt, m_valid)
+            with record_function("mask_head"):
+                x = self._mask_features(nhwc, m_rois, m_batch)
+                mask_logits = self.roi_heads.mask.logits_at_class(x, m_labels)
+            with record_function("mask_targets"):
+                with torch.no_grad():
+                    gt_masks = batch["gt_masks"]
+                    g, s = gt_masks.shape[1], gt_masks.shape[-1]
+                    flat_ix = m_batch.long() * g + m_mg
+                    tgt = project_gt_masks(gt_masks.reshape(-1, s, s)[flat_ix],
+                                           gt_boxes.reshape(-1, 4)[flat_ix], m_rois,
+                                           mask_logits.shape[1])
+                losses["loss_mask"] = mask_head_loss_picked(mask_logits, tgt, m_valid)
 
         if self.keypoint_on:
             k_rois, k_batch, k_valid, _, k_mg = capped(cfg.TPU.KEYPOINT_ROI_CAP)
-            pooled = multilevel_roi_align(nhwc[: len(self.kp_pooler.scales)], k_rois, k_batch,
-                                          self.kp_pooler)
-            kp_logits = self.roi_heads.keypoint(pooled)
             with torch.no_grad():
                 gt_kps = batch["gt_keypoints"].float()
                 g, kk = gt_kps.shape[1], gt_kps.shape[2]
                 kp_targets = gt_kps.reshape(-1, kk, 3)[k_batch.long() * g + k_mg]
-            losses["loss_kp"] = keypoint_head_loss(kp_logits, kp_targets, k_rois, k_valid)
+            with record_function("keypoint_head"):
+                pooled = multilevel_roi_align(nhwc[: len(self.kp_pooler.scales)], k_rois,
+                                              k_batch, self.kp_pooler)
+                kp_logits = self.roi_heads.keypoint(pooled)
+            with record_function("keypoint_loss"):
+                losses["loss_kp"] = keypoint_head_loss(kp_logits, kp_targets, k_rois, k_valid)
         return losses
 
     def _retinanet_train_forward(self, batch, gt_boxes, gt_labels):
@@ -395,35 +419,40 @@ class GeneralizedRCNN(nn.Module):
             cls, reg = self.rpn(features)
             return retinanet_inference(anchors, cls, reg, image_sizes, cfg.MODEL.RETINANET,
                                        cfg.TEST.DETECTIONS_PER_IMG)
-        objectness, bbox_reg = self.rpn(features)
-        prop_boxes, prop_scores, prop_valid = select_proposals(
-            anchors, objectness, bbox_reg, image_sizes, cfg.MODEL.RPN
-        )
+        with record_function("rpn_head"):
+            objectness, bbox_reg = self.rpn(features)
+        with record_function("proposals"):
+            prop_boxes, prop_scores, prop_valid = select_proposals(
+                anchors, objectness, bbox_reg, image_sizes, cfg.MODEL.RPN
+            )
         if self.rpn_only:
             return dict(boxes=prop_boxes, scores=prop_scores, valid=prop_valid,
                         labels=torch.ones(prop_scores.shape, dtype=torch.int32,
                                           device=prop_scores.device))
 
-        nhwc = _nhwc(features)
         rois, batch_idx = _flatten_rois(prop_boxes)
-        pooled = multilevel_roi_align(
-            nhwc[: len(self.box_pooler.scales)], rois, batch_idx, self.box_pooler,
-            rois_per_image=prop_boxes.shape[1],
-        )
-        class_logits, box_regression = self.roi_heads.box(pooled)
+        with record_function("box_head"):
+            nhwc = _nhwc(features)
+            pooled = multilevel_roi_align(
+                nhwc[: len(self.box_pooler.scales)], rois, batch_idx, self.box_pooler,
+                rois_per_image=prop_boxes.shape[1],
+            )
+            class_logits, box_regression = self.roi_heads.box(pooled)
         b, n = prop_scores.shape
         h = cfg.MODEL.ROI_HEADS
-        detections = box_head_inference(
-            class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1),
-            prop_boxes, prop_valid, image_sizes, tuple(h.BBOX_REG_WEIGHTS),
-            h.SCORE_THRESH, h.NMS, h.DETECTIONS_PER_IMG,
-            cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG,
-        )
+        with record_function("box_postproc"):
+            detections = box_head_inference(
+                class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1),
+                prop_boxes, prop_valid, image_sizes, tuple(h.BBOX_REG_WEIGHTS),
+                h.SCORE_THRESH, h.NMS, h.DETECTIONS_PER_IMG,
+                cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG,
+            )
         if self.mask_on:
             det_rois, det_batch = _flatten_rois(detections["boxes"])
             d = detections["boxes"].shape[1]
-            x = self._mask_features(nhwc, det_rois, det_batch, rois_per_image=d)
-            probs = self.roi_heads.mask(x, detections["labels"].reshape(-1))
+            with record_function("mask_head"):
+                x = self._mask_features(nhwc, det_rois, det_batch, rois_per_image=d)
+                probs = self.roi_heads.mask(x, detections["labels"].reshape(-1))
             detections["masks"] = probs.reshape(b, d, probs.shape[-2], probs.shape[-1])
         if self.keypoint_on:
             det_rois, det_batch = _flatten_rois(detections["boxes"])

@@ -31,7 +31,7 @@ block maxima, the second barrier, pass 2). --rpn times the same training
 step with the RPN's per-level top-k taken three ways (torch.topk on every
 level, a stable sort on every level, and rpn.top_k_fast, the JAX package's
 choice by size), in turns, with what rpn's select_proposals takes of the
-step's device time (chip_smoke.function_shares).
+step's device time (utils/profiling.py:function_shares).
 """
 
 import ctypes
@@ -216,12 +216,13 @@ def flagship_training(cs):
     from maskrcnn_tpu_torch.engine import make_train_step
     from maskrcnn_tpu_torch.models import build_detection_model
     from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.tools.profile_train import train_batch
 
     cfg = flagship_cfg()
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     model = build_detection_model(cfg, device="cuda", seed=cs.SEED)
-    batch = cs.train_batch(torch, np, cs.TRAIN_BATCH, cs.TRAIN_HW, cs.TRAIN_SIZE,
-                           cfg.TPU.MAX_GT_BOXES, cfg.TPU.GT_MASK_SIZE, cs.SEED, "cuda")
+    batch = train_batch(cs.TRAIN_BATCH, cs.TRAIN_HW, cs.TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+                        cfg.TPU.GT_MASK_SIZE, cs.SEED, "cuda")
     cs.calibrate_frozen_bn(torch, model, batch["images"])
     opt = make_optimizer(cfg, model)
     step = make_train_step(model, opt, make_lr_scheduler(cfg, opt),
@@ -276,6 +277,7 @@ def rpn_topk(cs, card, steps=3):
     one JSON line of each way's wall ms, device busy and select_proposals
     share a step (torch.profiler over `steps` steps, after one warm step)."""
     from maskrcnn_tpu_torch.models import detector, rpn
+    from maskrcnn_tpu_torch.utils import profiling
 
     step, batch = flagship_training(cs)
     step(batch)
@@ -287,8 +289,8 @@ def rpn_topk(cs, card, steps=3):
         rpn.top_k_fast = ways[way]
         try:
             step(batch)
-            got = cs.function_shares(torch, {"select_proposals": (detector, "select_proposals")},
-                                     step, batch, steps)
+            got = profiling.function_shares(
+                {"select_proposals": (detector, "select_proposals")}, step, batch, steps)
         finally:
             rpn.top_k_fast = plain
         res.setdefault(way, []).append(

@@ -314,6 +314,7 @@ def main():
     from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers
     from maskrcnn_tpu_torch.ops import native
     from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+    from maskrcnn_tpu_torch.tools.profile_train import train_batch
 
     if kind not in poolers.BACKWARDS:
         raise ValueError("--kind takes one of " + ", ".join(poolers.BACKWARDS))
@@ -338,8 +339,8 @@ def main():
     cfg = flagship_cfg()
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
     model = build_detection_model(cfg, device="cuda", seed=cs.SEED)
-    batch = cs.train_batch(torch, np, cs.TRAIN_BATCH, cs.TRAIN_HW, cs.TRAIN_SIZE,
-                           cfg.TPU.MAX_GT_BOXES, cfg.TPU.GT_MASK_SIZE, cs.SEED, "cuda")
+    batch = train_batch(cs.TRAIN_BATCH, cs.TRAIN_HW, cs.TRAIN_SIZE, cfg.TPU.MAX_GT_BOXES,
+                        cfg.TPU.GT_MASK_SIZE, cs.SEED, "cuda")
     cs.calibrate_frozen_bn(torch, model, batch["images"])
     opt = make_optimizer(cfg, model)
     step = make_train_step(model, opt, make_lr_scheduler(cfg, opt),

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the flagship's training step read through utils/profiling.py there.
 
 Every test here is marked ``gpu`` and skips on a machine without a CUDA
 device. The file imports neither JAX nor the JAX package, so it also runs
@@ -646,3 +647,33 @@ def test_roi_align_forward_and_backward_at_a_ranks_rois(cuda, dtype, p, r):
     gtol = 1e-5 if dtype == torch.float32 else 1e-2
     for f, w in zip(feats, grads):
         assert (f.grad.float() - w).abs().max().item() <= gtol * gscale
+
+
+# the phase ranges of the flagship's training step: the JAX package's named
+# scopes (image_prep holds no operation for a float batch, but its range is
+# recorded all the same)
+TRAIN_PHASES = {"image_prep", "backbone", "stem", "layer1", "layer2", "layer3", "layer4", "fpn",
+                "rpn_head", "rpn_loss", "proposals", "box_targets", "box_head", "box_loss",
+                "mask_head", "mask_targets", "optimizer"}
+
+
+@pytest.mark.gpu
+def test_flagship_profiled_step_fits_its_wall_time_and_records_every_phase(cuda, monkeypatch):
+    """The flagship's training step at batch 2 under torch.profiler: the
+    device busy time (the ranges' own device spans left out) within the
+    wall time, every phase range recorded, and the phase table adding up
+    to the device time linked to an op, within 2% of the busy time (the
+    profiler links a few of the hand kernels' launches to no op)."""
+    from maskrcnn_tpu_torch.tools import profile_train
+    from maskrcnn_tpu_torch.utils import profiling
+
+    monkeypatch.delenv("MASKRCNN_TPU_PROFILE_CONFIG", raising=False)
+    step, _, batch = profile_train.build_step(2, cuda)
+    step(batch)
+    prof, wall_ms = profiling.timed(step, batch, 1, cuda)
+    busy_ms, _ = profiling.device_busy(prof, 1)
+    assert 0 < busy_ms <= wall_ms
+    assert TRAIN_PHASES <= profiling.range_names(prof)
+    reading = profiling.phase_breakdown(prof, 1, cuda)
+    assert reading["linked_ms"] == pytest.approx(sum(reading["phases"].values()))
+    assert 0.98 * busy_ms <= reading["linked_ms"] <= busy_ms * 1.0001
