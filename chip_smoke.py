@@ -322,10 +322,11 @@ Profiling (the model's phase ranges, maskrcnn_tpu_torch/utils/profiling.py):
      step (batch 8) and of --infer (batch 1), frozen BN calibrated from the
      batch as in phase 7: the phase ranges plus the unattributed time within
      2% of the device busy time, busy within the wall time, every phase
-     range holding device time, the shares by the JAX package's phase names;
-     phase 11's step time and phase 3's latencies beside the step time of
-     the last recorded run before the model carried the ranges, and one
-     range's host cost times the ranges of a training step;
+     range holding device time (its own or its dotted parts', the port's
+     spans), the shares by phase; phase 11's step time and phase 3's
+     latencies beside the step time of the last recorded run before the
+     model carried the ranges, and the host cost of one span with nothing
+     recording beside a record_function range opened so;
  46. the paths no earlier phase runs: X-101-32x8d Mask R-CNN
      (configs/e2e_mask_rcnn_X_101_32x8d_FPN_1x.yaml) through
      profile_train.build_step at batch 8, remat "auto" on: finite losses,
@@ -1631,6 +1632,7 @@ def profiling_phase(torch, np, card, step_ms, serving_ms):
     from maskrcnn_tpu_torch.ops import matcher, nms
     from maskrcnn_tpu_torch.predictor import Predictor
     from maskrcnn_tpu_torch.tools import profile_train
+    from maskrcnn_tpu_torch.utils import profiling
 
     counters = training_counters(poolers, matcher, nms)
     launches, sites, phase_s = {}, {}, {}
@@ -1655,7 +1657,9 @@ def profiling_phase(torch, np, card, step_ms, serving_ms):
         check(abs(linked - busy) <= 0.02 * busy and 0 <= res["idle_share"] <= 1,
               "{}: phases and unattributed {} ms against a device busy {} ms".format(
                   path, linked, busy))
-        missing = set(phases) - set(res["phases"])
+        # a phase's device time is its own and its dotted parts' (PORT_SPANS)
+        missing = {p for p in phases
+                   if not any(k == p or k.startswith(p + ".") for k in res["phases"])}
         check(not missing, "{}: no device time under the ranges {}".format(path, missing))
         shares = {k: {"ms": v, "share": v / busy} for k, v in res["phases"].items()}
         print("{} by JAX's phase names, torch.profiler, 3 steps [{}]: {}".format(
@@ -1673,18 +1677,22 @@ def profiling_phase(torch, np, card, step_ms, serving_ms):
     profiled("profile_train --infer (flagship, batch 1)", profile_train.build_infer, 1,
              {"backbone", "stem", "layer1", "layer2", "layer3", "layer4", "fpn", "rpn_head",
               "proposals", "box_head", "box_postproc", "mask_head"})
-    # the ranges' own host cost: an empty range entered and left, times the
-    # ranges a training step enters
-    t1 = time.perf_counter()
-    for _ in range(10000):
-        with record_function("phase"):
-            pass
-    range_us = (time.perf_counter() - t1) * 1e2
-    print("with the phase ranges: phase 11's step {} ms (the last recorded run without them: "
-          "{} ms), serving latency at seen shapes {} ms; one range {} us on the host, {} ranges "
-          "a training step: {} ms [{}]".format(
-              step_ms, UNRANGED_STEP_MS, json.dumps(serving_ms), range_us, len(TRAIN_PHASES),
-              range_us * len(TRAIN_PHASES) / 1e3, card), flush=True)
+    # the spans' own host cost with nothing recording: an empty span entered
+    # and left (what the model pays), beside a record_function range opened
+    # untraced (what it paid before profiling.span)
+    def per_range_us(make):
+        t1 = time.perf_counter()
+        for _ in range(10000):
+            with make("phase"):
+                pass
+        return (time.perf_counter() - t1) * 1e2
+
+    span_us, range_us = per_range_us(profiling.span), per_range_us(record_function)
+    print("with the spans: phase 11's step {} ms (the last recorded run without ranges: "
+          "{} ms), serving latency at seen shapes {} ms; one span {} us on the host with "
+          "nothing recording, a record_function range opened so {} us [{}]".format(
+              step_ms, UNRANGED_STEP_MS, json.dumps(serving_ms), span_us, range_us, card),
+          flush=True)
     phase_s["profile_train"] = time.perf_counter() - t0
 
     # 46. X-101-32x8d Mask R-CNN trains at batch 8, remat "auto" on

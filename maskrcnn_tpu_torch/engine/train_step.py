@@ -16,14 +16,17 @@ losses. Every process then holds the same replicated parameters, bit for
 bit, and the processes of a data group the same blocks of the sharded ones
 (parallel/mesh.py).
 
-The optimizer's update runs in a ``record_function`` range "optimizer", the
-JAX step's named scope.
+Spans (utils/profiling.py:span, profiler ranges only while a profiler
+records): "backward" around the backward pass (the ROIAlign kernels'
+backward opens "roi_pool.bwd" inside it, on the autograd engine's thread),
+"grad_reduce" around the gradients' reduction over the data axis, and
+"optimizer", the JAX step's named scope, around the update.
 """
 
 import torch
-from torch.profiler import record_function
 
 from ..parallel.distributed import reduce_gradients
+from ..utils.profiling import span
 
 
 def make_train_step(model, optimizer, scheduler, generator=None):
@@ -42,9 +45,11 @@ def make_train_step(model, optimizer, scheduler, generator=None):
         losses = model.train_forward(batch, draws=draws, generator=generator)
         total = sum(losses.values())
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        summed = reduce_gradients(model, list(losses.values()) + [total])
-        with record_function("optimizer"):
+        with span("backward"):
+            total.backward()
+        with span("grad_reduce"):
+            summed = reduce_gradients(model, list(losses.values()) + [total])
+        with span("optimizer"):
             optimizer.step()
             scheduler.step()
         metrics = dict(zip(losses, summed))

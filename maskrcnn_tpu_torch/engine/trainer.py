@@ -37,10 +37,14 @@ card's kernels on a CUDA device) starts before iteration
 MASKRCNN_TPU_PROFILE_AT (default 50) and stops after iteration AT + 5, once
 that step's loss is ready (a synchronize, as JAX's block_until_ready); each
 process writes it as a Chrome trace, DIR/rank<rank>.pt.trace.json, and logs
-the path. Each step runs in a record_function range "iteration <n>", the
-model's phase ranges inside it. A skipped iteration AT starts no trace, as
-in JAX; where AT + 5 is skipped the trace stops after the next step run,
-or when the loop ends. Unset, no profiler starts.
+the path. Each step runs in a span "iteration <n>" (utils/profiling.py:span,
+a record_function range while the profiler records), the model's and the
+step's spans inside it (utils/profiling.py PHASES and PORT_SPANS: the
+JAX scopes, and the port's anchors, proposal parts, roi_pool, backward,
+grad_reduce and the "<stage>.wait" spans around host waits). A skipped
+iteration AT starts no trace, as in JAX; where AT + 5 is skipped the trace
+stops after the next step run, or when the loop ends. Unset, no profiler
+starts.
 """
 
 import datetime
@@ -50,11 +54,11 @@ import os
 import time
 
 import torch
-from torch.profiler import profile, record_function
+from torch.profiler import profile
 
 from ..utils import comm
 from ..utils.metric_logger import MetricLogger
-from ..utils.profiling import activities, synchronize
+from ..utils.profiling import activities, span, synchronize
 from .train_step import make_train_step
 
 
@@ -123,7 +127,7 @@ def do_train(model, optimizer, scheduler, data_loader, checkpointer, device, che
         if profile_dir and iteration == profile_at:
             prof = profile(activities=activities(device))
             prof.start()
-        with record_function("iteration {}".format(iteration)):
+        with span("iteration {}".format(iteration)):
             metrics = step(device_batch)
         if prof is not None and iteration >= profile_at + 5:
             _write_trace(prof, profile_dir, device, logger)

@@ -2,11 +2,16 @@
 
 PyTorch counterpart of maskrcnn_tpu/models/anchors.py. Cell anchors are
 computed once in numpy (the same legacy round()ed enumeration); the grids
-are built on the device of the feature map they belong to.
+are built on the device of the feature map they belong to. Copying a
+level's cell anchors there is a blocking copy from pageable host memory:
+the host waits for everything queued on the stream, in a span
+"anchors.wait" (utils/profiling.py:span).
 """
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 
 def _whctrs(anchor):
@@ -81,7 +86,8 @@ class AnchorGenerator:
 
     def grid_anchors_level(self, level, grid_h, grid_w, device):
         """[grid_h * grid_w * A, 4] float32, ordered (y, x, anchor)."""
-        cell = torch.as_tensor(self.cell_anchors[level], device=device)
+        with span("anchors.wait"):
+            cell = torch.as_tensor(self.cell_anchors[level], device=device)
         stride = self.strides[level]
         shifts_x = torch.arange(grid_w, dtype=torch.float32, device=device) * stride
         shifts_y = torch.arange(grid_h, dtype=torch.float32, device=device) * stride

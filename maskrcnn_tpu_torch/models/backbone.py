@@ -3,13 +3,13 @@ FPN-RetinaNet (P3-P7), or an FBNet body (one map at stride 16,
 models/fbnet.py).
 
 PyTorch counterpart of maskrcnn_tpu/models/backbone.py. The FPN (with
-RetinaNet's P6/P7) runs in a ``record_function`` range "fpn", as JAX's
-named scope.
+RetinaNet's P6/P7) runs in a span "fpn" (utils/profiling.py:span), as
+JAX's named scope.
 """
 
 import torch.nn as nn
-from torch.profiler import record_function
 
+from ..utils.profiling import span
 from .fbnet import FBNetBackbone
 from .fpn import FPN, LastLevelP6P7
 from .resnet import ResNet
@@ -65,7 +65,7 @@ class ResNetFPN(nn.Module):
 
     def forward(self, x):
         features = self.body(x)
-        with record_function("fpn"):
+        with span("fpn"):
             results = self.fpn(features)
             if self.top is not None:
                 results += self.top(features[-1] if self.use_c5 else results[-1])

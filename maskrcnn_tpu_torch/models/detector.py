@@ -22,14 +22,22 @@ host decode) or, under TPU.KEYPOINT_DECODE_ON_DEVICE, keypoints
 NCHW in channels_last memory format, so each pyramid level handed to the
 pooler is a free NHWC view.
 
-Both passes wrap their stages in ``torch.profiler.record_function`` ranges
+Both passes wrap their stages in spans (utils/profiling.py:span, a
+``record_function`` range while a profiler records, nothing otherwise)
 named, placed and nested as the JAX package's ``jax.named_scope``s:
 image_prep, backbone (the body's stem and layer1-4, and fpn, inside),
 rpn_head, rpn_loss, proposals, box_targets, box_head, box_loss, mask_head,
 mask_targets, keypoint_head and keypoint_loss in training; image_prep,
 backbone, rpn_head, proposals, box_head, box_postproc and mask_head at
 inference. RetinaNet's head and the inference keypoint head have none, as
-in JAX. The ranges change no output; utils/profiling.py reads them.
+in JAX. The port adds spans of its own (utils/profiling.py:PORT_SPANS):
+"anchors" after the backbone (and, in training, around the anchors'
+visibility), with "anchors.wait" inside; "proposals.candidates",
+"proposals.nms" and "proposals.select" inside proposals (rpn.py);
+"rpn_loss.match" inside rpn_loss; "box_postproc.nms" inside box_postproc
+(box_head.py); "roi_pool" around every ROI pooling and "roi_pool.bwd"
+around its kernels' backward (poolers.py). The spans change no output;
+utils/profiling.py and the benchmark's idle-time readers read them.
 
 The two samplers' uniform draws (``draws``: rpn_pos, rpn_neg [B, N
 anchors], box_pos, box_neg [B, P proposals]) may be passed in; missing ones
@@ -84,10 +92,10 @@ training, the matmul path on the detection slots at inference.
 
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from ..ops.sampler import top_k_fast, uniform_draws
 from ..utils import comm
+from ..utils.profiling import span
 from .anchors import make_anchor_generator, make_anchor_generator_retinanet
 from .backbone import build_backbone
 from .fbnet import FBNetRPNHead
@@ -264,15 +272,16 @@ class GeneralizedRCNN(nn.Module):
         return images
 
     def _backbone(self, batch):
-        with record_function("image_prep"):
+        with span("image_prep"):
             images = self._prepare_images(batch["images"], batch["image_sizes"])
-        with record_function("backbone"):
+        with span("backbone"):
             x = images.permute(0, 3, 1, 2).to(self.compute_dtype)
             features = self.backbone(x.contiguous(memory_format=torch.channels_last))
-        anchors = [
-            self.anchor_gen.grid_anchors_level(l, f.shape[2], f.shape[3], f.device)
-            for l, f in enumerate(features)
-        ]
+        with span("anchors"):
+            anchors = [
+                self.anchor_gen.grid_anchors_level(l, f.shape[2], f.shape[3], f.device)
+                for l, f in enumerate(features)
+            ]
         return features, anchors
 
     def train_forward(self, batch, draws=None, generator=None):
@@ -306,15 +315,16 @@ class GeneralizedRCNN(nn.Module):
             return tuple(draws[kind + s][rank * b:(rank + 1) * b] for s in ("_pos", "_neg"))
 
         features, anchors = self._backbone(batch)
-        with record_function("rpn_head"):
+        with span("rpn_head"):
             objectness, bbox_reg = self.rpn(features)
         b = gt_boxes.shape[0]
-        cat_anchors = torch.cat(anchors)
-        h = image_sizes[:, 0:1].float()
-        w = image_sizes[:, 1:2].float()
-        visible = self.anchor_gen.visibility(cat_anchors, h, w)
+        with span("anchors"):
+            cat_anchors = torch.cat(anchors)
+            h = image_sizes[:, 0:1].float()
+            w = image_sizes[:, 1:2].float()
+            visible = self.anchor_gen.visibility(cat_anchors, h, w)
         obj_cat, reg_cat = _level_major(objectness, b, 1)[..., 0], _level_major(bbox_reg, b, 4)
-        with record_function("rpn_loss"):
+        with span("rpn_loss"):
             rpn_pos, rpn_neg = draw("rpn", cat_anchors.shape[0])
             loss_obj, loss_rpn_box = rpn_loss(
                 cat_anchors, visible, obj_cat, reg_cat, gt_boxes, gt_valid, rpn_pos, rpn_neg,
@@ -326,7 +336,7 @@ class GeneralizedRCNN(nn.Module):
             return losses
 
         with torch.no_grad():
-            with record_function("proposals"):
+            with span("proposals"):
                 prop_boxes, _, prop_valid = select_proposals(
                     anchors, [o.detach() for o in objectness], [r.detach() for r in bbox_reg],
                     image_sizes, rcfg, is_train=True, gt_boxes=gt_boxes, gt_valid=gt_valid,
@@ -334,7 +344,7 @@ class GeneralizedRCNN(nn.Module):
             gt_usable = None
             if self.keypoint_on:
                 gt_usable = keypoints_within_box_filter(batch["gt_keypoints"].float(), gt_boxes)
-            with record_function("box_targets"):
+            with span("box_targets"):
                 box_pos, box_neg = draw("box", prop_boxes.shape[1])
                 targets = prepare_box_targets(
                     prop_boxes, prop_valid, gt_boxes, gt_labels, box_pos, box_neg,
@@ -343,13 +353,13 @@ class GeneralizedRCNN(nn.Module):
                 )
 
         rois, batch_idx = _flatten_rois(targets["rois"])
-        with record_function("box_head"):
+        with span("box_head"):
             nhwc = _nhwc(features)
             pooled = multilevel_roi_align(nhwc[: len(self.box_pooler.scales)], rois, batch_idx,
                                           self.box_pooler,
                                           rois_per_image=targets["rois"].shape[1])
             class_logits, box_regression = self.roi_heads.box(pooled)
-        with record_function("box_loss"):
+        with span("box_loss"):
             losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
                 class_logits, box_regression, targets,
                 cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)
@@ -372,10 +382,10 @@ class GeneralizedRCNN(nn.Module):
 
         if self.mask_on:
             m_rois, m_batch, m_valid, m_labels, m_mg = capped(cfg.TPU.MASK_ROI_CAP)
-            with record_function("mask_head"):
+            with span("mask_head"):
                 x = self._mask_features(nhwc, m_rois, m_batch)
                 mask_logits = self.roi_heads.mask.logits_at_class(x, m_labels)
-            with record_function("mask_targets"):
+            with span("mask_targets"):
                 with torch.no_grad():
                     gt_masks = batch["gt_masks"]
                     g, s = gt_masks.shape[1], gt_masks.shape[-1]
@@ -391,11 +401,11 @@ class GeneralizedRCNN(nn.Module):
                 gt_kps = batch["gt_keypoints"].float()
                 g, kk = gt_kps.shape[1], gt_kps.shape[2]
                 kp_targets = gt_kps.reshape(-1, kk, 3)[k_batch.long() * g + k_mg]
-            with record_function("keypoint_head"):
+            with span("keypoint_head"):
                 pooled = multilevel_roi_align(nhwc[: len(self.kp_pooler.scales)], k_rois,
                                               k_batch, self.kp_pooler)
                 kp_logits = self.roi_heads.keypoint(pooled)
-            with record_function("keypoint_loss"):
+            with span("keypoint_loss"):
                 losses["loss_kp"] = keypoint_head_loss(kp_logits, kp_targets, k_rois, k_valid)
         return losses
 
@@ -419,9 +429,9 @@ class GeneralizedRCNN(nn.Module):
             cls, reg = self.rpn(features)
             return retinanet_inference(anchors, cls, reg, image_sizes, cfg.MODEL.RETINANET,
                                        cfg.TEST.DETECTIONS_PER_IMG)
-        with record_function("rpn_head"):
+        with span("rpn_head"):
             objectness, bbox_reg = self.rpn(features)
-        with record_function("proposals"):
+        with span("proposals"):
             prop_boxes, prop_scores, prop_valid = select_proposals(
                 anchors, objectness, bbox_reg, image_sizes, cfg.MODEL.RPN
             )
@@ -431,7 +441,7 @@ class GeneralizedRCNN(nn.Module):
                                           device=prop_scores.device))
 
         rois, batch_idx = _flatten_rois(prop_boxes)
-        with record_function("box_head"):
+        with span("box_head"):
             nhwc = _nhwc(features)
             pooled = multilevel_roi_align(
                 nhwc[: len(self.box_pooler.scales)], rois, batch_idx, self.box_pooler,
@@ -440,7 +450,7 @@ class GeneralizedRCNN(nn.Module):
             class_logits, box_regression = self.roi_heads.box(pooled)
         b, n = prop_scores.shape
         h = cfg.MODEL.ROI_HEADS
-        with record_function("box_postproc"):
+        with span("box_postproc"):
             detections = box_head_inference(
                 class_logits.reshape(b, n, -1), box_regression.reshape(b, n, -1),
                 prop_boxes, prop_valid, image_sizes, tuple(h.BBOX_REG_WEIGHTS),
@@ -450,7 +460,7 @@ class GeneralizedRCNN(nn.Module):
         if self.mask_on:
             det_rois, det_batch = _flatten_rois(detections["boxes"])
             d = detections["boxes"].shape[1]
-            with record_function("mask_head"):
+            with span("mask_head"):
                 x = self._mask_features(nhwc, det_rois, det_batch, rois_per_image=d)
                 probs = self.roi_heads.mask(x, detections["labels"].reshape(-1))
             detections["masks"] = probs.reshape(b, d, probs.shape[-2], probs.shape[-1])

@@ -37,6 +37,12 @@ min(8, ceil(H / P), ceil(W / P)), exact because the ROIs are clipped to the
 image; there the ROIs of image-major blocks of ``rois_per_image`` pool as
 two products against the whole map (``c4_matmul_pool``), other ROIs by the
 gather path in ROI chunks.
+
+Spans (utils/profiling.py:span): ``multilevel_roi_align`` runs in
+"roi_pool", the kernel path and the adaptive path alike, and the kernels'
+backward (``RoIAlignFunction.backward``, on the autograd engine's thread)
+in "roi_pool.bwd". The adaptive path's backward is plain autograd: it has
+no span of its own and reads under the train step's "backward".
 """
 
 import ctypes
@@ -49,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import native
 from ..ops.box_ops import TO_REMOVE
+from ..utils.profiling import span
 
 
 class PoolerConfig:
@@ -907,7 +914,8 @@ class RoIAlignFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         boxes, bidx, lvl = ctx.saved_tensors
-        grads = BACKWARD_KERNELS[ctx.bwd](dout, ctx.shapes, boxes, bidx, lvl, ctx.pcfg)
+        with span("roi_pool.bwd"):
+            grads = BACKWARD_KERNELS[ctx.bwd](dout, ctx.shapes, boxes, bidx, lvl, ctx.pcfg)
         return (None, None, None, None, None, *grads)
 
 
@@ -947,14 +955,16 @@ def multilevel_roi_align(features, boxes, batch_idx, pcfg, rois_per_image=None):
     kernel, no launch), with rois_per_image as it describes."""
     if len(features) != len(pcfg.scales):
         raise ValueError("one feature map per pooler scale")
-    if pcfg.adaptive:
-        return adaptive_roi_align(features, boxes, batch_idx, pcfg, rois_per_image)
-    bwd = backward_choice(pcfg)
-    if boxes.device.type == "cpu":
-        return multilevel_roi_align_plain(features, boxes, batch_idx, pcfg)
-    if boxes.device.type != "cuda":
-        raise ValueError("roi_align runs on cpu or cuda tensors, not {}".format(boxes.device))
-    return _roi_align_cuda(features, boxes, batch_idx, pcfg, bwd)
+    with span("roi_pool"):
+        if pcfg.adaptive:
+            return adaptive_roi_align(features, boxes, batch_idx, pcfg, rois_per_image)
+        bwd = backward_choice(pcfg)
+        if boxes.device.type == "cpu":
+            return multilevel_roi_align_plain(features, boxes, batch_idx, pcfg)
+        if boxes.device.type != "cuda":
+            raise ValueError("roi_align runs on cpu or cuda tensors, not {}".format(
+                boxes.device))
+        return _roi_align_cuda(features, boxes, batch_idx, pcfg, bwd)
 
 
 multilevel_roi_align.launches = 0

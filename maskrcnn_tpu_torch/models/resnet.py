@@ -27,9 +27,9 @@ trainable block in the backward pass (torch.utils.checkpoint) only for
 bodies of more than 16 blocks or with grouped convs: R-50 runs without it.
 The res5 head never recomputes, as in the JAX package.
 
-The body's stem and each stage run in a ``record_function`` range of their
-name ("stem", "layer1", ...), as the JAX package names its scopes
-(utils/profiling.py reads them); the res5 head has none, as in JAX.
+The body's stem and each stage run in a span of their name ("stem",
+"layer1", ..., utils/profiling.py:span), as the JAX package names its
+scopes; the res5 head has none, as in JAX.
 """
 
 from collections import namedtuple
@@ -37,10 +37,10 @@ from collections import namedtuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.deform_conv import deform_conv2d
+from ..utils.profiling import span
 from .layers import (
     Conv2d,
     FrozenBatchNorm2d,
@@ -240,13 +240,13 @@ class ResNet(nn.Module):
                 block.reset_parameters(gen)
 
     def forward(self, x):
-        with record_function("stem"):
+        with span("stem"):
             x = self.stem(x)
         outputs = []
         for name, ret, trainable in zip(self.stage_names, self.return_features,
                                         self.trainable_stages):
             remat = self.remat and trainable and torch.is_grad_enabled()
-            with record_function(name):
+            with span(name):
                 for block in getattr(self, name):
                     x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if ret:

@@ -11,8 +11,9 @@ global average pool of a 4-d extractor output first); ``prepare_box_targets``
 (match the proposals to the gt, sample a fixed ROI batch, encode its
 targets) and ``box_head_loss``; and ``box_head_inference``: softmax,
 per-class decode and clip, a top-k prefilter per (image, class) lane,
-per-class NMS over all lanes at once, and the top DETECTIONS_PER_IMG
-survivors per image as padded outputs.
+per-class NMS over all lanes at once (in a span "box_postproc.nms",
+utils/profiling.py:span), and the top DETECTIONS_PER_IMG survivors per
+image as padded outputs.
 
 The pooled [R, P, P, C] features (and the Xconv head's conv output) are
 flattened in (P, P, C) order, as the JAX head flattens its NHWC patches, so
@@ -31,6 +32,7 @@ from ...ops.matcher import match_proposals
 from ...ops.nms import NEG_INF, batched_nms
 from ...ops.sampler import sample_topk_indices
 from ...utils import comm
+from ...utils.profiling import span
 from ..fbnet import FBNetROIHead
 from ..layers import Conv2d, GroupNorm, Linear, init_conv_, init_linear_
 from ..resnet import ResNetHead
@@ -248,7 +250,8 @@ def box_head_inference(class_logits, box_regression, proposals, prop_valid,
     top_bx = torch.gather(cls_boxes, 1, top_ix[..., None].expand(-1, -1, 4))
     top_vl = top_sc > NEG_INF / 2
 
-    keep = batched_nms(top_bx, top_sc, top_vl, nms_thresh)  # [B*nc, k]
+    with span("box_postproc.nms"):
+        keep = batched_nms(top_bx, top_sc, top_vl, nms_thresh)  # [B*nc, k]
 
     kept = torch.where(keep, top_sc, torch.full_like(top_sc, NEG_INF)).reshape(b, nc * k_nms)
     out_scores, flat_idx = top_k_stable(kept, detections_per_img)

@@ -13,6 +13,12 @@ batch) the batch-wide reductions are global, as the JAX mesh step's: the
 FPN top-k's k-th score is taken over every process's scores
 (``comm.gather_rows``) and the RPN losses divide by the sampled anchors of
 the whole global batch (``comm.global_sum``).
+
+Spans (utils/profiling.py:span): ``select_proposals`` runs its per-level
+top-k, decode and clip in "proposals.candidates", the batched NMS with the
+padding of its lanes in "proposals.nms", and the per-lane and FPN top-k in
+"proposals.select"; ``rpn_loss`` runs the anchor matcher in
+"rpn_loss.match".
 """
 
 import torch
@@ -25,6 +31,7 @@ from ..ops.matcher import match_anchors_batched
 from ..ops.nms import NEG_INF, batched_nms
 from ..ops.sampler import sample_topk_indices
 from ..utils import comm
+from ..utils.profiling import span
 from .layers import Conv2d, full_weight, init_conv_
 
 
@@ -108,49 +115,52 @@ def select_proposals(anchors_per_level, objectness_per_level, bbox_reg_per_level
     w = image_sizes[:, 1:2].float()
     num_levels = len(anchors_per_level)
     cand = []
-    for anchors, obj, reg in zip(anchors_per_level, objectness_per_level,
-                                 bbox_reg_per_level):
-        b, a = obj.shape[0], obj.shape[1]
-        # (h, w, a) order, as the JAX NHWC flatten
-        obj = obj.permute(0, 2, 3, 1).reshape(b, -1)
-        reg = reg.permute(0, 2, 3, 1).reshape(b, -1, a, 4).reshape(b, -1, 4)
-        cand.append(_level_candidates(anchors, obj, reg, (h, w), pre_nms,
-                                      rpn_cfg.MIN_SIZE))
+    with span("proposals.candidates"):
+        for anchors, obj, reg in zip(anchors_per_level, objectness_per_level,
+                                     bbox_reg_per_level):
+            b, a = obj.shape[0], obj.shape[1]
+            # (h, w, a) order, as the JAX NHWC flatten
+            obj = obj.permute(0, 2, 3, 1).reshape(b, -1)
+            reg = reg.permute(0, 2, 3, 1).reshape(b, -1, a, 4).reshape(b, -1, 4)
+            cand.append(_level_candidates(anchors, obj, reg, (h, w), pre_nms,
+                                          rpn_cfg.MIN_SIZE))
 
     b = cand[0][1].shape[0]
     k_max = max(c[1].shape[1] for c in cand)
-    sb = torch.cat([_pad_to(c[0], k_max, 0.0) for c in cand])
-    ss = torch.cat([_pad_to(c[1], k_max, NEG_INF) for c in cand])
-    sv = torch.cat([_pad_to(c[2], k_max, False) for c in cand])
-    keep = batched_nms(sb, ss, sv, rpn_cfg.NMS_THRESH)  # [L*B, k_max]
+    with span("proposals.nms"):
+        sb = torch.cat([_pad_to(c[0], k_max, 0.0) for c in cand])
+        ss = torch.cat([_pad_to(c[1], k_max, NEG_INF) for c in cand])
+        sv = torch.cat([_pad_to(c[2], k_max, False) for c in cand])
+        keep = batched_nms(sb, ss, sv, rpn_cfg.NMS_THRESH)  # [L*B, k_max]
 
-    masked = torch.where(keep, ss, torch.full_like(ss, NEG_INF))
-    k_post = min(post_nms, k_max)
-    sel_scores, sel = top_k_stable(masked, k_post)
-    sel_valid = sel_scores > NEG_INF / 2
-    sel_boxes = torch.gather(sb, 1, sel[..., None].expand(-1, -1, 4))
-    sel_boxes = torch.where(sel_valid[..., None], sel_boxes, torch.zeros_like(sel_boxes))
-    sel_scores = torch.where(sel_valid, sel_scores, torch.zeros_like(sel_scores))
-    # [L*B, k] -> [B, L*k], level-major per image
-    boxes = sel_boxes.reshape(num_levels, b, k_post, 4).transpose(0, 1).reshape(b, -1, 4)
-    scores = sel_scores.reshape(num_levels, b, k_post).transpose(0, 1).reshape(b, -1)
-    valid = sel_valid.reshape(num_levels, b, k_post).transpose(0, 1).reshape(b, -1)
+    with span("proposals.select"):
+        masked = torch.where(keep, ss, torch.full_like(ss, NEG_INF))
+        k_post = min(post_nms, k_max)
+        sel_scores, sel = top_k_stable(masked, k_post)
+        sel_valid = sel_scores > NEG_INF / 2
+        sel_boxes = torch.gather(sb, 1, sel[..., None].expand(-1, -1, 4))
+        sel_boxes = torch.where(sel_valid[..., None], sel_boxes, torch.zeros_like(sel_boxes))
+        sel_scores = torch.where(sel_valid, sel_scores, torch.zeros_like(sel_scores))
+        # [L*B, k] -> [B, L*k], level-major per image
+        boxes = sel_boxes.reshape(num_levels, b, k_post, 4).transpose(0, 1).reshape(b, -1, 4)
+        scores = sel_scores.reshape(num_levels, b, k_post).transpose(0, 1).reshape(b, -1)
+        valid = sel_valid.reshape(num_levels, b, k_post).transpose(0, 1).reshape(b, -1)
 
-    if num_levels > 1:
-        k = min(fpn_post, scores.shape[1])
-        masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
-        if is_train and rpn_cfg.FPN_POST_NMS_PER_BATCH:
-            # the Detectron quirk: in training the FPN top-k runs over the
-            # whole (global) batch; a rank threshold keeps the per-image shape
-            flat = comm.gather_rows(masked).reshape(-1)
-            kth = torch.topk(flat, min(fpn_post, flat.numel())).values[-1]
-            keep = masked >= torch.clamp(kth, min=NEG_INF / 2)
-            masked = torch.where(keep, masked, torch.full_like(masked, NEG_INF))
-        sel_scores, sel = top_k_fast(masked, k)
-        valid = sel_scores > NEG_INF / 2
-        boxes = torch.gather(boxes, 1, sel[..., None].expand(-1, -1, 4))
-        boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
-        scores = torch.where(valid, sel_scores, torch.zeros_like(sel_scores))
+        if num_levels > 1:
+            k = min(fpn_post, scores.shape[1])
+            masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+            if is_train and rpn_cfg.FPN_POST_NMS_PER_BATCH:
+                # the Detectron quirk: in training the FPN top-k runs over the
+                # whole (global) batch; a rank threshold keeps the per-image shape
+                flat = comm.gather_rows(masked).reshape(-1)
+                kth = torch.topk(flat, min(fpn_post, flat.numel())).values[-1]
+                keep = masked >= torch.clamp(kth, min=NEG_INF / 2)
+                masked = torch.where(keep, masked, torch.full_like(masked, NEG_INF))
+            sel_scores, sel = top_k_fast(masked, k)
+            valid = sel_scores > NEG_INF / 2
+            boxes = torch.gather(boxes, 1, sel[..., None].expand(-1, -1, 4))
+            boxes = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+            scores = torch.where(valid, sel_scores, torch.zeros_like(sel_scores))
     if is_train and gt_boxes is not None:
         boxes = torch.cat([boxes, gt_boxes.to(boxes.dtype)], dim=1)
         scores = torch.cat([scores, gt_valid.to(scores.dtype)], dim=1)
@@ -165,7 +175,8 @@ def rpn_loss(anchors, visible, objectness, bbox_reg, gt_boxes, gt_valid, pos_dra
     gt_valid [B, G], the sampler's uniform draws pos_draw and neg_draw
     [B, N]. Returns (objectness loss, box loss), both normalised by the
     number of sampled anchors in the global batch."""
-    matched = match_anchors_batched(anchors, gt_boxes, gt_valid, fg_iou, bg_iou)
+    with span("rpn_loss.match"):
+        matched = match_anchors_batched(anchors, gt_boxes, gt_valid, fg_iou, bg_iou)
     labels = torch.where(matched >= 0, 1, torch.where(matched == -1, 0, -1))
     labels = torch.where(visible, labels, -1)
     idx, valid, is_pos = sample_topk_indices(labels, pos_draw, neg_draw, batch_per_image,

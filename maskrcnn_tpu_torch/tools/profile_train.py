@@ -13,10 +13,11 @@ with --infer).
 
 It prints the steady-state ms a step and img/s (one warm-up step, then 5),
 then reads one torch.profiler trace of 3 steps through utils/profiling.py:
-the device's busy ms a step and its idle share, a table by phase range (the
-model's record_function ranges, named as the JAX package's named scopes; a
-kernel belongs to the innermost range around its op, a backward kernel to
-its forward op's range as "<range> bwd"), a table by op family (hand
+the device's busy ms a step and its idle share, a table by span (the
+model's and the step's spans: the JAX package's named scopes and the port's
+own, utils/profiling.py PHASES and PORT_SPANS; a kernel belongs to the
+innermost span around its op, a backward kernel to its forward op's span as
+"<span> bwd"), a table by op family (hand
 kernels, conv/matmul, sort/top-k, other; forward and backward), and the
 MASKRCNN_TPU_PROFILE_TOP (default 45) kernels with the most time. Every
 number stands beside the card's name and power limit. With a CPU device
@@ -181,7 +182,7 @@ def report(res, b, card, top_n=None):
     print("timed: {}; {:.3f} ms/step linked to an op{}".format(
         res["timed"], res["linked_ms"], "; {:.3f} ms/step linked to none".format(
             res["unlinked_ms"]) if "unlinked_ms" in res else ""))
-    for title, table in (("by phase (record_function ranges)", res["phases"]),
+    for title, table in (("by span (PORT_SPANS, then PHASES)", res["phases"]),
                          ("by op family", res["families"])):
         print("\n{} [{}]:".format(title, card))
         for k, v in table.items():

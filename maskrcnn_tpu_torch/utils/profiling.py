@@ -1,12 +1,24 @@
-"""Reading torch.profiler traces of the port's steps.
+"""The port's spans, and reading torch.profiler traces of its steps.
 
-The model wraps its stages in ``torch.profiler.record_function`` ranges
-named as the JAX package names its ``jax.named_scope``s (``PHASES``); the
+Every range the port opens goes through ``span(name)``: while a torch
+profiler records, a ``record_function`` range of that name, stamped on the
+host clock that the profiler also puts the card's kernel records on;
+otherwise one read of the profiler's flag and a shared no-op context
+manager, so an untraced step pays no range. The model's stages are named
+as the JAX package names its ``jax.named_scope``s (``PHASES``); the
 optimizer's step sits in "optimizer" (engine/train_step.py), and the
 trainer's trace hook puts each traced iteration in a range of its own
-(engine/trainer.py). A range is a user annotation: on the card the profiler
-also records a device span for it, as long as the work launched inside it.
-Those spans are not device work, so every reading here leaves them out
+(engine/trainer.py). The port's own spans (``PORT_SPANS``) name what the
+JAX scopes leave out: the backward, the gradient reduction, the anchors,
+the parts of the proposal stage, the matcher, the box post-process's NMS,
+the ROI pooling forward and its kernel backward, and every call of the
+main path that makes the host wait for the device ("<stage>.wait"), so
+that an idle gap of the device that begins while the host waits is put
+down to that wait.
+
+A range is a user annotation: on the card the profiler also records a
+device span for it, as long as the work launched inside it. Those spans
+are not device work, so every reading here leaves them out
 (``FunctionEvent.is_user_annotation``, and by name for a torch that lacks
 the flag) and checks that the device's busy time fits in the wall time.
 
@@ -18,17 +30,19 @@ Readings:
 * ``function_shares``: what given functions take of a step, forward and
   backward (the backward joined to its forward by sequence number);
 * ``phase_breakdown``: the whole step by phase range, by op family and by
-  op, each kernel attributed to the innermost phase range around the op
-  that launched it (on a CPU trace the ops' own host time stands in for
-  kernels, and is labelled so).
+  op, each kernel attributed to the innermost span around the op that
+  launched it (``PORT_SPANS``, then ``PHASES``; on a CPU trace the ops' own
+  host time stands in for kernels, and is labelled so).
 """
 
+import contextlib
 import re
 import subprocess
 import time
 from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as autograd_profiler
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -39,6 +53,27 @@ PHASES = ("stem", "layer1", "layer2", "layer3", "layer4", "fpn", "backbone", "rp
           "rpn_loss", "proposals", "box_targets", "box_head", "box_loss", "box_postproc",
           "mask_head", "mask_targets", "keypoint_head", "keypoint_loss", "optimizer",
           "image_prep")
+# The port's own spans, innermost first: those the JAX package has no scope
+# for. A dotted name is a part of the stage before its dot (the anchors
+# and roi_pool are stages of their own; backward and grad_reduce are the
+# train step's); roi_pool.bwd is the ROIAlign kernels' backward, which runs
+# on the autograd engine's thread inside backward.
+PORT_SPANS = ("anchors.wait", "proposals.candidates", "proposals.nms", "proposals.select",
+              "rpn_loss.match", "box_postproc.nms", "roi_pool.bwd", "roi_pool", "anchors",
+              "grad_reduce", "backward")
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A record_function range `name` while a torch profiler records; else
+    a shared no-op context manager, after one read of the profiler's flag
+    (a process-wide flag: it reads the same on the autograd engine's
+    threads)."""
+    if autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
+
+
 # The port's hand-written CUDA kernels (csrc/*.cu), by their entry names
 # (a trace names them demangled, "void (anonymous namespace)::<name><...>(...)").
 HAND_KERNELS = ("nms_mask_kernel", "nms_reduce_kernel", "roi_align_fwd_kernel",
@@ -209,7 +244,7 @@ def function_shares(targets, step, batch, steps=2, summary=False):
 
     def ranged(label, plain):
         def call(*args, **kwargs):
-            with record_function(label):
+            with span(label):
                 return plain(*args, **kwargs)
         return call
 
@@ -266,7 +301,8 @@ def phase_breakdown(prof, steps, device):
     step. On the card the timed items are the kernels, copies and memsets
     that the profiler linked to the op that launched them; on the CPU each
     op's own host time (its children's left out), and "timed" says which.
-    Each item belongs to the first of PHASES among the ranges around its op;
+    Each item belongs to the first of PORT_SPANS, then of PHASES, among the
+    ranges around its op;
     an item under a backward node to its forward op's phase, as "<phase>
     bwd"; "<unattributed>" where no phase range is around. "linked_ms" is
     the items' sum (the phases and "<unattributed>" add up to it); on the
@@ -288,7 +324,7 @@ def phase_breakdown(prof, steps, device):
         return chains[key]
 
     def phase_of(chain_names):
-        return next((p for p in PHASES if p in chain_names), None)
+        return next((p for p in PORT_SPANS + PHASES if p in chain_names), None)
 
     forward = {}
     for e in events:

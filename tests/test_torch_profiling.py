@@ -5,11 +5,13 @@ profiling tools.
 * The record_function ranges that the port records under a CPU
   torch.profiler equal as sets the jax.named_scope names in the lowering of
   JAX's make_train_step / infer_forward on the same tiny config (read from
-  ``lower(...).as_text(debug_info=True)``, nothing compiled): a train step
-  (train_forward, backward, the optimizer) of a tiny Keypoint R-CNN with
-  the mask head on as well (the keypoint YAML with MASK_ON: both heads'
-  scopes in one lowering), and infer_forward of a tiny Mask R-CNN; uint8
-  images in both, so that JAX's image_prep scope holds operations.
+  ``lower(...).as_text(debug_info=True)``, nothing compiled), and besides
+  them the port's own spans (``profiling.PORT_SPANS``) that the CPU path
+  reaches: a train step (train_forward, backward, the optimizer) of a tiny
+  Keypoint R-CNN with the mask head on as well (the keypoint YAML with
+  MASK_ON: both heads' scopes in one lowering), and infer_forward of a
+  tiny Mask R-CNN; uint8 images in both, so that JAX's image_prep scope
+  holds operations.
 * ``do_train`` under MASKRCNN_TPU_PROFILE_DIR / _AT 2, through a short CPU
   train_net run of 8 iterations: one Chrome trace (rank 0's) holding the
   ranges of iterations 2-7 and no other, the model's ranges inside; unset,
@@ -53,6 +55,7 @@ from maskrcnn_tpu_torch.utils import flops, profiling
 from test_models import tiny
 from test_torch_train_net import CONFIG, OPTS, _data_tree
 from torch_port_fixtures import configs, narrow, one_torch_thread, train_batch  # noqa: F401
+from torch_span_paths import PORT_SPANS_REACHED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYPOINT_YAML = os.path.join(REPO, "configs", "e2e_keypoint_rcnn_R_50_FPN_1x.yaml")
@@ -134,7 +137,9 @@ def test_phase_ranges_are_the_jax_scopes(infer):
         assert "box_postproc" in want and "optimizer" not in want
     else:
         assert {"mask_targets", "keypoint_head", "keypoint_loss", "optimizer"} <= want
-    assert _torch_ranges(tcfg, nb, infer) == want
+    port = PORT_SPANS_REACHED["infer" if infer else "train", "cpu"]
+    assert port <= set(profiling.PORT_SPANS) and not port & set(JAX_SCOPES)
+    assert _torch_ranges(tcfg, nb, infer) == want | port
 
 
 def test_trainer_trace_hook_writes_iterations_at_to_at_plus_5(tmp_path, monkeypatch):

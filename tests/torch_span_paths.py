@@ -1,0 +1,12 @@
+"""The port's own spans (utils/profiling.py:PORT_SPANS) that a Mask R-CNN
+pass reaches, by pass and device; imports neither JAX nor torch, so the
+card's tests (run without conftest) share it with the CPU tests.
+roi_pool.bwd is the ROIAlign kernels' backward, which runs on the card only;
+a training step opens no box_postproc.nms."""
+
+TRAIN = {"anchors", "anchors.wait", "proposals.candidates", "proposals.nms", "proposals.select",
+         "rpn_loss.match", "roi_pool", "backward", "grad_reduce"}
+INFER = {"anchors", "anchors.wait", "proposals.candidates", "proposals.nms", "proposals.select",
+         "box_postproc.nms", "roi_pool"}
+PORT_SPANS_REACHED = {("train", "cpu"): TRAIN, ("train", "cuda"): TRAIN | {"roi_pool.bwd"},
+                      ("infer", "cpu"): INFER, ("infer", "cuda"): INFER}
