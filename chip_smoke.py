@@ -250,16 +250,22 @@ The GN and C4 families as written (after 31, on phase 24's trees and cache):
      vs CPU (phase 6's gate);
  33. configs/e2e_mask_rcnn_R_50_C4_1x.yaml through train_net for 3
      iterations at batch 8 from the cache's R-50.pkl (res5 into the box
-     head): matcher 1 and NMS 1 a step and no ROIAlign kernel (the adaptive
-     pooler is plain tensor code, as in the JAX package); NMS exact on the
-     first step's [8 x 12000] lanes with its kernel-alone time, the matcher
-     exact; the box pooler's matmul path against its gather path on the
-     step's inputs (float32 1e-4, bf16 2e-2 of the largest value) with both
-     module times; the step's time, device busy, idle share, peak memory
-     and the res5 head's share (forward and backward on the step's 4096
-     box ROIs); test_net with the known answer and one Predictor request;
-     then configs/quick_schedules/e2e_faster_rcnn_R_50_C4_quick.yaml
-     through test_net alone at a short side of 480.
+     head): matcher 1, NMS 1, and the ROIAlign kernels' adaptive instances
+     (forward 2, "roi" backward 2) a step; NMS exact on the first step's
+     [8 x 12000] lanes with its kernel-alone time, the matcher exact; the
+     box (4096 ROIs) and mask poolers' adaptive kernels on the first step's
+     inputs against the float32 gather path, the forward within 1e-5 of
+     its max (float32) or 1e-2 of max|x| (bf16), the backward on the
+     gradients the step gave them against the gather path's autograd
+     within 1e-5 / 1e-2 of max|grad|, two calls of each giving the same
+     bits, timed beside their bounds and the plain adaptive pooler (what
+     CPU tensors run); the step's time, device busy, idle share, peak
+     memory and the res5 head's share (forward and backward on the step's
+     4096 box ROIs); test_net with the known answer, its first batch's box
+     and mask poolers held and timed the same way (forward), and one
+     Predictor request; then
+     configs/quick_schedules/e2e_faster_rcnn_R_50_C4_quick.yaml through
+     test_net alone at a short side of 480.
 The last three families as written (after 33, on phase 24's trees and cache):
  34. RPN-only: configs/rpn_R_50_FPN_1x.yaml through train_net for 3
      iterations at batch 16 from the cache's R-50.pkl: the matcher once a
@@ -285,7 +291,10 @@ The last three families as written (after 33, on phase 24's trees and cache):
      cards), from the seeded model with each frozen BN set from 8 images
      (the file names no weights): matcher 1 and NMS 1 a step, both exact
      on the first step's [16 x 12000] anchors (the 320x640 bucket's 20 x 40
-     cells) and [16 x 6000] lanes, nothing frozen; the step's time and peak memory; test_net with a bbox and segm
+     cells) and [16 x 6000] lanes, and the ROIAlign kernels' adaptive
+     instances (forward 2, "roi" backward 2) a step, held to the gather
+     path forward and backward on the first step's box and mask calls as
+     in 33; nothing frozen; the step's time and peak memory; test_net with a bbox and segm
      known answer; e2e_faster_rcnn_fbnet_chamv1a_600.yaml and
      e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml served once each (frozen BN
      set from the warm-up image), the latter float32 card against CPU
@@ -500,12 +509,13 @@ def queued_ms(torch, fn, iters=50):
 class Capture:
     """Records the arguments of a kernel wrapper where the model's modules
     call it (the module attribute `name`), while active: of every call, or
-    of the first `limit`; with grads=True also the gradient that reaches
-    each recorded call's output in the backward."""
+    of the first `limit`, positional in `calls` and keyword in `kwargs`;
+    with grads=True also the gradient that reaches each recorded call's
+    output in the backward."""
 
     def __init__(self, modules, name, grads=False, limit=None):
         self.modules, self.name, self.calls, self.limit = modules, name, [], limit
-        self.grads, self.out_grads = grads, {}
+        self.kwargs, self.grads, self.out_grads = [], grads, {}
 
     def __enter__(self):
         self.saved = [getattr(m, self.name) for m in self.modules]
@@ -518,6 +528,7 @@ class Capture:
             if self.limit is not None and len(self.calls) >= self.limit:
                 return fn(*args, **kwargs)
             self.calls.append(args)
+            self.kwargs.append(kwargs)
             out = fn(*args, **kwargs)
             if self.grads and out.requires_grad:
                 i = len(self.calls) - 1
@@ -618,36 +629,104 @@ def nms_site(torch, nms, boxes, scores, valid, thresh, plain_iters):
     }
 
 
-def roi_site(torch, poolers, feats, boxes, bidx, pcfg):
+def roi_levels(torch, poolers, shapes, boxes, pcfg):
+    """Each ROI's level [R] int32, as the wrapper assigns it."""
+    if len(shapes) > 1:
+        return poolers.assign_levels(boxes, pcfg).contiguous()
+    return torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
+
+
+def roi_work(torch, poolers, shapes, boxes, bidx, pcfg):
+    """(distinct feature cells the kernels' samples read, samples they take)
+    on a call's ROIs. A sample reads the bilinear cells of its row and of
+    its column unless either lies outside, so an ROI reads the cells of its
+    valid rows times those of its valid columns; the fixed grid takes
+    (P * S)^2 samples an ROI, the adaptive grid each bin's n_y * n_x (the
+    samples of weight 0 are skipped). shapes: [(B, Hl, Wl, ...)]."""
+    lvl = roi_levels(torch, poolers, shapes, boxes, pcfg).long()
+    rows, cols = poolers.sample_axes(shapes, boxes, lvl, pcfg)
+    for axis in (rows, cols):
+        axis["taken"] = axis["w"] > 0 if pcfg.adaptive else torch.ones_like(axis["valid"])
+    samples = int((rows["taken"].sum(1) * cols["taken"].sum(1)).sum())
+    cells = 0
+    for level, shape in enumerate(shapes):
+        on = lvl == level
+
+        def touched(axis, size):
+            read = (axis["valid"] & axis["taken"])[on].float()
+            m = torch.zeros((read.shape[0], size), device=boxes.device)
+            m.scatter_add_(1, axis["lo"][on], read).scatter_add_(1, axis["hi"][on], read)
+            return (m > 0).float()
+
+        rm, cm = touched(rows, shape[1]), touched(cols, shape[2])
+        images = bidx.long()[on]
+        for b in range(shape[0]):
+            mine = images == b
+            cells += int(((rm[mine].T @ cm[mine]) > 0).sum())
+    return cells, samples
+
+
+def roi_site(torch, poolers, feats, boxes, bidx, pcfg, rois_per_image=None, plain_iters=10):
+    """The forward kernel on a main path's call against its plain version,
+    timed beside its bound. The fixed grid against
+    multilevel_roi_align_plain: float32 within 1e-5, the features' dtype
+    within 1e-2 of max|x|. The adaptive grid against the float32 gather
+    path (adaptive_roi_align without ROI blocks): float32 within 1e-5 of the
+    pooled output's max, bfloat16 within 1e-2 of max|x| (one rounding); its
+    plain time is adaptive_roi_align as CPU tensors run it, with the call's
+    rois_per_image. Two calls give the same bits."""
     roi = poolers.multilevel_roi_align
-    plain = poolers.multilevel_roi_align_plain
     f32 = [f.float() for f in feats]
-    err32 = (roi(f32, boxes, bidx, pcfg) - plain(f32, boxes, bidx, pcfg)).abs().max().item()
-    check(err32 <= 1e-5, "ROIAlign kernel (float32) off by {} at P={}".format(err32, pcfg.output_size))
-    got, want = roi(feats, boxes, bidx, pcfg), plain(feats, boxes, bidx, pcfg)
+    if pcfg.adaptive:
+        want32 = poolers.adaptive_roi_align(f32, boxes, bidx, pcfg)
+        lim32 = 1e-5 * want32.abs().max().item()
+
+        def plain():
+            return poolers.adaptive_roi_align(feats, boxes, bidx, pcfg, rois_per_image)
+    else:
+        want32 = poolers.multilevel_roi_align_plain(f32, boxes, bidx, pcfg)
+        lim32 = 1e-5
+
+        def plain():
+            return poolers.multilevel_roi_align_plain(feats, boxes, bidx, pcfg)
+    err32 = (roi(f32, boxes, bidx, pcfg) - want32).abs().max().item()
+    check(err32 <= lim32, "ROIAlign kernel (float32) off by {} > {} at P={}".format(
+        err32, lim32, pcfg.output_size))
+    del f32
+    got = roi(feats, boxes, bidx, pcfg)
+    want = want32 if pcfg.adaptive else plain()
+    del want32
     err = (got.float() - want.float()).abs().max().item()
     limit = 1e-2 * max(f.abs().max().item() for f in feats)
     check(err <= limit, "ROIAlign kernel ({}) off by {} > {} at P={}".format(
         feats[0].dtype, err, limit, pcfg.output_size))
+    check(torch.equal(roi(feats, boxes, bidx, pcfg), got),
+          "two calls of the ROIAlign kernel differ at P={}".format(pcfg.output_size))
+    del want
     # bytes: each feature cell a sample touches read once, boxes and image
     # indices read once, the pooled output written once
-    index, _, outside = poolers.sample_corners([f.shape[:3] for f in feats], boxes, bidx, pcfg)
-    cells = int(torch.unique(index[:, ~outside]).numel())
-    r, p, s, c = boxes.shape[0], pcfg.output_size, pcfg.sampling_ratio, feats[0].shape[-1]
+    shapes = [tuple(f.shape) for f in feats]
+    cells, samples = roi_work(torch, poolers, shapes, boxes, bidx, pcfg)
+    r, p, c = boxes.shape[0], pcfg.output_size, feats[0].shape[-1]
     item = feats[0].element_size()
     b32, i32 = boxes.contiguous(), bidx.to(torch.int32).contiguous()
-    lvl = poolers.assign_levels(b32, pcfg).contiguous()
+    lvl = roi_levels(torch, poolers, shapes, b32, pcfg)
     out = torch.empty_like(got)
     nbytes = r * p * p * c * item + cells * c * item + r * (16 + 4)
-    b_ms, b_by = bound(nbytes, r * p * p * c * (ROI_OPS_PER_SAMPLE * s * s + 1))
-    return {
-        "rois": r, "P": p, "dtype": str(feats[0].dtype).replace("torch.", ""),
+    b_ms, b_by = bound(nbytes, c * (ROI_OPS_PER_SAMPLE * samples + r * p * p))
+    site = {"rois": r, "P": p, "dtype": str(feats[0].dtype).replace("torch.", "")}
+    if pcfg.adaptive:
+        site.update(grid="adaptive", samples_an_axis_max=poolers.adaptive_cap(pcfg, shapes),
+                    samples_a_bin_mean=samples / (r * p * p), map=list(shapes[0]),
+                    rois_per_image=rois_per_image, bitwise_repeatable=True)
+    site.update({
         "max_abs_err": err, "max_abs_err_float32": err32, "cells_read": cells,
         "ms": cuda_ms(torch, lambda: roi(feats, boxes, bidx, pcfg), 50),
         "kernel_ms": cuda_ms(torch, lambda: poolers.launch(feats, b32, i32, lvl, pcfg, out), 50),
-        "plain_ms": cuda_ms(torch, lambda: plain(feats, boxes, bidx, pcfg), 10),
+        "plain_ms": cuda_ms(torch, plain, plain_iters, warmup=1 if pcfg.adaptive else 2),
         "bound_ms": b_ms, "bound_by": b_by,
-    }
+    })
+    return site
 
 
 def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low, timeline=False):
@@ -694,14 +773,18 @@ def matcher_site(torch, matcher, anchors, gt_boxes, gt_valid, high, low, timelin
     }
 
 
-def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"):
+def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi",
+                      rois_per_image=None):
     """The backward kernel `kind` ("roi", "rmw" or "chunk") on the gradient
     the step's backward gave the pooled output, against autograd through the
-    plain float32 forward; for the window backwards also the shape of their
-    layout on these ROIs."""
+    plain float32 forward (the adaptive grid's: the gather path); for the
+    window backwards also the shape of their layout on these ROIs. The
+    adaptive grid's plain time is the forward and backward of
+    adaptive_roi_align in dOut's dtype, as CPU tensors run it with the
+    call's rois_per_image."""
     shapes = [tuple(f.shape) for f in feats]
     b32, i32 = boxes.detach().contiguous(), bidx.to(torch.int32).contiguous()
-    lvl = poolers.assign_levels(b32, pcfg).contiguous()
+    lvl = roi_levels(torch, poolers, shapes, b32, pcfg)
     wrapper = poolers.BACKWARD_KERNELS[kind]
     got = wrapper(dout, shapes, b32, i32, lvl, pcfg)
     got32 = wrapper(dout.float(), shapes, b32, i32, lvl, pcfg)
@@ -711,8 +794,22 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
           "two calls of the {} backward differ at P={}".format(kind, pcfg.output_size))
     del again
     leaves = [torch.zeros(sh, device=dout.device, requires_grad=True) for sh in shapes]
-    plain_out = poolers.multilevel_roi_align_plain(leaves, b32, bidx, pcfg)
-    want = torch.autograd.grad(plain_out, leaves, dout.float(), retain_graph=True)
+    if pcfg.adaptive:
+        # the gather path's chunks run under checkpoint: a graph per call
+        want = torch.autograd.grad(poolers.adaptive_roi_align(leaves, b32, bidx, pcfg), leaves,
+                                   dout.float())
+        leaves = [torch.zeros(sh, dtype=dout.dtype, device=dout.device, requires_grad=True)
+                  for sh in shapes]
+
+        def plain():
+            return torch.autograd.grad(poolers.adaptive_roi_align(
+                leaves, b32, bidx, pcfg, rois_per_image), leaves, dout)
+    else:
+        plain_out = poolers.multilevel_roi_align_plain(leaves, b32, bidx, pcfg)
+        want = torch.autograd.grad(plain_out, leaves, dout.float(), retain_graph=True)
+
+        def plain():
+            return torch.autograd.grad(plain_out, leaves, dout.float(), retain_graph=True)
     scale = max(w.abs().max().item() for w in want)
     err32 = max((g - w).abs().max().item() for g, w in zip(got32, want))
     err = max((g.float() - w).abs().max().item() for g, w in zip(got, want))
@@ -721,17 +818,22 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
           .format(kind, err32, scale))
     check(err <= 1e-2 * scale, "ROIAlign {} backward kernel ({}) off by {} > 1e-2 * {}".format(
         kind, dout.dtype, err, scale))
+    del want
     total = sum(math.prod(sh) for sh in shapes)
     out = torch.empty((total,), dtype=dout.dtype, device=dout.device)
     dc = dout.contiguous()
-    r, p, s, c = dout.shape[0], pcfg.output_size, pcfg.sampling_ratio, dout.shape[-1]
+    r, p, c = dout.shape[0], pcfg.output_size, dout.shape[-1]
+    _, samples = roi_work(torch, poolers, shapes, b32, bidx, pcfg)
     item = dout.element_size()
     # bytes: dOut, boxes and image indices read once, the dense gradient of
     # every pooled level written once in the compute dtype
     b_ms, b_by = bound(dout.numel() * item + r * 20 + total * item,
-                       r * p * p * c * (ROI_OPS_PER_SAMPLE * s * s + 1))
+                       c * (ROI_OPS_PER_SAMPLE * samples + r * p * p))
     site = {"kind": kind, "rois": r, "P": p, "dtype": str(dout.dtype).replace("torch.", ""),
             "bitwise_repeatable": True}
+    if pcfg.adaptive:
+        site.update(grid="adaptive", samples_a_bin_mean=samples / (r * p * p),
+                    map=list(shapes[0]), rois_per_image=rois_per_image)
     if kind == "roi":
         inputs = poolers.roi_tile_inputs(shapes, i32, lvl)
         # how the ROIs load the tiles: the crowded tiles set the kernel's time
@@ -759,11 +861,34 @@ def roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg, dout, kind="roi"
         "ms": cuda_ms(torch, lambda: wrapper(dout, shapes, b32, i32, lvl, pcfg), 20),
         "kernel_ms": cuda_ms(torch, lambda: poolers.launch_backward(
             shapes, b32, pcfg, dc, out, kind, inputs), 20),
-        "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-            plain_out, leaves, dout.float(), retain_graph=True), 5, warmup=1),
+        "plain_ms": cuda_ms(torch, plain, 1 if pcfg.adaptive else 5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
     })
     return site
+
+
+def adaptive_pooler_sites(torch, poolers, cap, path):
+    """The adaptive grid's pooler calls of a step that `cap` recorded (a
+    Capture of multilevel_roi_align with grads=True; box, then mask), each
+    held to the gather path forward (roi_site) and, where the step's
+    backward reached its output, backward on that gradient
+    (roi_backward_site, "roi"): (forward sites, backward sites). The
+    recorded calls are let go."""
+    fwd, bwd = [], []
+    for i, (call, kwargs) in enumerate(zip(cap.calls, cap.kwargs)):
+        feats, boxes, bidx, pcfg = [f.detach() for f in call[0]], *call[1:]
+        check(pcfg.adaptive, "{}: pooler call {} on the fixed grid".format(path, i))
+        k = kwargs.get("rois_per_image")
+        with torch.no_grad():
+            fwd.append(roi_site(torch, poolers, feats, boxes, bidx, pcfg, k, plain_iters=1))
+        if i in cap.out_grads:
+            bwd.append(roi_backward_site(torch, poolers, feats, boxes, bidx, pcfg,
+                                         cap.out_grads[i], "roi", k))
+    cap.calls.clear()
+    cap.kwargs.clear()
+    cap.out_grads.clear()
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def kernel_entry(name, source, replaces, launches, sites):
@@ -3249,13 +3374,14 @@ def gn_c4_phase(torch, np, card, dl):
     torch.cuda.reset_peak_memory_stats()
     caps = {"nms": Capture([rpn], "batched_nms", limit=1),
             "matcher": Capture([rpn], "match_anchors_batched", limit=1),
-            "pool": Capture([detector], "multilevel_roi_align", limit=1)}
+            "pool": Capture([detector], "multilevel_roi_align", grads=True, limit=2)}
     with contextlib.ExitStack() as stack:
         for c in caps.values():
             stack.enter_context(c)
         _, meters = train_net.main(["--config-file", c4_yaml, "--skip-test",
                                     "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
-        dl.done("c4_recipe", t0, {"matcher": 1, "nms": 1}, 3)
+        dl.done("c4_recipe", t0, {"matcher": 1, "nms": 1, "roi_align": 2,
+                                  "roi_align_backward": 2}, 3)
     peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
     n_loaded, n_total = dl.loaded_count()
     head = [k for k in dl.record["start"] if k.startswith("roi_heads.box.feature_extractor.head.")
@@ -3268,34 +3394,22 @@ def gn_c4_phase(torch, np, card, dl):
     check(nms_c4["shape"] == [8, 12000], "C4 training NMS lanes {}".format(nms_c4["shape"]))
     msite = matcher_site(torch, matcher, *caps["matcher"].calls[0])
     check(msite["images"] == 8, "C4 matcher on {} images".format(msite["images"]))
-    # the box pooler: the matmul path against the gather path, module times
-    feats, boxes, bidx, pcfg = caps["pool"].calls[0]
-    feats = [f.detach() for f in feats]
-    k = boxes.shape[0] // feats[0].shape[0]
-    h, w = feats[0].shape[1:3]
-    s_ = min(pcfg.adaptive_max, max(-(-h // pcfg.output_size), -(-w // pcfg.output_size), 1))
-    with torch.no_grad():
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
-            fd = [feats[0].to(dt)]
-            mm = poolers.c4_matmul_pool(fd[0], boxes, pcfg, k, s_)
-            ga = poolers.adaptive_roi_align(fd, boxes, bidx, pcfg)
-            errs[str(dt).replace("torch.", "")] = ((mm.float() - ga.float()).abs().max()
-                                                   / ga.float().abs().max()).item()
-            del mm, ga
-        pool = {"rois": boxes.shape[0], "P": pcfg.output_size, "samples_an_axis": s_,
-                "map": [h, w, feats[0].shape[3]], "rel_err": errs,
-                "matmul_ms": cuda_ms(torch, lambda: poolers.c4_matmul_pool(
-                    feats[0], boxes, pcfg, k, s_), 1, warmup=1),
-                "gather_ms": cuda_ms(torch, lambda: poolers.adaptive_roi_align(
-                    feats, boxes, bidx, pcfg), 1, warmup=1)}
-    check(errs["float32"] <= 1e-4 and errs["bfloat16"] <= 2e-2,
-          "C4 matmul pooler against the gather pooler: {}".format(errs))
-    print("c4 box pooler, matmul path against the gather path on the first step's inputs "
-          "(module times, CUDA events) [{}]: {}".format(card, json.dumps(pool)), flush=True)
+    # the box and mask poolers: the kernels' adaptive instances against the
+    # gather path, forward and backward, on the first step's inputs and the
+    # gradients its backward gave them
+    pool_fwd, pool_bwd = adaptive_pooler_sites(torch, poolers, caps["pool"], "c4 recipe")
+    box_rois = 8 * cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+    check([(x["rois"], x["P"]) for x in pool_fwd][:1] == [(box_rois, 14)]
+          and len(pool_fwd) == len(pool_bwd) == 2
+          and [x["rois"] for x in pool_bwd] == [x["rois"] for x in pool_fwd],
+          "C4 training pooler sites {}".format([(x["rois"], x["P"]) for x in pool_fwd]))
+    for x in pool_fwd + pool_bwd:
+        print("c4 recipe kernel site, the {} pooler {} [{}]: {}".format(
+            "box" if x["rois"] == box_rois else "mask", "backward" if "kind" in x else "forward",
+            card, json.dumps(x)), flush=True)
     for c in caps.values():
         c.calls.clear()
-    del caps, lane, feats, boxes, bidx
+    del caps, lane
     step_profile("c4 recipe", {"res5_head": (box_head.ResNet50Conv5ROIFeatureExtractor, "forward"),
                                "pooler": (detector, "multilevel_roi_align")})
     print("c4 recipe: loaded {}/{} tensors from R-50.pkl; 3 iterations at batch 8: {}; peak "
@@ -3303,19 +3417,27 @@ def gn_c4_phase(torch, np, card, dl):
                                                       peak_run_gb, card), flush=True)
     print("c4 recipe kernel sites [{}]: {} {}".format(card, json.dumps(nms_c4), json.dumps(msite)),
           flush=True)
-    sites["c4_recipe"] = path_sites(nms=[nms_c4], matcher=[msite])
+    sites["c4_recipe"] = path_sites(nms=[nms_c4], matcher=[msite], roi_align=pool_fwd,
+                                    roi_align_backward=pool_bwd)
     dl.record.clear()
-    with Capture([rpn], "batched_nms", limit=1) as cap:
+    with Capture([rpn], "batched_nms", limit=1) as cap, \
+            Capture([detector], "multilevel_roi_align", limit=2) as pool:
         known_answer("c4_test", c4_yaml, os.path.join(out, "model_final.pth"),
-                     os.path.join(out, "test"), {"nms": 2})
+                     os.path.join(out, "test"), {"nms": 2, "roi_align": 2})
     with torch.inference_mode():
         test_lane = nms_site(torch, nms, *cap.calls[0], plain_iters=1)
+        test_pool, _ = adaptive_pooler_sites(torch, poolers, pool, "c4 test")
     check(test_lane["shape"] == [8, 6000], "C4 test NMS lanes {}".format(test_lane["shape"]))
+    check([x["P"] for x in test_pool] == [14, 14],
+          "C4 test pooler sites {}".format([(x["rois"], x["P"]) for x in test_pool]))
     print("c4 test kernel site, the RPN's NMS [{}]: {}".format(card, json.dumps(test_lane)),
           flush=True)
-    sites["c4_test"] = path_sites(nms=[test_lane])
-    del cap
-    serve("c4_serving", cfg, SEED + 22, {"nms": 2})
+    for x, name in zip(test_pool, ("box", "mask")):
+        print("c4 test kernel site, the {} pooler forward [{}]: {}".format(
+            name, card, json.dumps(x)), flush=True)
+    sites["c4_test"] = path_sites(nms=[test_lane], roi_align=test_pool)
+    del cap, pool
+    serve("c4_serving", cfg, SEED + 22, {"nms": 2, "roi_align": 2})
     # the quick file through test_net alone, at a short side of 480
     t1 = dl.reset()
     quick = os.path.join(REPO, "configs", "quick_schedules", "e2e_faster_rcnn_R_50_C4_quick.yaml")
@@ -3323,7 +3445,7 @@ def gn_c4_phase(torch, np, card, dl):
     ((res, _),) = test_net.main(["--config-file", quick, "MODEL.ROI_HEADS.SCORE_THRESH", "0.0",
                                  "INPUT.MIN_SIZE_TEST", "480", "INPUT.MAX_SIZE_TEST", "640",
                                  "OUTPUT_DIR", os.path.join(out, "quick")])
-    dl.done("c4_quick_test", t1, {"nms": 2}, 2)
+    dl.done("c4_quick_test", t1, {"nms": 2, "roi_align": 1}, 2)
     print("c4 quick: test_net --config-file configs/quick_schedules/"
           "e2e_faster_rcnn_R_50_C4_quick.yaml INPUT.MIN_SIZE_TEST 480 INPUT.MAX_SIZE_TEST 640 "
           "(its catalog:// R-50 from the cache, random heads) [{}]: {}".format(
@@ -3424,7 +3546,7 @@ def last_families_phase(torch, np, card, dl):
     import pickle
 
     from maskrcnn_tpu_torch.config import cfg as defaults
-    from maskrcnn_tpu_torch.models import build_detection_model, detector, resnet, rpn
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, resnet, rpn
     from maskrcnn_tpu_torch.ops import matcher, nms
     from maskrcnn_tpu_torch.tools import test_net, train_net
 
@@ -3631,14 +3753,17 @@ def last_families_phase(torch, np, card, dl):
     t1 = dl.reset()
     torch.cuda.reset_peak_memory_stats()
     caps = {"nms": Capture([rpn], "batched_nms", limit=1),
-            "matcher": Capture([rpn], "match_anchors_batched", limit=1)}
+            "matcher": Capture([rpn], "match_anchors_batched", limit=1),
+            "pool": Capture([detector], "multilevel_roi_align", grads=True, limit=2)}
     with contextlib.ExitStack() as stack:
         for c in caps.values():
             stack.enter_context(c)
         _, meters = train_net.main(["--config-file", fb_yaml, "--skip-test",
                                     "SOLVER.MAX_ITER", "2", "OUTPUT_DIR", out] + opts)
-        # the adaptive pooler on the single stride-16 map: no ROIAlign kernel
-        dl.done("fbnet_recipe", t1, {"matcher": 1, "nms": 1}, 2)
+        # the adaptive pooler on the single stride-16 map: the kernels' adaptive
+        # instances, box and mask
+        dl.done("fbnet_recipe", t1, {"matcher": 1, "nms": 1, "roi_align": 2,
+                                     "roi_align_backward": 2}, 2)
     peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = dl.train_summary(meters, fb_yaml, opts, n_losses=5, frozen_prefixes=())
     with torch.no_grad():
@@ -3647,10 +3772,17 @@ def last_families_phase(torch, np, card, dl):
     check(fb_nms["shape"] == [16, 6000] and fb_matcher["images"] == 16,
           "FBNet NMS lanes {}, matcher on {} images".format(fb_nms["shape"],
                                                           fb_matcher["images"]))
+    fb_fwd, fb_bwd = adaptive_pooler_sites(torch, poolers, caps["pool"], "fbnet recipe")
+    check(len(fb_fwd) == len(fb_bwd) == 2, "FBNet pooler sites {} / {}".format(
+        len(fb_fwd), len(fb_bwd)))
+    for x in fb_fwd + fb_bwd:
+        print("fbnet recipe kernel site, a pooler {} [{}]: {}".format(
+            "backward" if "kind" in x else "forward", card, json.dumps(x)), flush=True)
     for c in caps.values():
         c.calls.clear()
     del caps
-    sites["fbnet_recipe"] = kernel_path_sites(nms=[fb_nms], matcher=[fb_matcher])
+    sites["fbnet_recipe"] = kernel_path_sites(nms=[fb_nms], matcher=[fb_matcher],
+                                              roi_align=fb_fwd, roi_align_backward=fb_bwd)
     prof = step_profile_shares(torch, card, dl, "fbnet recipe", {
         "pooler": (detector, "multilevel_roi_align")})
     print("fbnet recipe: 2 iterations at batch 16: {}; peak memory {:.3f} GB over the run, "
@@ -3660,7 +3792,8 @@ def last_families_phase(torch, np, card, dl):
     dl.record.clear()
     sites["fbnet_test"] = kernel_path_sites()
     coco_known_answer(torch, np, card, dl, "fbnet_test", fb_yaml,
-                      os.path.join(out, "model_final.pth"), os.path.join(out, "test"), {"nms": 2})
+                      os.path.join(out, "model_final.pth"), os.path.join(out, "test"),
+                      {"nms": 2, "roi_align": 2})
 
     def calibrated(pred, warm):
         n_set, n_bn = calibrate_unfolded_bn(torch, pred.model,
@@ -3671,7 +3804,7 @@ def last_families_phase(torch, np, card, dl):
                               "e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml")):
         scfg, state = serve_once(torch, np, card, dl, "fbnet_serving_" + name.split("_")[-2],
                                  cfg_of(os.path.join(REPO, "configs", name)), SEED + 51 + k,
-                                 {"nms": 2}, prepare=calibrated)
+                                 {"nms": 2, "roi_align": 1 + k}, prepare=calibrated)
         sites["fbnet_serving_" + name.split("_")[-2]] = kernel_path_sites()
     ref = reference_check(torch, np, detector, scfg, state)
     print("fbnet xirb16d_dsmask float32 card vs CPU on a 256x320 image [{}]: {}".format(

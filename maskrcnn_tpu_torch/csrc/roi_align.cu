@@ -20,6 +20,27 @@
 // Every ROI samples all it covers: there is no equivalent of the TPU
 // kernel's 40-cell patch clamp for oversized ROIs.
 //
+// The adaptive grid (POOLER_SAMPLING_RATIO 0: the C4 and FBNet heads)
+// replaces no TPU kernel: the JAX package pools it with XLA's gather and
+// matmul paths (maskrcnn_tpu/models/poolers.py:_pool_roi_block,
+// _c4_matmul_pool). It is here because those paths, ported as plain
+// PyTorch, took ~95% of a C4 training step on this card (PERF.md). It
+// differs from the fixed grid in one way: each ROI takes its own sample
+// count a bin on each axis, n = clip(ceil(bin), 1, s) with s the wrapper's
+// cap (min(8, max(ceil(H / P), ceil(W / P), 1)) on one level, 8 on
+// several), sample k of bin i at origin + i * bin + (k + 0.5) * bin / n,
+// weighing 1/n on its axis, and a bin is the sum of its weighted samples
+// (poolers.adaptive_axis_samples, _adaptive_gather). The geometry stays
+// separable, so the forward and the "roi" backward take it as a
+// compile-time flag (kAdaptive): their loops run over the n samples only,
+// and the weights 1/ny * 1/nx (forward) or 1/n folded into RowW / ColW
+// (backward) take the place of the division by S*S. The fixed-ratio
+// instances are the code they were. Bound at C4's training shapes (bf16,
+// C = 1024, P = 14, 8 maps of 50 x 84 at stride 16, s = 6): the box
+// pooler's 4096 ROIs write 1.64 GB, which its backward reads back while
+// writing the 69 MB gradient, ~0.5 ms each at 3.35 TB/s; the mask pooler's
+// 512 ROIs an eighth of that: ~1.15 ms a step in all.
+//
 // The geometry is separable: a sample's row cells and weights depend on its
 // row index alone, its column's on its column index. Both kernels compute an
 // ROI's P*S row axes and P*S column axes once per block, a few threads each,
@@ -218,6 +239,14 @@ struct RoiGeom {
   float x1, y1, bin_w, bin_h, sub_w, sub_h;
 };
 
+// Samples a bin takes along an axis on the adaptive grid: clip(ceil(bin), 1, s)
+// (poolers.adaptive_axis_samples), s the wrapper's cap.
+__device__ __forceinline__ int adaptive_count(float bin, int s) {
+  return (int)fminf(fmaxf(ceilf(bin), 1.f), (float)s);
+}
+
+// The adaptive grid spaces an axis's samples by bin / n, n = adaptive_count.
+template <bool kAdaptive = false>
 __device__ __forceinline__ RoiGeom roi_geom(float4 box, float scale, int p, int s) {
   RoiGeom g;
   g.x1 = __fmul_rn(box.x, scale);
@@ -226,8 +255,8 @@ __device__ __forceinline__ RoiGeom roi_geom(float4 box, float scale, int p, int 
   const float y2 = __fmul_rn(box.w, scale);
   g.bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, g.x1), 1.f), (float)p);
   g.bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, g.y1), 1.f), (float)p);
-  g.sub_w = __fdiv_rn(g.bin_w, (float)s);
-  g.sub_h = __fdiv_rn(g.bin_h, (float)s);
+  g.sub_w = __fdiv_rn(g.bin_w, kAdaptive ? (float)adaptive_count(g.bin_w, s) : (float)s);
+  g.sub_h = __fdiv_rn(g.bin_h, kAdaptive ? (float)adaptive_count(g.bin_h, s) : (float)s);
   return g;
 }
 
@@ -249,7 +278,7 @@ __device__ __forceinline__ Axis roi_axis(const RoiGeom& g, int j, int p, int s, 
                 : sample_axis(g.x1, g.bin_w, g.sub_w, j - ps, s, w);
 }
 
-template <typename T>
+template <typename T, bool kAdaptive>
 __global__ void __launch_bounds__(kThreads)
 roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes,
                      const int* __restrict__ batch_idx, const int* __restrict__ level, int c,
@@ -261,10 +290,16 @@ roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes,
   const int h = lv.h[l];
   const int w = lv.w[l];
   const T* feat = (const T*)lv.data[l] + (size_t)batch_idx[r] * h * w * c;
-  const RoiGeom g = roi_geom(boxes[r], lv.scale[l], p, s);
+  const RoiGeom g = roi_geom<kAdaptive>(boxes[r], lv.scale[l], p, s);
   const int ps = p * s;
   for (int j = threadIdx.x; j < 2 * ps; j += blockDim.x) s_ax[j] = roi_axis(g, j, p, s, h, w);
   __syncthreads();
+  // the samples of a bin on each axis; on the adaptive grid each weighs
+  // 1/ny * 1/nx, rounded as the plain version rounds wy * wx
+  const int ny = kAdaptive ? adaptive_count(g.bin_h, s) : s;
+  const int nx = kAdaptive ? adaptive_count(g.bin_w, s) : s;
+  const float wyx =
+      kAdaptive ? __fmul_rn(__fdiv_rn(1.f, (float)ny), __fdiv_rn(1.f, (float)nx)) : 1.f;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int bin_end = min((blockIdx.y + 1) * band, p * p);
@@ -278,10 +313,10 @@ roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes,
     for (int ch = lane * 8; ch < c; ch += kChannels) {
       const T* f = feat + ch;
       float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      for (int iy = 0; iy < s; ++iy) {
+      for (int iy = 0; iy < ny; ++iy) {
         const Axis ay = ays[iy];
         if (ay.lo < 0) continue;
-        for (int ix = 0; ix < s; ++ix) {
+        for (int ix = 0; ix < nx; ++ix) {
           const Axis ax = axs[ix];
           if (ax.lo < 0) continue;
           const float w00 = __fmul_rn(ay.h, ax.h), w01 = __fmul_rn(ay.h, ax.l);
@@ -297,12 +332,16 @@ roi_align_fwd_kernel(Levels lv, const float4* __restrict__ boxes,
             val = __fadd_rn(val, __fmul_rn(w01, v01[k]));
             val = __fadd_rn(val, __fmul_rn(w10, v10[k]));
             val = __fadd_rn(val, __fmul_rn(w11, v11[k]));
-            acc[k] = __fadd_rn(acc[k], val);
+            acc[k] = __fadd_rn(acc[k], kAdaptive ? __fmul_rn(val, wyx) : val);
           }
         }
       }
+      if (!kAdaptive) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] = pow2 ? __fmul_rn(acc[k], inv) : __fdiv_rn(acc[k], count);
+        for (int k = 0; k < 8; ++k) {
+          acc[k] = pow2 ? __fmul_rn(acc[k], inv) : __fdiv_rn(acc[k], count);
+        }
+      }
       store8(o + ch, acc);
     }
   }
@@ -455,7 +494,9 @@ __device__ __forceinline__ int2 window_range(const TileLevels& lv, const TileRoi
 }
 
 // Block (tile, slice) owns the tile's channels [slice * kSlice, + kSlice).
-template <typename T, int kWalk>
+// kAdaptive (the "roi" walk only): the adaptive grid, each sample's weight
+// 1/n folded into RowW / ColW, so nothing is divided at the end.
+template <typename T, int kWalk, bool kAdaptive>
 __global__ void __launch_bounds__(kThreads, 3)
 roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxes, TileRois rois,
                           int c, int p, int s, const T* __restrict__ dout) {
@@ -480,7 +521,7 @@ roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxe
   const int ps = p * s, pt = p * kTile;
   constexpr int kPieces = kSlice * (int)sizeof(T) / 16;  // 16-byte pieces of a staged bin
   constexpr int kPer = 16 / (int)sizeof(T);              // channels of a piece
-  const int cnt = s * s;
+  const int cnt = kAdaptive ? 1 : s * s;
   const float count = (float)cnt;
   const bool pow2 = (cnt & (cnt - 1)) == 0;  // then * (1 / count) is the division, exactly
   const float inv = 1.f / count;
@@ -597,7 +638,7 @@ roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxe
       const int k = pure ? (before >> 16) + __popc(mp & below)
                          : npure + (before & 0xffff) + __popc(m & below);
       s_roi[k] = r;
-      s_geom[k] = roi_geom(box, scale, p, s);
+      s_geom[k] = roi_geom<kAdaptive>(box, scale, p, s);
     }
     __syncthreads();
 
@@ -638,16 +679,21 @@ roi_align_bwd_tile_kernel(TileLevels lv, int nb, const float4* __restrict__ boxe
           const int col = e / p % 2, bin = e % p;
           const RoiGeom g = s_geom[h0 + e / (2 * p)];
           const int at0 = col ? x0 : y0;
+          // the bin's samples on this axis, and (adaptive) the weight 1/n of each
+          const int n = kAdaptive ? adaptive_count(col ? g.bin_w : g.bin_h, s) : s;
+          const float wn = kAdaptive ? __fdiv_rn(1.f, (float)n) : 1.f;
           float wt[kTile];
 #pragma unroll
           for (int cell = 0; cell < kTile; ++cell) wt[cell] = 0.f;
-          for (int j = 0; j < s; ++j) {
+          for (int j = 0; j < n; ++j) {
             const Axis a = roi_axis(g, col * ps + bin * s + j, p, s, h, w);
             if (a.lo < 0) continue;
+            const float wlo = kAdaptive ? __fmul_rn(wn, a.h) : a.h;
+            const float whi = kAdaptive ? __fmul_rn(wn, a.l) : a.l;
 #pragma unroll
             for (int cell = 0; cell < kTile; ++cell) {
-              if (a.lo == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.h);
-              if (a.hi == at0 + cell) wt[cell] = __fadd_rn(wt[cell], a.l);
+              if (a.lo == at0 + cell) wt[cell] = __fadd_rn(wt[cell], wlo);
+              if (a.hi == at0 + cell) wt[cell] = __fadd_rn(wt[cell], whi);
             }
           }
           int bits = 0;
@@ -853,32 +899,33 @@ namespace {
 
 bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
 
-template <typename T, int kWalk>
+template <typename T, int kWalk, bool kAdaptive = false>
 cudaError_t launch_tile_backward(const TileLevels& lv, int nb, const void* boxes,
                                  const TileRois& rois, int c, int p, int s, const void* dout,
                                  cudaStream_t st) {
   const size_t smem = tile_smem(p, sizeof(T), kWalk).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(roi_align_bwd_tile_kernel<T, kWalk>,
+    const cudaError_t e = cudaFuncSetAttribute(roi_align_bwd_tile_kernel<T, kWalk, kAdaptive>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(lv.tiles[lv.num_levels], (c + kSlice - 1) / kSlice);
-  roi_align_bwd_tile_kernel<T, kWalk><<<grid, kThreads, smem, st>>>(
+  roi_align_bwd_tile_kernel<T, kWalk, kAdaptive><<<grid, kThreads, smem, st>>>(
       lv, nb, (const float4*)boxes, rois, c, p, s, (const T*)dout);
   return cudaGetLastError();
 }
 
 // The tile backward of `walk` for every level's NHWC gradient in out (see
-// roi_align_backward).
+// roi_align_backward); adaptive only for the "roi" walk.
 cudaError_t tile_backward(int walk, void* out, const long long* out_offsets, const int* hs,
                           const int* ws, const float* scales, int num_levels, int nb,
                           const void* boxes, const TileRois& rois, int c, int p, int s,
-                          int dtype, const void* dout, cudaStream_t st) {
+                          int dtype, const void* dout, int adaptive, cudaStream_t st) {
   if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1 || nb < 1 ||
-      c <= 0 || c % 8 != 0 || p < 1 || s < 1 || !aligned16(out) || !aligned16(dout)) {
+      c <= 0 || c % 8 != 0 || p < 1 || s < 1 || !aligned16(out) || !aligned16(dout) ||
+      (adaptive && walk != kScan)) {
     return cudaErrorInvalidValue;
   }
   const size_t item = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
@@ -893,6 +940,12 @@ cudaError_t tile_backward(int walk, void* out, const long long* out_offsets, con
     lv.tiles[i + 1] = lv.tiles[i] + lv.tiles_x[i] * ((hs[i] + kTile - 1) / kTile) * nb;
   }
   if (lv.tiles[num_levels] == 0) return cudaSuccess;
+  if (adaptive) {
+    return dtype == 0
+               ? launch_tile_backward<float, kScan, true>(lv, nb, boxes, rois, c, p, s, dout, st)
+               : launch_tile_backward<__nv_bfloat16, kScan, true>(lv, nb, boxes, rois, c, p, s,
+                                                                   dout, st);
+  }
   if (dtype == 0) {
     if (walk == kScan) {
       return launch_tile_backward<float, kScan>(lv, nb, boxes, rois, c, p, s, dout, st);
@@ -915,14 +968,15 @@ cudaError_t tile_backward(int walk, void* out, const long long* out_offsets, con
 // level_ptrs/hs/ws/scales: host arrays of num_levels entries, each level an
 // NHWC-contiguous [B, H, W, c] map of `dtype` (0 = f32, 1 = bf16), 16-byte
 // aligned, c % 8 == 0; boxes [r, 4] f32, batch_idx [r] i32, level [r] i32 in
-// [0, num_levels); out [r, p, p, c] of `dtype`, 16-byte aligned. Returns
-// cudaGetLastError() after the launch.
+// [0, num_levels); out [r, p, p, c] of `dtype`, 16-byte aligned; s the
+// samples a bin an axis, or with adaptive != 0 the adaptive grid's cap.
+// Returns cudaGetLastError() after the launch.
 extern "C" int roi_align_forward(const void* const* level_ptrs, const int* hs,
                                  const int* ws, const float* scales,
                                  int num_levels, const void* boxes,
                                  const void* batch_idx, const void* level,
                                  int r, int c, int p, int s, int dtype,
-                                 void* out, void* stream) {
+                                 void* out, void* stream, int adaptive) {
   if (r <= 0) return 0;
   const size_t smem = sizeof(Axis) * 2 * p * s;
   if (num_levels < 1 || num_levels > kMaxLevels || dtype < 0 || dtype > 1 || c <= 0 ||
@@ -941,14 +995,21 @@ extern "C" int roi_align_forward(const void* const* level_ptrs, const int* hs,
   const int band = (p * p + bands - 1) / bands;
   const dim3 grid(r, bands);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, kThreads, smem, st>>>(
-        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c, p, s, band,
-        (float*)out);
+  const float4* b4 = (const float4*)boxes;
+  const int *bi = (const int*)batch_idx, *li = (const int*)level;
+  using B = __nv_bfloat16;
+  if (dtype == 0 && !adaptive) {
+    roi_align_fwd_kernel<float, false><<<grid, kThreads, smem, st>>>(lv, b4, bi, li, c, p, s,
+                                                                      band, (float*)out);
+  } else if (dtype == 0) {
+    roi_align_fwd_kernel<float, true><<<grid, kThreads, smem, st>>>(lv, b4, bi, li, c, p, s,
+                                                                     band, (float*)out);
+  } else if (!adaptive) {
+    roi_align_fwd_kernel<B, false><<<grid, kThreads, smem, st>>>(lv, b4, bi, li, c, p, s, band,
+                                                                  (B*)out);
   } else {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        lv, (const float4*)boxes, (const int*)batch_idx, (const int*)level, c, p, s, band,
-        (__nv_bfloat16*)out);
+    roi_align_fwd_kernel<B, true><<<grid, kThreads, smem, st>>>(lv, b4, bi, li, c, p, s, band,
+                                                                 (B*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -958,16 +1019,16 @@ extern "C" int roi_align_forward(const void* const* level_ptrs, const int* hs,
 // here, 16-byte aligned, c % 8 == 0; hs/ws/scales as for the forward; boxes
 // [r, 4] f32; order [r] i32, the ROIs sorted by (level, image), stable;
 // seg_start [num_levels * nb + 1] i32, the first position in order of each
-// (level, image); dout [r, p, p, c] of `dtype`, 16-byte aligned. Returns
-// cudaGetLastError() after the launch.
+// (level, image); dout [r, p, p, c] of `dtype`, 16-byte aligned; s and
+// adaptive as for the forward. Returns cudaGetLastError() after the launch.
 extern "C" int roi_align_backward(void* out, const long long* out_offsets, const int* hs,
                                   const int* ws, const float* scales, int num_levels, int nb,
                                   const void* boxes, const void* order,
                                   const void* seg_start, int c, int p, int s, int dtype,
-                                  const void* dout, void* stream) {
+                                  const void* dout, void* stream, int adaptive) {
   const TileRois rois = {(const int*)order, (const int*)seg_start, nullptr, nullptr, nullptr};
   return (int)tile_backward(kScan, out, out_offsets, hs, ws, scales, num_levels, nb, boxes, rois,
-                            c, p, s, dtype, dout, (cudaStream_t)stream);
+                            c, p, s, dtype, dout, adaptive, (cudaStream_t)stream);
 }
 
 // The largest P the window backwards take: one ROI's float32 bins of a
@@ -993,6 +1054,6 @@ extern "C" int roi_align_backward_windows(int chunk, void* out, const long long*
   const TileRois rois = {(const int*)over_order, (const int*)over_seg, (const int*)first,
                          (const int*)end, (const int*)roi};
   return (int)tile_backward(chunk ? kChunks : kWindows, out, out_offsets, hs, ws, scales,
-                            num_levels, nb, boxes, rois, c, p, s, dtype, dout,
+                            num_levels, nb, boxes, rois, c, p, s, dtype, dout, 0,
                             (cudaStream_t)stream);
 }

@@ -81,13 +81,14 @@ head's FBNet.roi_head_mask with MaskRCNNConv1x1Predictor; their poolers are
 single-level, so they take the adaptive pooler as C4 does.
 
 C4 models (R-50-C4: one map at stride 16, 15 anchors a location) pool at
-POOLER_SAMPLING_RATIO 0 through the adaptive pooler, which has no kernel
-(models/poolers.py:adaptive_roi_align): the box ROIs of each image are a
-block of the sampled batch (training) or of the proposals (inference), so
-they take its matmul path; the box head's extractor is the res5 head. With
+POOLER_SAMPLING_RATIO 0 through the adaptive pooler: on the card the
+ROIAlign kernels' adaptive instances, on the CPU its plain paths
+(models/poolers.py:adaptive_roi_align), where the box ROIs of each image are
+a block of the sampled batch (training) or of the proposals (inference), so
+they take its matmul path. The box head's extractor is the res5 head. With
 SHARE_BOX_FEATURE_EXTRACTOR the mask head's input is the box pooler and the
-box extractor on the mask ROIs: the gather path on the positives in
-training, the matmul path on the detection slots at inference.
+box extractor on the mask ROIs: the positives in training, the detection
+slots at inference (on the CPU the gather and the matmul path).
 """
 
 import torch

@@ -28,21 +28,24 @@ the chunk rows), which the index shares. The kernels take NHWC levels with
 C % 8 == 0 and 16-byte aligned buffers, and the wrappers raise on anything
 else. There is no fallback between the kernels and the plain version.
 
-Adaptive sampling (POOLER_SAMPLING_RATIO 0, the C4 heads) has no kernel: as
-in the JAX package it is plain tensor code on every device
-(``adaptive_roi_align``). A bin takes n = clip(ceil(bin), 1, s) samples an
-axis from a static superset of s, sample k weighing 1/n when k < n
-(``adaptive_axis_samples``). On one level s is the map's own bound,
-min(8, ceil(H / P), ceil(W / P)), exact because the ROIs are clipped to the
-image; there the ROIs of image-major blocks of ``rois_per_image`` pool as
-two products against the whole map (``c4_matmul_pool``), other ROIs by the
-gather path in ROI chunks.
+Adaptive sampling (POOLER_SAMPLING_RATIO 0, the C4 and FBNet heads): a bin
+takes n = clip(ceil(bin), 1, s) samples an axis from a static superset of s,
+sample k weighing 1/n when k < n (``adaptive_axis_samples``). On one level s
+is the map's own bound, min(8, max(ceil(H / P), ceil(W / P), 1)), exact
+because the ROIs are clipped to the image (``adaptive_cap``). On CUDA tensors it takes
+the same two kernels as the fixed grid, their adaptive instances (each ROI's
+own n, the weights 1/n), with the "roi" backward whatever
+MASKRCNN_POOLER_BWD names: the window backwards take the fixed grid only.
+On CPU tensors it is the JAX package's plain tensor code
+(``adaptive_roi_align``): the ROIs of image-major blocks of
+``rois_per_image`` on one level pool as two products against the whole map
+(``c4_matmul_pool``), other ROIs by the gather path in ROI chunks.
 
 Spans (utils/profiling.py:span): ``multilevel_roi_align`` runs in
-"roi_pool", the kernel path and the adaptive path alike, and the kernels'
-backward (``RoIAlignFunction.backward``, on the autograd engine's thread)
-in "roi_pool.bwd". The adaptive path's backward is plain autograd: it has
-no span of its own and reads under the train step's "backward".
+"roi_pool", and the kernels' backward (``RoIAlignFunction.backward``, on
+the autograd engine's thread) in "roi_pool.bwd". The plain path's backward
+on CPU tensors is autograd's: it has no span of its own and reads under the
+train step's "backward".
 """
 
 import ctypes
@@ -186,7 +189,7 @@ def multilevel_roi_align_plain(features, boxes, batch_idx, pcfg):
     return val.reshape(r, p, s, p, s, c).mean(dim=(2, 4))
 
 
-# -- adaptive sampling (no kernel: the JAX package's XLA paths) -------------------
+# -- adaptive sampling: its grid, and the plain paths (the JAX package's XLA paths) --
 
 # the gather path pools the ROIs in chunks, and the matmul path its ROI
 # blocks, once the samples (or the [B, K, P, W, C] product) of one call
@@ -208,6 +211,17 @@ def adaptive_axis_samples(origin, bin_sz, p, s_max):
         bin_sz[:, None] / n[:, None])
     wt = (k[None] < n[:, None]).float() / n[:, None]
     return pos, wt
+
+
+def adaptive_cap(pcfg, level_shapes):
+    """s of the adaptive grid: its most samples a bin an axis. On one level
+    the map's own bound, min(adaptive_max, max(ceil(H / P), ceil(W / P),
+    1)); on several, adaptive_max. level_shapes: [(B, Hl, Wl, ...)]."""
+    s = pcfg.adaptive_max
+    if len(level_shapes) == 1:
+        p, h, w = pcfg.output_size, level_shapes[0][1], level_shapes[0][2]
+        s = min(s, max(-(-h // p), -(-w // p), 1))
+    return s
 
 
 def _adaptive_axes(boxes, lvl, pcfg, s):
@@ -305,16 +319,15 @@ def c4_matmul_pool(feature, boxes, pcfg, k_per_image, s):
 
 
 def adaptive_roi_align(features, boxes, batch_idx, pcfg, rois_per_image=None):
-    """ROIAlign at POOLER_SAMPLING_RATIO 0 (the JAX package's gather and
-    matmul paths, plain tensor code on every device). features: NHWC
-    [B, Hl, Wl, C] per scale; boxes [R, 4]; rois_per_image: K when the
-    boxes are image-major blocks of K, which on one level takes
-    c4_matmul_pool. -> [R, P, P, C] in the features' dtype."""
+    """ROIAlign at POOLER_SAMPLING_RATIO 0 in plain tensor code (the JAX
+    package's gather and matmul paths; what ``multilevel_roi_align`` runs
+    on CPU tensors). features: NHWC [B, Hl, Wl, C] per scale; boxes [R, 4];
+    rois_per_image: K when the boxes are image-major blocks of K, which on
+    one level takes c4_matmul_pool. -> [R, P, P, C] in the features'
+    dtype."""
     p = pcfg.output_size
-    s = pcfg.adaptive_max
+    s = adaptive_cap(pcfg, [f.shape for f in features])
     if len(features) == 1:
-        h, w = features[0].shape[1], features[0].shape[2]
-        s = min(s, max(-(-h // p), -(-w // p), 1))
         if rois_per_image and boxes.shape[0] == features[0].shape[0] * rois_per_image:
             return c4_matmul_pool(features[0], boxes, pcfg, rois_per_image, s)
     c = features[0].shape[-1]
@@ -384,11 +397,18 @@ def sample_axes(level_shapes, boxes, lvl, pcfg):
     sample_axis): (rows, cols), each a dict of lo, hi, wlo, whi, valid
     [R, P*S] as ``_axis`` gives them. Sample (i, j) of an ROI has the
     corners (rows lo/hi i) x (cols lo/hi j), weights the products of the
-    axes' weights, and lies outside unless both axes are valid.
+    axes' weights, and lies outside unless both axes are valid. On the
+    adaptive grid S is ``adaptive_cap`` and each axis also has w [R, P*S],
+    the sample's weight on it (1/n, 0 past n: ``adaptive_axis_samples``).
     level_shapes: [(B, Hl, Wl, ...)] per level; lvl [R]."""
     lvl = lvl.long()
     hs = _const([sh[1] for sh in level_shapes], boxes.device)[lvl][:, None]
     ws = _const([sh[2] for sh in level_shapes], boxes.device)[lvl][:, None]
+    if pcfg.adaptive:
+        ys, wy, xs, wx = _adaptive_axes(boxes, lvl, pcfg, adaptive_cap(pcfg, level_shapes))
+        rows, cols = _axis(ys, hs), _axis(xs, ws)
+        rows["w"], cols["w"] = wy, wx
+        return rows, cols
     ys, xs = _sample_coords(boxes, lvl, pcfg)
     return _axis(ys, hs), _axis(xs, ws)
 
@@ -429,9 +449,13 @@ def tile_lists(level_shapes, boxes, batch_idx, lvl, pcfg):
 
 def _tile_weights(axis, r, cells, p, s):
     """[P, len(cells)]: per bin, the summed bilinear weights that ROI r's
-    valid samples give each of `cells` on one axis."""
+    valid samples give each of `cells` on one axis (on the adaptive grid,
+    each times the sample's weight, as the kernel folds it in)."""
     lo, hi = axis["lo"][r][:, None], axis["hi"][r][:, None]
-    w = (axis["wlo"][r][:, None] * (lo == cells) + axis["whi"][r][:, None] * (hi == cells))
+    wlo, whi = axis["wlo"][r], axis["whi"][r]
+    if "w" in axis:
+        wlo, whi = axis["w"][r] * wlo, axis["w"][r] * whi
+    w = (wlo[:, None] * (lo == cells) + whi[:, None] * (hi == cells))
     w = w * axis["valid"][r][:, None]
     return w.reshape(p, s, -1).sum(dim=1)
 
@@ -440,9 +464,11 @@ def tile_owner_gradient(level_shapes, boxes, batch_idx, pcfg, dout):
     """d features of the pooler in the "roi" backward's decomposition, in
     plain float32 PyTorch: each tile of each level's gradient is the sum,
     over the ROIs ``tile_lists`` gives it, of RowW^T . dOut . ColW over the
-    tile's rows and columns, / S^2; tiles no ROI meets stay zero. dout
+    tile's rows and columns, / S^2 (on the adaptive grid RowW and ColW carry
+    the samples' weights 1/n instead); tiles no ROI meets stay zero. dout
     [R, P, P, C] -> one [B, Hl, Wl, C] gradient per level."""
-    p, s = pcfg.output_size, pcfg.sampling_ratio
+    p = pcfg.output_size
+    s, _ = kernel_samples(pcfg, level_shapes)
     dev = boxes.device
     lvl = assign_levels(boxes, pcfg) if len(level_shapes) > 1 else \
         torch.zeros((boxes.shape[0],), dtype=torch.int32, device=dev)
@@ -458,7 +484,7 @@ def tile_owner_gradient(level_shapes, boxes, batch_idx, pcfg, dout):
             roww = _tile_weights(rows, r, ycells, p, s)
             colw = _tile_weights(cols, r, xcells, p, s)
             tile += torch.einsum("py,pqc,qx->yxc", roww, dout[r].float(), colw)
-    return [g / (s * s) for g in grads]
+    return grads if pcfg.adaptive else [g / (s * s) for g in grads]
 
 
 # -- window layout of the "rmw" and "chunk" backwards ------------------------
@@ -742,9 +768,9 @@ def _lib():
     lib = native.load("roi_align")
     if not getattr(lib, "_typed", False):
         lib.roi_align_forward.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _P, _P]
+                                          _P, _P, _I]
         lib.roi_align_backward.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                                           _I, _P, _P]
+                                           _I, _P, _P, _I]
         lib.roi_align_backward_windows.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
                                                    _I, _I, _P, _P, _P, _P, _P, _P, _P]
         for fn in (lib.roi_align_forward, lib.roi_align_backward,
@@ -783,19 +809,28 @@ def _level_offsets(shapes):
     return (ctypes.c_longlong * len(shapes))(*offsets), off
 
 
+def kernel_samples(pcfg, level_shapes):
+    """(s, adaptive) the kernels take: the fixed grid's samples a bin an
+    axis and 0, or the adaptive grid's cap (``adaptive_cap``) and 1."""
+    if pcfg.adaptive:
+        return adaptive_cap(pcfg, level_shapes), 1
+    return pcfg.sampling_ratio, 0
+
+
 def launch(features, boxes, bidx, lvl, pcfg, out):
     """The kernel alone, on prepared buffers: NHWC-contiguous levels, boxes
     [R, 4] f32, batch_idx and level [R] int32 in, out [R, P, P, C] in the
     features' dtype. Launches on the current stream."""
     num_levels = len(features)
     ptrs = (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in features])
-    hs, ws, scales = _level_arrays([f.shape for f in features], pcfg)
+    shapes = [f.shape for f in features]
+    hs, ws, scales = _level_arrays(shapes, pcfg)
     r, p, c = out.shape[0], out.shape[1], out.shape[3]
+    s, adaptive = kernel_samples(pcfg, shapes)
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     rc = _lib().roi_align_forward(
         ptrs, hs, ws, scales, num_levels, boxes.data_ptr(), bidx.data_ptr(),
-        lvl.data_ptr(), r, c, p, pcfg.sampling_ratio, _DTYPE_CODES[out.dtype],
-        out.data_ptr(), stream,
+        lvl.data_ptr(), r, c, p, s, _DTYPE_CODES[out.dtype], out.data_ptr(), stream, adaptive,
     )
     native.check(rc, "roi_align")
 
@@ -823,12 +858,12 @@ def launch_backward(shapes, boxes, pcfg, dout, out, kind="roi", inputs=None):
     offsets, _ = _level_offsets(shapes)
     levels = [out.data_ptr(), offsets, *_level_arrays(shapes, pcfg), len(shapes), shapes[0][0],
               boxes.data_ptr()]
-    grad = [dout.shape[3], dout.shape[1], pcfg.sampling_ratio, _DTYPE_CODES[dout.dtype],
-            dout.data_ptr()]
+    s, adaptive = kernel_samples(pcfg, shapes)
+    grad = [dout.shape[3], dout.shape[1], s, _DTYPE_CODES[dout.dtype], dout.data_ptr()]
     lib = _lib()
     if kind == "roi":
         rc = lib.roi_align_backward(*levels, inputs["order"].data_ptr(),
-                                    inputs["seg"].data_ptr(), *grad, stream)
+                                    inputs["seg"].data_ptr(), *grad, stream, adaptive)
     else:
         rc = lib.roi_align_backward_windows(
             int(kind == "chunk"), *levels, *grad, inputs["first"].data_ptr(),
@@ -840,6 +875,8 @@ def launch_backward(shapes, boxes, pcfg, dout, out, kind="roi", inputs=None):
 def _backward(kind, dout, shapes, boxes, bidx, lvl, pcfg):
     if dout.dtype not in _DTYPE_CODES:
         raise TypeError("roi_align backward takes float32 or bfloat16 gradients")
+    if kind != "roi" and pcfg.adaptive:
+        raise ValueError("the window backwards take a fixed sampling ratio")
     if kind != "roi" and pcfg.output_size > _lib().roi_align_window_max_p():
         raise ValueError("the window backwards take P <= {}".format(
             _lib().roi_align_window_max_p()))
@@ -893,10 +930,10 @@ BACKWARD_KERNELS = {"roi": roi_align_backward, "rmw": roi_align_backward_rmw,
 
 class RoIAlignFunction(torch.autograd.Function):
     """The kernel's forward with a backward kernel as its gradient: the one
-    named at the forward (``backward_choice``), as JAX fixes its choice when
-    it traces. Saves boxes, image indices, levels and the level shapes, not
-    the features. The boxes and image indices get no gradient (the JAX
-    vjp's float0)."""
+    named at the forward (``backward_choice``; "roi" for the adaptive grid),
+    as JAX fixes its choice when it traces. Saves boxes, image indices,
+    levels and the level shapes, not the features. The boxes and image
+    indices get no gradient (the JAX vjp's float0)."""
 
     @staticmethod
     def forward(ctx, pcfg, bwd, boxes, bidx, lvl, *features):
@@ -905,6 +942,7 @@ class RoIAlignFunction(torch.autograd.Function):
         if r > 0:
             launch(features, boxes, bidx, lvl, pcfg, out)
             multilevel_roi_align.launches += 1
+            multilevel_roi_align.adaptive_launches += int(pcfg.adaptive)
         ctx.pcfg = pcfg
         ctx.bwd = bwd
         ctx.shapes = [tuple(f.shape) for f in features]
@@ -948,17 +986,18 @@ def _roi_align_cuda(features, boxes, batch_idx, pcfg, bwd):
 def multilevel_roi_align(features, boxes, batch_idx, pcfg, rois_per_image=None):
     """Pool each ROI from its assigned level. features: list of NHWC
     [B, Hl, Wl, C], one per scale; boxes [R, 4]; batch_idx [R] ->
-    [R, P, P, C] in the features' dtype. The backward kernel is read from
-    the environment here (``backward_choice``) on every device; CPU
-    tensors take the plain version and its autograd whatever it names.
-    An adaptive pooler takes ``adaptive_roi_align`` on every device (no
-    kernel, no launch), with rois_per_image as it describes."""
+    [R, P, P, C] in the features' dtype. The fixed grid's backward kernel is
+    read from the environment here (``backward_choice``) on every device;
+    the adaptive grid's is "roi". CPU tensors take the plain versions and
+    their autograd whatever it names: ``multilevel_roi_align_plain``, or
+    ``adaptive_roi_align`` with rois_per_image as it describes (the kernels
+    do not need it)."""
     if len(features) != len(pcfg.scales):
         raise ValueError("one feature map per pooler scale")
     with span("roi_pool"):
-        if pcfg.adaptive:
+        bwd = "roi" if pcfg.adaptive else backward_choice(pcfg)
+        if boxes.device.type == "cpu" and pcfg.adaptive:
             return adaptive_roi_align(features, boxes, batch_idx, pcfg, rois_per_image)
-        bwd = backward_choice(pcfg)
         if boxes.device.type == "cpu":
             return multilevel_roi_align_plain(features, boxes, batch_idx, pcfg)
         if boxes.device.type != "cuda":
@@ -968,3 +1007,4 @@ def multilevel_roi_align(features, boxes, batch_idx, pcfg, rois_per_image=None):
 
 
 multilevel_roi_align.launches = 0
+multilevel_roi_align.adaptive_launches = 0  # the forwards of the adaptive grid

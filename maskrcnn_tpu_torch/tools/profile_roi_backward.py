@@ -62,8 +62,8 @@ PHASES = ("scan", "weights_and_ranges", "run_cut", "stage", "sums")
 _MARKS = (
     ("  const int seg = l * nb + b;\n", "",
      "  long long prof[5] = {0, 0, 0, 0, 0}, mark = clock64();\n  int prof_hits = 0;\n"),
-    ("      s_geom[k] = roi_geom(box, scale, p, s);\n    }\n    __syncthreads();\n", "",
-     "    prof_hits += nhit;\n    PROF_MARK(0);\n"),
+    ("      s_geom[k] = roi_geom<kAdaptive>(box, scale, p, s);\n    }\n    __syncthreads();\n",
+     "", "    prof_hits += nhit;\n    PROF_MARK(0);\n"),
     ("        // the hits in runs whose dOut bins fit the stage.", "        PROF_MARK(1);\n", ""),
     ("          const int staged = __shfl_sync(kFull, incl, run - 1);\n", "",
      "          PROF_MARK(2);\n"),

@@ -91,7 +91,7 @@ def test_adaptive_roi_align_matches_jax(n):
     pcfg = poolers.PoolerConfig(p, (1.0,), 0)
     got = poolers.multilevel_roi_align([torch.from_numpy(feat)], torch.from_numpy(boxes),
                                        torch.from_numpy(bidx), pcfg)
-    assert poolers.multilevel_roi_align.launches == 0  # no kernel
+    assert poolers.multilevel_roi_align.launches == 0  # CPU tensors: the plain path
     want = jax.jit(lambda f, b, i: jax_roi_align(f, b, i, p, 1.0, sampling_ratio=0))(
         jnp.asarray(feat), jnp.asarray(boxes), jnp.asarray(bidx))
     _close(got, want, 1e-5)

@@ -16,17 +16,27 @@ the plain version: float32 within 1e-5 * max|grad| (the tile sums of all
 three backwards run in another order than the per-sample adds), bfloat16
 against the float32 plain gradient within 1e-2 * max|grad| (one rounding of
 each sum to bfloat16). All three sum in a fixed order: two calls are
-bitwise equal.
+bitwise equal. The adaptive grid's kernels (C4's shapes) against the plain
+gather path in float32 on the same features: forward within 1e-5 of its
+max (float32) or 1e-2 * max|x| (bfloat16: one rounding), backward as above.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from maskrcnn_tpu_torch.config import cfg as defaults
+from maskrcnn_tpu_torch.engine import make_train_step
+from maskrcnn_tpu_torch.engine.train_step import make_eval_step
+from maskrcnn_tpu_torch.models import build_detection_model, poolers
 from maskrcnn_tpu_torch.models.anchors import AnchorGenerator
 from maskrcnn_tpu_torch.models.poolers import (
     BACKWARD_KERNELS,
     PoolerConfig,
+    adaptive_cap,
+    adaptive_roi_align,
     assign_levels,
     multilevel_roi_align,
     multilevel_roi_align_plain,
@@ -37,7 +47,10 @@ from maskrcnn_tpu_torch.models.poolers import (
 )
 from maskrcnn_tpu_torch.ops.matcher import match_anchors_batched, match_anchors_plain
 from maskrcnn_tpu_torch.ops.nms import batched_nms, batched_nms_plain
+from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
+from maskrcnn_tpu_torch.tools.profile_train import train_batch
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALES = (0.25, 0.125, 0.0625, 0.03125)
 
 
@@ -598,6 +611,170 @@ def test_roi_align_backwards_on_transposed_dout(cuda, kind):
     dout = dout.permute(0, 2, 3, 1)
     assert not dout.is_contiguous()
     _check_window_backward(cuda, kind, dout, boxes, bidx, pcfg)
+
+
+# The adaptive grid (POOLER_SAMPLING_RATIO 0) at the C4 heads' shapes: one
+# 1024-channel map at stride 16, 50 x 84 in training (800 x 1333; the cap s
+# is 6 at P=14, 8 at P=7) and 50 x 67 at inference (800 x 1067, s = 5). The
+# reference is the plain gather path (adaptive_roi_align without
+# rois_per_image) in float32 on the same features.
+
+C4_SCALES = (1.0 / 16,)
+
+
+def _c4_map(cuda, dtype, h=50, w=84, b=8, c=1024, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, h, w, generator=g).to(cuda, dtype)
+    return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def _c4_rois(cuda, r, h=50, w=84, b=8, seed=2):
+    """r ROIs on an image of 16h x 16w, clipped to it as proposals are,
+    with the whole image, ROIs under a cell, degenerate and zero-width ROIs,
+    ROIs partly outside the map and long thin ones at its far edges."""
+    rs = np.random.RandomState(seed)
+    ih, iw = 16 * h, 16 * w
+    boxes = _boxes(rs, (r,), 0, max(ih, iw), 2, 900)
+    boxes = np.clip(boxes, 0, [iw - 1, ih - 1, iw - 1, ih - 1]).astype(np.float32)
+    edge = [[0, 0, iw - 1, ih - 1], [100, 100, 104, 103], [300, 200, 300, 200],
+            [50, 60, 50, 90], [-60, -40, 200, 150], [iw - 100, ih - 60, iw + 80, ih + 40],
+            [iw - 20, 0, iw - 1, ih - 1], [0, ih - 10, iw - 1, ih - 1]]
+    boxes[:len(edge)] = edge
+    bidx = rs.randint(0, b, r).astype(np.int32)
+    return torch.from_numpy(boxes).to(cuda), torch.from_numpy(bidx).to(cuda)
+
+
+def _adaptive_counts():
+    return (multilevel_roi_align.launches, multilevel_roi_align.adaptive_launches,
+            roi_align_backward.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw,p,r,s", [((50, 84), 14, 512, 6), ((50, 67), 14, 800, 5),
+                                      ((50, 84), 7, 512, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaptive_roi_align_kernel_matches_gather(cuda, dtype, hw, p, r, s):
+    feat = _c4_map(cuda, dtype, *hw)
+    boxes, bidx = _c4_rois(cuda, r, *hw)
+    pcfg = PoolerConfig(p, C4_SCALES, 0)
+    assert adaptive_cap(pcfg, [feat.shape]) == s
+    # one sample a bin occurs on each axis, the cap across the wider one
+    for lo, hi in ((1, 3), (0, 2)):
+        bin_sz = torch.clamp((boxes[:, hi] - boxes[:, lo]) / 16, min=1.0) / p
+        n = torch.clamp(torch.ceil(bin_sz), 1, s)
+        assert (n == 1).any()
+    assert (n == s).any()
+    before = _adaptive_counts()
+    got = multilevel_roi_align([feat], boxes, bidx, pcfg)
+    torch.cuda.synchronize()
+    assert _adaptive_counts() == (before[0] + 1, before[1] + 1, before[2])
+    with torch.no_grad():
+        want = adaptive_roi_align([feat.float()], boxes, bidx, pcfg)
+    assert got.dtype == dtype and got.shape == want.shape == (r, p, p, 1024)
+    tol = 1e-5 * want.abs().max().item() if dtype == torch.float32 else \
+        1e-2 * feat.float().abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [14, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaptive_roi_align_backward_matches_gather_autograd(cuda, dtype, p):
+    boxes, bidx = _c4_rois(cuda, 512)
+    pcfg = PoolerConfig(p, C4_SCALES, 0)
+    dout = torch.randn(512, p, p, 1024, generator=torch.Generator().manual_seed(p)).to(cuda, dtype)
+    leaf = _c4_map(cuda, dtype).float().detach().requires_grad_()
+    (adaptive_roi_align([leaf], boxes, bidx, pcfg) * dout.float()).sum().backward()
+    want = leaf.grad
+    scale = want.abs().max().item()
+    assert scale > 0
+
+    feat = _c4_map(cuda, dtype).detach().requires_grad_()
+    before = _adaptive_counts()
+    multilevel_roi_align([feat], boxes, bidx, pcfg).backward(dout)
+    torch.cuda.synchronize()
+    assert _adaptive_counts() == tuple(n + 1 for n in before)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert feat.grad.dtype == dtype and feat.grad.shape == want.shape
+    err = (feat.grad.float() - want).abs().max().item()
+    assert err <= tol * scale, (dtype, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaptive_roi_align_backward_is_deterministic(cuda, dtype):
+    boxes, bidx = _c4_rois(cuda, 512)
+    pcfg = PoolerConfig(14, C4_SCALES, 0)
+    dout = torch.randn(512, 14, 14, 1024, generator=torch.Generator().manual_seed(4)).to(
+        cuda, dtype)
+    lvl = torch.zeros(512, dtype=torch.int32, device=cuda)
+    first = roi_align_backward(dout, [(8, 50, 84, 1024)], boxes, bidx, lvl, pcfg)
+    second = roi_align_backward(dout, [(8, 50, 84, 1024)], boxes, bidx, lvl, pcfg)
+    assert torch.equal(first[0], second[0]) and first[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaptive_roi_align_without_rois(cuda, dtype):
+    pcfg = PoolerConfig(14, C4_SCALES, 0)
+    feat = _c4_map(cuda, dtype)
+    boxes = torch.zeros(0, 4, device=cuda)
+    bidx = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = _adaptive_counts()
+    out = multilevel_roi_align([feat], boxes, bidx, pcfg)
+    assert out.shape == (0, 14, 14, 1024) and out.dtype == dtype
+    assert _adaptive_counts() == before
+    lvl = torch.zeros(0, dtype=torch.int32, device=cuda)
+    (grad,) = roi_align_backward(torch.zeros(0, 14, 14, 1024, dtype=dtype, device=cuda),
+                                 [(8, 50, 84, 1024)], boxes, bidx, lvl, pcfg)
+    torch.cuda.synchronize()
+    assert grad.shape == (8, 50, 84, 1024) and grad.dtype == dtype and not grad.any()
+
+
+def _c4_config():
+    c = defaults.clone()
+    c.merge_from_file(os.path.join(REPO, "configs", "e2e_mask_rcnn_R_50_C4_1x.yaml"))
+    c.MODEL.WEIGHT = ""
+    c.MODEL.DEVICE = "cuda"
+    c.TPU.COMPUTE_DTYPE = "bfloat16"
+    c.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
+    assert c.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO == 0
+    c.freeze()
+    return c
+
+
+@pytest.mark.gpu
+def test_c4_steps_pool_on_the_adaptive_kernels_only(cuda, monkeypatch):
+    """A C4 training step and an evaluation batch (2 images of 512 x 672,
+    full widths, bf16) pool box and mask through the kernels' adaptive
+    instances: 2 forwards, and in training 2 "roi" backwards, with the
+    plain adaptive paths refusing to run."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain adaptive pooler ran on CUDA tensors")
+
+    monkeypatch.setattr(poolers, "c4_matmul_pool", refuse)
+    monkeypatch.setattr(poolers, "_adaptive_gather", refuse)
+    c = _c4_config()
+    model = build_detection_model(c, device=cuda, seed=0)
+    optimizer = make_optimizer(c, model)
+    step = make_train_step(model, optimizer, make_lr_scheduler(c, optimizer),
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    batch = train_batch(2, (512, 672), (512, 672), c.TPU.MAX_GT_BOXES, c.TPU.GT_MASK_SIZE, 0,
+                        cuda)
+    before = _adaptive_counts()
+    loss = step(batch)["loss"]
+    torch.cuda.synchronize()
+    assert _adaptive_counts() == tuple(n + 2 for n in before)
+    assert torch.isfinite(loss)
+
+    images = torch.randint(0, 256, (2, 512, 672, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    sizes = torch.tensor([[512, 672], [480, 640]], dtype=torch.int32, device=cuda)
+    before = _adaptive_counts()
+    out = make_eval_step(model.eval())({"images": images, "image_sizes": sizes})
+    torch.cuda.synchronize()
+    assert _adaptive_counts() == (before[0] + 2, before[1] + 2, before[2])
+    assert out["masks"].shape[:2] == (2, c.MODEL.ROI_HEADS.DETECTIONS_PER_IMG)
 
 
 # The kernels at the shapes each of two ranks gives them at the flagship's

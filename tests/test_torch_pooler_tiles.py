@@ -16,7 +16,12 @@ samples outside the map and degenerate boxes:
     the tile lists do;
   * ``tile_owner_gradient`` equals autograd through the gather pooler and
     ``jax.grad`` of the JAX gather pooler within 1e-5 * max|grad| (sums in
-    another order).
+    another order);
+  * so it does on the adaptive grid (POOLER_SAMPLING_RATIO 0: each ROI's own
+    samples a bin, their weights 1/n folded into RowW / ColW, as the
+    kernel's adaptive instance folds them), against autograd through
+    ``adaptive_roi_align`` and the JAX adaptive pooler, on a C4-like level
+    of 21 x 37 cells at stride 16 and on the pyramid.
 The kernel itself is held against the plain gradient on the card by
 tests/test_torch_kernels_gpu.py.
 """
@@ -159,5 +164,71 @@ def test_tile_owner_gradient_equals_gather_and_jax_gradients(p):
     jgrad = jax.grad(lambda fs: (jax_roi_align(fs, jb, ji, jpcfg, compute_dtype=jnp.float32,
                                                backend="gather") * jd).sum())(
         [jnp.zeros(s, jnp.float32) for s in SHAPES])
+    for g, w in zip(got, jgrad):
+        assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-5 * scale
+
+
+# a C4-like level at stride 16 (an image of 336 x 592: sides that are not
+# multiples of the tile), the adaptive grid's cap min(8, max(ceil(H / P),
+# ceil(W / P), 1)): 6 at P=7, 3 at P=14
+C4_SHAPES = [(2, 21, 37, 16)]
+C4_SCALES = (1 / 16,)
+C4_EDGE_BOXES = [
+    [0, 0, 591, 335],          # the whole image: the cap's samples on the long axis
+    [100, 100, 104, 103],      # under a cell: roi_w = roi_h = 1, one sample a bin
+    [200, 150, 200, 150],      # degenerate
+    [-40, -30, 120, 90],       # partly before the map: samples in [-1, 0) and outside
+    [500, 300, 700, 400],      # partly beyond it: snapped to the last row and column
+    [560, 10, 591, 330],       # tall and narrow: many samples down, one across
+]
+
+
+def _c4_problem(p, shapes, r=24, seed=0):
+    rs = np.random.RandomState(seed + p)
+    _, h, w, c = shapes[0]
+    hw = np.array([592.0, 336.0]) if len(shapes) == 1 else np.array([680.0, 404.0])
+    ctr = rs.uniform(0, 1, (r, 2)) * hw
+    wh = rs.uniform(4, 400, (r, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    boxes = np.clip(boxes, 0, np.concatenate([hw, hw]) - 1).astype(np.float32)
+    boxes[:len(C4_EDGE_BOXES)] = C4_EDGE_BOXES
+    bidx = rs.randint(0, shapes[0][0], r).astype(np.int32)
+    dout = rs.randn(r, p, p, c).astype(np.float32)
+    return torch.from_numpy(boxes), torch.from_numpy(bidx), torch.from_numpy(dout)
+
+
+@pytest.mark.parametrize("p,shapes,scales", [(7, C4_SHAPES, C4_SCALES),
+                                             (14, C4_SHAPES, C4_SCALES),
+                                             (7, SHAPES, SCALES)],
+                         ids=["c4_p7", "c4_p14", "pyramid_p7"])
+def test_adaptive_tile_owner_gradient_equals_gather_and_jax_gradients(p, shapes, scales):
+    boxes, bidx, dout = _c4_problem(p, shapes)
+    pcfg = PoolerConfig(p, scales, 0)
+    s = poolers.adaptive_cap(pcfg, shapes)
+    assert s == (min(8, -(-37 // p)) if len(shapes) == 1 else 8)
+    # the problem reaches one sample a bin and the cap, on both axes
+    lvl = poolers.assign_levels(boxes, pcfg) if len(shapes) > 1 else \
+        torch.zeros(boxes.shape[0], dtype=torch.int32)
+    _, wy, _, wx = poolers._adaptive_axes(boxes, lvl, pcfg, s)
+    for wt in (wy, wx):
+        n = (wt.reshape(-1, p, s) > 0).sum(-1)
+        assert (n == 1).any() and (n > 1).any()
+    assert ((wx.reshape(-1, p, s) > 0).sum(-1) == s).any() or len(shapes) > 1
+
+    got = poolers.tile_owner_gradient(shapes, boxes, bidx, pcfg, dout)
+    leaves = [torch.zeros(sh, requires_grad=True) for sh in shapes]
+    out = poolers.adaptive_roi_align(leaves, boxes, bidx, pcfg)
+    want = torch.autograd.grad(out, leaves, dout)
+    scale = max(w.abs().max().item() for w in want)
+    assert scale > 0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-5 * scale
+
+    jpcfg = JaxPoolerConfig(p, scales, 0)
+    jb, ji, jd = jnp.asarray(boxes.numpy()), jnp.asarray(bidx.numpy()), jnp.asarray(dout.numpy())
+    jgrad = jax.grad(lambda fs: (jax_roi_align(fs, jb, ji, jpcfg, compute_dtype=jnp.float32,
+                                               backend="gather") * jd).sum())(
+        [jnp.zeros(sh, jnp.float32) for sh in shapes])
     for g, w in zip(got, jgrad):
         assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-5 * scale
