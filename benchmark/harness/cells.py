@@ -21,9 +21,6 @@ import numpy as np
 import torch
 
 from . import check, program, traffic as gen, weights
-from ..counts import flops as flop_count
-from ..counts import roofline
-from ..reference import model as ref_model
 from ..reference import solver as ref_solver
 
 GIB = float(1 << 30)
@@ -41,11 +38,14 @@ class Run:
     """The parts of a run: the cell, its seed, the device, and the
     configuration as data (`cfg`, what the reference reads) and as the
     program's CfgNode (`pcfg`), both from the cell's configuration file
-    (and, in tests, the same overrides)."""
+    (and, in tests, the same overrides). `ref` is the configuration's
+    reference module (spec.REFERENCE_API), the one way in to the
+    reference."""
 
     def __init__(self, cell, seed, device, overrides=None):
         overrides = overrides or {}
         self.cell = cell
+        self.ref = cell.reference
         self.seed = int(seed)
         self.device = torch.device(device)
         self.cfg = merged(cell.config["config"], overrides.get("config"))
@@ -58,44 +58,32 @@ class Run:
         if self.device.type == "cuda":
             torch.cuda.synchronize()
 
-    def reference(self, state, precision=None):
-        model = ref_model.MaskRCNN(self.cfg).to(self.device)
+    def reference(self, state, precision=None, cfg=None):
+        """The reference model of `cfg` (the run's own by default) holding
+        `state`, at `precision` (None: float32)."""
+        model = self.ref.MaskRCNN(self.cfg if cfg is None else cfg).to(self.device)
         model.load_state_dict(state, strict=True)
-        ref_model.set_precision(model, precision)
+        self.ref.set_precision(model, precision)
         return model
 
     def make_state(self, first_batch):
         """The benchmark's weights: drawn from the seed on the device, then
-        the body's frozen BNs set by the float32 reference from the cell's
-        first batch (on the device)."""
+        the body's normalisation set by the float32 reference from the
+        cell's first batch (on the device)."""
         shapes = program.state_shapes(self.pcfg)
         state = weights.seeded_state(shapes, self.init, self.seed, self.device)
         with float32_matmuls():
             model = self.reference(state)
-            ref_solver.calibrate_frozen_bn(model, first_batch)
+            self.ref.calibrate(model, first_batch)
             state = {k: v.detach().clone() for k, v in model.state_dict().items()}
         del model
         return state
 
     def counts(self, hw):
-        """Per step: model FLOPs, and the least seconds of the pooling, the
-        NMS and the matcher work."""
-        b = self.traffic["batch"]
-        train = self.kind == "train"
-        fwd, bwd = flop_count.step_flops(self.cfg, b, hw, train)
-        maps = gen.feature_sizes(hw[0], hw[1], self.cfg)
-        lanes, n = roofline.rpn_lanes(self.cfg, b, maps, train)
-        nms = roofline.nms_bytes(lanes, n)
-        out = {"flops": fwd + bwd}
-        if train:
-            anchors, _ = gen.draw_counts(hw, self.cfg)
-            out["pooler_bound_s"] = roofline.bound_s(roofline.pooler_bytes(self.cfg, b, maps))
-            out["nms_matcher_bound_s"] = roofline.bound_s(
-                nms + roofline.matcher_bytes(b, anchors, self.cfg["TPU"]["MAX_GT_BOXES"]))
-        else:
-            blanes, bn = roofline.box_nms_lanes(self.cfg, b, maps)
-            out["nms_bound_s"] = roofline.bound_s(nms + roofline.nms_bytes(blanes, bn))
-        return out
+        """The configuration's counts of one step at images padded to hw
+        (its counts module's step_counts)."""
+        return self.cell.counts.step_counts(self.cfg, self.traffic["batch"], hw,
+                                            self.kind == "train")
 
 
 class float32_matmuls:
@@ -184,7 +172,7 @@ def judge_training(run, state, pool, side, **kwargs):
     reference's proposal stage over the side's RPN head outputs."""
     forced = [(s["proposals"][0], s["proposals"][2]) for s in side["stages"]]
     ref = reference_train(run, state, pool, len(forced), forced=forced, **kwargs)
-    props = [ref_model.training_proposals(run.cfg, to_device(pool[i][0], run.device), s["rpn"])
+    props = [run.ref.training_proposals(run.cfg, to_device(pool[i][0], run.device), s["rpn"])
              for i, s in enumerate(side["stages"])]
     return check.train_numbers(side, ref, props, tolerances(run.cell.limits)), ref
 
@@ -401,12 +389,9 @@ def reference_stages(run, state, batches, precision=None, overrides=None):
     """The stages of the reference's inference of each host batch, at
     `precision` and under configuration `overrides` (the control, or a
     fault, in the program's place), detections on the host."""
-    cfg = merged(run.cfg, overrides)
     out = []
     with float32_matmuls():
-        model = ref_model.MaskRCNN(cfg).to(run.device)
-        model.load_state_dict(state, strict=True)
-        ref_model.set_precision(model, precision)
+        model = run.reference(state, precision, merged(run.cfg, overrides))
         for b in batches:
             rec = {}
             det = model.infer_forward(to_device(b, run.device), record=rec)

@@ -38,6 +38,13 @@ def forbidden_modules(modules=None):
     return sorted(n for n in names if n in FORBIDDEN)
 
 
+def refuse_forbidden():
+    """Exit with no result where the process holds JAX or the JAX package."""
+    found = forbidden_modules()
+    if found:
+        raise SystemExit("the run holds {} once the window has closed".format(", ".join(found)))
+
+
 def p95(values):
     """The 95th percentile (linear between the closest ranks)."""
     import numpy as np
@@ -61,7 +68,8 @@ def run_cell(cell, seed, seconds, trace, device, t_start, overrides=None):
         torch.cuda.reset_peak_memory_stats()
     metrics, dev, breakdown = {}, {}, None
     if trace:
-        reading = body.traced(Window(run.device, program.POOLER_ENTRY, program.launch_counters))
+        reading = body.traced(Window(run.device, program.POOLER_ENTRY, cell.families,
+                                     program.launch_counters))
         first = body.pool[0][0] if run.kind == "train" else body.pool[0]
         ctx = Context(run, reading, tuple(first["images"].shape[1:3]))
         for m in cell.per_layer:
@@ -88,15 +96,14 @@ def run_cell(cell, seed, seconds, trace, device, t_start, overrides=None):
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": unit}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
-    found = forbidden_modules()
-    if found:
-        raise SystemExit("the run holds {} once the window has closed".format(", ".join(found)))
+    refuse_forbidden()
     attempted, failed = body.attempted, body.failed
     if getattr(body, "faults", None):
         print("malformed batches by fault: {}".format(body.faults), file=sys.stderr)
     body.free()
     numbers = body.reference_numbers()
     correct, compared = cells.check.judge(numbers, cell.limits["numbers"])
+    refuse_forbidden()  # the configuration's reference decided `correct`
     result = {"correct": correct and failed == 0, "attempted": attempted, "failed": failed,
               "metrics": metrics,
               "device": {"platform": "gpu" if on_card else "cpu",
@@ -122,13 +129,17 @@ def card_line():
 
 
 class Context:
-    """What a per-layer metric's reader gets: the run (cell, traffic,
-    configuration), the traced window's reading, and the benchmark's counts
-    of the step's work at the cell's shapes."""
+    """What a per-layer metric's reader gets: the run's kind ("train" or
+    "infer"), traffic and configuration as data (`cfg`), the traced
+    window's reading, the padded image size of the cell's batches (`hw`),
+    and the configuration's counts of a step's work at that size
+    (`counts`: "flops" and the "*_bound_s" of its counts module)."""
 
     def __init__(self, run, reading, hw):
         self.kind = run.kind
         self.traffic = run.traffic
+        self.cfg = run.cfg
+        self.hw = hw
         self.reading = reading
         self.device = run.device
         self.counts = run.counts(hw)
@@ -139,11 +150,12 @@ def main(argv=None, t_start=None):
     args = parse(argv)
     from . import spec
 
-    bench = spec.benchmark()
-    cell = spec.Cell(bench, args.workload)
-    # every kernel cache at a fixed path inside the checkout
+    # every kernel cache at a fixed path inside the checkout, before any
+    # module (the configuration's reference) imports torch
     os.environ["TRITON_CACHE_DIR"] = os.path.join(spec.ROOT, "build", "triton_cache")
     os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(spec.ROOT, "build", "torch_extensions")
+    bench = spec.benchmark()
+    cell = spec.Cell(bench, args.workload)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:

@@ -7,8 +7,11 @@ that the check follows (capture). No other module of the benchmark names
 the program.
 """
 
+import importlib
+
 import torch
 
+PACKAGE = "maskrcnn_tpu_torch"
 # the program's entry that its heads call for every ROI pooling, box and mask,
 # forward (its backward joins by sequence number); a traced run wraps it
 POOLER_ENTRY = ("maskrcnn_tpu_torch.models.detector", "multilevel_roi_align")
@@ -64,17 +67,23 @@ def eval_step(model):
     return make_eval_step(model)
 
 
-def launch_counters():
-    """{name: launches so far} of the program's hand-kernel wrappers."""
-    from maskrcnn_tpu_torch.models import poolers
-    from maskrcnn_tpu_torch.ops import matcher, nms
+def counter(path):
+    """The value of one of the program's launch counters, named
+    "<module of the program>:<attribute>[.<attribute>...]" (a kernel
+    family's "counters", kernels/<family>.json)."""
+    module, _, attrs = path.partition(":")
+    if module.split(".")[0] != PACKAGE or not attrs:
+        raise ValueError("{!r} names no counter of {}".format(path, PACKAGE))
+    value = importlib.import_module(module)
+    for a in attrs.split("."):
+        value = getattr(value, a)
+    return value
 
-    return {"nms": nms.batched_nms.launches,
-            "matcher": matcher.match_anchors_batched.launches,
-            "roi_fwd": poolers.multilevel_roi_align.launches,
-            "roi_bwd": (poolers.roi_align_backward.launches
-                        + poolers.roi_align_backward_rmw.launches
-                        + poolers.roi_align_backward_chunk.launches)}
+
+def launch_counters(families):
+    """{family: launches so far} of the program's hand-kernel wrappers, the
+    sum of each family's counters (spec.kernel_families)."""
+    return {fam: sum(counter(c) for c in f["counters"]) for fam, f in families.items()}
 
 
 def copied(x, device="cpu"):
@@ -105,8 +114,6 @@ class capture:
     NAMES = ("select_proposals", "box_head_inference")
 
     def __enter__(self):
-        import importlib
-
         self.module = detector = importlib.import_module(self.MODULE)
         self.saved = {n: getattr(detector, n) for n in self.NAMES}
         self.calls = []

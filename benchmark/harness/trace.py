@@ -8,7 +8,10 @@ read from torch.profiler over a traced window of whole steps. The program's
 own record_function ranges (its phases) are its spans; the benchmark adds
 three of its own: "bench.window" around the traced steps, "bench.step"
 around each, and "bench.pooler" around each call of the program's pooler
-entry (program.POOLER_ENTRY), in traced runs only.
+entry (program.POOLER_ENTRY), in traced runs only. Reading.span_s reads
+the device time under any of the program's spans; the hand-kernel families
+whose records and launches it counts are the files kernels/<family>.json
+(spec.kernel_families).
 """
 
 import importlib
@@ -22,10 +25,6 @@ from torch.profiler import ProfilerActivity, profile, record_function
 BACKWARD_NODE = "autograd::engine::evaluate_function:"
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
-# the program's hand kernels by family (csrc/*.cu entry names, demangled)
-HAND = {"nms": ("nms_reduce_kernel",), "matcher": ("matcher_kernel",),
-        "roi_fwd": ("roi_align_fwd_kernel",), "roi_bwd": ("roi_align_bwd_tile_kernel",)}
-HAND_EXTRA = ("nms_mask_kernel",)  # launched with nms_reduce_kernel, once a launch
 POOLER = "bench.pooler"
 
 
@@ -44,23 +43,18 @@ def _below(e):
         yield from _below(c)
 
 
-def family_of(kernel):
-    for fam, names in HAND.items():
-        if any(n in kernel for n in names + (HAND_EXTRA if fam == "nms" else ())):
-            return fam
-    return None
-
-
 class Window:
     """Runs `n` steps of run(i) under torch.profiler, each in a
     "bench.step" range, with the program's pooler entry wrapped in a
     "bench.pooler" range; keeps the profile, the window's wall seconds
-    (synchronised at both ends) and the program's launch counters'
-    increments."""
+    (synchronised at both ends) and the increments of the launch counters
+    of the hand-kernel `families` (counters(families): {family: launches
+    so far})."""
 
-    def __init__(self, device, pooler_entry, counters):
+    def __init__(self, device, pooler_entry, families, counters):
         self.device = torch.device(device)
         self.pooler_entry = pooler_entry
+        self.families = families
         self.counters = counters
 
     def run(self, run, n):
@@ -74,7 +68,7 @@ class Window:
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        before = self.counters()
+        before = self.counters(self.families)
         setattr(module, self.pooler_entry[1], ranged)
         try:
             with profile(activities=acts) as prof:
@@ -88,8 +82,8 @@ class Window:
                     wall = time.perf_counter() - t0
         finally:
             setattr(module, self.pooler_entry[1], plain)
-        after = self.counters()
-        return Reading(prof, n, wall, {k: after[k] - before[k] for k in after})
+        after = self.counters(self.families)
+        return Reading(prof, n, wall, {k: after[k] - before[k] for k in after}, self.families)
 
 
 def _sync(device):
@@ -103,15 +97,17 @@ class Reading:
     spans), launch_calls (the host's kernel-launch calls), kernels {name:
     [seconds, records]}, launched {family: launches by the program's
     counters}, pooler_s (the device seconds of the pooler's forward and
-    backward), gaps {host range open: idle seconds}."""
+    backward), gaps {host range open: idle seconds}; span_s(name), the
+    device seconds under a span of the program."""
 
-    def __init__(self, prof, steps, window_s, launched):
+    def __init__(self, prof, steps, window_s, launched, families):
         self.steps = steps
         self.window_s = window_s
         self.launched = launched
+        self.families = families
         events = prof.events()
-        names = {e.name for e in events if e.device_type == DeviceType.CPU
-                 and getattr(e, "is_user_annotation", False)}
+        self._names = names = {e.name for e in events if e.device_type == DeviceType.CPU
+                               and getattr(e, "is_user_annotation", False)}
         self.kernels = defaultdict(lambda: [0.0, 0])
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and not _is_range(e, names):
@@ -123,18 +119,28 @@ class Reading:
         if self.busy_s > self.window_s:
             raise RuntimeError("device busy {:.6f} s exceeds the traced window {:.6f} s".format(
                 self.busy_s, self.window_s))
-        cpu = [e for e in events if e.device_type == DeviceType.CPU]
+        self._cpu = cpu = [e for e in events if e.device_type == DeviceType.CPU]
         self.launch_calls = sum(1 for e in cpu if e.name in LAUNCH_CALLS)
-        self.pooler_s = self._pooler(cpu, names)
+        self.pooler_s = self._pooler()
         self.gaps = self._gaps(cpu, names, spans)
 
+    def family_of(self, kernel):
+        """The hand-kernel family whose "kernels" or "with" names a part of
+        `kernel`'s name, or None."""
+        for fam, f in self.families.items():
+            if any(n in kernel for n in f["kernels"] + f["with"]):
+                return fam
+        return None
+
     def hand(self, family):
-        """(device seconds, records) of a hand-kernel family."""
+        """(device seconds, records) of a hand-kernel family: the time of
+        its kernels and of those launched with them, the records of its
+        kernels alone (one a launch)."""
         s = n = 0
         for name, (sec, count) in self.kernels.items():
-            if family_of(name) == family:
+            if self.family_of(name) == family:
                 s += sec
-                n += count if any(k in name for k in HAND[family]) else 0
+                n += count if any(k in name for k in self.families[family]["kernels"]) else 0
         return s, n
 
     def kept_share(self, families):
@@ -146,20 +152,39 @@ class Reading:
                 shares.append(min(1.0, self.hand(fam)[1] / self.launched[fam]))
         return min(shares) if shares else None
 
-    def _pooler(self, cpu, names):
-        ranges = [e for e in cpu if e.name == POOLER]
+    def span_s(self, name):
+        """The device seconds of the kernels launched while the program's
+        span `name`, or a part of it `name.*`, was open, and by the
+        backward nodes of the forward ops under it; None where the span
+        never opened."""
+        ranges = [e for e in self._cpu if e.name == name or e.name.startswith(name + ".")]
         if not ranges:
             return None
+        return sum(k.duration for ks in self._under(ranges).values() for k in ks
+                   if k.name not in self._names) / 1e6
+
+    def _under(self, ranges):
+        """{event id: its kernels} of the events under `ranges` and under
+        the autograd backward nodes of the forward ops under them (joined
+        by sequence number and forward thread): each correlation id's
+        kernels once."""
         forward = {(c.sequence_nr, c.thread) for r in ranges for c in _below(r)
                    if c.sequence_nr >= 0}
-        nodes = [e for e in cpu if e.name.startswith(BACKWARD_NODE)
+        nodes = [e for e in self._cpu if e.name.startswith(BACKWARD_NODE)
                  and (e.sequence_nr, getattr(e, "fwd_thread", e.thread)) in forward]
         by_id = {}
         for top in ranges + nodes:
             for x in (top, *_below(top)):
                 by_id[x.id] = x.kernels
-        linked = sum(k.duration for ks in by_id.values() for k in ks
-                     if k.name not in names and family_of(k.name) not in ("roi_fwd", "roi_bwd"))
+        return by_id
+
+    def _pooler(self):
+        ranges = [e for e in self._cpu if e.name == POOLER]
+        if not ranges:
+            return None
+        linked = sum(k.duration for ks in self._under(ranges).values() for k in ks
+                     if k.name not in self._names
+                     and self.family_of(k.name) not in ("roi_fwd", "roi_bwd"))
         # the ROIAlign kernels are the pooler's wherever the profiler linked them
         return linked / 1e6 + self.hand("roi_fwd")[0] + self.hand("roi_bwd")[0]
 

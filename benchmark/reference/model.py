@@ -10,6 +10,10 @@ loads into both. It computes in float32; ``set_precision(model, "fp8")``
 rounds what a bf16 model stores in bf16 to float8 e4m3 instead (a
 per-tensor scale each, the products in float32), and their gradients to
 float8 e5m2, the control that a lower precision must fail. It imports nothing of the program.
+
+The harness reaches it by name (configs/<config>.json "reference": "model")
+through harness/spec.py's REFERENCE_API: MaskRCNN, set_precision,
+training_proposals and calibrate.
 """
 
 from collections import namedtuple
@@ -840,3 +844,11 @@ def training_proposals(cfg, batch, rpn):
     return select_proposals(grids, [o.to(dev) for o in obj], [r.to(dev) for r in reg],
                             batch["image_sizes"][:k], cfg["MODEL"]["RPN"], True, gt_boxes,
                             batch["gt_labels"][:k] > 0)
+
+
+def calibrate(model, batch):
+    """The body's normalisation set from the cell's first batch, under the
+    name the harness calls: solver.calibrate_frozen_bn (frozen BNs)."""
+    from .solver import calibrate_frozen_bn
+
+    calibrate_frozen_bn(model, batch)

@@ -18,7 +18,12 @@ the box post-process without its per-class NMS, or decoding with the
 regression weights (1, 1, 1, 1), over the program's box head outputs; the
 proposal stage without its NMS. It prints one JSON line a seed and
 reading, with diagnostics: the tails at several tolerances and the worst
-leaves of a training number.
+leaves of a training number, and the program row's "counts", the
+configuration's step_counts at the cell's first batch.
+
+Every reading goes through the configuration's own reference module
+(configs/<config>.json "reference"; spec.REFERENCE_API and TOOL_API) and
+counts module, so a configuration's limits are set from its own reference.
 """
 
 import argparse
@@ -33,11 +38,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspa
 import torch  # noqa: E402
 
 from benchmark.harness import cells, check, spec  # noqa: E402
-from benchmark.reference import model as ref_model  # noqa: E402
-from benchmark.reference import ops as ref_ops  # noqa: E402
 
 
 TOLS = (0.1, 0.3, 1.0, 3.0)
+# what the faults need of a reference beyond spec.REFERENCE_API: its box
+# post-process and proposal stage as functions, and its ops module, whose
+# roi_align the pooler fault wraps
+TOOL_API = ("box_head_inference", "select_proposals", "ops")
 
 
 def worst_leaves(prog, ref, n=4):
@@ -81,16 +88,17 @@ def infer_diagnostics(sides, refs):
 
 
 class pooler_grad:
-    """Within the block, the reference's ROI pooling passes `scale` times
-    its gradient on to the features (0: a pooler backward that returns
-    nothing), a fault planted in the reference put in the program's
-    place."""
+    """Within the block, the reference's ROI pooling (`ops`, the
+    reference's ops module) passes `scale` times its gradient on to the
+    features (0: a pooler backward that returns nothing), a fault planted
+    in the reference put in the program's place."""
 
-    def __init__(self, scale):
+    def __init__(self, ops, scale):
+        self.ops = ops
         self.scale = scale
 
     def __enter__(self):
-        self.plain = ref_ops.roi_align
+        self.plain = self.ops.roi_align
         scale = self.scale
 
         class Scaled(torch.autograd.Function):
@@ -103,10 +111,10 @@ class pooler_grad:
                 return g * scale
 
         plain = self.plain
-        ref_ops.roi_align = lambda f, *a, **k: plain([Scaled.apply(x) for x in f], *a, **k)
+        self.ops.roi_align = lambda f, *a, **k: plain([Scaled.apply(x) for x in f], *a, **k)
 
     def __exit__(self, *exc):
-        ref_ops.roi_align = self.plain
+        self.ops.roi_align = self.plain
 
 
 def train_seed(run, controls, precisions=("fp8",)):
@@ -119,11 +127,12 @@ def train_seed(run, controls, precisions=("fp8",)):
     out = [("program", numbers,
             {"losses": body.readings["losses"], "ref_losses": ref["losses"],
              "reference_s": time.perf_counter() - t0, "worst": worst_leaves(body.readings, ref),
-             "diag": diagnostics(body.readings, ref)})]
+             "diag": diagnostics(body.readings, ref),
+             "counts": run.counts(tuple(pool[0][0]["images"].shape[1:3]))})]
     if controls:
         sides = [("control_" + p, dict(precision=p), None) for p in precisions]
         sides += [("fault_half_batch", dict(half=True), None),
-                  ("fault_pooler_backward_zeroed", {}, pooler_grad(0.0))]
+                  ("fault_pooler_backward_zeroed", {}, pooler_grad(run.ref.ops, 0.0))]
         for what, kwargs, fault in sides:
             if fault is not None:
                 with fault:
@@ -138,8 +147,8 @@ def train_seed(run, controls, precisions=("fp8",)):
         miss = []
         for i, s in enumerate(body.readings["stages"]):
             batch = cells.to_device(pool[i][0], run.device)
-            good = ref_model.training_proposals(run.cfg, batch, s["rpn"])
-            bad = ref_model.training_proposals(cfg, batch, s["rpn"])
+            good = run.ref.training_proposals(run.cfg, batch, s["rpn"])
+            bad = run.ref.training_proposals(cfg, batch, s["rpn"])
             miss.append(check.share([check.misses(check._proposals(bad),
                                                   check._proposals(good))]))
         out.append(("fault_proposal_nms_skipped", {"proposal_miss": max(miss)}, {}))
@@ -158,7 +167,8 @@ def infer_seed(run, controls, precisions=("fp8",)):
     sides, refs = cells.judge_detections(run, body.state, zip(batches, prog))
     tols = cells.tolerances(run.cell.limits)
     out = [("program", check.infer_numbers(sides, refs, tols),
-            {"reference_s": time.perf_counter() - t0, "diag": infer_diagnostics(sides, refs)})]
+            {"reference_s": time.perf_counter() - t0, "diag": infer_diagnostics(sides, refs),
+             "counts": run.counts(tuple(body.pool[0]["images"].shape[1:3]))})]
     if not controls:
         return out
     for prec in precisions:
@@ -173,7 +183,7 @@ def infer_seed(run, controls, precisions=("fp8",)):
         """The box post-process of the side's own box head outputs, with
         `changed` in its configuration, its detections in the side's place."""
         dev = run.device
-        det = ref_model.box_head_inference(
+        det = run.ref.box_head_inference(
             *(t.to(dev) for t in side["box_head"]), side["proposals"][0].to(dev),
             side["proposals"][2].to(dev), b["image_sizes"].to(dev), dict(h, **changed),
             h["DETECTIONS_PER_IMG"])
@@ -181,11 +191,11 @@ def infer_seed(run, controls, precisions=("fp8",)):
         return dict(side, detections=dict(det, masks=side["detections"]["masks"]))
 
     def proposals_without_nms(side, b):
-        model = ref_model.MaskRCNN(cells.merged(run.cfg, {"MODEL": {"RPN": {"NMS_THRESH": 1.01}}}))
+        model = run.ref.MaskRCNN(cells.merged(run.cfg, {"MODEL": {"RPN": {"NMS_THRESH": 1.01}}}))
         feats = [o.to(run.device) for o in side["rpn"][0]]
         grids = [model.anchors.grid(l, o.shape[2], o.shape[3], run.device)
                  for l, o in enumerate(feats)]
-        props = ref_model.select_proposals(
+        props = run.ref.select_proposals(
             grids, feats, [r.to(run.device) for r in side["rpn"][1]],
             b["image_sizes"].to(run.device), model.cfg["MODEL"]["RPN"], False)
         return dict(side, proposals=tuple(t.cpu() for t in props))
@@ -223,6 +233,7 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cell = spec.Cell(spec.benchmark(), args.workload)
+    spec.part(cell.config, "reference", spec.REFERENCE_API + TOOL_API)
     for k, seed in enumerate(args.seeds):
         run = cells.Run(cell, seed, "cuda", over)
         t0 = time.perf_counter()
