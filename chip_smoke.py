@@ -3340,7 +3340,8 @@ def gn_c4_phase(torch, np, card, dl):
     summary = dl.train_summary(meters, gn_yaml, n_losses=5)
     sites["gn_recipe"], _ = dl.step_sites("gn recipe", caps, 16, (80, 2000), pooled=2)
     del caps
-    step_profile("gn recipe", {"group_norm": (layers, "group_norm")})
+    # a label of its own: layers.group_norm opens a span "group_norm" inside it
+    step_profile("gn recipe", {"group_norms": (layers, "group_norm")})
     print("gn recipe: loaded {}/{} tensors from R-50-GN.pkl, the body's equal to its blobs; 3 "
           "iterations at batch 16: {}; peak memory {:.3f} GB over the run [{}]".format(
               n_loaded, n_total, json.dumps(summary), peak_run_gb, card), flush=True)

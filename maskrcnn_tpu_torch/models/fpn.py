@@ -15,29 +15,7 @@ names line up with the JAX tree and with the reference's fpn_inner2..4.
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Conv2d, GroupNorm, init_conv_, nearest_upsample2x
-
-
-class _ConvBlock(nn.Module):
-    """One conv, and its group norm and ReLU when asked for, under the names
-    the JAX param tree uses ("conv", "gn")."""
-
-    def __init__(self, cin, cout, k, gn_groups=0, relu=False):
-        super().__init__()
-        self.conv = Conv2d(cin, cout, k, padding=k // 2, bias=not gn_groups)
-        self.gn = GroupNorm(cout, gn_groups) if gn_groups else None
-        self.relu = relu
-
-    def reset_parameters(self, gen):
-        init_conv_(self.conv, gen, init="kaiming_uniform")
-        if self.gn is not None:
-            self.gn.reset_parameters()
-
-    def forward(self, x):
-        x = self.conv(x)
-        if self.gn is not None:
-            x = self.gn(x)
-        return F.relu(x) if self.relu else x
+from .layers import Conv2d, ConvBlock, init_conv_, nearest_upsample2x
 
 
 class FPN(nn.Module):
@@ -48,10 +26,10 @@ class FPN(nn.Module):
                  relu=False):
         super().__init__()
         self.inner = nn.ModuleList(
-            [_ConvBlock(c, out_channels, 1, gn_groups) if c else None for c in in_channels_list]
+            [ConvBlock(c, out_channels, 1, gn_groups) if c else None for c in in_channels_list]
         )
         self.layer = nn.ModuleList(
-            [_ConvBlock(out_channels, out_channels, 3, gn_groups, relu) if c else None
+            [ConvBlock(out_channels, out_channels, 3, gn_groups, relu) if c else None
              for c in in_channels_list]
         )
         self.top_block = top_block

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils import comm
+from ..utils.profiling import span
 
 # -- initialisers ---------------------------------------------------------------
 
@@ -151,13 +152,15 @@ def group_norm(x, scale, bias, num_groups, eps=1e-5):
     package's layers.group_norm computes it: the statistics in float32 over
     (H, W, the channels of a group), the variance in two passes, then the
     affine in float32 and a cast back to x's dtype. Runs on the NHWC view
-    (free for channels_last maps, the JAX layout)."""
-    n, c, h, w = x.shape
-    xf = x.permute(0, 2, 3, 1).float().reshape(n, h, w, num_groups, c // num_groups)
-    mean = xf.mean(dim=(1, 2, 4), keepdim=True)
-    var = ((xf - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
-    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
-    return (xf * scale + bias).to(x.dtype).permute(0, 3, 1, 2)
+    (free for channels_last maps, the JAX layout), in a span "group_norm"
+    (its backward nodes join it by sequence number)."""
+    with span("group_norm"):
+        n, c, h, w = x.shape
+        xf = x.permute(0, 2, 3, 1).float().reshape(n, h, w, num_groups, c // num_groups)
+        mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
+        xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+        return (xf * scale + bias).to(x.dtype).permute(0, 3, 1, 2)
 
 
 class GroupNorm(nn.Module):
@@ -178,6 +181,32 @@ class GroupNorm(nn.Module):
 
     def forward(self, x):
         return group_norm(x, self.scale, self.bias, self.num_groups)
+
+
+class ConvBlock(nn.Module):
+    """A k x k conv under the JAX tree's names ("conv", "gn"): with a bias,
+    or (gn_groups > 0) without one and a group norm after it; then a ReLU
+    when asked for. The FPN's convs and the Xconv box head's and the mask
+    head's (maskrcnn-benchmark's make_conv3x3)."""
+
+    def __init__(self, cin, cout, k, gn_groups=0, relu=False, dilation=1,
+                 init="kaiming_uniform"):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, k, padding=dilation * (k // 2), dilation=dilation,
+                           bias=not gn_groups)
+        self.gn = GroupNorm(cout, gn_groups) if gn_groups else None
+        self.relu, self.init = relu, init
+
+    def reset_parameters(self, gen):
+        init_conv_(self.conv, gen, init=self.init)
+        if self.gn is not None:
+            self.gn.reset_parameters()
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.gn is not None:
+            x = self.gn(x)
+        return F.relu(x) if self.relu else x
 
 
 def conv_frozen_bn(x, conv, bn):

@@ -34,7 +34,7 @@ from ...ops.sampler import sample_topk_indices
 from ...utils import comm
 from ...utils.profiling import span
 from ..fbnet import FBNetROIHead
-from ..layers import Conv2d, GroupNorm, Linear, init_conv_, init_linear_
+from ..layers import ConvBlock, Linear, init_linear_
 from ..resnet import ResNetHead
 from ..rpn import top_k_stable
 
@@ -58,13 +58,6 @@ class FPN2MLPFeatureExtractor(nn.Module):
         return F.relu(self.fc7(x))
 
 
-class _XconvBlock(nn.Module):
-    def __init__(self, cin, cout, gn_groups):
-        super().__init__()
-        self.conv = Conv2d(cin, cout, 3, padding=1, bias=not gn_groups)
-        self.gn = GroupNorm(cout, gn_groups) if gn_groups else None
-
-
 class FPNXconv1fcFeatureExtractor(nn.Module):
     """NUM_STACKED_CONVS 3x3 convs of CONV_HEAD_DIM, each with a group norm
     (USE_GN) or a bias, and a ReLU; then fc6 and a ReLU."""
@@ -75,7 +68,8 @@ class FPNXconv1fcFeatureExtractor(nn.Module):
         gn_groups = cfg.MODEL.GROUP_NORM.NUM_GROUPS if h.USE_GN else 0
         blocks, cin = [], in_channels
         for _ in range(h.NUM_STACKED_CONVS):
-            blocks.append(_XconvBlock(cin, h.CONV_HEAD_DIM, gn_groups))
+            blocks.append(ConvBlock(cin, h.CONV_HEAD_DIM, 3, gn_groups, relu=True,
+                                    init="kaiming_normal_fanin"))
             cin = h.CONV_HEAD_DIM
         self.convs = nn.ModuleList(blocks)
         self.fc6 = Linear(cin * h.POOLER_RESOLUTION ** 2, h.MLP_HEAD_DIM)
@@ -83,19 +77,14 @@ class FPNXconv1fcFeatureExtractor(nn.Module):
 
     def reset_parameters(self, gen):
         for blk in self.convs:
-            init_conv_(blk.conv, gen, init="kaiming_normal_fanin")
-            if blk.gn is not None:
-                blk.gn.reset_parameters()
+            blk.reset_parameters(gen)
         init_linear_(self.fc6, gen)
 
     def forward(self, x):
         """x [R, P, P, C] -> [R, D]."""
         x = x.permute(0, 3, 1, 2)
         for blk in self.convs:
-            x = blk.conv(x)
-            if blk.gn is not None:
-                x = blk.gn(x)
-            x = F.relu(x)
+            x = blk(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return F.relu(self.fc6(x))
 

@@ -12,8 +12,12 @@ logits at inference; in training the logits of each ROI's gt class only
 (``MaskHead.logits_at_class``), the positive-ROI selection, the projection
 of the gt mask patches into the ROI frames, and the BCE loss.
 
-ROI_MASK_HEAD.USE_GN adds no group norm: the JAX package's mask head has
-none (maskrcnn-benchmark's has one after each conv; ROADMAP.md Queue 3).
+ROI_MASK_HEAD.USE_GN gives each of the extractor's convs no bias and a
+group norm of MODEL.GROUP_NORM.NUM_GROUPS after it, before its ReLU, as
+maskrcnn-benchmark's make_conv3x3(use_gn=True) does. The JAX package's mask
+head ignores the key (ROADMAP.md Queue 3), so a GN mask head is held to the
+benchmark's plain reference (benchmark/reference/mask_rcnn_gn.py), not to
+JAX.
 """
 
 import torch
@@ -23,36 +27,32 @@ import torch.nn.functional as F
 from ...ops.sampler import top_k_fast
 from ...utils import comm
 from ..fbnet import FBNetROIHead
-from ..layers import Conv2d, ConvTranspose2d, full_weight, init_conv_
+from ..layers import Conv2d, ConvBlock, ConvTranspose2d, full_weight, init_conv_
 from .box_head import ResNet50Conv5ROIFeatureExtractor
-
-
-class _ConvBlock(nn.Module):
-    def __init__(self, cin, cout, dilation):
-        super().__init__()
-        self.conv = Conv2d(cin, cout, 3, padding=dilation, dilation=dilation)
 
 
 class MaskRCNNFPNFeatureExtractor(nn.Module):
     def __init__(self, cfg, in_channels):
         super().__init__()
         h = cfg.MODEL.ROI_MASK_HEAD
+        gn_groups = cfg.MODEL.GROUP_NORM.NUM_GROUPS if h.USE_GN else 0
         blocks, cin = [], in_channels
         for cout in h.CONV_LAYERS:
-            blocks.append(_ConvBlock(cin, cout, h.DILATION))
+            blocks.append(ConvBlock(cin, cout, 3, gn_groups, relu=True, dilation=h.DILATION,
+                                    init="kaiming_normal_fanin"))
             cin = cout
         self.convs = nn.ModuleList(blocks)
         self.out_dim = cin
 
     def reset_parameters(self, gen):
         for blk in self.convs:
-            init_conv_(blk.conv, gen, init="kaiming_normal_fanin")
+            blk.reset_parameters(gen)
 
     def forward(self, x):
         """[R, P, P, C] (NHWC) -> NCHW [R, D, P, P]."""
         x = x.permute(0, 3, 1, 2)
         for blk in self.convs:
-            x = F.relu(blk.conv(x))
+            x = blk(x)
         return x
 
 

@@ -11,7 +11,8 @@ maskrcnn_benchmark/utils/c2_model_loading.py:12-206). Two stages:
      first given the reference's key by one rename table
      (``torchstyle_key``: downsample.conv/bn -> downsample.0/1,
      fpn.inner.i.conv -> fpn.fpn_inner{i+1}, rpn -> rpn.head, the mask
-     head's convs.k.conv -> mask_fcn{k+1}; RetinaNet's towers
+     head's convs.k.conv -> mask_fcn{k+1}, or under ROI_MASK_HEAD.USE_GN
+     convs.k.conv / .gn -> mask_fcn{k+1}.0 / .1; RetinaNet's towers
      {cls,bbox}_tower.i -> {cls,bbox}_tower.{2i} and P6/P7 top.p6/p7 ->
      fpn.top_blocks.p6/p7; a group norm's scale -> weight, the Xconv
      head's convs.k -> xconvs.{3k}, an FPN group norm as its conv). The
@@ -143,6 +144,10 @@ _RENAMES = (
     (r"^backbone\.top\.", "backbone.fpn.top_blocks."),
     (r"\.mask\.feature_extractor\.convs\.(\d+)\.conv\.",
      lambda m: ".mask.feature_extractor.mask_fcn{}.".format(int(m[1]) + 1)),
+    # a GN mask head's conv k is the Sequential mask_fcn{k+1} = (conv, group
+    # norm): its group norm at index 1 (its conv at 0, load_torchstyle_state)
+    (r"\.mask\.feature_extractor\.convs\.(\d+)\.gn\.",
+     lambda m: ".mask.feature_extractor.mask_fcn{}.1.".format(int(m[1]) + 1)),
     # group norm (the body's norms, the FPN's, the Xconv head's): the JAX
     # rewriter names an FPN conv's norm as the conv itself, fpn_inner{i}
     # (weight and bias), and an Xconv head conv k xconvs.{3k}
@@ -201,6 +206,10 @@ def load_torchstyle_state(state, model_state, cfg=None):
     `model_state` (its names and shapes); returns {name: float32 tensor} of
     the entries that loaded. The rest keep the model's values."""
     keys = {name: torchstyle_key(name) for name in model_state}
+    for name in model_state:  # a GN mask head's conv: index 0, beside its group norm
+        if ".mask.feature_extractor.convs." in name and name.endswith(".gn.scale"):
+            conv = name[:-len("gn.scale")] + "conv.weight"
+            keys[conv] = keys[name][:-len("1.weight")] + "0.weight"
     match = align_and_update_state_dicts(list(keys.values()), list(state.keys()))
     loaded = {}
     for name, template in model_state.items():

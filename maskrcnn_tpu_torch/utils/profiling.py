@@ -11,10 +11,10 @@ trainer's trace hook puts each traced iteration in a range of its own
 (engine/trainer.py). The port's own spans (``PORT_SPANS``) name what the
 JAX scopes leave out: the backward, the gradient reduction, the anchors,
 the parts of the proposal stage, the matcher, the box post-process's NMS,
-the ROI pooling forward and its kernel backward, and every call of the
-main path that makes the host wait for the device ("<stage>.wait"), so
-that an idle gap of the device that begins while the host waits is put
-down to that wait.
+the ROI pooling forward and its kernel backward, the group norms, and
+every call of the main path that makes the host wait for the device
+("<stage>.wait"), so that an idle gap of the device that begins while the
+host waits is put down to that wait.
 
 A range is a user annotation: on the card the profiler also records a
 device span for it, as long as the work launched inside it. Those spans
@@ -57,10 +57,11 @@ PHASES = ("stem", "layer1", "layer2", "layer3", "layer4", "fpn", "backbone", "rp
 # for. A dotted name is a part of the stage before its dot (the anchors
 # and roi_pool are stages of their own; backward and grad_reduce are the
 # train step's); roi_pool.bwd is the ROIAlign kernels' backward, which runs
-# on the autograd engine's thread inside backward.
-PORT_SPANS = ("anchors.wait", "proposals.candidates", "proposals.nms", "proposals.select",
-              "rpn_loss.match", "box_postproc.nms", "roi_pool.bwd", "roi_pool", "anchors",
-              "grad_reduce", "backward")
+# on the autograd engine's thread inside backward; group_norm is every group
+# norm of the GN models (models/layers.py), inside the stage that calls it.
+PORT_SPANS = ("group_norm", "anchors.wait", "proposals.candidates", "proposals.nms",
+              "proposals.select", "rpn_loss.match", "box_postproc.nms", "roi_pool.bwd", "roi_pool",
+              "anchors", "grad_reduce", "backward")
 _OFF = contextlib.nullcontext()
 
 

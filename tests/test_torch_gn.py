@@ -3,7 +3,8 @@
 GN and ReLU, the Xconv1fc box head with and without GN, and two GN Mask
 R-CNN files from configs/gn_baselines/ (the 1x file, whose box head is
 Xconv1fc with GN, and the scratch_ file, whose GN stem and layer1 train at
-FREEZE_CONV_BODY_AT 0) at the narrow widths of torch_port_fixtures, the
+FREEZE_CONV_BODY_AT 0), their mask heads without the group norms that JAX
+lacks (ROI_MASK_HEAD.USE_GN False), at the narrow widths of torch_port_fixtures, the
 JAX init (numpy_params) with the group norms at scale U(0.5, 1.5) and bias
 U(-0.2, 0.2). Two groups: the narrow widths then keep 8-64 channels a
 group, as the published widths do (256 / 32 at the FPN and the heads).
@@ -61,6 +62,11 @@ def _gn_configs(name):
         c.MODEL.WEIGHT = ""
         c.MODEL.GROUP_NORM.NUM_GROUPS = GROUPS
         c.MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM = 32
+        # the files' mask heads take a group norm a conv, which the JAX
+        # package's lacks (ROADMAP.md Queue 3): both sides go without it, and
+        # tests/test_torch_gn_reference.py holds the port's with it
+        assert c.MODEL.ROI_MASK_HEAD.USE_GN
+        c.MODEL.ROI_MASK_HEAD.USE_GN = False
     return jcfg, tcfg
 
 
@@ -246,7 +252,7 @@ def test_xconv1fc_extractor_matches_jax(use_gn):
 def setup(request):
     jcfg, tcfg = _gn_configs(request.param)
     assert tcfg.MODEL.RESNETS.TRANS_FUNC == "BottleneckWithGN" and tcfg.MODEL.FPN.USE_GN
-    assert tcfg.MODEL.MASK_ON and tcfg.MODEL.ROI_MASK_HEAD.USE_GN
+    assert tcfg.MODEL.MASK_ON and not tcfg.MODEL.ROI_MASK_HEAD.USE_GN
     jm = build_jax_model(jcfg)
     tree = _spread_gn(numpy_params(jm), np.random.RandomState(6))
     tm = GeneralizedRCNN(tcfg)

@@ -17,8 +17,9 @@ processes, against the JAX package and against one process.
 * At (data 1, model 2) against one process: the sharded primitives
   (ungrouped, 4 groups, 3 groups that the axis does not divide, depthwise,
   transposed, fc, frozen BN folded), outputs and every gradient at 1e-5 of
-  their max; then six families (X-101 with its grouped convs, mdconv DCN,
-  FBNet with its depthwise convs, RetinaNet, GN with the Xconv head, C4):
+  their max; then seven families (X-101 with its grouped convs, mdconv DCN,
+  FBNet with its depthwise convs, RetinaNet, GN with the Xconv head, C4,
+  and the GN file as written, with the port's GN mask head that JAX lacks):
   the detections (labels exact, scores 1e-5, boxes 1e-3 px), one step's
   losses (rtol 1e-5), gradients (2e-4 of each max) and parameters (rtol
   1e-5 / atol 1e-7). These families are held to JAX through one process:
@@ -27,7 +28,8 @@ processes, against the JAX package and against one process.
   (mdconv Mask R-CNN), test_torch_fbnet.py, test_torch_retinanet.py,
   test_torch_gn.py (with the Xconv1fc extractor) and test_torch_c4.py; JAX's
   mesh step computes its one-device step, as (b) checks on the keypoint
-  model.
+  model. The GN mask head is held to the benchmark's plain reference
+  through one process in test_torch_gn_reference.py.
 * Checkpoints: one written under the mesh (by rank 0, the full layout)
   loads in one process (the parameters as above, the momentum, one step's
   gradient, within 2e-4 of its max); one written in one process after a step resumes
@@ -96,20 +98,29 @@ FAMILIES = {
     "x101": ("e2e_faster_rcnn_X_101_32x8d_FPN_1x.yaml",
              {"MODEL.RESNETS.NUM_GROUPS": 4, "MODEL.RESNETS.WIDTH_PER_GROUP": 4}),
     "dcn": ("dcn/e2e_mask_rcnn_mdconv_R_50_FPN_1x.yaml", {}),
+    # the mask head without the group norms the JAX package's lacks
     "gn": ("gn_baselines/e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml",
-           {"MODEL.GROUP_NORM.NUM_GROUPS": 2, "MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM": 32}),
+           {"MODEL.GROUP_NORM.NUM_GROUPS": 2, "MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM": 32,
+            "MODEL.ROI_MASK_HEAD.USE_GN": False}),
     "c4": ("e2e_mask_rcnn_R_50_C4_1x.yaml", {"MODEL.RESNETS.BACKBONE_OUT_CHANNELS": 256}),
     "retinanet": ("retinanet/retinanet_R-50-FPN_1x.yaml", {}),
     "keypoint": ("e2e_keypoint_rcnn_R_50_FPN_1x.yaml",
                  {"MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS": (32,) * 8}),
     "fbnet": ("e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml", {"MODEL.ROI_HEADS.SCORE_THRESH": 0.01}),
 }
+# families that only the port builds, held to the port in one process: the
+# GN file as written, its mask head's group norms included (the JAX package
+# ignores ROI_MASK_HEAD.USE_GN, so its tree gives every other leaf)
+PORT_FAMILIES = {
+    "gn_mask": ("gn_baselines/e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml",
+                {"MODEL.GROUP_NORM.NUM_GROUPS": 2, "MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM": 32}),
+}
 
 
 def _family_cfgs(family):
     """The JAX and port configs of `family`: narrow widths (FBNet keeps
     its own, as tests/test_torch_fbnet.py), float32, no weights."""
-    name, overrides = FAMILIES[family]
+    name, overrides = {**FAMILIES, **PORT_FAMILIES}[family]
     jcfg, tcfg = jax_defaults.clone(), torch_defaults.clone()
     for c in (jcfg, tcfg):
         c.merge_from_file(os.path.join(REPO, "configs", name))
@@ -237,6 +248,8 @@ def _family_job(family, seed):
     if not tcfg.MODEL.MASK_ON or tcfg.MODEL.RETINANET_ON:
         del nb["gt_masks"]
     model = GeneralizedRCNN(tcfg)
+    if family in PORT_FAMILIES:
+        state = _port_leaves(state, model, seed)
     model.load_state_dict(state, strict=True)
     with torch.no_grad():
         anchors = sum(a.shape[0] for a in model._backbone(
@@ -251,6 +264,20 @@ def _family_job(family, seed):
              "image_sizes": np.array([[128, 160], [112, 136]], np.int32)}
     return {"name": family, "cfg": tcfg._to_plain(), "state": state, "batch": nb,
             "draws": draws, "infer": infer}
+
+
+def _port_leaves(state, model, seed):
+    """`state` (the JAX tree's) for a model of the port's own: the leaves
+    JAX lacks, only group norms here, at scale U(0.5, 1.5), bias
+    U(-0.2, 0.2); those the port's model lacks (a GN conv's bias) dropped."""
+    rs = np.random.RandomState(seed + 3)
+    want = model.state_dict()
+    out = {k: v for k, v in state.items() if k in want}
+    for name in sorted(set(want) - set(out)):
+        assert name.endswith((".gn.scale", ".gn.bias")), name
+        lo, hi = (0.5, 1.5) if name.endswith("scale") else (-0.2, 0.2)
+        out[name] = torch.from_numpy(rs.uniform(lo, hi, want[name].shape).astype(np.float32))
+    return out
 
 
 def _one_process(job, steps=1):
@@ -295,7 +322,7 @@ def _same_detections(got, want):
                                atol=1e-3)
 
 
-MESH_FAMILIES = ("x101", "dcn", "fbnet", "retinanet", "gn", "c4")
+MESH_FAMILIES = ("x101", "dcn", "fbnet", "retinanet", "gn", "c4", "gn_mask")
 
 
 @pytest.mark.timeout(600)

@@ -37,7 +37,7 @@ from maskrcnn_tpu_torch.models.poolers import PoolerConfig, multilevel_roi_align
 from maskrcnn_tpu_torch.solver import make_lr_scheduler, make_optimizer
 from maskrcnn_tpu_torch.utils import profiling
 from torch_port_fixtures import narrow, one_torch_thread, train_batch  # noqa: F401
-from torch_span_paths import PORT_SPANS_REACHED
+from torch_span_paths import GN, GN_HOLDERS, PORT_SPANS_REACHED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -123,7 +123,7 @@ def _inside(ranges, name, outer):
 
 # the stage before the dot, and the JAX phases that hold a stage span
 HOLDERS = {"anchors": set(), "roi_pool": {"box_head", "mask_head", "keypoint_head"},
-           "backward": set(), "grad_reduce": set()}
+           "backward": set(), "grad_reduce": set(), "group_norm": GN_HOLDERS}
 
 
 def _check_nesting(ranges, reached):
@@ -172,6 +172,47 @@ def test_infer_step_carries_its_port_spans_nested():
     phases = profiling.phase_breakdown(prof, 1, "cpu")["phases"]
     for name in ("anchors", "proposals.nms", "box_postproc.nms", "roi_pool"):
         assert phases.get(name, 0) > 0, name
+
+
+def test_gn_train_step_carries_group_norm_in_its_stages(monkeypatch):
+    """A tiny GN Mask R-CNN (configs/gn_baselines/, every group norm of the
+    body, FPN and both heads) train step: the flagship's spans and
+    group_norm, each group_norm inside a stage span, one a call of
+    layers.group_norm; phase_breakdown gives its ops and their backward to
+    "group_norm" and "group_norm bwd"."""
+    from maskrcnn_tpu_torch.config import cfg as defaults
+    from maskrcnn_tpu_torch.models import layers
+
+    seen = []
+    plain = layers.group_norm
+
+    def recording(*args, **kwargs):
+        seen.append(1)
+        return plain(*args, **kwargs)
+
+    c = defaults.clone()
+    c.merge_from_file(os.path.join(REPO, "configs", "gn_baselines",
+                                   "e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml"))
+    narrow(c)
+    c.MODEL.WEIGHT = ""
+    c.MODEL.GROUP_NORM.NUM_GROUPS = 2
+    c.MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM = 32
+    torch.manual_seed(0)
+    model = GeneralizedRCNN(c)
+    optimizer = make_optimizer(c, model)
+    step = make_train_step(model, optimizer, make_lr_scheduler(c, optimizer),
+                           generator=torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in train_batch(b=1, h=64, w=96).items()}
+    monkeypatch.setattr(layers, "group_norm", recording)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(batch)
+    ranges = _ranges(prof)
+    _check_nesting(ranges, PORT_SPANS_REACHED["train", "cpu"] | GN)
+    _inside(ranges, "group_norm", GN_HOLDERS)
+    calls = sum(r[0] == "group_norm" for r in ranges)
+    assert calls == len(seen) == 69
+    phases = profiling.phase_breakdown(prof, 1, "cpu")["phases"]
+    assert phases.get("group_norm", 0) > 0 and phases.get("group_norm bwd", 0) > 0
 
 
 def test_adaptive_pooler_runs_in_roi_pool():

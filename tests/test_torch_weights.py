@@ -438,7 +438,8 @@ def test_imagenet_pkl_fills_a_retinanet_body(offline, caplog):
 
 def _gn_pair():
     """A narrow GN Mask R-CNN (GN stem, bottlenecks and FPN, Xconv1fc box
-    head with GN) in both packages, and a seeded JAX template."""
+    head with GN; the mask head without the group norms the JAX package's
+    lacks) in both packages, and a seeded JAX template."""
     jcfg, tcfg = jax_defaults.clone(), torch_defaults.clone()
     for c in (jcfg, tcfg):
         c.merge_from_file(os.path.join(REPO, "configs", "gn_baselines",
@@ -447,6 +448,7 @@ def _gn_pair():
         c.MODEL.WEIGHT = ""
         c.MODEL.GROUP_NORM.NUM_GROUPS = 2
         c.MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM = 32
+        c.MODEL.ROI_MASK_HEAD.USE_GN = False
     jm = build_jax_model(jcfg)
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
     return jcfg, tcfg, jm, _seeded_tree(shapes, np.random.RandomState(100), _identity_bn)
@@ -566,8 +568,10 @@ def test_jax_gn_heads_take_no_group_norm_and_the_port_follows():
     (ROADMAP.md Queue 3): under ROI_BOX_HEAD.USE_GN and ROI_MASK_HEAD.USE_GN
     the JAX FPN2MLPFeatureExtractor and MaskRCNNFPNFeatureExtractor hold no
     group norm (the reference's make_fc / make_conv3x3 with use_gn put one
-    after each fc and conv, and drop the convs' biases); the port's tree is
-    JAX's, name for name and shape for shape."""
+    after each fc and conv, and drop the convs' biases). The port's mask
+    head follows maskrcnn-benchmark: each conv without its bias and with a
+    group norm; its FPN2MLP head still follows JAX, with no fc group norm;
+    everything else is JAX's tree, name for name and shape for shape."""
     jcfg, tcfg = configs()
     for c in (jcfg, tcfg):
         c.merge_from_file(os.path.join(REPO, "configs", "gn_baselines",
@@ -585,5 +589,48 @@ def test_jax_gn_heads_take_no_group_norm_and_the_port_follows():
         jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
     model = build_detection_model(tcfg, device="cpu")
     got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert got == want
-    assert not any(".gn." in k for k in got if k.startswith("roi_heads."))
+    mask = "roi_heads.mask.feature_extractor.convs."
+    widths = tcfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS
+    assert {k for k in got if k.startswith(mask)} == {
+        mask + "{}.{}".format(i, leaf) for i in range(len(widths))
+        for leaf in ("conv.weight", "gn.scale", "gn.bias")}
+    for i, width in enumerate(widths):
+        assert got[mask + "{}.gn.scale".format(i)] == got[mask + "{}.gn.bias".format(i)] == (width,)
+        assert got[mask + "{}.conv.weight".format(i)] == want[mask + "{}.conv.weight".format(i)]
+    assert {k for k in want if k.startswith(mask)} - set(got) == {
+        mask + "{}.conv.bias".format(i) for i in range(len(widths))}
+    assert {k: v for k, v in got.items() if not k.startswith(mask)} == {
+        k: v for k, v in want.items() if not k.startswith(mask)}
+    assert not any(".gn." in k for k in got if k.startswith("roi_heads.box."))
+
+def test_gn_mask_head_pth_loads_onto_its_group_norms(tmp_path):
+    """A maskrcnn-benchmark .pth of a GN Mask R-CNN: each mask conv k the
+    Sequential mask_fcn{k+1} = (conv without bias, group norm), so
+    mask_fcn{k+1}.0.weight loads onto convs.k.conv.weight and .1.weight /
+    .1.bias onto convs.k.gn.scale / .gn.bias, each equal to its source, and
+    nothing else of the model takes them."""
+    tcfg = torch_defaults.clone()
+    tcfg.merge_from_file(os.path.join(REPO, "configs", "gn_baselines",
+                                      "e2e_mask_rcnn_R_50_FPN_Xconv1fc_1x_gn.yaml"))
+    narrow(tiny(tcfg))
+    tcfg.MODEL.WEIGHT = ""
+    tcfg.MODEL.GROUP_NORM.NUM_GROUPS = 2
+    tcfg.MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM = 32
+    model = build_detection_model(tcfg, device="cpu")
+    template = model.state_dict()
+    rs = np.random.RandomState(7)
+    source = {k: torch.from_numpy(rs.randn(*v.shape).astype(np.float32))
+              for k, v in template.items()}
+    mask = "roi_heads.mask.feature_extractor."
+    names = {mask + "convs.{}.{}".format(i, a): mask + "mask_fcn{}.{}".format(i + 1, b)
+             for i in range(len(tcfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS))
+             for a, b in (("conv.weight", "0.weight"), ("gn.scale", "1.weight"),
+                          ("gn.bias", "1.bias"))}
+    assert set(names) == {k for k in template if k.startswith(mask)}
+    state = {"module." + names[k]: v for k, v in source.items() if k in names}
+    path = str(tmp_path / "model_final.pth")
+    torch.save({"model": state}, path)
+    loaded = c2_loading.load_pth_weights(path, tcfg, template)
+    assert set(loaded) == set(names)
+    for k in names:
+        assert torch.equal(loaded[k], source[k]), k

@@ -2,7 +2,9 @@
 pass reaches, by pass and device; imports neither JAX nor torch, so the
 card's tests (run without conftest) share it with the CPU tests.
 roi_pool.bwd is the ROIAlign kernels' backward, which runs on the card only;
-a training step opens no box_postproc.nms."""
+a training step opens no box_postproc.nms. A group-norm model's passes
+(configs/gn_baselines/) reach GN's too: group_norm around each group norm,
+inside the stage that calls it (GN_HOLDERS)."""
 
 TRAIN = {"anchors", "anchors.wait", "proposals.candidates", "proposals.nms", "proposals.select",
          "rpn_loss.match", "roi_pool", "backward", "grad_reduce"}
@@ -10,3 +12,5 @@ INFER = {"anchors", "anchors.wait", "proposals.candidates", "proposals.nms", "pr
          "box_postproc.nms", "roi_pool"}
 PORT_SPANS_REACHED = {("train", "cpu"): TRAIN, ("train", "cuda"): TRAIN | {"roi_pool.bwd"},
                       ("infer", "cpu"): INFER, ("infer", "cuda"): INFER}
+GN = {"group_norm"}
+GN_HOLDERS = {"stem", "layer1", "layer2", "layer3", "layer4", "fpn", "box_head", "mask_head"}
