@@ -242,9 +242,13 @@ The GN and C4 families as written (after 31, on phase 24's trees and cache):
      catalog:// R-50-GN.pkl (the seeded GN body, Detectron's _gn_s / _gn_b
      blobs; its tensors equal the blobs): matcher 1, NMS 1, ROIAlign
      forward 2 and "roi" backward 2 a step, held to their plain versions on
-     the first step; the step's time, device busy, idle share and peak
-     memory, and the group norms' device time (one step's group-norm calls
-     by shape, each timed forward and backward alone); test_net on 8
+     the first step; the group norm kernels 69 forward and 58 backward a
+     step (69 forward a test batch and a request), held to group_norm_plain
+     at the cell's shapes in bf16 and float32 (group_norm_sites: forward
+     within 1e-5 or one bf16 ulp of max|y|, gradients within 1e-5 / 1e-2
+     of max|grad|, two calls giving the same bits) and timed beside their
+     bound; the step's time, device busy, idle share and peak memory, and
+     the group norms' share of its device time; test_net on 8
      images and its known answer (the detections' boxes and pasted masks as
      gt: bbox and segm AP50 >= 0.99); one Predictor request; float32 card
      vs CPU (phase 6's gate);
@@ -548,6 +552,66 @@ def training_counters(poolers, matcher, nms):
             "roi_align_backward": poolers.roi_align_backward,
             "roi_align_backward_rmw": poolers.roi_align_backward_rmw,
             "roi_align_backward_chunk": poolers.roi_align_backward_chunk}
+
+
+class Counter:
+    """A launch counter kept as obj's attribute attr, read and reset as
+    .launches like the kernels' own."""
+
+    def __init__(self, obj, attr):
+        self.obj, self.attr = obj, attr
+
+    @property
+    def launches(self):
+        return getattr(self.obj, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.obj, self.attr, value)
+
+
+def group_norm_counters(layers):
+    """The group norm kernels' launch counters: forward and backward calls."""
+    return {"group_norm": Counter(layers.group_norm, "launches"),
+            "group_norm_backward": Counter(layers.group_norm, "bwd_launches")}
+
+
+def group_norm_sites(torch, card):
+    """The group norm kernels against group_norm_plain at the GN cell's
+    shapes (tools/profile_group_norm.py's SHAPES: the step's distinct group
+    norms and a C4 res5 ROI batch), in bf16 and float32, by that tool's
+    check: the forward within 1e-5 (float32) or one bf16 ulp of max|y|, dx,
+    dscale and dbias within 1e-5 / 1e-2 of max|grad| against autograd of
+    the plain version, two calls giving the same bits, one launch each way
+    a call, y channels_last. Then its times: a forward and a backward site
+    each (wrapper and kernel ms, the bound at 3.35 TB/s, the plain
+    version's ms; F.group_norm's forward as library_ms, a yardstick)."""
+    from maskrcnn_tpu_torch.tools import profile_group_norm as pgn
+
+    fwd, bwd = [], []
+    for dname, dtype in pgn.DTYPES.items():
+        for name, shape in pgn.SHAPES.items():
+            got = pgn.check(shape, dtype)
+            check(got["ok"], "group norm {} {} against group_norm_plain: {}".format(
+                name, dname, json.dumps(got)))
+            t = pgn.times(shape, dtype)
+            torch.cuda.empty_cache()
+            at = {"site": name, "shape": list(shape), "dtype": got["dtype"],
+                  "bitwise_repeatable": got["repeat_equal"], "bound_by": "bytes"}
+            fwd.append(dict(at, path=got["path"]["forward"], max_abs_err=got["forward_abs_err"],
+                            err=got["forward_err"], tol=got["forward_tol"],
+                            ms=t["wrapper_fwd_ms"], kernel_ms=t["kernel_fwd_ms"],
+                            plain_ms=t["plain_fwd_ms"], bound_ms=t["bound_fwd_ms"],
+                            library_ms=t["library_fwd_ms"]))
+            bwd.append(dict(at, path=got["path"]["backward"],
+                            max_abs_err=max(got["grad_abs_err"].values()),
+                            err=got["grad_err"], tol=got["grad_tol"],
+                            ms=t["wrapper_bwd_ms"], kernel_ms=t["kernel_bwd_ms"],
+                            plain_ms=t["plain_bwd_ms"], bound_ms=t["bound_bwd_ms"]))
+            for kind, site in (("group_norm", fwd[-1]), ("group_norm_backward", bwd[-1])):
+                print("gn recipe kernel site {} [{}]: {}".format(kind, card, json.dumps(site)),
+                      flush=True)
+    return {"group_norm": fwd, "group_norm_backward": bwd}
 
 
 @contextlib.contextmanager
@@ -1234,7 +1298,12 @@ def run(torch):
     tp = mc["tensor_parallel"]
     cs = {k: [s for path in list(dl["sites"].values()) + list(pp["sites"].values())
               for s in path.get(k, [])]
-          for k in ("nms", "roi_align", "roi_align_backward", "matcher")}
+          for k in ("nms", "roi_align", "roi_align_backward", "matcher", "group_norm",
+                    "group_norm_backward")}
+    gn_cu = "maskrcnn_tpu_torch/csrc/group_norm.cu"  # replaces no TPU kernel
+
+    def gn_path(key):  # the data-layer phases alone count the group norms
+        return {path: n[key] for path, n in dl["launches"].items()}
     kernels = [
         kernel_entry("nms", "maskrcnn_tpu_torch/csrc/nms.cu", tpu + "nms_kernel.py:161",
                      by_path("nms"), nms_sites + tr["nms_sites"] + ev["nms_sites"]
@@ -1253,7 +1322,12 @@ def run(torch):
                      tpu + "matcher_kernel.py:183", by_path("matcher"),
                      tr["matcher_sites"] + mc["matcher_sites"] + tp["matcher_sites"]
                      + cs["matcher"]),
+        kernel_entry("group_norm", gn_cu, None, gn_path("group_norm"), cs["group_norm"]),
+        kernel_entry("group_norm_backward", gn_cu, None, gn_path("group_norm_backward"),
+                     cs["group_norm_backward"]),
     ]
+    kernels[-2]["library_ms"] = (sum(s["library_ms"] for s in cs["group_norm"])
+                                 / len(cs["group_norm"]))
 
     def shape(name, s):
         if name == "nms":
@@ -2390,7 +2464,7 @@ def data_layer_phase(torch, np, card):
     )
     from maskrcnn_tpu_torch.data.evaluation import evaluate
     from maskrcnn_tpu_torch.engine import trainer
-    from maskrcnn_tpu_torch.models import build_detection_model, detector, poolers, rpn
+    from maskrcnn_tpu_torch.models import build_detection_model, detector, layers, poolers, rpn
     from maskrcnn_tpu_torch.ops import matcher, nms
     from maskrcnn_tpu_torch.predictor import Predictor
     from maskrcnn_tpu_torch.structures import BoxList
@@ -2411,7 +2485,8 @@ def data_layer_phase(torch, np, card):
         lg.addHandler(logs)
         lg.setLevel(logging.INFO)
         lg.propagate = False
-    counters = training_counters(poolers, matcher, nms)
+    # the group norms too: only phase 32's GN family may launch them
+    counters = dict(training_counters(poolers, matcher, nms), **group_norm_counters(layers))
     record = {}
     launches, phase_s = {}, {}
 
@@ -3329,8 +3404,11 @@ def gn_c4_phase(torch, np, card, dl):
     with dl.first_step(pooled=2) as caps:
         _, meters = train_net.main(["--config-file", gn_yaml, "--skip-test",
                                     "SOLVER.MAX_ITER", "3", "OUTPUT_DIR", out])
+        # 69 group norms a step (stem 1, the blocks 52, FPN 8, box and mask
+        # heads 4 each), 58 with a backward (not the frozen stem and res2's 11)
         dl.done("gn_recipe", t0, {"matcher": 1, "nms": 1, "roi_align": 2,
-                                  "roi_align_backward": 2}, 3)
+                                  "roi_align_backward": 2, "group_norm": 69,
+                                  "group_norm_backward": 58}, 3)
     peak_run_gb = torch.cuda.max_memory_allocated() / 1e9
     n_loaded, n_total = dl.loaded_count()
     check(n_loaded == len(body), "R-50-GN.pkl loaded {} of the body's {} tensors".format(
@@ -3340,6 +3418,7 @@ def gn_c4_phase(torch, np, card, dl):
     summary = dl.train_summary(meters, gn_yaml, n_losses=5)
     sites["gn_recipe"], _ = dl.step_sites("gn recipe", caps, 16, (80, 2000), pooled=2)
     del caps
+    sites["gn_recipe"].update(group_norm_sites(torch, card))
     # a label of its own: layers.group_norm opens a span "group_norm" inside it
     step_profile("gn recipe", {"group_norms": (layers, "group_norm")})
     print("gn recipe: loaded {}/{} tensors from R-50-GN.pkl, the body's equal to its blobs; 3 "
@@ -3348,8 +3427,9 @@ def gn_c4_phase(torch, np, card, dl):
     dl.record.clear()
     sites["gn_known"] = path_sites()
     known_answer("gn_test", gn_yaml, os.path.join(out, "model_final.pth"), os.path.join(out, "test"),
-                 {"nms": 2, "roi_align": 2})
-    scfg, state = serve("gn_serving", cfg, SEED + 21, {"nms": 2, "roi_align": 2})
+                 {"nms": 2, "roi_align": 2, "group_norm": 69})
+    scfg, state = serve("gn_serving", cfg, SEED + 21, {"nms": 2, "roi_align": 2,
+                                                       "group_norm": 69})
     ref = reference_check(torch, np, detector, scfg, state)
     print("gn float32 card vs CPU on a 256x320 image [{}]: {}".format(card, json.dumps(ref)),
           flush=True)

@@ -17,8 +17,9 @@ bit, and the processes of a data group the same blocks of the sharded ones
 (parallel/mesh.py).
 
 Spans (utils/profiling.py:span, profiler ranges only while a profiler
-records): "backward" around the backward pass (the ROIAlign kernels'
-backward opens "roi_pool.bwd" inside it, on the autograd engine's thread),
+records): "backward" around the backward pass (the ROIAlign and group
+norm kernels' backwards open "roi_pool.bwd" and "group_norm.bwd" inside it,
+on the autograd engine's thread),
 "grad_reduce" around the gradients' reduction over the data axis, and
 "optimizer", the JAX step's named scope, around the update.
 """

@@ -37,7 +37,8 @@ visibility), with "anchors.wait" inside; "proposals.candidates",
 "rpn_loss.match" inside rpn_loss; "box_postproc.nms" inside box_postproc
 (box_head.py); "roi_pool" around every ROI pooling and "roi_pool.bwd"
 around its kernels' backward (poolers.py); "group_norm" around every group
-norm of a GN model (layers.py), inside the stage that calls it. The spans
+norm of a GN model (layers.py), inside the stage that calls it, and
+"group_norm.bwd" around its kernels' backward. The spans
 change no output; utils/profiling.py and the benchmark's readers read them.
 
 The two samplers' uniform draws (``draws``: rpn_pos, rpn_neg [B, N

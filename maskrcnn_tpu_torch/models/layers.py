@@ -25,12 +25,14 @@ unsharded layer computes, op for op. ``out_channels`` and the other
 attributes keep the full widths.
 """
 
+import ctypes
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import native
 from ..utils import comm
 from ..utils.profiling import span
 
@@ -147,20 +149,142 @@ class FrozenBatchNorm2d(nn.Module):
         return x * s.to(x.dtype)[:, None, None] + t.to(x.dtype)[:, None, None]
 
 
-def group_norm(x, scale, bias, num_groups, eps=1e-5):
+def group_norm_plain(x, scale, bias, num_groups, eps=1e-5):
     """Group norm of NCHW x (images, or ROI batches [R, C, P, P]) as the JAX
-    package's layers.group_norm computes it: the statistics in float32 over
-    (H, W, the channels of a group), the variance in two passes, then the
-    affine in float32 and a cast back to x's dtype. Runs on the NHWC view
-    (free for channels_last maps, the JAX layout), in a span "group_norm"
-    (its backward nodes join it by sequence number)."""
-    with span("group_norm"):
+    package's layers.group_norm computes it: the statistics in float32 (in
+    x's dtype where that is wider) over (H, W, the channels of a group), the
+    variance in two passes, then the affine in float32 and a cast back to x's
+    dtype. Runs on the NHWC view (free for channels_last maps, the JAX
+    layout). CPU tensors take it (``group_norm``); the card's kernels
+    compute the same."""
+    n, c, h, w = x.shape
+    xf = x.permute(0, 2, 3, 1).to(torch.promote_types(x.dtype, torch.float32))
+    xf = xf.reshape(n, h, w, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+    return (xf * scale + bias).to(x.dtype).permute(0, 3, 1, 2)
+
+
+_I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+_GN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _gn_lib():
+    lib = native.load("group_norm")
+    if not getattr(lib, "_typed", False):
+        lib.group_norm_plan.argtypes = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_L)]
+        lib.group_norm_forward.argtypes = [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P,
+                                           _P, _P, _P, _L, _P]
+        lib.group_norm_backward.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                                            _P, _L, _P]
+        for fn in (lib.group_norm_plan, lib.group_norm_forward, lib.group_norm_backward):
+            fn.restype = _I
+        lib._typed = True
+    return lib
+
+
+def group_norm_path(x, num_groups, backward=False):
+    """(path, float32 workspace) of the kernels at x's shape, dtype and
+    direction: "sample" (a sample staged in one block's shared memory) or
+    "spans" (each sample cut into pixel spans). Raises ValueError for a
+    shape the kernels do not take (C % 8, C > 2048, C % groups)."""
+    n, c, h, w = x.shape
+    ws = _L()
+    path = _gn_lib().group_norm_plan(n, h * w, c, num_groups, _GN_DTYPES[x.dtype],
+                                     int(backward), ctypes.byref(ws))
+    if path < 0:
+        raise ValueError("group_norm kernel takes C % 8 == 0, C <= 2048 and C % groups == 0, "
+                         "not C={} in {} groups".format(c, num_groups))
+    return ("spans", "sample")[path], torch.empty(ws.value, dtype=torch.float32,
+                                                  device=x.device)
+
+
+def _check_maps(what, x, *tensors):
+    for t in (x, *tensors):
+        if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape:
+            raise ValueError("{}: tensors differ in device, dtype or shape".format(what))
+        if not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("{} kernel takes channels_last-contiguous NCHW maps".format(what))
+        if t.data_ptr() % 16:
+            raise ValueError("{} kernel takes 16-byte aligned maps".format(what))
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """csrc/group_norm.cu's forward, with its backward as the gradient.
+    Saves x (in its dtype) and the per-(n, group) mean and rstd (float32);
+    the scale and bias get float32 gradients."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps):
         n, c, h, w = x.shape
-        xf = x.permute(0, 2, 3, 1).float().reshape(n, h, w, num_groups, c // num_groups)
-        mean = xf.mean(dim=(1, 2, 4), keepdim=True)
-        var = ((xf - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
-        xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
-        return (xf * scale + bias).to(x.dtype).permute(0, 3, 1, 2)
+        y = torch.empty_like(x, memory_format=torch.channels_last)
+        stats = torch.empty((2, n, num_groups), dtype=torch.float32, device=x.device)
+        if x.numel():
+            _, ws = group_norm_path(x, num_groups)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = _gn_lib().group_norm_forward(
+                x.data_ptr(), scale.data_ptr(), bias.data_ptr(), n, h * w, c, num_groups, eps,
+                _GN_DTYPES[x.dtype], y.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                ws.data_ptr(), ws.numel(), stream)
+            native.check(rc, "group_norm")
+            _COUNTERS.launches += 1
+        ctx.num_groups = num_groups
+        ctx.save_for_backward(x, scale, stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, stats = ctx.saved_tensors
+        with span("group_norm.bwd"):
+            _check_maps("group_norm backward", x, dy)
+            n, c, h, w = x.shape
+            dx = torch.empty_like(x, memory_format=torch.channels_last)
+            dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
+            if not x.numel():
+                dscale.zero_()
+                dbias.zero_()
+            else:
+                _, ws = group_norm_path(x, ctx.num_groups, backward=True)
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                rc = _gn_lib().group_norm_backward(
+                    x.data_ptr(), dy.data_ptr(), scale.data_ptr(), stats[0].data_ptr(),
+                    stats[1].data_ptr(), n, h * w, c, ctx.num_groups, _GN_DTYPES[x.dtype],
+                    dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(),
+                    ws.numel(), stream)
+                native.check(rc, "group_norm backward")
+                _COUNTERS.bwd_launches += 1
+        return dx, dscale, dbias, None, None
+
+
+def group_norm(x, scale, bias, num_groups, eps=1e-5):
+    """Group norm of NCHW x (images, or ROI batches [R, C, P, P]), the JAX
+    package's layers.group_norm, in a span "group_norm". CPU tensors take
+    ``group_norm_plain`` (its backward nodes join the span by sequence
+    number). CUDA tensors take the kernels of csrc/group_norm.cu through
+    ``GroupNormFunction`` (its backward in a span "group_norm.bwd"), or
+    raise: x float32 or bfloat16, channels_last-contiguous, 16-byte aligned;
+    scale and bias float32 [C]; y channels_last in x's dtype."""
+    with span("group_norm"):
+        if x.device.type == "cpu":
+            return group_norm_plain(x, scale, bias, num_groups, eps)
+        if x.device.type != "cuda":
+            raise ValueError("group_norm runs on cpu or cuda tensors, not {}".format(x.device))
+        if x.dtype not in _GN_DTYPES:
+            raise TypeError("group_norm kernel takes float32 or bfloat16 maps")
+        _check_maps("group_norm", x)
+        for t in (scale, bias):
+            if (t.device != x.device or t.dtype != torch.float32 or t.shape != (x.shape[1],)
+                    or not t.is_contiguous()):
+                raise ValueError("group_norm kernel takes float32 [C] scale and bias")
+        return GroupNormFunction.apply(x, scale, bias, num_groups, eps)
+
+
+group_norm.launches = 0      # forward calls that launched the kernels
+group_norm.bwd_launches = 0  # backward calls that launched them
+# the counters' owner, whatever later stands in for the module's name
+# (utils/profiling.py:function_shares wraps it while it profiles)
+_COUNTERS = group_norm
 
 
 class GroupNorm(nn.Module):

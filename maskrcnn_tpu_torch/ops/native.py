@@ -22,7 +22,7 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-KERNELS = ("nms", "roi_align", "matcher")
+KERNELS = ("nms", "roi_align", "matcher", "group_norm")
 HOST_LIBS = ("maskops",)
 
 # -fmad=false: no FMA contraction, so the kernels round each product and sum

@@ -58,10 +58,11 @@ PHASES = ("stem", "layer1", "layer2", "layer3", "layer4", "fpn", "backbone", "rp
 # and roi_pool are stages of their own; backward and grad_reduce are the
 # train step's); roi_pool.bwd is the ROIAlign kernels' backward, which runs
 # on the autograd engine's thread inside backward; group_norm is every group
-# norm of the GN models (models/layers.py), inside the stage that calls it.
-PORT_SPANS = ("group_norm", "anchors.wait", "proposals.candidates", "proposals.nms",
-              "proposals.select", "rpn_loss.match", "box_postproc.nms", "roi_pool.bwd", "roi_pool",
-              "anchors", "grad_reduce", "backward")
+# norm of the GN models (models/layers.py), inside the stage that calls it,
+# and group_norm.bwd its kernels' backward, on the autograd engine's thread.
+PORT_SPANS = ("group_norm.bwd", "group_norm", "anchors.wait", "proposals.candidates",
+              "proposals.nms", "proposals.select", "rpn_loss.match", "box_postproc.nms",
+              "roi_pool.bwd", "roi_pool", "anchors", "grad_reduce", "backward")
 _OFF = contextlib.nullcontext()
 
 
@@ -78,7 +79,7 @@ def span(name):
 # The port's hand-written CUDA kernels (csrc/*.cu), by their entry names
 # (a trace names them demangled, "void (anonymous namespace)::<name><...>(...)").
 HAND_KERNELS = ("nms_mask_kernel", "nms_reduce_kernel", "roi_align_fwd_kernel",
-                "roi_align_bwd_tile_kernel", "matcher_kernel")
+                "roi_align_bwd_tile_kernel", "matcher_kernel", "group_norm_")
 BACKWARD_NODE = "autograd::engine::evaluate_function:"
 _CONV_OR_MATMUL = re.compile(r"^aten::(\w*conv\w*|mm|addmm|bmm|baddbmm|matmul|linear)$")
 
@@ -304,9 +305,10 @@ def phase_breakdown(prof, steps, device):
     op's own host time (its children's left out), and "timed" says which.
     Each item belongs to the first of PORT_SPANS, then of PHASES, among the
     ranges around its op;
-    an item under a backward node to its forward op's phase, as "<phase>
-    bwd"; "<unattributed>" where no phase range is around. "linked_ms" is
-    the items' sum (the phases and "<unattributed>" add up to it); on the
+    an item under a backward node to the kernels' backward span opened
+    inside that node (``group_norm.bwd``, ``roi_pool.bwd``), else to its
+    forward op's phase, as "<phase> bwd"; "<unattributed>" where no phase
+    range is around. "linked_ms" is the items' sum (the phases and "<unattributed>" add up to it); on the
     card, device time the profiler linked to no op (device_busy less
     linked_ms) is in no table."""
     on_card = torch.device(device).type == "cuda"
@@ -326,6 +328,19 @@ def phase_breakdown(prof, steps, device):
 
     def phase_of(chain_names):
         return next((p for p in PORT_SPANS + PHASES if p in chain_names), None)
+
+    owned = {}
+
+    def own_span(node):
+        """The kernels' backward span (a ".bwd" port span: group_norm.bwd,
+        roi_pool.bwd, which hold all of their backward's launches) opened
+        inside a backward node, or None. On the card the profiler links
+        those launches to the node's op, around the span, not to the span."""
+        if id(node) not in owned:
+            inside = {c.name for c in _below(node)}
+            owned[id(node)] = next((p for p in PORT_SPANS
+                                    if p.endswith(".bwd") and p in inside), None)
+        return owned[id(node)]
 
     forward = {}
     for e in events:
@@ -357,7 +372,7 @@ def phase_breakdown(prof, steps, device):
         names_up, node = chain(e)
         if node is not None:
             phase = forward.get((node.sequence_nr, getattr(node, "fwd_thread", node.thread)))
-            label = phase + " bwd" if phase else "<unattributed>"
+            label = own_span(node) or (phase + " bwd" if phase else "<unattributed>")
         else:
             label = phase_of(names_up) or "<unattributed>"
         for name, us in timed_here:

@@ -40,7 +40,8 @@ from maskrcnn_tpu.models.roi_heads import box_head as jbh
 from maskrcnn_tpu_torch.config import cfg as torch_defaults
 from maskrcnn_tpu_torch.models.detector import GeneralizedRCNN
 from maskrcnn_tpu_torch.models.fpn import FPN
-from maskrcnn_tpu_torch.models.layers import group_norm
+from maskrcnn_tpu_torch.models import layers
+from maskrcnn_tpu_torch.models.layers import group_norm, group_norm_plain
 from maskrcnn_tpu_torch.models.resnet import Bottleneck
 from maskrcnn_tpu_torch.models.roi_heads.box_head import FPNXconv1fcFeatureExtractor
 from maskrcnn_tpu_torch.utils.convert import params_from_jax
@@ -130,6 +131,133 @@ def test_group_norm_matches_jax(shape, dtype):
         for g, w in zip(tgrads, grads):
             w = np.asarray(w, np.float32)
             assert np.abs(g - w).max() <= 1e-2 * np.abs(w).max()
+
+
+def test_group_norm_takes_the_plain_path_on_cpu():
+    """CPU tensors go through group_norm_plain, forward and backward; the
+    card's launch counters do not move."""
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(2, 8, 5, 6).astype(np.float32)).requires_grad_()
+    scale = torch.from_numpy(rs.uniform(0.5, 1.5, 8).astype(np.float32)).requires_grad_()
+    bias = torch.from_numpy(rs.uniform(-0.5, 0.5, 8).astype(np.float32)).requires_grad_()
+    before = (layers.group_norm.launches, layers.group_norm.bwd_launches)
+    got = group_norm(x, scale, bias, 4)
+    assert torch.equal(got, group_norm_plain(x, scale, bias, 4))
+    got.square().sum().backward()
+    assert all(t.grad is not None for t in (x, scale, bias))
+    assert (layers.group_norm.launches, layers.group_norm.bwd_launches) == before
+
+
+def _kernel_backward(x, dy, scale, groups, eps=1e-5):
+    """csrc/group_norm.cu's backward algebra in plain PyTorch: per (n, c)
+    A = sum dy and B = sum dy * (x - mean) over H, W; dbias = sum_n A,
+    dscale = sum_n rstd * B; per (n, g) s1 = sum scale * A and s2 = sum
+    scale * B over the group's channels; dx = rstd * (scale * dy - s1 / M -
+    x^ * rstd * s2 / M), M = H * W * C / groups."""
+    n, c, h, w = x.shape
+    cg, m = c // groups, h * w * (c // groups)
+    xf = x.permute(0, 2, 3, 1).reshape(n, h * w, c)
+    d = dy.permute(0, 2, 3, 1).reshape(n, h * w, c)
+    xg = xf.reshape(n, h * w, groups, cg)
+    mean = xg.mean(dim=(1, 3))
+    rstd = torch.rsqrt(((xg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3)) + eps)
+    mean_c, rstd_c = mean.repeat_interleave(cg, 1), rstd.repeat_interleave(cg, 1)
+    a = d.sum(1)
+    b = (d * (xf - mean_c[:, None])).sum(1)
+    dbias, dscale = a.sum(0), (rstd_c * b).sum(0)
+    s1 = (scale * a).reshape(n, groups, cg).sum(-1)
+    s2 = (scale * b).reshape(n, groups, cg).sum(-1)
+    m1 = (s1 / m).repeat_interleave(cg, 1)[:, None]
+    m2 = (rstd * s2 / m).repeat_interleave(cg, 1)[:, None]
+    xh = (xf - mean_c[:, None]) * rstd_c[:, None]
+    dx = rstd_c[:, None] * (scale * d - m1 - xh * m2)
+    return dx.reshape(n, h, w, c).permute(0, 3, 1, 2), dscale, dbias
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 9, 11), (40, 16, 7, 7)], ids=["image", "rois"])
+def test_kernel_backward_algebra_is_autograd_of_group_norm(shape):
+    """The backward the kernels compute, held to autograd of
+    group_norm_plain in float64 on an image-like and a ROI-batch shape."""
+    rs = np.random.RandomState(2)
+    x = torch.from_numpy(rs.randn(*shape) * 2 + 0.7).requires_grad_()
+    scale = torch.from_numpy(rs.uniform(0.5, 1.5, shape[1])).requires_grad_()
+    bias = torch.from_numpy(rs.uniform(-0.5, 0.5, shape[1])).requires_grad_()
+    dy = torch.from_numpy(rs.randn(*shape))
+    y = group_norm_plain(x, scale, bias, 4)
+    assert y.dtype == torch.float64
+    want = torch.autograd.grad(y, (x, scale, bias), dy)
+    got = _kernel_backward(x.detach(), dy, scale.detach(), 4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
+
+
+def _chan(a, b):
+    """Fold partial b = (count, mean, m2) into a (chan_merge in the kernel)."""
+    if a is None:
+        return b
+    (na, ma, qa), (nb, mb, qb) = a, b
+    nt = na + nb
+    d = mb - ma
+    return nt, ma + d * (nb / nt), qa + qb + d * d * (na * nb / nt)
+
+
+def _kernel_statistics(x, groups, spans, rows, chunk):
+    """(mean, var) per (n, g) of x [N, HW, C] folded as the kernels' pixel-span
+    path folds them: each thread (pixel row r of a span) takes chunks of
+    `chunk` of its pixels (span start + r + rows * i), a chunk's per-channel
+    mean and M2 by two passes, folded in by Chan's formula; the rows folded
+    in order; channels into groups at equal counts; the spans folded by 32
+    lanes (lane j: spans j, j + 32, ...) and a shuffle tree."""
+    n, hw, c = x.shape
+    cg = c // groups
+    span = -(-hw // spans)
+    parts = []
+    for p0 in range(0, hw, span):
+        p1 = min(hw, p0 + span)
+        block = None
+        for r in range(rows):
+            pix = torch.arange(p0 + r, p1, rows)
+            thread = None
+            for k in range(0, len(pix), chunk):
+                v = x[:, pix[k:k + chunk]]
+                cm = v.sum(1) * (1.0 / v.shape[1])
+                thread = _chan(thread, (v.shape[1], cm, ((v - cm[:, None]) ** 2).sum(1)))
+            if thread is not None:
+                block = _chan(block, thread)
+        mc = block[1].reshape(n, groups, cg)
+        mu = mc.sum(-1) / cg
+        m2 = (block[2].reshape(n, groups, cg) + (p1 - p0) * (mc - mu[..., None]) ** 2).sum(-1)
+        parts.append(((p1 - p0) * cg, mu, m2))
+    lanes = [None] * 32
+    for s, part in enumerate(parts):
+        lanes[s % 32] = _chan(lanes[s % 32], part)
+    off = 16
+    while off:
+        for j in range(off):
+            if lanes[j + off] is not None:
+                lanes[j] = _chan(lanes[j], lanes[j + off])
+        off //= 2
+    count, mean, m2 = lanes[0]
+    return mean, m2 / count
+
+
+def test_chan_fold_of_span_partials_is_the_two_pass_variance():
+    """On a map far from zero mean, cut into 37 spans of 2 to 4 chunks a
+    thread: the kernels' fold in float32 agrees with the float64 two-pass
+    variance to 1e-4, where E[x^2] - E[x]^2 in float32 is off by more than
+    a hundred times that."""
+    rs = np.random.RandomState(3)
+    x64 = torch.from_numpy(rs.randn(2, 997, 16) + 300.0)
+    x = x64.float()
+    xg = x64.reshape(2, 997, 4, 4)
+    want_mean = xg.mean(dim=(1, 3))
+    want_var = ((xg - want_mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
+    mean, var = _kernel_statistics(x, 4, spans=37, rows=4, chunk=3)
+    assert ((mean.double() - want_mean).abs() / want_var.sqrt()).max() < 1e-4
+    assert ((var.double() - want_var).abs() / want_var).max() < 1e-4
+    g = x.reshape(2, 997, 4, 4)
+    naive = (g * g).mean(dim=(1, 3)) - g.mean(dim=(1, 3)) ** 2
+    assert ((naive.double() - want_var).abs() / want_var).max() > 1e-2
 
 
 # -- body, FPN, Xconv head ----------------------------------------------------------

@@ -207,12 +207,44 @@ def test_gn_train_step_carries_group_norm_in_its_stages(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(batch)
     ranges = _ranges(prof)
-    _check_nesting(ranges, PORT_SPANS_REACHED["train", "cpu"] | GN)
+    _check_nesting(ranges, PORT_SPANS_REACHED["train", "cpu"] | GN["cpu"])
     _inside(ranges, "group_norm", GN_HOLDERS)
     calls = sum(r[0] == "group_norm" for r in ranges)
     assert calls == len(seen) == 69
     phases = profiling.phase_breakdown(prof, 1, "cpu")["phases"]
     assert phases.get("group_norm", 0) > 0 and phases.get("group_norm bwd", 0) > 0
+
+
+class _KernelLike(torch.autograd.Function):
+    """Shaped as layers.GroupNormFunction: its backward opens group_norm.bwd."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x * 3
+
+    @staticmethod
+    def backward(ctx, g):
+        with profiling.span("group_norm.bwd"):
+            return g * 3
+
+
+def test_phase_breakdown_gives_a_backward_span_its_own_ops():
+    """Ops inside a port span opened in a backward node (the GN kernels'
+    group_norm.bwd on the card) go to that span; the other backward ops (and
+    on the CPU the node's own host time) to their forward op's phase, as
+    "<phase> bwd"."""
+    x = torch.ones(64, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("layer1"):
+            with profiling.span("group_norm"):
+                y = _KernelLike.apply(x)
+            z = (y * y).sum()
+        with profiling.span("backward"):
+            z.backward()
+    phases = profiling.phase_breakdown(prof, 1, "cpu")["phases"]
+    assert phases.get("group_norm", 0) > 0 and phases.get("group_norm.bwd", 0) > 0
+    assert phases.get("layer1 bwd", 0) > 0
+    assert torch.equal(x.grad, torch.full_like(x, 18.0))
 
 
 def test_adaptive_pooler_runs_in_roi_pool():
